@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Drives the port's main path, JCUDF row ↔ column conversion, through its
+public entry points on the card, and fails (non-zero exit, no result line)
+if anything is wrong:
+
+1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
+   no CUDA device is a failure;
+2. build: compiles the CUDA kernels from ``spark_rapids_jni_tpu_torch/csrc``;
+3. kernels: runs each kernel on the inputs the main path hands it (captured
+   from a run of the 12-column table), holds it byte for byte against its
+   plain PyTorch version, and times both with CUDA events;
+4. path: ``convert_to_rows`` → ``convert_from_rows`` round trips of three
+   tables from the reference's row-conversion benchmark at 1,048,576 rows
+   (212 fixed-width columns; 12 columns with 2 strings of 0-39 chars;
+   155 columns with 16 strings of 0-9 chars), each required to give back
+   every column exactly, its first 10,000 rows held against the numpy
+   oracle, and the kernel launch counts read around each run.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``; the
+line before it holds the per-kernel results as JSON.  Tables are made from
+``--seed`` with numpy.  Imports torch, numpy and the port, never JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROWS = 1 << 20
+ORACLE_ROWS = 10_000
+NULL_FRACTION = 0.1
+# H100 SXM memory rate (NVIDIA data sheet), the bound of byte-moving kernels
+HBM_BYTES_PER_S = 3.35e12
+KERNEL_REPS = 20
+PATH_REPS = 3
+
+# (columns, a string column every k-th slot or None, string lengths drawn
+# from [0, max_len)), after benchmarks/row_conversion.py:5-9,28-29,76-101
+CASES = {
+    "fixed_212": (212, None, 0),
+    "spark_12_2str": (12, 6, 40),
+    "var_155_16str": (155, 10, 10),
+}
+# the fixed-width cycle of benchmarks/datagen.py:22-36
+FIXED_CYCLE = ("INT64", "INT32", "INT16", "INT8", "FLOAT32", "BOOL8")
+
+SOURCE = "spark_rapids_jni_tpu_torch/csrc/ragged.cu"
+REPLACES = {
+    "pack_rows": "spark_rapids_jni_tpu/rowconv/ragged.py:291",
+    "unpack_rows": "spark_rapids_jni_tpu/rowconv/ragged.py:417",
+    "segmented_copy": "spark_rapids_jni_tpu/rowconv/ragged.py:559",
+}
+# the path call whose inputs each kernel is measured on
+MEASURED_CALL = {"pack_rows": "to_rows", "unpack_rows": "from_rows",
+                 "segmented_copy": "to_rows"}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+def make_columns(T, n_cols: int, string_every, max_len: int, n: int,
+                 rng: np.random.Generator) -> list:
+    """Column tuples (type_id, scale, data, offsets, validity) in numpy,
+    with NULL_FRACTION nulls; a null string has no chars."""
+    cols = []
+    for i in range(n_cols):
+        valid = rng.random(n) >= NULL_FRACTION
+        if string_every and i % string_every == 0:
+            lens = rng.integers(0, max_len, n) * valid
+            offs = np.zeros(n + 1, dtype=np.int32)
+            np.cumsum(lens, out=offs[1:])
+            chars = rng.integers(32, 127, int(offs[-1]), dtype=np.uint8)
+            cols.append((int(T.TypeId.STRING), 0, chars, offs, valid))
+            continue
+        dt = T.DType(T.TypeId[FIXED_CYCLE[i % len(FIXED_CYCLE)]])
+        st = dt.storage
+        if dt.id == T.TypeId.FLOAT32:
+            data = rng.standard_normal(n).astype(st)
+        elif dt.id == T.TypeId.BOOL8:
+            data = rng.integers(0, 2, n, dtype=st)
+        else:
+            info = np.iinfo(st)
+            data = rng.integers(info.min // 2, info.max // 2, n, dtype=st)
+        cols.append((int(dt.id), 0, data, None, valid))
+    return cols
+
+
+# ---------------------------------------------------------------------------
+# measurement helpers
+# ---------------------------------------------------------------------------
+
+def time_cuda(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bytes_moved(name: str, args) -> int:
+    """Bytes a kernel must read once and write once on these inputs."""
+    if name == "pack_rows":
+        dense, offs, total = args
+        payload = int((offs[1:] - offs[:-1]).clamp(0, dense.shape[1]).sum())
+        return payload + offs.numel() * 8 + total
+    if name == "unpack_rows":
+        flat, offs, M = args
+        payload = int((offs[1:] - offs[:-1]).clamp(0, M).sum())
+        return payload + offs.numel() * 8 + (offs.numel() - 1) * M
+    src, so, do, sizes, dst_size = args
+    return int(sizes.sum()) + 3 * sizes.numel() * 8 + dst_size
+
+
+def describe(args) -> list:
+    return [list(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device() -> str:
+    require(torch.cuda.is_available(), "no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+        f" torch {torch.__version__} cuda {torch.version.cuda}")
+    log(card)
+    return card
+
+
+def phase_build(native) -> None:
+    t0 = time.perf_counter()
+    logs = native.build()
+    log(f"[build] {', '.join(native.library_path(s).name for s in native.SOURCES)}"
+        f" in {time.perf_counter() - t0:.2f} s")
+    for name, out in logs.items():
+        for line in out.strip().splitlines():
+            log(f"[build] {name}: {line}")
+
+
+def capture_path_inputs(pt, ragged, table) -> dict:
+    """Runs the round trip once with every kernel wrapper recording the
+    first inputs it is given in each direction."""
+    captured = {}
+    originals = {fn.__name__: fn for fn in ragged.KERNELS}
+    direction = ["to_rows"]
+
+    def recorder(fn):
+        def wrapper(*args):
+            captured.setdefault((direction[0], fn.__name__), args)
+            return fn(*args)
+        # a wrapper counts its launches on the module's name for it, which
+        # is this recorder while the capture runs; those launches are not
+        # the main path's and are dropped with the recorder
+        wrapper.launches = 0
+        return wrapper
+
+    try:
+        for name, fn in originals.items():
+            setattr(ragged, name, recorder(fn))
+        batch = pt.convert_to_rows(table)[0]
+        direction[0] = "from_rows"
+        pt.convert_from_rows(batch, table.schema)
+    finally:
+        for name, fn in originals.items():
+            setattr(ragged, name, fn)
+    torch.cuda.synchronize()
+    return captured
+
+
+def phase_kernels(pt, ragged, table) -> dict:
+    captured = capture_path_inputs(pt, ragged, table)
+    results = {}
+    for (direction, name), args in sorted(captured.items()):
+        kernel = getattr(ragged, name)
+        plain = getattr(ragged, name + "_plain")
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        equal = got.shape == want.shape and torch.equal(got, want)
+        err = (int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+               if got.shape == want.shape and got.numel() else 0)
+        ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+        nbytes = bytes_moved(name, args)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels] {name} ({direction}) inputs {describe(args)}: "
+            f"equal={equal} max_abs_err={err} {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s; bound {bound_ms:.4f} ms for "
+            f"{nbytes} bytes) plain {plain_ms:.4f} ms library_ms null")
+        require(equal, f"{name} ({direction}) disagrees with its plain version")
+        results[(direction, name)] = dict(
+            equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bytes=nbytes, shape=describe(args))
+    for name in REPLACES:
+        require((MEASURED_CALL[name], name) in results,
+                f"the path never called {name} in {MEASURED_CALL[name]}")
+    return results
+
+
+def check_round_trip(table, back) -> None:
+    require(back.num_rows == table.num_rows and
+            back.schema == table.schema, "round trip changed the shape")
+    for ci, (a, b) in enumerate(zip(table.columns, back.columns)):
+        require(torch.equal(a.validity_or_true(), b.validity_or_true()),
+                f"column {ci}: validity differs")
+        require(torch.equal(a.data.contiguous().view(torch.uint8),
+                            b.data.contiguous().view(torch.uint8)),
+                f"column {ci}: data differs")
+        if a.dtype.is_variable_width:
+            require(torch.equal(a.offsets, b.offsets),
+                    f"column {ci}: offsets differ")
+
+
+def check_oracle(convert, reference, table, batch, k: int) -> None:
+    head = convert.slice_table(table, 0, min(k, table.num_rows))
+    want, want_offs = reference.to_rows_np(head)
+    got_offs = batch.offsets[:head.num_rows + 1].cpu().numpy()
+    got = batch.data[:int(got_offs[-1])].cpu().numpy()
+    require(np.array_equal(got_offs, want_offs), "row offsets differ from the oracle")
+    require(np.array_equal(got, want), "row bytes differ from the numpy oracle")
+
+
+def phase_path(pt, T, interop, convert, reference, ragged, card, seed, rows):
+    launches = {fn.__name__: 0 for fn in ragged.KERNELS}
+    for ci, (case, (n_cols, every, max_len)) in enumerate(CASES.items()):
+        rng = np.random.default_rng(seed + ci)
+        t0 = time.perf_counter()
+        table = interop.table_from_numpy(
+            make_columns(T, n_cols, every, max_len, rows, rng), device="cuda")
+        torch.cuda.synchronize()
+        log(f"[path] {case}: {n_cols} columns x {rows} rows made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+
+        counts = {}
+        ragged.reset_launches()
+        t0 = time.perf_counter()
+        batches = pt.convert_to_rows(table)
+        torch.cuda.synchronize()
+        first_to = time.perf_counter() - t0
+        counts["to_rows"] = ragged.launch_counts()
+        require(len(batches) == 1, f"{case}: expected one batch")
+        batch = batches[0]
+        ragged.reset_launches()
+        t0 = time.perf_counter()
+        back = pt.convert_from_rows(batch, table.schema)
+        torch.cuda.synchronize()
+        first_from = time.perf_counter() - t0
+        counts["from_rows"] = ragged.launch_counts()
+
+        check_round_trip(table, back)
+        check_oracle(convert, reference, table, batch, ORACLE_ROWS)
+        for d in counts.values():
+            for k, v in d.items():
+                launches[k] += v
+        if every:
+            for name in launches:
+                require(sum(d[name] for d in counts.values()) > 0,
+                        f"{case}: {name} never launched on the path")
+
+        times = {}
+        for direction, fn in (("to_rows", lambda: pt.convert_to_rows(table)),
+                              ("from_rows", lambda: pt.convert_from_rows(
+                                  batch, table.schema))):
+            reps = []
+            for _ in range(PATH_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                reps.append(time.perf_counter() - t0)
+            times[direction] = statistics.median(reps)
+        nbytes = batch.num_bytes
+        for direction, first in (("to_rows", first_to),
+                                 ("from_rows", first_from)):
+            t = times[direction]
+            log(f"[path] {case} {direction}: {nbytes} row bytes, first "
+                f"{first * 1e3:.3f} ms, median of {PATH_REPS} "
+                f"{t * 1e3:.3f} ms = {nbytes / t / 1e9:.2f} GB/s; launches "
+                f"{counts[direction]} [{card}]")
+        log(f"[path] {case}: round trip exact, first {ORACLE_ROWS} rows equal "
+            f"the oracle, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del table, batches, batch, back
+        torch.cuda.empty_cache()
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    card = phase_device()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import spark_rapids_jni_tpu_torch as pt
+    from spark_rapids_jni_tpu_torch import _native, interop
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.rowconv import convert, ragged, reference
+
+    phase_build(_native)
+
+    n_cols, every, max_len = CASES["spark_12_2str"]
+    table = interop.table_from_numpy(
+        make_columns(T, n_cols, every, max_len, ROWS,
+                     np.random.default_rng(args.seed + 1)), device="cuda")
+    kernel_results = phase_kernels(pt, ragged, table)
+    del table
+    torch.cuda.empty_cache()
+
+    launches = phase_path(pt, T, interop, convert, reference, ragged, card,
+                          args.seed, ROWS)
+
+    kernels = []
+    for name, replaces in REPLACES.items():
+        r = kernel_results[(MEASURED_CALL[name], name)]
+        others = [v for (d, k), v in kernel_results.items() if k == name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(o["max_abs_err"] for o in others),
+            "equal": all(o["equal"] for o in others),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "bytes": r["bytes"], "shape": r["shape"],
+            "measured_in": MEASURED_CALL[name]})
+    log(json.dumps({"card": card, "kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds).  Libraries go to ``build/torch_kernels/`` at the
+root of the checkout, named by a hash of their source and flags, and are
+built at first use: nothing is compiled when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+SOURCES = ("ragged.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_TIMEOUT_S = 600
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+# argument types of every C entry point, by library
+SIGNATURES = {
+    "ragged": {
+        "srjt_pack_rows": (_P, _I64, _I64, _P, _P, _I64, _P),
+        "srjt_unpack_rows": (_P, _I64, _P, _I64, _I64, _P, _P),
+        "srjt_segmented_copy": (_P, _I64, _P, _P, _P, _I64, _P, _I64, _P),
+    },
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path(source: str) -> Path:
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build() -> dict[str, str]:
+    """Compile every source that has no library yet, one ``nvcc`` process
+    per source, all started together.  Returns the compiler's output (with
+    each kernel's register and shared-memory use) by library name, for the
+    libraries this call built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for source in SOURCES:
+        lib = library_path(source)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((lib, tmp, proc))
+    logs, failures = {}, []
+    for lib, tmp, proc in jobs:
+        try:
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            failures.append(f"{lib.name}: nvcc timed out\n{out}")
+            continue
+        logs[lib.stem] = out
+        if proc.returncode != 0:
+            failures.append(f"{lib.name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``, building it first
+    if needed, with ``argtypes``/``restype`` set for every entry point."""
+    build()
+    lib = ctypes.CDLL(str(library_path(f"{name}.cu")))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.srjt_error_string.argtypes = (ctypes.c_int,)
+    lib.srjt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib.srjt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
