@@ -18,11 +18,27 @@ if anything is wrong:
    (212 fixed-width columns; 12 columns with 2 strings of 0-39 chars;
    155 columns with 16 strings of 0-9 chars), each required to give back
    every column exactly, its first 10,000 rows held against the numpy
-   oracle, and the kernel launch counts read around each run.
+   oracle, and the kernel launch counts read around each run;
+5. scan: the device Parquet scan (``parquet.device_scan.scan_table``) of
+   TPC-H SF1 lineitem (6,001,215 rows, 15 columns, row groups of
+   1,048,576 rows, 1 MiB pages, written by ``tools/torch_lineitem_parquet.py``),
+   timed, every row of every column required equal to the generator's
+   arrays, dictionary strings materialized and held likewise;
+   5b: a second file of 1,048,576 rows, OPTIONAL columns with 10% nulls,
+   4 row groups and 2 pages a chunk, exact likewise;
+6. Q6 and rows: ``models.q6.run`` on the SF1 file against numpy and
+   ``math.fsum``, then the scanned 15-column table through
+   ``convert_to_rows`` → ``convert_from_rows``, exact, its first 10,000
+   rows held against the numpy oracle;
+7. scan kernels: B5–B7 on the largest inputs the scan and the
+   materialization hand them, each held byte for byte against its plain
+   version and timed with CUDA events beside one PyTorch call that
+   computes the same function, where there is one.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it holds the per-kernel results as JSON.  Tables are made from
-``--seed`` with numpy.  Imports torch, numpy and the port, never JAX.
+line before it holds the per-kernel results as JSON.  Tables and files are
+made from ``--seed`` with numpy.  Imports torch, numpy and the port, never
+JAX.
 """
 
 from __future__ import annotations
@@ -62,6 +78,21 @@ REPLACES = {
     "unpack_rows": "spark_rapids_jni_tpu/rowconv/ragged.py:417",
     "segmented_copy": "spark_rapids_jni_tpu/rowconv/ragged.py:559",
 }
+SCAN_SOURCE = "spark_rapids_jni_tpu_torch/csrc/bytepath.cu"
+SCAN_REPLACES = {
+    "extract_rows": "spark_rapids_jni_tpu/rowconv/xpallas.py:312",
+    "gather_rows": "spark_rapids_jni_tpu/rowconv/xpallas.py:405",
+    "u8_to_u32": "spark_rapids_jni_tpu/rowconv/xpallas.py:486",
+}
+SCAN_LIBRARY = {
+    "extract_rows": None,
+    "gather_rows": "torch.index_select(mat, 0, idx)",
+    "u8_to_u32": "src[s:s+4n].clone().view(torch.int32)",
+}
+NULL_ROWS = 1 << 20
+NULL_ROW_GROUPS = 4
+Q6_DATES = (8766, 9131)          # [1994-01-01, 1995-01-01) in epoch days
+Q6_REL_TOL = 1e-12
 # the path call whose inputs each kernel is measured on
 MEASURED_CALL = {"pack_rows": "to_rows", "unpack_rows": "from_rows",
                  "segmented_copy": "to_rows"}
@@ -323,6 +354,282 @@ def phase_path(pt, T, interop, convert, reference, ragged, card, seed, rows):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 5-7: the device Parquet scan, Q6 and the scan kernels
+# ---------------------------------------------------------------------------
+
+def median_wall(fn, reps: int = PATH_REPS) -> float:
+    """Median seconds of ``fn`` ending in a device synchronisation."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def expected_chars(vocab: list, codes: np.ndarray, valid) -> tuple:
+    """(chars, int32 offsets) of a dictionary string column, in numpy."""
+    vlen = np.array([len(v) for v in vocab], np.int64)
+    lens = vlen[codes] if valid is None else np.where(valid, vlen[codes], 0)
+    offs = np.zeros(codes.shape[0] + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    vstart = np.concatenate([[0], np.cumsum(vlen)[:-1]])
+    flat = np.frombuffer(b"".join(vocab), np.uint8)
+    src = (np.repeat(vstart[codes] - offs[:-1], lens)
+           + np.arange(int(offs[-1]), dtype=np.int64))
+    return flat[src], offs.astype(np.int32)
+
+
+def check_scanned(pt, W, table, data, validity, what: str) -> None:
+    """Every row of every column equals the generator's arrays
+    (vectorised on the card); dictionary strings also by their codes."""
+    require([c.num_rows for c in table.columns] ==
+            [data[name].shape[0] for name, *_ in W.LINEITEM],
+            f"{what}: row counts differ")
+    for (name, *_), col in zip(W.LINEITEM, table.columns):
+        v = validity.get(name)
+        valid = None if v is None else torch.from_numpy(v).cuda()
+        require(torch.equal(col.validity_or_true(),
+                            valid if valid is not None
+                            else torch.ones_like(col.validity_or_true())),
+                f"{what}: {name} validity differs")
+        want = data[name]
+        if name in W.VOCAB:
+            require(isinstance(col, pt.DictColumn),
+                    f"{what}: {name} is not a DictColumn")
+            entries = [e.encode() for e in col.dictionary.to_pylist()]
+            lut = torch.tensor([W.VOCAB[name].index(e) for e in entries],
+                               dtype=torch.int64, device=col.device)
+            got = lut[col.codes.to(torch.int64)]
+            exp = torch.from_numpy(want.astype(np.int64)).cuda()
+            ok = got == exp if valid is None else (got == exp) | ~valid
+            require(bool(ok.all()), f"{what}: {name} codes differ")
+            continue
+        exp = want if v is None else np.where(v, want, 0).astype(want.dtype)
+        require(torch.equal(col.data, torch.from_numpy(exp).cuda()),
+                f"{what}: {name} values differ")
+
+
+def check_materialized(W, table, data, validity, what: str) -> None:
+    for (name, *_), col in zip(W.LINEITEM, table.columns):
+        if name not in W.VOCAB:
+            continue
+        chars, offs = expected_chars(W.VOCAB[name], data[name],
+                                     validity.get(name))
+        m = col.materialize()
+        require(torch.equal(m.offsets, torch.from_numpy(offs).cuda()),
+                f"{what}: {name} materialized offsets differ")
+        require(torch.equal(m.data, torch.from_numpy(chars).cuda()),
+                f"{what}: {name} materialized chars differ")
+
+
+def phase_scan(pt, W, device_scan, bytepath, ragged, card, seed, launches):
+    """Phases 5 and 5b.  Returns the SF1 file and its generator arrays."""
+    t0 = time.perf_counter()
+    raw, data, _ = W.lineitem_parquet(W.SF1_ROWS, seed)
+    log(f"[scan] SF1 lineitem: {W.SF1_ROWS} rows, {len(W.LINEITEM)} columns,"
+        f" {len(raw)} file bytes, written in {time.perf_counter() - t0:.2f} s")
+
+    ragged.reset_launches()
+    bytepath.reset_launches()
+    t0 = time.perf_counter()
+    table = device_scan.scan_table(raw)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check_scanned(pt, W, table, data, {}, "SF1")
+    check_materialized(W, table, data, {}, "SF1")
+    torch.cuda.synchronize()
+    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    for k, v in counts.items():
+        launches[k] += v
+    for name in SCAN_REPLACES:
+        require(counts[name] > 0, f"scan: {name} never launched on the path")
+    log(f"[scan] SF1: every row of every column equals the generator; "
+        f"launches (scan + materialize) {counts}")
+    del table
+    wall = median_wall(lambda: device_scan.scan_table(raw))
+    log(f"[scan] SF1 scan_table: {len(raw)} bytes, first {first * 1e3:.3f} ms"
+        f", median of {PATH_REPS} {wall * 1e3:.3f} ms = "
+        f"{len(raw) / wall / 1e9:.3f} GB/s [{card}]")
+
+    raw_n, data_n, valid_n = W.lineitem_parquet(
+        NULL_ROWS, seed + 1, row_group_rows=NULL_ROWS // NULL_ROW_GROUPS,
+        null_fraction=NULL_FRACTION, pages_per_chunk=2)
+    ragged.reset_launches()
+    bytepath.reset_launches()
+    table = device_scan.scan_table(raw_n)
+    check_scanned(pt, W, table, data_n, valid_n, "nulls")
+    check_materialized(W, table, data_n, valid_n, "nulls")
+    torch.cuda.synchronize()
+    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    for k, v in counts.items():
+        launches[k] += v
+    wall = median_wall(lambda: device_scan.scan_table(raw_n))
+    log(f"[scan] nulls: {NULL_ROWS} rows, {NULL_ROW_GROUPS} row groups, "
+        f"{NULL_FRACTION:.0%} nulls, {len(raw_n)} bytes: exact; median of "
+        f"{PATH_REPS} {wall * 1e3:.3f} ms = {len(raw_n) / wall / 1e9:.3f} "
+        f"GB/s; launches {counts} [{card}]")
+    del table
+    torch.cuda.empty_cache()
+    return raw, data
+
+
+def phase_q6_rows(pt, W, device_scan, q6, convert, reference, bytepath,
+                  ragged, card, raw, data, launches):
+    """Phase 6: Q6 on the SF1 file, then the scanned table through rows."""
+    import math
+    lo, hi = Q6_DATES
+    ragged.reset_launches()
+    bytepath.reset_launches()
+    revenue, matched = q6.run(raw, lo, hi)
+    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    mask = ((data["l_shipdate"] >= lo) & (data["l_shipdate"] < hi)
+            & (data["l_discount"] >= 0.05 - 1e-9)
+            & (data["l_discount"] <= 0.07 + 1e-9)
+            & (data["l_quantity"] < 24))
+    want = math.fsum((data["l_extendedprice"][mask]
+                      * data["l_discount"][mask]).tolist())
+    require(matched == int(mask.sum()), f"Q6 matched {matched}, numpy "
+            f"{int(mask.sum())}")
+    rel = abs(revenue - want) / abs(want)
+    require(rel <= Q6_REL_TOL, f"Q6 revenue {revenue!r} vs fsum {want!r}: "
+            f"relative {rel:.3e}")
+    wall = median_wall(lambda: q6.run(raw, lo, hi))
+    log(f"[q6] SF1: matched {matched} (numpy equal), revenue {revenue!r} "
+        f"vs fsum {want!r} (relative {rel:.3e} <= {Q6_REL_TOL}); median of "
+        f"{PATH_REPS} {wall * 1e3:.3f} ms; launches {counts} [{card}]")
+    for k, v in counts.items():
+        launches[k] += v
+
+    table = device_scan.scan_table(raw)
+    torch.cuda.synchronize()
+    ragged.reset_launches()
+    bytepath.reset_launches()
+    t0 = time.perf_counter()
+    batches = pt.convert_to_rows(table)
+    torch.cuda.synchronize()
+    to_s = time.perf_counter() - t0
+    require(len(batches) == 1, "scanned table: expected one row batch")
+    batch = batches[0]
+    t0 = time.perf_counter()
+    back = pt.convert_from_rows(batch, table.schema)
+    torch.cuda.synchronize()
+    from_s = time.perf_counter() - t0
+    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    for k, v in counts.items():
+        launches[k] += v
+    for name in ("extract_rows", "gather_rows", "pack_rows"):
+        require(counts[name] > 0, f"rows: {name} never launched")
+    check_round_trip(table, back)
+    check_oracle(convert, reference, table, batch, ORACLE_ROWS)
+    log(f"[rows] SF1 scanned table: {batch.num_bytes} row bytes, to_rows "
+        f"(DictColumns materialized) {to_s * 1e3:.3f} ms, from_rows "
+        f"{from_s * 1e3:.3f} ms; round trip exact, first {ORACLE_ROWS} rows "
+        f"equal the oracle; launches {counts} [{card}]")
+    del table, batches, batch, back
+    torch.cuda.empty_cache()
+
+
+def scan_bytes_moved(name: str, args) -> int:
+    """Bytes a scan kernel must read once and write once on these inputs."""
+    if name == "extract_rows":
+        flat, offs, M = args
+        offs = np.asarray(offs, np.int64)
+        payload = int(np.minimum(offs[1:] - offs[:-1], M).sum())
+        return payload + offs.size * 8 + (offs.size - 1) * (-(-M // 4)) * 4
+    if name == "gather_rows":
+        mat, idx = args
+        return mat.numel() * 4 + idx.numel() * 4 + idx.numel() * mat.shape[1] * 4
+    src, start, n_words = args
+    return 8 * n_words
+
+
+def library_call(name: str, args):
+    if name == "gather_rows":
+        mat, idx = args
+        return lambda: torch.index_select(mat, 0, idx)
+    if name == "u8_to_u32":
+        src, s, n = args
+        return lambda: src[s:s + 4 * n].clone().view(torch.int32)
+    return None
+
+
+def capture_scan_inputs(W, device_scan, bytepath, raw) -> dict:
+    """Runs the SF1 scan and the materialization of its dictionary
+    strings once with each scan-kernel wrapper recording its inputs;
+    keeps, per kernel, the call that moves the most bytes."""
+    captured = {}
+    originals = {fn.__name__: fn for fn in bytepath.KERNELS}
+
+    def recorder(fn):
+        def wrapper(*args):
+            nb = scan_bytes_moved(fn.__name__, args)
+            old = captured.get(fn.__name__)
+            if old is None or nb > old[0]:
+                captured[fn.__name__] = (nb, args)
+            return fn(*args)
+        wrapper.launches = 0     # not the main path's: dropped with it
+        return wrapper
+
+    try:
+        for name, fn in originals.items():
+            setattr(bytepath, name, recorder(fn))
+        table = device_scan.scan_table(raw)
+        for col in table.columns:
+            if hasattr(col, "materialize"):
+                col.materialize()
+    finally:
+        for name, fn in originals.items():
+            setattr(bytepath, name, fn)
+    torch.cuda.synchronize()
+    return {k: v[1] for k, v in captured.items()}
+
+
+def phase_scan_kernels(W, device_scan, bytepath, raw, card) -> dict:
+    captured = capture_scan_inputs(W, device_scan, bytepath, raw)
+    results = {}
+    for name in SCAN_REPLACES:
+        require(name in captured, f"the scan never called {name}")
+        args = captured[name]
+        kernel = getattr(bytepath, name)
+        plain = getattr(bytepath, name + "_plain")
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        equal = got.shape == want.shape and torch.equal(got, want)
+        err = 0
+        if got.shape == want.shape and got.numel():
+            diff = (got.view(torch.uint8).to(torch.int16)
+                    - want.view(torch.uint8).to(torch.int16))
+            err = int(diff.abs().max())
+        require(equal, f"{name} disagrees with its plain version")
+        ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+        lib = library_call(name, args)
+        library_ms = None
+        if lib is not None:
+            require(torch.equal(lib(), got), f"{name}: library call differs")
+            library_ms = time_cuda(lib, KERNEL_REPS)
+        nbytes = scan_bytes_moved(name, args)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shape = describe(args)
+        if name == "extract_rows":
+            shape[1] = [len(args[1])]       # host offsets: their count
+        log(f"[kernels] {name} (scan) inputs {shape}: equal={equal} "
+            f"max_abs_err={err} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
+            f"bound {bound_ms:.4f} ms for {nbytes} bytes) plain "
+            f"{plain_ms:.4f} ms library_ms "
+            f"{'null' if library_ms is None else f'{library_ms:.4f}'} [{card}]")
+        results[name] = dict(equal=equal, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             library_ms=library_ms, bytes=nbytes,
+                             shape=shape)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -333,7 +640,13 @@ def main(argv=None) -> int:
     import spark_rapids_jni_tpu_torch as pt
     from spark_rapids_jni_tpu_torch import _native, interop
     from spark_rapids_jni_tpu_torch import types as T
-    from spark_rapids_jni_tpu_torch.rowconv import convert, ragged, reference
+    from spark_rapids_jni_tpu_torch.models import q6
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    from spark_rapids_jni_tpu_torch.rowconv import (bytepath, convert, ragged,
+                                                    reference)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tools"))
+    import torch_lineitem_parquet as W
 
     phase_build(_native)
 
@@ -347,6 +660,14 @@ def main(argv=None) -> int:
 
     launches = phase_path(pt, T, interop, convert, reference, ragged, card,
                           args.seed, ROWS)
+    launches.update({fn.__name__: 0 for fn in bytepath.KERNELS})
+
+    raw, data = phase_scan(pt, W, device_scan, bytepath, ragged, card,
+                           args.seed, launches)
+    phase_q6_rows(pt, W, device_scan, q6, convert, reference, bytepath,
+                  ragged, card, raw, data, launches)
+    del data
+    scan_results = phase_scan_kernels(W, device_scan, bytepath, raw, card)
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -361,6 +682,17 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "bytes": r["bytes"], "shape": r["shape"],
             "measured_in": MEASURED_CALL[name]})
+    for name, replaces in SCAN_REPLACES.items():
+        r = scan_results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SCAN_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "equal": r["equal"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"], "library": SCAN_LIBRARY[name],
+            "bytes": r["bytes"], "shape": r["shape"],
+            "measured_in": "scan"})
     log(json.dumps({"card": card, "kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

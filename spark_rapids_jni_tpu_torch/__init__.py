@@ -8,7 +8,8 @@ unless the caller passes ``device="cpu"``; without a CUDA device they raise.
 The hand-written kernels are CUDA C++ sources under ``csrc/``, compiled with
 ``nvcc`` at first use (see ``_native.py``).
 
-Ported so far: JCUDF row ↔ column conversion.
+Ported so far: JCUDF row ↔ column conversion, and the device Parquet scan
+with TPC-H Q6 on it.
 """
 
 from . import types  # noqa: F401
@@ -19,7 +20,7 @@ from .types import (  # noqa: F401
     timestamp_days, timestamp_seconds, timestamp_ms, timestamp_us, timestamp_ns,
     decimal32, decimal64, decimal128,
 )
-from .column import Column, Table  # noqa: F401
+from .column import Column, DictColumn, Table  # noqa: F401
 from .rowconv import (  # noqa: F401
     RowBatch, RowLayout, compute_row_layout, build_batches,
     convert_to_rows, convert_from_rows,

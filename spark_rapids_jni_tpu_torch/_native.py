@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("ragged.cu",)
+SOURCES = ("ragged.cu", "bytepath.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -32,6 +32,11 @@ SIGNATURES = {
         "srjt_pack_rows": (_P, _I64, _I64, _P, _P, _I64, _P),
         "srjt_unpack_rows": (_P, _I64, _P, _I64, _I64, _P, _P),
         "srjt_segmented_copy": (_P, _I64, _P, _P, _P, _I64, _P, _I64, _P),
+    },
+    "bytepath": {
+        "srjt_extract_rows": (_P, _I64, _P, _I64, _I64, _I64, _P, _P),
+        "srjt_gather_rows": (_P, _I64, _I64, _P, _I64, _P, _P),
+        "srjt_u8_to_u32": (_P, _I64, _P, _P),
     },
 }
 
@@ -105,3 +110,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.srjt_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call entry point ``fn`` of library ``name`` with ``args`` and the
+    current stream of ``device``; raise if the launch reported an error."""
+    import torch
+    lib = library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(lib, getattr(lib, fn)(*args, stream), fn)

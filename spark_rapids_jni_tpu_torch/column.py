@@ -134,6 +134,106 @@ class Column:
                 for i in range(self.num_rows)]
 
 
+class DictColumn(Column):
+    """A STRING column held as dictionary codes and a small dictionary.
+
+    The counterpart of the JAX package's ``DictColumn``
+    (``spark_rapids_jni_tpu/column.py:224-337``): ``codes`` is int32 [n]
+    into ``dictionary`` (a plain STRING :class:`Column` of the entries, no
+    validity), and the row validity rides on the codes.  A null row holds
+    code 0 and materializes with zero length.
+
+    The chars materialize at the output boundary: :meth:`materialize`, or
+    any read of ``data`` / ``offsets``, builds the equivalent plain column
+    once and keeps it.
+    """
+
+    def __init__(self, codes: torch.Tensor, dictionary: Column,
+                 validity: Optional[torch.Tensor] = None):
+        if codes.dtype != torch.int32 or codes.dim() != 1:
+            raise TypeError("DictColumn codes must be int32 [n]")
+        if dictionary.dtype.id != T.TypeId.STRING:
+            raise TypeError("a DictColumn's dictionary is a STRING column")
+        self.dtype = T.string
+        self.codes = codes
+        self.dictionary = dictionary
+        self.validity = validity
+        self._mat: Optional[Column] = None
+
+    def materialize(self) -> Column:
+        """The equivalent plain STRING column (memoized).
+
+        The path of the JAX scan's ``_dict_str_chars``
+        (``device_scan.py:513-527``): kernel B5 cuts the dictionary's chars
+        into a padded word matrix [D, Lw], B6 gathers a row per code, and
+        B2 packs each row's first length bytes at device offsets into the
+        chars stream.  Syncs: the dictionary offsets (D+1 values), the
+        codes' bounds (B6's wrapper) and the chars total."""
+        if self._mat is not None:
+            return self._mat
+        from .rowconv import bytepath, ragged
+        from .rowconv.convert import _reinterpret
+        dev = self.codes.device
+        n = self.num_rows
+        doffs = self.dictionary.offsets.to(torch.int64)
+        doffs_h = doffs.cpu().numpy()
+        D = doffs_h.shape[0] - 1
+        offs = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        lmax = int((doffs_h[1:] - doffs_h[:-1]).max(initial=0))
+        if D == 0 or lmax == 0 or n == 0:
+            # no chars at all; every code must still name an entry
+            if n and D == 0 and bool(self.validity_or_true().any()):
+                raise IndexError("DictColumn has valid rows but an empty "
+                                 "dictionary")
+            chars = torch.zeros(0, dtype=torch.uint8, device=dev)
+        else:
+            # rows padded to 16 bytes, so that B6 moves 16-byte vectors
+            lw = -(-lmax // 16) * 4
+            mat = bytepath.extract_rows(self.dictionary.data, doffs_h, lw * 4)
+            rows = bytepath.gather_rows(mat, self.codes)
+            lens = (doffs[1:] - doffs[:-1])[self.codes.to(torch.int64)]
+            if self.validity is not None:
+                lens = torch.where(self.validity, lens, 0)
+            torch.cumsum(lens, 0, out=offs[1:])
+            total = int(offs[-1])
+            if total >= 2**31:
+                raise ValueError(f"materialized chars ({total} bytes) exceed "
+                                 "int32 offsets")
+            chars = ragged.pack_rows(_reinterpret(rows, torch.uint8), offs,
+                                     total)
+        self._mat = Column(T.string, chars, offs.to(torch.int32),
+                           self.validity)
+        return self._mat
+
+    # touching the bytes is the output boundary
+    @property
+    def data(self) -> torch.Tensor:
+        return self.materialize().data
+
+    @property
+    def offsets(self) -> torch.Tensor:
+        return self.materialize().offsets
+
+    @property
+    def num_rows(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    def to_pylist(self):
+        """Host list decoded through the dictionary (no materialization)."""
+        entries = self.dictionary.to_pylist()
+        codes = self.codes.cpu().numpy()
+        valid = self.validity_or_true().cpu().numpy()
+        return [entries[c] if v else None for c, v in zip(codes, valid)]
+
+    def __repr__(self) -> str:
+        return (f"DictColumn(rows={self.num_rows}, "
+                f"dictionary={self.dictionary.num_rows} entries)")
+
+
 @dataclasses.dataclass
 class Table:
     """An ordered collection of equal-length columns."""

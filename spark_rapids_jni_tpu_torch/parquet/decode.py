@@ -1,0 +1,305 @@
+"""Parquet page walk: the host half of the device scan.
+
+The port's subset of the JAX package's ``parquet/decode.py``: the thrift
+field ids and enums, page decompression, the RLE/bit-packed hybrid decoder,
+the sequential page reader, the leaf-schema walk, and PLAIN decode of
+dictionary pages.  Everything here is host numpy and runs before any byte
+reaches the device (``device_scan.py``).
+
+Outside the port so far, and raised as :class:`NotImplementedError` naming
+the encoding, codec or type (no silent host decode): INT96, BOOLEAN,
+FIXED_LEN_BYTE_ARRAY, BYTE_ARRAY and FLBA decimals, PLAIN-encoded strings,
+the DELTA_* encodings, codecs other than UNCOMPRESSED and SNAPPY, and
+nested (repeated) columns.
+"""
+
+from __future__ import annotations
+
+import struct as _struct
+
+import numpy as np
+
+from .. import types as T
+from . import snappy
+from .footer import CC, FMD, RG, SE  # noqa: F401  (re-exported field ids)
+from .thrift import CompactReader, Struct
+
+# parquet physical types
+PT_BOOLEAN, PT_INT32, PT_INT64, PT_INT96, PT_FLOAT, PT_DOUBLE, PT_BYTE_ARRAY, \
+    PT_FIXED_LEN_BYTE_ARRAY = range(8)
+PHYS_NAMES = ("BOOLEAN", "INT32", "INT64", "INT96", "FLOAT", "DOUBLE",
+              "BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY")
+# encodings
+ENC_PLAIN, _, ENC_PLAIN_DICTIONARY, ENC_RLE, ENC_BIT_PACKED, \
+    ENC_DELTA_BINARY_PACKED, ENC_DELTA_LENGTH_BYTE_ARRAY, \
+    ENC_DELTA_BYTE_ARRAY, ENC_RLE_DICTIONARY = range(9)
+ENCODING_NAMES = ("PLAIN", "GROUP_VAR_INT", "PLAIN_DICTIONARY", "RLE",
+                  "BIT_PACKED", "DELTA_BINARY_PACKED",
+                  "DELTA_LENGTH_BYTE_ARRAY", "DELTA_BYTE_ARRAY",
+                  "RLE_DICTIONARY")
+# codecs
+CODEC_UNCOMPRESSED, CODEC_SNAPPY, CODEC_GZIP = 0, 1, 2
+CODEC_NAMES = ("UNCOMPRESSED", "SNAPPY", "GZIP", "LZO", "BROTLI", "LZ4",
+               "ZSTD", "LZ4_RAW")
+# page types
+PAGE_DATA, PAGE_INDEX, PAGE_DICTIONARY, PAGE_DATA_V2 = range(4)
+
+
+class PH:          # PageHeader field ids (public parquet.thrift)
+    TYPE = 1
+    UNCOMPRESSED_SIZE = 2
+    COMPRESSED_SIZE = 3
+    DATA_PAGE = 5
+    DICT_PAGE = 7
+    DATA_PAGE_V2 = 8
+
+
+class DPH:         # DataPageHeader
+    NUM_VALUES = 1
+    ENCODING = 2
+    DEF_LEVEL_ENCODING = 3
+    REP_LEVEL_ENCODING = 4
+
+
+class DPH2:        # DataPageHeaderV2
+    NUM_VALUES = 1
+    NUM_NULLS = 2
+    NUM_ROWS = 3
+    ENCODING = 4
+    DEF_LEVELS_BYTE_LENGTH = 5
+    REP_LEVELS_BYTE_LENGTH = 6
+    IS_COMPRESSED = 7
+
+
+class CMD:         # ColumnMetaData (decode-relevant fields)
+    TYPE = 1
+    ENCODINGS = 2
+    PATH = 3
+    CODEC = 4
+    NUM_VALUES = 5
+    TOTAL_UNCOMPRESSED_SIZE = 6
+    TOTAL_COMPRESSED_SIZE = 7
+    DATA_PAGE_OFFSET = 9
+    INDEX_PAGE_OFFSET = 10
+    DICT_PAGE_OFFSET = 11
+    STATISTICS = 12
+
+
+_PHYS_DT = {PT_INT32: T.int32, PT_INT64: T.int64,
+            PT_FLOAT: T.float32, PT_DOUBLE: T.float64,
+            PT_BYTE_ARRAY: T.string}
+
+# ConvertedType enum values (public parquet.thrift)
+CT_UTF8, CT_MAP, CT_MAP_KEY_VALUE, CT_LIST, CT_ENUM, CT_DECIMAL, CT_DATE, \
+    CT_TIME_MILLIS, CT_TIME_MICROS, CT_TIMESTAMP_MILLIS, \
+    CT_TIMESTAMP_MICROS = range(11)
+
+# SchemaElement decimal metadata (parquet.thrift SchemaElement)
+SE_SCALE, SE_PRECISION = 7, 8
+
+
+def enum_name(names: tuple, i) -> str:
+    return names[i] if isinstance(i, int) and 0 <= i < len(names) else str(i)
+
+
+def decompress(data, codec: int, uncompressed_size: int):
+    """A page body in its codec → raw page bytes (a memoryview or bytes)."""
+    if codec == CODEC_UNCOMPRESSED:
+        return data
+    if codec == CODEC_SNAPPY:
+        return snappy.decompress(data, expected_size=uncompressed_size)
+    raise NotImplementedError(
+        f"parquet codec {enum_name(CODEC_NAMES, codec)} is not supported by the "
+        "port's scan (UNCOMPRESSED and SNAPPY are)")
+
+
+def bit_width(max_level: int) -> int:
+    return int(max_level).bit_length()
+
+
+def decode_rle_bitpacked_hybrid(buf, bit_width: int, count: int) -> np.ndarray:
+    """RLE/bit-packed hybrid (parquet format): returns uint32 [count].
+
+    The host decoder, which the tests hold the device expansion
+    (``rle_device.expand``) against.
+    """
+    out = np.empty(count, dtype=np.uint32)
+    pos = 0
+    written = 0
+    if bit_width == 0:
+        out[:] = 0
+        return out
+    while written < count:
+        header = 0
+        shift = 0
+        while True:
+            b = buf[pos]; pos += 1
+            header |= (b & 0x7F) << shift
+            if not b & 0x80:
+                break
+            shift += 7
+        if header & 1:   # bit-packed run: (header>>1) groups of 8 values
+            groups = header >> 1
+            n_vals = groups * 8
+            n_bytes = groups * bit_width
+            chunk = np.frombuffer(buf, dtype=np.uint8, count=n_bytes,
+                                  offset=pos)
+            pos += n_bytes
+            bits = np.unpackbits(chunk, bitorder="little")
+            vals = bits.reshape(n_vals, bit_width)
+            weights = (1 << np.arange(bit_width, dtype=np.uint32))
+            decoded = (vals.astype(np.uint32) * weights).sum(axis=1,
+                                                             dtype=np.uint32)
+            take = min(n_vals, count - written)
+            out[written:written + take] = decoded[:take]
+            written += take
+        else:            # RLE run: value stored in ceil(bit_width/8) bytes
+            run_len = header >> 1
+            n_bytes = (bit_width + 7) // 8
+            val = int.from_bytes(buf[pos:pos + n_bytes], "little")
+            pos += n_bytes
+            take = min(run_len, count - written)
+            out[written:written + take] = val
+            written += take
+    return out
+
+
+def decode_plain_strings(data, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """PLAIN BYTE_ARRAY values (a string dictionary page) → (chars uint8
+    with the 4-byte length prefixes stripped, int64 offsets [n+1]).  The
+    walk over the prefixes is a host loop: it serves dictionary pages,
+    whose entry count the page size bounds."""
+    mv = memoryview(data)
+    starts = np.empty(n, dtype=np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    pos = 0
+    size = len(mv)
+    unpack = _struct.Struct("<I").unpack_from
+    for i in range(n):
+        if pos + 4 > size:
+            raise ValueError("BYTE_ARRAY page ends inside a length prefix")
+        (ln,) = unpack(mv, pos)
+        pos += 4
+        if pos + ln > size:
+            raise ValueError("BYTE_ARRAY value runs past the end of its page")
+        starts[i] = pos
+        offsets[i + 1] = offsets[i] + ln
+        pos += ln
+    lens = offsets[1:] - offsets[:-1]
+    total = int(offsets[-1])
+    # char k of the output copies from its entry's start plus its place
+    # within the entry
+    row_of = np.repeat(np.arange(n, dtype=np.int64), lens)
+    src = starts[row_of] + np.arange(total, dtype=np.int64) - offsets[row_of]
+    return np.frombuffer(data, dtype=np.uint8)[src], offsets
+
+
+class PageStream:
+    """Sequential reader over a column chunk's pages (zero-copy: pages
+    are memoryview slices of the file)."""
+
+    def __init__(self, buf: memoryview):
+        self.buf = buf
+        self.pos = 0
+
+    def next_page(self) -> tuple[Struct, memoryview]:
+        reader = CompactReader(self.buf, self.pos)
+        header = reader.read_struct()
+        self.pos = reader.pos
+        comp_size = header.get(PH.COMPRESSED_SIZE)
+        if comp_size is None or self.pos + comp_size > len(self.buf):
+            raise ValueError("page runs past the end of its column chunk")
+        raw = self.buf[self.pos:self.pos + comp_size]
+        self.pos += comp_size
+        return header, raw
+
+
+class Leaf:
+    """One leaf column's schema facts, gathered by the depth-first walk."""
+
+    def __init__(self, elem, max_def, max_rep, path):
+        self.elem = elem
+        self.max_def = max_def          # def level meaning "value present"
+        self.max_rep = max_rep          # 0 = flat
+        self.path = path
+        self.name = path.split(".")[0] if max_rep > 0 else path
+
+    @property
+    def phys(self) -> int:
+        return self.elem.get(SE.TYPE)
+
+    def logical_dtype(self) -> T.DType:
+        """Logical dtype from the physical and converted types, for the
+        types the port's scan decodes."""
+        phys = self.phys
+        ct = self.elem.get(SE.CONVERTED_TYPE)
+        if ct == CT_DECIMAL:
+            scale = -(self.elem.get(SE_SCALE, 0) or 0)
+            if phys == PT_INT32:
+                return T.decimal32(scale)
+            if phys == PT_INT64:
+                return T.decimal64(scale)
+            raise NotImplementedError(
+                f"column {self.path}: DECIMAL on {enum_name(PHYS_NAMES, phys)} "
+                "is not supported by the port's scan")
+        if ct == CT_DATE and phys == PT_INT32:
+            return T.timestamp_days
+        if ct == CT_TIMESTAMP_MILLIS and phys == PT_INT64:
+            return T.timestamp_ms
+        if ct == CT_TIMESTAMP_MICROS and phys == PT_INT64:
+            return T.timestamp_us
+        if phys not in _PHYS_DT:
+            raise NotImplementedError(
+                f"column {self.path}: physical type "
+                f"{enum_name(PHYS_NAMES, phys)} is not supported by the port's "
+                "scan")
+        return _PHYS_DT[phys]
+
+
+class NestedDecodeUnsupported(NotImplementedError):
+    """The file's schema needs nested decode (lists or maps)."""
+
+
+def leaf_schema_elements(meta: Struct) -> list[Leaf]:
+    """Depth-first walk: the leaves with their Dremel levels.
+
+    Raises :class:`NestedDecodeUnsupported` for lists of lists and MAP
+    groups, as the JAX package does.  A single-level list leaf is
+    returned with ``max_rep`` 1; the scan refuses it only if it is
+    selected."""
+    schema = meta.get(FMD.SCHEMA).values
+    out: list[Leaf] = []
+    bad: list[str] = []
+
+    def walk(idx: int, depth_def: int, depth_rep: int, prefix: str):
+        elem = schema[idx]
+        n = elem.get(SE.NUM_CHILDREN, 0) or 0
+        name = elem.get(SE.NAME, b"").decode("utf-8")
+        rep = elem.get(SE.REPETITION_TYPE, 0)
+        # optional (1) adds a definition level; repeated (2) adds both a
+        # definition and a repetition level
+        my_def = depth_def + (1 if rep in (1, 2) else 0)
+        my_rep = depth_rep + (1 if rep == 2 else 0)
+        path = f"{prefix}.{name}" if prefix else name
+        ct = elem.get(SE.CONVERTED_TYPE)
+        if my_rep > 1:
+            bad.append(f"{path} (nested lists, max_rep > 1)")
+        elif n and ct in (CT_MAP, CT_MAP_KEY_VALUE):
+            bad.append(f"{path} (MAP)")
+        idx += 1
+        if n == 0:
+            out.append(Leaf(elem, my_def, my_rep, path))
+            return idx
+        for _ in range(n):
+            idx = walk(idx, my_def, my_rep, path)
+        return idx
+
+    idx = 1
+    root_children = schema[0].get(SE.NUM_CHILDREN, 0) or 0
+    for _ in range(root_children):
+        idx = walk(idx, 0, 0, "")
+    if bad:
+        raise NestedDecodeUnsupported(
+            "nested decode is not supported by the port's scan: "
+            + ", ".join(bad))
+    return out

@@ -47,10 +47,7 @@ def _route(device: torch.device) -> str:
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
-    lib = _native.library("ragged")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _native.check(lib, getattr(lib, fn)(*args, stream), fn)
+    _native.launch("ragged", fn, device, *args)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ import torch
 
 import spark_rapids_jni_tpu_torch as pt
 from spark_rapids_jni_tpu_torch import interop
-from spark_rapids_jni_tpu_torch.rowconv import ragged
+from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged
 from spark_rapids_jni_tpu_torch.rowconv import reference
 
 
@@ -64,6 +64,53 @@ def test_kernels_match_plain(cuda, n, M, aligned):
     assert after["pack_rows"] == before["pack_rows"] + 1
     assert after["unpack_rows"] == before["unpack_rows"] + 3
     assert after["segmented_copy"] == before["segmented_copy"] + 1
+
+
+def _launches_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,M,max_len", [(24, 32, 17), (1, 4, 4), (3000, 64, 90),
+                                         (7, 21, 21), (500, 16, 0)])
+def test_extract_and_gather_match_plain(cuda, D, M, max_len):
+    """B5 on short, long (cut to M), empty and odd-width rows; B6 on word
+    and 16-byte-vector widths, including a 1-row dictionary."""
+    rng = np.random.default_rng(D + M)
+    lens = rng.integers(0, max_len + 1, D)
+    offs = np.zeros(D + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    flat = torch.from_numpy(rng.integers(0, 256, int(offs[-1]) + 3)
+                            .astype(np.uint8)).to(cuda)
+    before = bytepath.launch_counts()
+    mat = bytepath.extract_rows(flat, offs, M)
+    assert torch.equal(mat, bytepath.extract_rows_plain(flat, offs, M))
+    idx = torch.from_numpy(rng.integers(0, D, 20011).astype(np.int32)).to(cuda)
+    got = bytepath.gather_rows(mat, idx)
+    assert torch.equal(got, bytepath.gather_rows_plain(mat, idx))
+    torch.cuda.synchronize()
+    delta = _launches_delta(before, bytepath.launch_counts())
+    assert delta["extract_rows"] == 1 and delta["gather_rows"] == 1
+    with pytest.raises(IndexError):
+        bytepath.gather_rows(mat, torch.full((5,), D, dtype=torch.int32,
+                                             device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 1, 2, 3, 4, 5, 4093])
+@pytest.mark.parametrize("n_words", [0, 1, 7, 100003])
+def test_u8_to_u32_matches_plain_any_start(cuda, start, n_words):
+    rng = np.random.default_rng(start * 7 + n_words)
+    src = torch.from_numpy(rng.integers(0, 256, start + 4 * n_words + 5)
+                           .astype(np.uint8)).to(cuda)
+    got = bytepath.u8_to_u32(src, start, n_words)
+    want = bytepath.u8_to_u32_plain(src, start, n_words)
+    assert torch.equal(got, want)
+    # the exact tail of the source: no byte after the last word
+    tight = src[:start + 4 * n_words].clone()
+    assert torch.equal(bytepath.u8_to_u32(tight, start, n_words), want)
+    host = src.cpu().numpy()[start:start + 4 * n_words].view("<u4")
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), host)
 
 
 @pytest.mark.gpu
@@ -124,3 +171,50 @@ def test_multi_batch_and_corrupt_slot(cuda):
     raw[4:8] = torch.tensor([0, 0, 1, 0], dtype=torch.uint8)   # length 65536
     with pytest.raises(ValueError, match="corrupt row"):
         pt.convert_from_rows(pt.RowBatch(raw, gpu[0].offsets), schema)
+
+
+def _lineitem_writer():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "tools"))
+    import torch_lineitem_parquet
+    return torch_lineitem_parquet
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("null_fraction", [0.0, 0.1])
+def test_scan_on_card_matches_cpu(cuda, null_fraction):
+    """The device scan, DictColumn materialization, Q6 and rows of the
+    scanned table on the card equal the same calls on the CPU."""
+    from spark_rapids_jni_tpu_torch.models import q6
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    W = _lineitem_writer()
+    raw, _, _ = W.lineitem_parquet(50000, 9, row_group_rows=12000,
+                                   null_fraction=null_fraction,
+                                   pages_per_chunk=3)
+    before = bytepath.launch_counts()
+    gpu = device_scan.scan_table(raw, device=cuda)
+    cpu = device_scan.scan_table(raw, device="cpu")
+    for g, c in zip(gpu.columns, cpu.columns):
+        assert type(g) is type(c)
+        if isinstance(g, pt.DictColumn):
+            assert torch.equal(g.codes.cpu(), c.codes)
+            assert torch.equal(g.dictionary.data.cpu(), c.dictionary.data)
+            assert torch.equal(g.dictionary.offsets.cpu(), c.dictionary.offsets)
+        assert torch.equal(g.validity_or_true().cpu(), c.validity_or_true())
+        assert torch.equal(g.data.cpu(), c.data)          # materializes
+        if g.dtype.is_variable_width:
+            assert torch.equal(g.offsets.cpu(), c.offsets)
+    torch.cuda.synchronize()
+    delta = _launches_delta(before, bytepath.launch_counts())
+    assert all(v > 0 for v in delta.values()), delta
+    rows_g = pt.convert_to_rows(gpu)[0]
+    rows_c = pt.convert_to_rows(cpu)[0]
+    np.testing.assert_array_equal(rows_g.host_bytes(), rows_c.host_bytes())
+    lo, hi = 8766, 9131
+    rev_g, n_g = q6.run(raw, lo, hi, device=cuda)
+    rev_c, n_c = q6.run(raw, lo, hi, device="cpu")
+    assert n_g == n_c > 0
+    # the same float64 products summed in another order: a few ulps
+    assert rev_g == pytest.approx(rev_c, rel=1e-12, abs=0)

@@ -1,0 +1,456 @@
+"""The port's device Parquet scan, DictColumn, Q6 and rows of a scanned
+table against the JAX package and pyarrow, on the CPU.
+
+Each file is written from numpy-seeded data (by pyarrow, or by the lineitem
+writer of ``tools/torch_lineitem_parquet.py``) and scanned by both packages:
+``spark_rapids_jni_tpu_torch.parquet.device_scan.scan_table`` on CPU
+tensors and ``spark_rapids_jni_tpu.parquet.device_scan.scan_table``.  Values,
+validity, dictionary codes, dictionaries and materialized chars must be
+equal (exact); pyarrow's reading is the independent oracle, which also
+covers the dictionary-string cases the JAX suite is known to fail in some
+runs.  FLOAT64 compares as values: the JAX package stores it as uint32
+bit pairs, the port as native float64.
+"""
+
+import io
+import pathlib
+import sys
+import time
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, set by conftest)
+import spark_rapids_jni_tpu as sr
+from spark_rapids_jni_tpu.column import DictColumn as JDictColumn
+from spark_rapids_jni_tpu import native as jnative
+from spark_rapids_jni_tpu.models import q6 as jq6
+from spark_rapids_jni_tpu.parquet import device_scan as jscan
+
+import spark_rapids_jni_tpu_torch as pt
+from spark_rapids_jni_tpu_torch.models import q6 as pq6
+from spark_rapids_jni_tpu_torch.parquet import device_scan as pscan
+from spark_rapids_jni_tpu_torch.parquet import rle_device
+from spark_rapids_jni_tpu_torch.rowconv import bytepath
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
+import torch_lineitem_parquet as W  # noqa: E402
+
+CPU = "cpu"
+N = 3000
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library():
+    """The JAX scan keeps dictionary strings as DictColumns only when its
+    native library loads.  Several test processes may build it at once,
+    and a loader that met a half-written library gives up for good; give
+    it a few more tries so that the JAX side is the JAX default path."""
+    for _ in range(30):
+        if jnative.load() is not None:
+            return
+        jnative._tried = False
+        time.sleep(2)
+    pytest.fail("the JAX package's native library does not load")
+
+
+@pytest.fixture(autouse=True)
+def _jax_quick_paths(monkeypatch):
+    # per-column JAX decode programs (cached across files of one shape)
+    # instead of one fused program a file, and the DMA row engine instead
+    # of xpack: the JAX package's own tests hold these paths bit-identical
+    # to its defaults (tests/test_bytepath.py); they compile far faster
+    monkeypatch.setenv("SRJT_FUSED_SCAN", "0")
+    monkeypatch.setenv("SRJT_XPACK", "0")
+
+
+def _write(table: pa.Table, **kw) -> bytes:
+    buf = io.BytesIO()
+    pq.write_table(table, buf, **kw)
+    return buf.getvalue()
+
+
+# one column of each kind is OPTIONAL too: every OPTIONAL column costs the
+# JAX scan a few more compiles on the CPU
+OPTIONAL_KINDS = ("s_wide", "i_dict", "l_plain")
+
+
+def _table(rng, n, null_share=0.15):
+    """Dictionary strings, dictionary numerics and PLAIN numerics, all
+    REQUIRED (``req_*``), and ``OPTIONAL_KINDS`` again OPTIONAL with nulls
+    (``opt_*``)."""
+    def values():
+        return {
+            "s_dict": [f"val{v}" for v in rng.integers(0, 30, n)],
+            "s_wide": [f"{'x' * int(v)}|{v}" for v in rng.integers(0, 40, n)],
+            "i_dict": rng.integers(0, 9, n).astype(np.int32).tolist(),
+            "f_dict": (rng.integers(0, 11, n) / 100.0).tolist(),
+            "l_plain": rng.integers(-2**40, 2**40, n).tolist(),
+            "d_plain": rng.standard_normal(n).tolist(),
+            "date": rng.integers(8000, 10000, n).astype(np.int32).tolist(),
+        }
+    types = {"s_dict": pa.string(), "s_wide": pa.string(),
+             "i_dict": pa.int32(), "f_dict": pa.float64(),
+             "l_plain": pa.int64(), "d_plain": pa.float64(),
+             "date": pa.date32()}
+    arrays, fields = [], []
+    for prefix, optional in (("req_", False), ("opt_", True)):
+        for k, v in values().items():
+            if optional and k not in OPTIONAL_KINDS:
+                continue
+            if optional:
+                v = [None if m else x for x, m in
+                     zip(v, rng.random(n) < null_share)]
+            arrays.append(pa.array(v, types[k]))
+            fields.append(pa.field(prefix + k, types[k], nullable=optional))
+    return pa.Table.from_arrays(arrays, schema=pa.schema(fields))
+
+
+DICT_COLS = [p + k for p in ("req_", "opt_")
+             for k in ("s_dict", "s_wide", "i_dict", "f_dict", "date")]
+
+
+def _file(row_groups, multi_page, compression="NONE", **kw):
+    """N rows in ``row_groups`` row groups; with ``multi_page`` every
+    chunk cuts into pages of 500 rows (pages end at pyarrow's write
+    batches), which keeps the JAX scan's compiled shapes few."""
+    rng = np.random.default_rng(row_groups + 10 * int(multi_page))
+    t = _table(rng, N)
+    raw = _write(t, compression=compression, use_dictionary=DICT_COLS,
+                 row_group_size=N // row_groups,
+                 data_page_size=1 if multi_page else 1 << 20,
+                 write_batch_size=500 if multi_page else N, **kw)
+    return t, raw
+
+
+def _names(t: pa.Table, optional: bool) -> list[str]:
+    prefix = "opt_" if optional else "req_"
+    return [c for c in t.column_names if c.startswith(prefix)]
+
+
+_JAX_SCANS = {}
+
+
+def _jax_scan(raw: bytes, **kw):
+    key = (raw, repr(sorted(kw.items())))
+    if key not in _JAX_SCANS:
+        _JAX_SCANS[key] = jscan.scan_table(raw, **kw)
+    return _JAX_SCANS[key]
+
+
+# ---------------------------------------------------------------------------
+# comparison helpers
+# ---------------------------------------------------------------------------
+
+def _valid(col) -> np.ndarray:
+    v = col.validity_or_true()
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def assert_column_equal(p, j):
+    """A port column equals a JAX column: dtype, validity, bytes."""
+    assert int(p.dtype.id) == int(j.dtype.id) and p.dtype.scale == j.dtype.scale
+    assert p.num_rows == j.num_rows
+    np.testing.assert_array_equal(_valid(p), _valid(j))
+    if isinstance(j, JDictColumn) or j.dtype.id == sr.TypeId.STRING:
+        np.testing.assert_array_equal(p.offsets.numpy(), np.asarray(j.offsets))
+        np.testing.assert_array_equal(p.data.numpy(), np.asarray(j.data))
+    else:
+        np.testing.assert_array_equal(p.data.numpy(), j.to_numpy())
+
+
+def assert_dict_equal(p, j):
+    """A port DictColumn equals a JAX DictColumn: codes and dictionary."""
+    assert isinstance(p, pt.DictColumn) and isinstance(j, JDictColumn)
+    np.testing.assert_array_equal(p.codes.numpy(), np.asarray(j.codes))
+    np.testing.assert_array_equal(p.dictionary.data.numpy(),
+                                  np.asarray(j.dictionary.data))
+    np.testing.assert_array_equal(p.dictionary.offsets.numpy(),
+                                  np.asarray(j.dictionary.offsets))
+
+
+def assert_matches_arrow(p, arrow_col):
+    want = arrow_col.to_pylist()
+    got = p.to_pylist()
+    if pa.types.is_date32(arrow_col.type):
+        epoch = np.datetime64("1970-01-01", "D")
+        want = [None if w is None else int((np.datetime64(w, "D") - epoch)
+                                          .astype(int)) for w in want]
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the scan matrix
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dict_strings", [True, False], ids=["dict", "mat"])
+@pytest.mark.parametrize("multi_page", [False, True], ids=["1page", "pages"])
+@pytest.mark.parametrize("row_groups", [1, 3], ids=["1rg", "3rg"])
+@pytest.mark.parametrize("optional", [False, True], ids=["req", "opt"])
+def test_scan_matches_jax_and_arrow(optional, row_groups, multi_page,
+                                    dict_strings):
+    t, raw = _file(row_groups, multi_page)
+    names = _names(t, optional)
+    got = pscan.scan_table(raw, columns=names, dict_strings=dict_strings,
+                           device=CPU)
+    want = _jax_scan(raw)
+    assert got.num_columns == len(names)
+    for name, p in zip(names, got.columns):
+        j = want[t.column_names.index(name)]
+        if name[4:].startswith("s_"):
+            assert isinstance(p, pt.DictColumn) == dict_strings
+            if dict_strings:
+                assert_dict_equal(p, j)
+        assert_column_equal(p, j)
+        assert_matches_arrow(p, t[name])
+
+
+@pytest.mark.parametrize("compression", ["SNAPPY", "NONE"])
+@pytest.mark.parametrize("page_version", ["1.0", "2.0"])
+def test_scan_codecs_and_page_versions(compression, page_version):
+    t, raw = _file(3, True, compression=compression,
+                   data_page_version=page_version)
+    got = pscan.scan_table(raw, device=CPU)
+    for name, p in zip(t.column_names, got.columns):
+        assert_matches_arrow(p, t[name])
+
+
+def test_scan_selects_columns_and_row_groups():
+    t, raw = _file(3, False)
+    cols = ["req_date", "req_s_dict", "opt_s_wide", "opt_l_plain"]
+    got = pscan.scan_table(raw, columns=cols, row_groups=[2, 0], device=CPU)
+    rg = N // 3
+    keep = np.r_[0:rg, 2 * rg:N]
+    for name, p in zip(cols, got.columns):
+        assert_matches_arrow(p, t[name].take(keep))
+
+
+def test_scan_zero_rows():
+    t, raw = _file(3, False)
+    got = pscan.scan_table(raw, row_groups=[], device=CPU)
+    want = jscan.scan_table(raw, row_groups=[])
+    assert got.num_rows == 0 and got.num_columns == t.num_columns
+    for p, j in zip(got.columns, want.columns):
+        assert_column_equal(p, j)
+    # a file of zero rows, written with its one empty row group
+    empty = W.write_parquet(
+        [W.ParquetColumn("a", "INT64", np.zeros(0, np.int64)),
+         W.strings_column("s", []),
+         W.ParquetColumn("d", "DOUBLE", np.zeros(0), "dict")], 100)
+    got = pscan.scan_table(empty, device=CPU)
+    assert got.num_rows == 0
+    assert got[1].materialize().data.numel() == 0
+
+
+def test_scan_all_null_columns():
+    n = 3000
+    none = np.zeros(n, bool)
+    some = np.random.default_rng(5).random(n) < 0.5
+    cols = [W.ParquetColumn("a", "INT64", np.arange(n), validity=none),
+            W.ParquetColumn("b", "DOUBLE", np.arange(n) % 4.0, "dict", None,
+                            None, none),
+            W.strings_column("s", ["x"] * n, validity=none),
+            W.strings_column("t", [f"v{i % 3}" for i in range(n)], some)]
+    raw = W.write_parquet(cols, 1000)
+    t = pq.read_table(io.BytesIO(raw))
+    got = pscan.scan_table(raw, device=CPU)
+    want = jscan.scan_table(raw)
+    for name, p, j in zip(t.column_names, got.columns, want.columns):
+        assert_column_equal(p, j)
+        assert_matches_arrow(p, t[name])
+    assert not _valid(got[2]).any()
+    assert got[2].materialize().data.numel() == 0
+    assert got[2].dictionary.num_rows == 0
+
+
+def test_merged_dictionaries_rebase_codes():
+    """Row groups write their dictionaries in first-occurrence order, so
+    they differ: the dictionaries concatenate and the codes rebase, as the
+    JAX scan's merge does."""
+    raw, data, _ = W.lineitem_parquet(6000, 11, row_group_rows=2000)
+    got = pscan.scan_table(raw, columns=["l_shipmode", "l_shipdate"],
+                           device=CPU)
+    want = _jax_scan(raw, columns=["l_shipmode", "l_shipdate"])
+    assert got[0].dictionary.num_rows == 3 * 7
+    assert_dict_equal(got[0], want[0])
+    assert_column_equal(got[0], want[0])
+    assert_column_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[1].data.numpy(), data["l_shipdate"])
+
+
+def test_scanned_columns_own_their_storage():
+    """PLAIN words come out of B7 as new tensors, the dictionary chars are
+    copied: nothing the scan returns keeps the slab alive."""
+    _, raw = _file(3, True)
+    got = pscan.scan_table(raw, device=CPU)
+    for c in got.columns:
+        tensors = ([c.codes, c.dictionary.data, c.dictionary.offsets]
+                   if isinstance(c, pt.DictColumn) else [c.data])
+        for x in tensors:
+            assert x.untyped_storage().nbytes() == x.numel() * x.element_size()
+
+
+# ---------------------------------------------------------------------------
+# DictColumn
+# ---------------------------------------------------------------------------
+
+def test_dict_column_materialize_matches_jax():
+    t, raw = _file(3, True)
+    names = ["opt_s_wide", "req_s_dict"]
+    got = pscan.scan_table(raw, columns=names, device=CPU)
+    want = [_jax_scan(raw)[t.column_names.index(c)] for c in names]
+    for p, j in zip(got.columns, want):
+        m, jm = p.materialize(), j.materialize()
+        assert p.materialize() is m                   # memoized
+        np.testing.assert_array_equal(m.data.numpy(), np.asarray(jm.data))
+        np.testing.assert_array_equal(m.offsets.numpy(),
+                                      np.asarray(jm.offsets))
+        assert m.offsets.dtype == torch.int32
+        assert p.to_pylist() == m.to_pylist()
+
+
+def test_dict_column_rejects_bad_codes():
+    dictionary = pt.Column.strings_from_list(["a", "bc"], device=CPU)
+    col = pt.DictColumn(torch.tensor([0, 2], dtype=torch.int32), dictionary)
+    with pytest.raises(IndexError):
+        col.materialize()
+    with pytest.raises(TypeError):
+        pt.DictColumn(torch.tensor([0], dtype=torch.int64), dictionary)
+    empty = pt.DictColumn(torch.zeros(2, dtype=torch.int32),
+                          pt.Column.strings_from_list([], device=CPU),
+                          torch.zeros(2, dtype=torch.bool))
+    assert empty.materialize().offsets.tolist() == [0, 0, 0]
+
+
+def test_scan_checks_dictionary_codes(monkeypatch):
+    _, raw = _file(1, False)
+    expand = rle_device.expand
+
+    def bad(slab, runs, n):
+        return expand(slab, runs, n) + 1000
+    monkeypatch.setattr(rle_device, "expand", bad)
+    with pytest.raises(ValueError, match="dictionary code"):
+        pscan.scan_table(raw, columns=["req_i_dict"], device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# Q6 and rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("null_fraction", [0.0, 0.1])
+def test_q6_matches_jax(null_fraction):
+    raw, data, valid = W.lineitem_parquet(12000, 3, row_group_rows=5000,
+                                          null_fraction=null_fraction)
+    lo, hi = 8766, 9131                        # [1994-01-01, 1995-01-01)
+    revenue, matched = pq6.run(raw, lo, hi, device=CPU)
+    j_revenue, j_matched = jq6.run(raw, lo, hi)
+    assert matched == j_matched
+    # both sum the same float64 products in different orders: they agree
+    # to a few ulps of the total, far inside a relative 1e-12
+    assert revenue == pytest.approx(j_revenue, rel=1e-12, abs=0)
+    # and against numpy over the generator's arrays (nulls scan as 0)
+    cols = {k: np.where(valid[k], data[k], 0) if k in valid else data[k]
+            for k in pq6.COLUMNS}
+    mask = ((cols["l_shipdate"] >= lo) & (cols["l_shipdate"] < hi)
+            & (cols["l_discount"] >= 0.05 - 1e-9)
+            & (cols["l_discount"] <= 0.07 + 1e-9) & (cols["l_quantity"] < 24))
+    assert matched == int(mask.sum()) > 0
+    want = float(np.sum(cols["l_extendedprice"][mask]
+                        * cols["l_discount"][mask]))
+    assert revenue == pytest.approx(want, rel=1e-12, abs=0)
+
+
+ROW_COLUMNS = ["l_orderkey", "l_quantity", "l_returnflag", "l_shipdate",
+               "l_shipinstruct", "l_shipmode", "l_linenumber"]
+
+
+@pytest.mark.parametrize("null_fraction", [0.0, 0.1])
+def test_rows_of_scanned_table_match_jax(null_fraction):
+    raw, _, _ = W.lineitem_parquet(3000, 5, row_group_rows=1000,
+                                   null_fraction=null_fraction)
+    got = pscan.scan_table(raw, columns=ROW_COLUMNS, device=CPU)
+    assert sum(isinstance(c, pt.DictColumn) for c in got.columns) == 3
+    before = bytepath.launch_counts()
+    rows = pt.convert_to_rows(got)
+    assert bytepath.launch_counts() == before           # CPU: plain versions
+    want = sr.convert_to_rows(_jax_scan(raw, columns=ROW_COLUMNS))
+    assert len(rows) == len(want) == 1
+    np.testing.assert_array_equal(rows[0].host_bytes(), want[0].host_bytes())
+    np.testing.assert_array_equal(rows[0].offsets.numpy(),
+                                  np.asarray(want[0].offsets))
+    back = pt.convert_from_rows(rows[0], got.schema)
+    for a, b in zip(got.columns, back.columns):
+        np.testing.assert_array_equal(_valid(a), _valid(b))
+        np.testing.assert_array_equal(a.data.numpy(), b.data.numpy())
+
+
+def test_lineitem_scan_equals_generator():
+    raw, data, valid = W.lineitem_parquet(9000, 2, row_group_rows=4096,
+                                          null_fraction=0.1,
+                                          pages_per_chunk=2)
+    got = pscan.scan_table(raw, device=CPU)
+    for (name, *_), c in zip(W.LINEITEM, got.columns):
+        v = valid[name]
+        np.testing.assert_array_equal(_valid(c), v)
+        if name in W.VOCAB:
+            vocab = [e.decode() for e in W.VOCAB[name]]
+            assert c.to_pylist() == [vocab[k] if m else None
+                                     for k, m in zip(data[name], v)]
+        else:
+            np.testing.assert_array_equal(c.data.numpy(),
+                                          np.where(v, data[name], 0))
+
+
+# ---------------------------------------------------------------------------
+# what the scan refuses
+# ---------------------------------------------------------------------------
+
+def _refused(table: pa.Table, match: str, **kw):
+    raw = _write(table, **kw)
+    with pytest.raises(NotImplementedError, match=match):
+        pscan.scan_table(raw, device=CPU)
+
+
+def test_refuses_plain_strings():
+    _refused(pa.table({"s": ["a", "b"]}), "PLAIN-encoded BYTE_ARRAY",
+             use_dictionary=False)
+
+
+def test_refuses_boolean_and_delta():
+    _refused(pa.table({"b": [True, False]}), "BOOLEAN")
+    _refused(pa.table({"i": np.arange(100, dtype=np.int64)}),
+             "DELTA_BINARY_PACKED", use_dictionary=False,
+             column_encoding={"i": "DELTA_BINARY_PACKED"})
+
+
+def test_refuses_gzip_and_decimal_bytes():
+    _refused(pa.table({"i": np.arange(10, dtype=np.int64)}), "GZIP",
+             compression="GZIP")
+    import decimal
+    _refused(pa.table({"x": pa.array([decimal.Decimal("1.25")],
+                                     pa.decimal128(20, 2))}), "DECIMAL")
+
+
+def test_list_columns_refused_only_when_selected():
+    raw = _write(pa.table({"id": np.arange(5, dtype=np.int64),
+                           "l": pa.array([[i] for i in range(5)],
+                                         pa.list_(pa.int32()))}))
+    with pytest.raises(NotImplementedError, match="repeated"):
+        pscan.scan_table(raw, device=CPU)
+    got = pscan.scan_table(raw, columns=["id"], device=CPU)
+    assert got[0].data.tolist() == list(range(5))
+
+
+def test_bad_arguments():
+    _, raw = _file(1, False)
+    with pytest.raises(KeyError, match="nope"):
+        pscan.scan_table(raw, columns=["nope"], device=CPU)
+    with pytest.raises(IndexError):
+        pscan.scan_table(raw, row_groups=[3], device=CPU)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pscan.scan_table(raw)
+    assert pscan.read_table is pscan.scan_table

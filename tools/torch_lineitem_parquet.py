@@ -1,0 +1,414 @@
+#!/usr/bin/env python3
+"""A numpy-only Parquet writer and TPC-H lineitem generator.
+
+    python3 tools/torch_lineitem_parquet.py --rows 6001215 --out lineitem.parquet
+
+Test data for the PyTorch port's device scan, shared by ``chip_smoke.py``
+and the tests: the card's machine has no pyarrow, and the repository holds
+no Parquet file.  The writer emits only what the port's scan reads: PLAIN
+and RLE_DICTIONARY pages (the codes as bit-packed runs of at most 63
+groups, as parquet-mr writes them), definition levels for OPTIONAL
+columns, UNCOMPRESSED data page v1, and a thrift compact footer with
+min/max statistics.  Each row group writes its dictionary in
+first-occurrence order, as parquet-mr and pyarrow do.  The tests read its
+output back with pyarrow, which checks the writer apart from both
+scanners.
+
+The generator follows TPC-H v3.0.1 §4.2.3 for lineitem without
+``l_comment``: keys INT64 (orderkey sparse as dbgen makes it, partkey
+uniform in [1, 200000·SF], suppkey by the spec's formula), linenumber
+INT32, the measures DOUBLE, the dates DATE, and returnflag / linestatus /
+shipinstruct / shipmode as dictionary strings.  Its numbers come from
+numpy's generator, not dbgen's, so the rows differ from dbgen's while
+their distributions match.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import struct
+import sys
+from typing import Optional
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from spark_rapids_jni_tpu_torch.parquet.thrift import (  # noqa: E402
+    CompactWriter, Field, ListValue, Struct, TType)
+
+MAGIC = b"PAR1"
+PHYS = {"INT32": 1, "INT64": 2, "DOUBLE": 5, "BYTE_ARRAY": 6}
+_NP = {"INT32": np.dtype("<i4"), "INT64": np.dtype("<i8"),
+       "DOUBLE": np.dtype("<f8")}
+CONVERTED = {"UTF8": 0, "DATE": 6}
+ENC_PLAIN, ENC_RLE, ENC_RLE_DICTIONARY = 0, 3, 8
+PAGE_DATA, PAGE_DICTIONARY = 0, 2
+MAX_BP_GROUPS = 63           # parquet-mr's longest bit-packed run
+
+
+@dataclasses.dataclass
+class ParquetColumn:
+    """One column to write.  Numbers: ``values`` is a numpy array.
+    Strings: ``values`` is int codes into ``vocab`` (a list of bytes).
+    ``validity`` (bool, True = present) makes the column OPTIONAL; null
+    slots of ``values`` are ignored."""
+
+    name: str
+    phys: str                                  # INT32 | INT64 | DOUBLE |
+    #                                            BYTE_ARRAY
+    values: np.ndarray
+    encoding: str = "plain"                    # plain | dict
+    converted: Optional[str] = None            # UTF8 | DATE
+    vocab: Optional[list] = None
+    validity: Optional[np.ndarray] = None
+
+
+def strings_column(name: str, strings, validity=None) -> ParquetColumn:
+    """A dictionary-encoded string column from host strings."""
+    vocab, codes = np.unique(np.asarray([s.encode() for s in strings],
+                                        dtype=object), return_inverse=True)
+    return ParquetColumn(name, "BYTE_ARRAY", codes.astype(np.int64), "dict",
+                         "UTF8", list(vocab), validity)
+
+
+# ---------------------------------------------------------------------------
+# thrift helpers
+# ---------------------------------------------------------------------------
+
+def _struct(*fields) -> Struct:
+    return Struct([Field(fid, tt, v) for fid, tt, v in fields
+                   if v is not None])
+
+
+def _i32(fid, v):
+    return (fid, TType.I32, None if v is None else int(v))
+
+
+def _i64(fid, v):
+    return (fid, TType.I64, None if v is None else int(v))
+
+
+def _thrift(s: Struct) -> bytes:
+    w = CompactWriter()
+    w.write_struct(s)
+    return w.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# encodings
+# ---------------------------------------------------------------------------
+
+def _uleb(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        if n < 0x80:
+            out.append(n)
+            return bytes(out)
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+
+
+def bit_packed_runs(values: np.ndarray, bw: int) -> bytes:
+    """The RLE/bit-packed hybrid stream of ``values`` as bit-packed runs of
+    at most ``MAX_BP_GROUPS`` groups of 8, LSB first."""
+    n = values.shape[0]
+    if n == 0:
+        return b""
+    groups = -(-n // 8)
+    v = np.zeros(groups * 8, np.uint64)
+    v[:n] = values
+    bits = ((v[:, None] >> np.arange(bw, dtype=np.uint64)) & 1).astype(np.uint8)
+    packed = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    out = bytearray()
+    for g0 in range(0, groups, MAX_BP_GROUPS):
+        g = min(MAX_BP_GROUPS, groups - g0)
+        out += _uleb((g << 1) | 1)
+        out += packed[g0 * bw:(g0 + g) * bw]
+    return bytes(out)
+
+
+def _plain_strings(vocab: list, entries: np.ndarray) -> bytes:
+    return b"".join(struct.pack("<I", len(vocab[e])) + vocab[e]
+                    for e in entries)
+
+
+def _first_occurrence(values: np.ndarray):
+    """(distinct values in first-occurrence order, code of every value)."""
+    uniq, first, inverse = np.unique(values, return_index=True,
+                                     return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    return uniq[order], rank[inverse.reshape(-1)]
+
+
+def _stat_bytes(col: ParquetColumn, present: np.ndarray):
+    """(min, max) PLAIN-encoded, or None when nothing is present."""
+    if present.shape[0] == 0:
+        return None
+    if col.phys == "BYTE_ARRAY":
+        strs = [col.vocab[c] for c in np.unique(present)]
+        return min(strs), max(strs)
+    dt = _NP[col.phys]
+    return (np.asarray(present.min(), dt).tobytes(),
+            np.asarray(present.max(), dt).tobytes())
+
+
+def _page(ptype: int, body: bytes, header_field) -> bytes:
+    header = _struct(_i32(1, ptype), _i32(2, len(body)), _i32(3, len(body)),
+                     header_field)
+    return _thrift(header) + body
+
+
+def _rows_per_page(col: ParquetColumn, bw: int, rows: int,
+                   data_page_bytes: int, pages_per_chunk) -> int:
+    if pages_per_chunk:
+        per = -(-rows // pages_per_chunk)
+    else:
+        bits = _NP[col.phys].itemsize * 8 if col.encoding == "plain" else bw
+        bits += 1 if col.validity is not None else 0
+        per = data_page_bytes * 8 // max(bits, 1)
+    return max(8, -(-per // 8) * 8)
+
+
+def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
+                 data_page_bytes: int, pages_per_chunk) -> Struct:
+    """Append one column chunk at the end of ``out``; returns its
+    ColumnChunk struct."""
+    start = len(out)
+    vals = col.values[lo:hi]
+    valid = None if col.validity is None else col.validity[lo:hi]
+    present = vals if valid is None else vals[valid]
+    dict_page_offset = None
+    bw = 0
+    if col.encoding == "dict":
+        entries, codes = _first_occurrence(present)
+        bw = max(1, int(len(entries) - 1).bit_length())
+        body = (_plain_strings(col.vocab, entries) if col.phys == "BYTE_ARRAY"
+                else np.ascontiguousarray(entries, _NP[col.phys]).tobytes())
+        dict_page_offset = start
+        out += _page(PAGE_DICTIONARY, body,
+                     (7, TType.STRUCT, _struct(_i32(1, len(entries)),
+                                               _i32(2, ENC_PLAIN))))
+    data_page_offset = len(out)
+    rows = hi - lo
+    per = _rows_per_page(col, bw, rows, data_page_bytes, pages_per_chunk)
+    pos_present = 0
+    for p0 in range(0, max(rows, 1), per):
+        p1 = min(rows, p0 + per)
+        body = bytearray()
+        k = p1 - p0
+        if valid is not None:
+            levels = bit_packed_runs(valid[p0:p1].astype(np.uint8), 1)
+            body += struct.pack("<I", len(levels)) + levels
+            k = int(valid[p0:p1].sum())
+        if col.encoding == "dict":
+            body.append(bw)
+            body += bit_packed_runs(codes[pos_present:pos_present + k], bw)
+            enc = ENC_RLE_DICTIONARY
+        else:
+            body += np.ascontiguousarray(present[pos_present:pos_present + k],
+                                         _NP[col.phys]).tobytes()
+            enc = ENC_PLAIN
+        pos_present += k
+        out += _page(PAGE_DATA, bytes(body),
+                     (5, TType.STRUCT, _struct(_i32(1, p1 - p0), _i32(2, enc),
+                                               _i32(3, ENC_RLE),
+                                               _i32(4, ENC_RLE))))
+    size = len(out) - start
+    stats = _stat_bytes(col, present)
+    null_count = 0 if valid is None else int((~valid).sum())
+    statistics = _struct(
+        _i64(3, null_count),
+        (5, TType.BINARY, None if stats is None else stats[1]),
+        (6, TType.BINARY, None if stats is None else stats[0]))
+    encodings = ([ENC_RLE_DICTIONARY, ENC_PLAIN, ENC_RLE]
+                 if col.encoding == "dict" else [ENC_PLAIN, ENC_RLE])
+    md = _struct(
+        _i32(1, PHYS[col.phys]),
+        (2, TType.LIST, ListValue(TType.I32, encodings)),
+        (3, TType.LIST, ListValue(TType.BINARY, [col.name.encode()])),
+        _i32(4, 0),                                  # UNCOMPRESSED
+        _i64(5, rows), _i64(6, size), _i64(7, size),
+        _i64(9, data_page_offset), _i64(11, dict_page_offset),
+        (12, TType.STRUCT, statistics))
+    return _struct(_i64(2, start), (3, TType.STRUCT, md))
+
+
+def write_parquet(columns: list[ParquetColumn], row_group_rows: int,
+                  data_page_bytes: int = 1 << 20,
+                  pages_per_chunk: Optional[int] = None) -> bytes:
+    """The Parquet file holding ``columns`` (equal lengths), cut into row
+    groups of ``row_group_rows`` and data pages of about
+    ``data_page_bytes`` (or ``pages_per_chunk`` pages a chunk).  A table
+    of zero rows gets one row group of zero rows."""
+    n = columns[0].values.shape[0]
+    out = bytearray(MAGIC)
+    groups = []
+    for lo in range(0, max(n, 1), max(row_group_rows, 1)):
+        hi = min(n, lo + row_group_rows)
+        first = len(out)
+        chunks = [_write_chunk(out, c, lo, hi, data_page_bytes,
+                               pages_per_chunk) for c in columns]
+        size = len(out) - first
+        groups.append(_struct(
+            (1, TType.LIST, ListValue(TType.STRUCT, chunks)),
+            _i64(2, size), _i64(3, hi - lo), _i64(5, first), _i64(6, size)))
+    schema = [_struct((4, TType.BINARY, b"schema"), _i32(5, len(columns)))]
+    for c in columns:
+        schema.append(_struct(
+            _i32(1, PHYS[c.phys]),
+            _i32(3, 0 if c.validity is None else 1),
+            (4, TType.BINARY, c.name.encode()),
+            _i32(6, CONVERTED.get(c.converted))))
+    meta = _struct(
+        _i32(1, 1),
+        (2, TType.LIST, ListValue(TType.STRUCT, schema)),
+        _i64(3, n),
+        (4, TType.LIST, ListValue(TType.STRUCT, groups)),
+        (6, TType.BINARY, b"spark_rapids_jni_tpu_torch lineitem writer"),
+        # TYPE_ORDER for every column: readers then trust min/max_value
+        (7, TType.LIST, ListValue(TType.STRUCT, [
+            _struct((1, TType.STRUCT, Struct([]))) for _ in columns])))
+    footer = _thrift(meta)
+    out += footer + struct.pack("<I", len(footer)) + MAGIC
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# TPC-H lineitem
+# ---------------------------------------------------------------------------
+
+SF1_ROWS = 6_001_215
+EPOCH = np.datetime64("1970-01-01", "D")
+START_DATE = int((np.datetime64("1992-01-01", "D") - EPOCH).astype(int))
+END_DATE = int((np.datetime64("1998-12-31", "D") - EPOCH).astype(int))
+CURRENT_DATE = int((np.datetime64("1995-06-17", "D") - EPOCH).astype(int))
+VOCAB = {
+    "l_returnflag": [b"A", b"N", b"R"],
+    "l_linestatus": [b"F", b"O"],
+    "l_shipinstruct": [b"DELIVER IN PERSON", b"COLLECT COD", b"NONE",
+                       b"TAKE BACK RETURN"],
+    "l_shipmode": [b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL",
+                   b"FOB"],
+}
+# (name, physical type, converted type, encoding), in lineitem's order
+LINEITEM = (
+    ("l_orderkey", "INT64", None, "plain"),
+    ("l_partkey", "INT64", None, "plain"),
+    ("l_suppkey", "INT64", None, "plain"),
+    ("l_linenumber", "INT32", None, "dict"),
+    ("l_quantity", "DOUBLE", None, "dict"),
+    ("l_extendedprice", "DOUBLE", None, "plain"),
+    ("l_discount", "DOUBLE", None, "dict"),
+    ("l_tax", "DOUBLE", None, "dict"),
+    ("l_returnflag", "BYTE_ARRAY", "UTF8", "dict"),
+    ("l_linestatus", "BYTE_ARRAY", "UTF8", "dict"),
+    ("l_shipdate", "INT32", "DATE", "dict"),
+    ("l_commitdate", "INT32", "DATE", "dict"),
+    ("l_receiptdate", "INT32", "DATE", "dict"),
+    ("l_shipinstruct", "BYTE_ARRAY", "UTF8", "dict"),
+    ("l_shipmode", "BYTE_ARRAY", "UTF8", "dict"),
+)
+
+
+def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
+    """Lineitem columns as numpy arrays (strings as int8 codes into
+    ``VOCAB``), ``n_rows`` rows; the scale factor follows from the rows
+    (``n_rows / SF1_ROWS``)."""
+    rng = np.random.default_rng(seed)
+    sf = n_rows / SF1_ROWS
+    n_orders = max(1, -(-n_rows // 4))
+    # 1-7 lines an order, nudged so that the lines add up to n_rows
+    lines = rng.integers(1, 8, n_orders)
+    diff = n_rows - int(lines.sum())
+    while diff:
+        can = np.flatnonzero(lines < 7) if diff > 0 else np.flatnonzero(lines > 1)
+        pick = rng.choice(can, min(abs(diff), can.shape[0]), replace=False)
+        lines[pick] += 1 if diff > 0 else -1
+        diff = n_rows - int(lines.sum())
+    order = np.repeat(np.arange(n_orders, dtype=np.int64), lines)
+    first = np.cumsum(lines) - lines
+    linenumber = (np.arange(n_rows) - first[order] + 1).astype(np.int32)
+    okey = np.arange(1, n_orders + 1, dtype=np.int64)
+    orderkey = ((okey >> 3) << 5) | (okey & 7)          # dbgen's MK_SPARSE
+    orderdate = rng.integers(START_DATE, END_DATE - 151 + 1, n_orders)
+
+    n_parts = max(1, int(round(200_000 * sf)))
+    n_supp = max(1, int(round(10_000 * sf)))
+    partkey = rng.integers(1, n_parts + 1, n_rows).astype(np.int64)
+    corr = rng.integers(0, 4, n_rows)
+    suppkey = ((partkey + corr * (n_supp // 4 + (partkey - 1) // n_supp))
+               % n_supp + 1).astype(np.int64)
+    quantity = rng.integers(1, 51, n_rows)
+    retail_cents = 90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)
+    ship = orderdate[order] + rng.integers(1, 122, n_rows)
+    commit = orderdate[order] + rng.integers(30, 91, n_rows)
+    receipt = ship + rng.integers(1, 31, n_rows)
+    returnflag = np.where(receipt <= CURRENT_DATE,
+                          np.where(rng.random(n_rows) < 0.5, 2, 0), 1)
+    return {
+        "l_orderkey": orderkey[order],
+        "l_partkey": partkey,
+        "l_suppkey": suppkey,
+        "l_linenumber": linenumber,
+        "l_quantity": quantity.astype(np.float64),
+        "l_extendedprice": (quantity * retail_cents) / 100.0,
+        "l_discount": rng.integers(0, 11, n_rows) / 100.0,
+        "l_tax": rng.integers(0, 9, n_rows) / 100.0,
+        "l_returnflag": returnflag.astype(np.int8),
+        "l_linestatus": (ship > CURRENT_DATE).astype(np.int8),
+        "l_shipdate": ship.astype(np.int32),
+        "l_commitdate": commit.astype(np.int32),
+        "l_receiptdate": receipt.astype(np.int32),
+        "l_shipinstruct": rng.integers(0, 4, n_rows).astype(np.int8),
+        "l_shipmode": rng.integers(0, 7, n_rows).astype(np.int8),
+    }
+
+
+def lineitem_columns(data: dict[str, np.ndarray],
+                     validity: Optional[dict] = None) -> list[ParquetColumn]:
+    validity = validity or {}
+    return [ParquetColumn(name, phys, data[name], enc, conv,
+                          VOCAB.get(name), validity.get(name))
+            for name, phys, conv, enc in LINEITEM]
+
+
+def lineitem_parquet(n_rows: int, seed: int, row_group_rows: int = 1 << 20,
+                     null_fraction: float = 0.0,
+                     pages_per_chunk: Optional[int] = None,
+                     data_page_bytes: int = 1 << 20):
+    """(file bytes, column arrays, validity by column or {}) for a
+    lineitem file; with ``null_fraction`` every column is OPTIONAL with
+    that share of nulls."""
+    data = generate_lineitem(n_rows, seed)
+    validity = {}
+    if null_fraction:
+        rng = np.random.default_rng(seed + 1)
+        validity = {name: rng.random(n_rows) >= null_fraction
+                    for name, *_ in LINEITEM}
+    raw = write_parquet(lineitem_columns(data, validity), row_group_rows,
+                        data_page_bytes, pages_per_chunk)
+    return raw, data, validity
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=SF1_ROWS)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--row-group-rows", type=int, default=1 << 20)
+    ap.add_argument("--null-fraction", type=float, default=0.0)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    raw, _, _ = lineitem_parquet(args.rows, args.seed, args.row_group_rows,
+                                 args.null_fraction)
+    with open(args.out, "wb") as f:
+        f.write(raw)
+    print(f"{args.out}: {args.rows} rows, {len(raw)} bytes")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

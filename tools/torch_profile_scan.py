@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's device Parquet scan goes, on one GPU.
+
+    python3 tools/torch_profile_scan.py [--seed N] [--out DIR]
+
+Writes the two lineitem files of ``chip_smoke.py`` phase 5 (SF1, 6,001,215
+rows; and 1,048,576 rows with 10% nulls), then, after one warm-up each,
+profiles with ``torch.profiler`` one call of: the SF1 ``scan_table``, the
+nulls-file ``scan_table``, Q6 on the SF1 file, the materialization of the
+SF1 table's four dictionary-string columns, and ``convert_to_rows`` of the
+scanned SF1 table.  For each it prints the host wall time, the scan's host
+spans (page walk, slab upload, decode launches; ``parquet.scan.*`` in
+``device_scan.scan_table``), the device-busy time (the union of the
+kernels' intervals), the device's idle share, and the device ops that took
+the most time.  The full per-op tables go to
+``DIR/torch_profile_scan.txt`` (default ``build/profiles``).  Needs a CUDA
+device; imports the port, never JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPANS = ("parquet.scan.walk", "parquet.scan.upload", "parquet.scan.decode")
+
+
+def _span_ms(prof) -> dict:
+    """Host milliseconds inside each scan span (summed over calls).  A span
+    also appears as a device-side annotation of the same name, whose host
+    time is 0: keep the larger."""
+    out = {}
+    for a in prof.key_averages():
+        if a.key in SPANS:
+            k = a.key.rsplit(".", 1)[1]
+            out[k] = max(out.get(k, 0.0), a.cpu_time_total / 1e3)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import chip_smoke
+    import torch_lineitem_parquet as W
+    from torch_profile_rowconv import (NAME_CHARS, TOP, _busy_us,
+                                       _device_total, profile_call)
+    import spark_rapids_jni_tpu_torch as pt
+    from spark_rapids_jni_tpu_torch import _native
+    from spark_rapids_jni_tpu_torch.models import q6
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+
+    _native.build()
+    card = chip_smoke.phase_device()
+    os.makedirs(args.out, exist_ok=True)
+    report = os.path.join(args.out, "torch_profile_scan.txt")
+    raw, _, _ = W.lineitem_parquet(W.SF1_ROWS, args.seed)
+    raw_n, _, _ = W.lineitem_parquet(
+        chip_smoke.NULL_ROWS, args.seed + 1,
+        row_group_rows=chip_smoke.NULL_ROWS // chip_smoke.NULL_ROW_GROUPS,
+        null_fraction=chip_smoke.NULL_FRACTION, pages_per_chunk=2)
+    lo, hi = chip_smoke.Q6_DATES
+    sf1 = device_scan.scan_table(raw)
+
+    def materialize_all():
+        table = device_scan.scan_table(raw)
+        torch.cuda.synchronize()
+        return table, lambda: [c.materialize() for c in table.columns
+                               if isinstance(c, pt.DictColumn)]
+
+    cases = [
+        ("scan SF1", lambda: device_scan.scan_table(raw)),
+        ("scan nulls", lambda: device_scan.scan_table(raw_n)),
+        ("q6 SF1", lambda: q6.run(raw, lo, hi)),
+        ("materialize SF1 strings", None),
+        ("to_rows SF1 scanned", lambda: pt.convert_to_rows(sf1)),
+    ]
+    with open(report, "w") as fh:
+        for name, fn in cases:
+            if fn is None:
+                materialize_all()[1]()                  # warm-up
+                _, fn = materialize_all()
+            else:
+                fn()                                    # warm-up
+            prof, wall = profile_call(fn)
+            busy = _busy_us(prof)
+            spans = ", ".join(f"{k} {v:.3f} ms"
+                              for k, v in _span_ms(prof).items())
+            avgs = sorted(prof.key_averages(), key=_device_total, reverse=True)
+            top = ", ".join(
+                f"{a.key[:NAME_CHARS]} {_device_total(a) / 1e3:.3f} ms "
+                f"x{a.count}" for a in avgs[:TOP] if _device_total(a) > 0)
+            print(f"[profile] {name}: wall {wall / 1e3:.3f} ms, host spans "
+                  f"[{spans}], device busy {busy / 1e3:.3f} ms, idle share "
+                  f"{1 - busy / wall:.3f}; top device ops: {top} [{card}]",
+                  flush=True)
+            fh.write(f"== {name} ==\n")
+            fh.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+            fh.write("\n")
+    print(f"[profile] per-op tables in {report}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
