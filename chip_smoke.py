@@ -3,37 +3,47 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main path, JCUDF row ↔ column conversion, through its
-public entry points on the card, and fails (non-zero exit, no result line)
-if anything is wrong:
+Drives the port's main paths, JCUDF row ↔ column conversion and the
+device Parquet scan, through their public entry points on the card, and
+fails (non-zero exit, no result line) if anything is wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
    no CUDA device is a failure;
-2. build: compiles the CUDA kernels from ``spark_rapids_jni_tpu_torch/csrc``;
-3. kernels: runs each kernel on the inputs the main path hands it (captured
-   from a run of the 12-column table), holds it byte for byte against its
-   plain PyTorch version, and times both with CUDA events;
+2. build: compiles the CUDA kernels and the host walker from
+   ``spark_rapids_jni_tpu_torch/csrc``, all at once;
+3. kernels: runs B1, B3 and B4 on the inputs the row path hands them
+   (captured from a run of the 12-column table), holds each byte for byte
+   against its plain PyTorch version, and times both with CUDA events; B2
+   is timed once on B1's rows too, the choice the routing rule made;
 4. path: ``convert_to_rows`` → ``convert_from_rows`` round trips of three
    tables from the reference's row-conversion benchmark at 1,048,576 rows
    (212 fixed-width columns; 12 columns with 2 strings of 0-39 chars;
    155 columns with 16 strings of 0-9 chars), each required to give back
    every column exactly, its first 10,000 rows held against the numpy
-   oracle, and the kernel launch counts read around each run;
-5. scan: the device Parquet scan (``parquet.device_scan.scan_table``) of
-   TPC-H SF1 lineitem (6,001,215 rows, 15 columns, row groups of
-   1,048,576 rows, 1 MiB pages, written by ``tools/torch_lineitem_parquet.py``),
-   timed, every row of every column required equal to the generator's
-   arrays, dictionary strings materialized and held likewise;
-   5b: a second file of 1,048,576 rows, OPTIONAL columns with 10% nulls,
-   4 row groups and 2 pages a chunk, exact likewise;
+   oracle, and the kernel launch counts read around each run; for each
+   table with strings, B1 and B2 timed on the rows its to_rows packs;
+5. scan: TPC-H SF1 lineitem with all 16 columns (6,001,215 rows, row
+   groups of 1,048,576 rows, 1 MiB pages, ``l_comment`` PLAIN, written by
+   ``tools/torch_lineitem_parquet.py``); the device Parquet scan
+   (``parquet.device_scan.scan_table``) of its first 15 columns, as
+   earlier runs scanned them, timed, every row of every column required
+   equal to the generator's arrays, dictionary strings materialized and
+   held likewise; 5b: a 15-column file of 1,048,576 rows, OPTIONAL
+   columns with 10% nulls, 4 row groups and 2 pages a chunk, exact
+   likewise;
 6. Q6 and rows: ``models.q6.run`` on the SF1 file against numpy and
    ``math.fsum``, then the scanned 15-column table through
    ``convert_to_rows`` → ``convert_from_rows``, exact, its first 10,000
    rows held against the numpy oracle;
-7. scan kernels: B5–B7 on the largest inputs the scan and the
+7. scan kernels: B2 and B5–B7 on the largest inputs the scan and the
    materialization hand them, each held byte for byte against its plain
    version and timed with CUDA events beside one PyTorch call that
-   computes the same function, where there is one.
+   computes the same function, where there is one;
+8. full table: the scan of all 16 columns, timed, ``l_comment`` equal to
+   the generator's chars row for row, then the table through
+   ``convert_to_rows`` → ``convert_from_rows`` in one batch (about 1 GB of
+   rows), exact, its first 10,000 rows held against the numpy oracle.
+   This path launches every kernel, B1–B7.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON.  Tables and files are
@@ -72,30 +82,36 @@ CASES = {
 # the fixed-width cycle of benchmarks/datagen.py:22-36
 FIXED_CYCLE = ("INT64", "INT32", "INT16", "INT8", "FLOAT32", "BOOL8")
 
-SOURCE = "spark_rapids_jni_tpu_torch/csrc/ragged.cu"
-REPLACES = {
-    "pack_rows": "spark_rapids_jni_tpu/rowconv/ragged.py:291",
-    "unpack_rows": "spark_rapids_jni_tpu/rowconv/ragged.py:417",
-    "segmented_copy": "spark_rapids_jni_tpu/rowconv/ragged.py:559",
+# every kernel, in the order of the kernel table (B1-B7): its source, the
+# TPU kernel it replaces, and the run its inputs are captured from
+# ("to_rows" / "from_rows": phase 3's 12-column table; "scan": phase 7)
+KERNELS = {
+    "pack_windows": ("spark_rapids_jni_tpu_torch/csrc/xpack.cu",
+                     "spark_rapids_jni_tpu/rowconv/xpallas.py:186", "to_rows"),
+    "pack_rows": ("spark_rapids_jni_tpu_torch/csrc/ragged.cu",
+                  "spark_rapids_jni_tpu/rowconv/ragged.py:291", "scan"),
+    "unpack_rows": ("spark_rapids_jni_tpu_torch/csrc/ragged.cu",
+                    "spark_rapids_jni_tpu/rowconv/ragged.py:417", "from_rows"),
+    "segmented_copy": ("spark_rapids_jni_tpu_torch/csrc/ragged.cu",
+                       "spark_rapids_jni_tpu/rowconv/ragged.py:559", "to_rows"),
+    "extract_rows": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
+                     "spark_rapids_jni_tpu/rowconv/xpallas.py:312", "scan"),
+    "gather_rows": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
+                    "spark_rapids_jni_tpu/rowconv/xpallas.py:405", "scan"),
+    "u8_to_u32": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
+                  "spark_rapids_jni_tpu/rowconv/xpallas.py:486", "scan"),
 }
-SCAN_SOURCE = "spark_rapids_jni_tpu_torch/csrc/bytepath.cu"
-SCAN_REPLACES = {
-    "extract_rows": "spark_rapids_jni_tpu/rowconv/xpallas.py:312",
-    "gather_rows": "spark_rapids_jni_tpu/rowconv/xpallas.py:405",
-    "u8_to_u32": "spark_rapids_jni_tpu/rowconv/xpallas.py:486",
-}
-SCAN_LIBRARY = {
-    "extract_rows": None,
+# one PyTorch call computing the same function, where there is one
+LIBRARY = {
     "gather_rows": "torch.index_select(mat, 0, idx)",
     "u8_to_u32": "src[s:s+4n].clone().view(torch.int32)",
 }
+# the kernels whose wrappers phase 7 records
+SCAN_KERNELS = ("pack_rows", "extract_rows", "gather_rows", "u8_to_u32")
 NULL_ROWS = 1 << 20
 NULL_ROW_GROUPS = 4
 Q6_DATES = (8766, 9131)          # [1994-01-01, 1995-01-01) in epoch days
 Q6_REL_TOL = 1e-12
-# the path call whose inputs each kernel is measured on
-MEASURED_CALL = {"pack_rows": "to_rows", "unpack_rows": "from_rows",
-                 "segmented_copy": "to_rows"}
 
 
 class SmokeFailure(RuntimeError):
@@ -163,6 +179,10 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
 
 def bytes_moved(name: str, args) -> int:
     """Bytes a kernel must read once and write once on these inputs."""
+    if name == "pack_windows":
+        dense, dst, total_w = args
+        payload = int((dst[1:] - dst[:-1]).clamp(0, dense.shape[1]).sum())
+        return 4 * payload + dst.numel() * 8 + 4 * total_w
     if name == "pack_rows":
         dense, offs, total = args
         payload = int((offs[1:] - offs[:-1]).clamp(0, dense.shape[1]).sum())
@@ -198,23 +218,47 @@ def phase_device() -> str:
 def phase_build(native) -> None:
     t0 = time.perf_counter()
     logs = native.build()
-    log(f"[build] {', '.join(native.library_path(s).name for s in native.SOURCES)}"
-        f" in {time.perf_counter() - t0:.2f} s")
+    names = (native.library_path(s).name
+             for s in native.SOURCES + native.HOST_SOURCES)
+    log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.strip().splitlines():
             log(f"[build] {name}: {line}")
 
 
-def capture_path_inputs(pt, ragged, table) -> dict:
-    """Runs the round trip once with every kernel wrapper recording the
-    first inputs it is given in each direction."""
+class Kernels:
+    """The kernel modules, their wrappers by name and their launch counts."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.module_of = {fn.__name__: m for m in modules for fn in m.KERNELS}
+
+    def wrapper(self, name):
+        return getattr(self.module_of[name], name)
+
+    def plain(self, name):
+        return getattr(self.module_of[name], name + "_plain")
+
+    def reset(self) -> None:
+        for m in self.modules:
+            m.reset_launches()
+
+    def counts(self) -> dict:
+        out = {}
+        for m in self.modules:
+            out.update(m.launch_counts())
+        return out
+
+
+def record_inputs(kernels, names, keep, run) -> dict:
+    """Calls ``run()`` with the wrappers of ``names`` recording their
+    inputs: ``keep(captured, name, args)`` decides what is kept."""
     captured = {}
-    originals = {fn.__name__: fn for fn in ragged.KERNELS}
-    direction = ["to_rows"]
+    originals = {name: kernels.wrapper(name) for name in names}
 
     def recorder(fn):
         def wrapper(*args):
-            captured.setdefault((direction[0], fn.__name__), args)
+            keep(captured, fn.__name__, args)
             return fn(*args)
         # a wrapper counts its launches on the module's name for it, which
         # is this recorder while the capture runs; those launches are not
@@ -224,45 +268,103 @@ def capture_path_inputs(pt, ragged, table) -> dict:
 
     try:
         for name, fn in originals.items():
-            setattr(ragged, name, recorder(fn))
-        batch = pt.convert_to_rows(table)[0]
-        direction[0] = "from_rows"
-        pt.convert_from_rows(batch, table.schema)
+            setattr(kernels.module_of[name], name, recorder(fn))
+        run()
     finally:
         for name, fn in originals.items():
-            setattr(ragged, name, fn)
+            setattr(kernels.module_of[name], name, fn)
     torch.cuda.synchronize()
     return captured
 
 
-def phase_kernels(pt, ragged, table) -> dict:
-    captured = capture_path_inputs(pt, ragged, table)
+def measure(kernels, name, args, card, what, library=None) -> dict:
+    """One kernel against its plain version on ``args``: equal, its error,
+    both times, its bound and the library call's time."""
+    kernel, plain = kernels.wrapper(name), kernels.plain(name)
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    equal = got.shape == want.shape and torch.equal(got, want)
+    err = 0
+    if got.shape == want.shape and got.numel():
+        diff = (got.contiguous().view(torch.uint8).to(torch.int16)
+                - want.contiguous().view(torch.uint8).to(torch.int16))
+        err = int(diff.abs().max())
+    require(equal, f"{name} ({what}) disagrees with its plain version")
+    ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+    library_ms = None
+    if library is not None:
+        require(torch.equal(library(), got), f"{name}: library call differs")
+        library_ms = time_cuda(library, KERNEL_REPS)
+    nbytes = (scan_bytes_moved(name, args) if what == "scan"
+              else bytes_moved(name, args))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    shape = describe(args)
+    if name == "extract_rows":
+        shape[1] = [len(args[1])]           # host offsets: their count
+    log(f"[kernels] {name} ({what}) inputs {shape}: equal={equal} "
+        f"max_abs_err={err} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
+        f"bound {bound_ms:.4f} ms for {nbytes} bytes) plain {plain_ms:.4f} ms"
+        f" library_ms "
+        f"{'null' if library_ms is None else f'{library_ms:.4f}'} [{card}]")
+    return dict(equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=library_ms, bytes=nbytes,
+                shape=shape, measured_in=what)
+
+
+def phase_kernels(pt, kernels, table, card) -> dict:
+    """Phase 3: B1, B3 and B4 on the inputs the 12-column table's round
+    trip hands them; B2 timed on B1's rows as bytes."""
+    direction = ["to_rows"]
+
+    def keep(captured, name, args):
+        captured.setdefault((direction[0], name), args)
+
+    def run():
+        batch = pt.convert_to_rows(table)[0]
+        direction[0] = "from_rows"
+        pt.convert_from_rows(batch, table.schema)
+
+    captured = record_inputs(
+        kernels, ("pack_windows", "pack_rows", "unpack_rows",
+                  "segmented_copy"), keep, run)
+    require(("to_rows", "pack_rows") not in captured,
+            "to_rows packed its rows with B2, not B1")
     results = {}
-    for (direction, name), args in sorted(captured.items()):
-        kernel = getattr(ragged, name)
-        plain = getattr(ragged, name + "_plain")
-        got = kernel(*args)
-        want = plain(*args)
-        torch.cuda.synchronize()
-        equal = got.shape == want.shape and torch.equal(got, want)
-        err = (int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
-               if got.shape == want.shape and got.numel() else 0)
-        ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
-        plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
-        nbytes = bytes_moved(name, args)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[kernels] {name} ({direction}) inputs {describe(args)}: "
-            f"equal={equal} max_abs_err={err} {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s; bound {bound_ms:.4f} ms for "
-            f"{nbytes} bytes) plain {plain_ms:.4f} ms library_ms null")
-        require(equal, f"{name} ({direction}) disagrees with its plain version")
-        results[(direction, name)] = dict(
-            equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bytes=nbytes, shape=describe(args))
-    for name in REPLACES:
-        require((MEASURED_CALL[name], name) in results,
-                f"the path never called {name} in {MEASURED_CALL[name]}")
+    for (direction_, name), args in sorted(captured.items()):
+        results[(direction_, name)] = measure(kernels, name, args, card,
+                                              direction_)
+    for name, (_, _, where) in KERNELS.items():
+        if where != "scan":
+            require((where, name) in results,
+                    f"the row path never called {name} in {where}")
+
+    # what the routing rule chose between: B2 on the same rows
+    _, b2_ms = compare_routes(kernels, captured[("to_rows", "pack_windows")],
+                              "12 columns", card)
+    results[("to_rows", "pack_windows")]["b2_same_rows_ms"] = b2_ms
     return results
+
+
+def compare_routes(kernels, args, what, card) -> tuple:
+    """B1 and B2 on the same rows (B2's as bytes at byte offsets): equal
+    output, and the time of each by CUDA events."""
+    from spark_rapids_jni_tpu_torch.rowconv.convert import _reinterpret
+    dense_w, dst_w, total_w = args
+    b2_args = (_reinterpret(dense_w, torch.uint8), dst_w * 4, total_w * 4)
+    b1, b2 = kernels.wrapper("pack_windows"), kernels.wrapper("pack_rows")
+    b1_out, b2_out = b1(*args), b2(*b2_args)
+    torch.cuda.synchronize()
+    require(torch.equal(_reinterpret(b1_out, torch.uint8), b2_out),
+            f"{what}: B1 and B2 pack the same rows differently")
+    del b1_out, b2_out
+    b1_ms = time_cuda(lambda: b1(*args), KERNEL_REPS)
+    b2_ms = time_cuda(lambda: b2(*b2_args), KERNEL_REPS)
+    log(f"[kernels] routing ({what}): on the same {total_w * 4} row bytes "
+        f"(rows of {dense_w.shape[1] * 4} bytes padded) B1 pack_windows "
+        f"{b1_ms:.4f} ms, B2 pack_rows {b2_ms:.4f} ms [{card}]")
+    return b1_ms, b2_ms
 
 
 def check_round_trip(table, back) -> None:
@@ -288,8 +390,14 @@ def check_oracle(convert, reference, table, batch, k: int) -> None:
     require(np.array_equal(got, want), "row bytes differ from the numpy oracle")
 
 
-def phase_path(pt, T, interop, convert, reference, ragged, card, seed, rows):
-    launches = {fn.__name__: 0 for fn in ragged.KERNELS}
+def add_counts(launches: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        launches[k] += v
+
+
+def phase_path(pt, T, interop, convert, reference, kernels, card, seed, rows,
+               launches):
+    """Phase 4: the three tables of the row-conversion benchmark."""
     for ci, (case, (n_cols, every, max_len)) in enumerate(CASES.items()):
         rng = np.random.default_rng(seed + ci)
         t0 = time.perf_counter()
@@ -301,43 +409,38 @@ def phase_path(pt, T, interop, convert, reference, ragged, card, seed, rows):
         torch.cuda.reset_peak_memory_stats()
 
         counts = {}
-        ragged.reset_launches()
+        kernels.reset()
         t0 = time.perf_counter()
         batches = pt.convert_to_rows(table)
         torch.cuda.synchronize()
         first_to = time.perf_counter() - t0
-        counts["to_rows"] = ragged.launch_counts()
+        counts["to_rows"] = kernels.counts()
         require(len(batches) == 1, f"{case}: expected one batch")
         batch = batches[0]
-        ragged.reset_launches()
+        kernels.reset()
         t0 = time.perf_counter()
         back = pt.convert_from_rows(batch, table.schema)
         torch.cuda.synchronize()
         first_from = time.perf_counter() - t0
-        counts["from_rows"] = ragged.launch_counts()
+        counts["from_rows"] = kernels.counts()
 
         check_round_trip(table, back)
         check_oracle(convert, reference, table, batch, ORACLE_ROWS)
         for d in counts.values():
-            for k, v in d.items():
-                launches[k] += v
+            add_counts(launches, d)
         if every:
-            for name in launches:
+            # B1 packs the rows; B3 and B4 move the chars and fixed region
+            for name in ("pack_windows", "unpack_rows", "segmented_copy"):
                 require(sum(d[name] for d in counts.values()) > 0,
                         f"{case}: {name} never launched on the path")
+            require(counts["to_rows"]["pack_rows"] == 0,
+                    f"{case}: to_rows launched B2")
 
         times = {}
         for direction, fn in (("to_rows", lambda: pt.convert_to_rows(table)),
                               ("from_rows", lambda: pt.convert_from_rows(
                                   batch, table.schema))):
-            reps = []
-            for _ in range(PATH_REPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                reps.append(time.perf_counter() - t0)
-            times[direction] = statistics.median(reps)
+            times[direction] = median_wall(fn)
         nbytes = batch.num_bytes
         for direction, first in (("to_rows", first_to),
                                  ("from_rows", first_from)):
@@ -349,13 +452,20 @@ def phase_path(pt, T, interop, convert, reference, ragged, card, seed, rows):
         log(f"[path] {case}: round trip exact, first {ORACLE_ROWS} rows equal "
             f"the oracle, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        del table, batches, batch, back
+        del batches, back
+        if every:
+            captured = record_inputs(
+                kernels, ("pack_windows",),
+                lambda c, name, args: c.setdefault(name, args),
+                lambda: pt.convert_to_rows(table))
+            compare_routes(kernels, captured["pack_windows"], case, card)
+            del captured
+        del table, batch
         torch.cuda.empty_cache()
-    return launches
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7: the device Parquet scan, Q6 and the scan kernels
+# phases 5-8: the device Parquet scan, Q6, the scan kernels, the full table
 # ---------------------------------------------------------------------------
 
 def median_wall(fn, reps: int = PATH_REPS) -> float:
@@ -385,11 +495,13 @@ def expected_chars(vocab: list, codes: np.ndarray, valid) -> tuple:
 
 def check_scanned(pt, W, table, data, validity, what: str) -> None:
     """Every row of every column equals the generator's arrays
-    (vectorised on the card); dictionary strings also by their codes."""
+    (vectorised on the card); dictionary strings also by their codes,
+    PLAIN strings by their chars and offsets."""
+    names = [name for name, *_ in W.LINEITEM][:table.num_columns]
     require([c.num_rows for c in table.columns] ==
-            [data[name].shape[0] for name, *_ in W.LINEITEM],
+            [data["l_orderkey"].shape[0]] * len(names),
             f"{what}: row counts differ")
-    for (name, *_), col in zip(W.LINEITEM, table.columns):
+    for name, col in zip(names, table.columns):
         v = validity.get(name)
         valid = None if v is None else torch.from_numpy(v).cuda()
         require(torch.equal(col.validity_or_true(),
@@ -397,6 +509,17 @@ def check_scanned(pt, W, table, data, validity, what: str) -> None:
                             else torch.ones_like(col.validity_or_true())),
                 f"{what}: {name} validity differs")
         want = data[name]
+        if name == "l_comment":
+            require(v is None, f"{what}: l_comment is checked without nulls")
+            require(not isinstance(col, pt.DictColumn),
+                    f"{what}: l_comment is a DictColumn")
+            chars, offs = want
+            require(torch.equal(col.offsets, torch.from_numpy(
+                offs.astype(np.int32)).cuda()),
+                f"{what}: l_comment offsets differ")
+            require(torch.equal(col.data, torch.from_numpy(chars).cuda()),
+                    f"{what}: l_comment chars differ")
+            continue
         if name in W.VOCAB:
             require(isinstance(col, pt.DictColumn),
                     f"{what}: {name} is not a DictColumn")
@@ -426,47 +549,61 @@ def check_materialized(W, table, data, validity, what: str) -> None:
                 f"{what}: {name} materialized chars differ")
 
 
-def phase_scan(pt, W, device_scan, bytepath, ragged, card, seed, launches):
-    """Phases 5 and 5b.  Returns the SF1 file and its generator arrays."""
+def column_chunk_bytes(raw: bytes, names) -> int:
+    """The bytes of the column chunks of ``names`` in a Parquet file."""
+    from spark_rapids_jni_tpu_torch.parquet import decode as D
+    from spark_rapids_jni_tpu_torch.parquet.footer import extract_footer_bytes
+    from spark_rapids_jni_tpu_torch.parquet.thrift import parse_struct
+    meta = parse_struct(bytes(extract_footer_bytes(memoryview(raw))))
+    leaves = [leaf.name for leaf in D.leaf_schema_elements(meta)]
+    want = {leaves.index(name) for name in names}
+    return sum(chunk.get(D.CC.META_DATA).get(D.CMD.TOTAL_COMPRESSED_SIZE)
+               for g in meta.get(D.FMD.ROW_GROUPS).values
+               for i, chunk in enumerate(g.get(D.RG.COLUMNS).values)
+               if i in want)
+
+
+def phase_scan(pt, W, device_scan, kernels, card, seed, launches):
+    """Phases 5 and 5b.  Returns the SF1 file, its generator arrays and
+    the names of its first 15 columns."""
     t0 = time.perf_counter()
     raw, data, _ = W.lineitem_parquet(W.SF1_ROWS, seed)
     log(f"[scan] SF1 lineitem: {W.SF1_ROWS} rows, {len(W.LINEITEM)} columns,"
         f" {len(raw)} file bytes, written in {time.perf_counter() - t0:.2f} s")
+    cols15 = [name for name, *_ in W.LINEITEM_NO_COMMENT]
+    bytes15 = column_chunk_bytes(raw, cols15)
 
-    ragged.reset_launches()
-    bytepath.reset_launches()
+    kernels.reset()
     t0 = time.perf_counter()
-    table = device_scan.scan_table(raw)
+    table = device_scan.scan_table(raw, columns=cols15)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     check_scanned(pt, W, table, data, {}, "SF1")
     check_materialized(W, table, data, {}, "SF1")
     torch.cuda.synchronize()
-    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
-    for k, v in counts.items():
-        launches[k] += v
-    for name in SCAN_REPLACES:
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for name in ("extract_rows", "gather_rows", "u8_to_u32", "pack_rows"):
         require(counts[name] > 0, f"scan: {name} never launched on the path")
     log(f"[scan] SF1: every row of every column equals the generator; "
         f"launches (scan + materialize) {counts}")
     del table
-    wall = median_wall(lambda: device_scan.scan_table(raw))
-    log(f"[scan] SF1 scan_table: {len(raw)} bytes, first {first * 1e3:.3f} ms"
-        f", median of {PATH_REPS} {wall * 1e3:.3f} ms = "
-        f"{len(raw) / wall / 1e9:.3f} GB/s [{card}]")
+    wall = median_wall(lambda: device_scan.scan_table(raw, columns=cols15))
+    log(f"[scan] SF1 scan_table of the first 15 columns: their chunks hold "
+        f"{bytes15} bytes, first {first * 1e3:.3f} ms, median of {PATH_REPS} "
+        f"{wall * 1e3:.3f} ms = {bytes15 / wall / 1e9:.3f} GB/s [{card}]")
 
     raw_n, data_n, valid_n = W.lineitem_parquet(
         NULL_ROWS, seed + 1, row_group_rows=NULL_ROWS // NULL_ROW_GROUPS,
-        null_fraction=NULL_FRACTION, pages_per_chunk=2)
-    ragged.reset_launches()
-    bytepath.reset_launches()
+        null_fraction=NULL_FRACTION, pages_per_chunk=2,
+        columns=W.LINEITEM_NO_COMMENT)
+    kernels.reset()
     table = device_scan.scan_table(raw_n)
     check_scanned(pt, W, table, data_n, valid_n, "nulls")
     check_materialized(W, table, data_n, valid_n, "nulls")
     torch.cuda.synchronize()
-    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
-    for k, v in counts.items():
-        launches[k] += v
+    counts = kernels.counts()
+    add_counts(launches, counts)
     wall = median_wall(lambda: device_scan.scan_table(raw_n))
     log(f"[scan] nulls: {NULL_ROWS} rows, {NULL_ROW_GROUPS} row groups, "
         f"{NULL_FRACTION:.0%} nulls, {len(raw_n)} bytes: exact; median of "
@@ -474,18 +611,44 @@ def phase_scan(pt, W, device_scan, bytepath, ragged, card, seed, launches):
         f"GB/s; launches {counts} [{card}]")
     del table
     torch.cuda.empty_cache()
-    return raw, data
+    return raw, data, cols15
 
 
-def phase_q6_rows(pt, W, device_scan, q6, convert, reference, bytepath,
-                  ragged, card, raw, data, launches):
-    """Phase 6: Q6 on the SF1 file, then the scanned table through rows."""
+def rows_round_trip(pt, convert, reference, kernels, table, what, card,
+                    launches) -> dict:
+    """``table`` → rows → back, exact, the first rows against the oracle;
+    returns the launch counts of the two calls."""
+    kernels.reset()
+    t0 = time.perf_counter()
+    batches = pt.convert_to_rows(table)
+    torch.cuda.synchronize()
+    to_s = time.perf_counter() - t0
+    require(len(batches) == 1, f"{what}: expected one row batch")
+    batch = batches[0]
+    t0 = time.perf_counter()
+    back = pt.convert_from_rows(batch, table.schema)
+    torch.cuda.synchronize()
+    from_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    check_round_trip(table, back)
+    check_oracle(convert, reference, table, batch, ORACLE_ROWS)
+    log(f"[rows] {what}: {batch.num_bytes} row bytes, to_rows "
+        f"(DictColumns materialized) {to_s * 1e3:.3f} ms, from_rows "
+        f"{from_s * 1e3:.3f} ms; round trip exact, first {ORACLE_ROWS} rows "
+        f"equal the oracle; launches {counts} [{card}]")
+    return counts
+
+
+def phase_q6_rows(pt, W, device_scan, q6, convert, reference, kernels, card,
+                  raw, data, cols15, launches):
+    """Phase 6: Q6 on the SF1 file, then the scanned 15 columns through
+    rows."""
     import math
     lo, hi = Q6_DATES
-    ragged.reset_launches()
-    bytepath.reset_launches()
+    kernels.reset()
     revenue, matched = q6.run(raw, lo, hi)
-    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    counts = kernels.counts()
     mask = ((data["l_shipdate"] >= lo) & (data["l_shipdate"] < hi)
             & (data["l_discount"] >= 0.05 - 1e-9)
             & (data["l_discount"] <= 0.07 + 1e-9)
@@ -501,40 +664,64 @@ def phase_q6_rows(pt, W, device_scan, q6, convert, reference, bytepath,
     log(f"[q6] SF1: matched {matched} (numpy equal), revenue {revenue!r} "
         f"vs fsum {want!r} (relative {rel:.3e} <= {Q6_REL_TOL}); median of "
         f"{PATH_REPS} {wall * 1e3:.3f} ms; launches {counts} [{card}]")
-    for k, v in counts.items():
-        launches[k] += v
+    add_counts(launches, counts)
 
+    table = device_scan.scan_table(raw, columns=cols15)
+    torch.cuda.synchronize()
+    counts = rows_round_trip(pt, convert, reference, kernels, table,
+                             "SF1 scanned 15 columns", card, launches)
+    for name in ("extract_rows", "gather_rows", "pack_rows", "pack_windows"):
+        require(counts[name] > 0, f"rows: {name} never launched")
+    del table
+    torch.cuda.empty_cache()
+
+
+def phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
+                     raw, data, launches):
+    """Phase 8: all 16 columns scanned (PLAIN ``l_comment`` among them),
+    then through rows and back."""
+    kernels.reset()
+    t0 = time.perf_counter()
     table = device_scan.scan_table(raw)
     torch.cuda.synchronize()
-    ragged.reset_launches()
-    bytepath.reset_launches()
-    t0 = time.perf_counter()
-    batches = pt.convert_to_rows(table)
+    first = time.perf_counter() - t0
+    scan_counts = kernels.counts()
+    check_scanned(pt, W, table, data, {}, "SF1 16 columns")
+    require(scan_counts["segmented_copy"] > 0,
+            "full scan: B4 never stripped the PLAIN prefixes")
     torch.cuda.synchronize()
-    to_s = time.perf_counter() - t0
-    require(len(batches) == 1, "scanned table: expected one row batch")
-    batch = batches[0]
-    t0 = time.perf_counter()
-    back = pt.convert_from_rows(batch, table.schema)
-    torch.cuda.synchronize()
-    from_s = time.perf_counter() - t0
-    counts = {**ragged.launch_counts(), **bytepath.launch_counts()}
-    for k, v in counts.items():
-        launches[k] += v
-    for name in ("extract_rows", "gather_rows", "pack_rows"):
-        require(counts[name] > 0, f"rows: {name} never launched")
-    check_round_trip(table, back)
-    check_oracle(convert, reference, table, batch, ORACLE_ROWS)
-    log(f"[rows] SF1 scanned table: {batch.num_bytes} row bytes, to_rows "
-        f"(DictColumns materialized) {to_s * 1e3:.3f} ms, from_rows "
-        f"{from_s * 1e3:.3f} ms; round trip exact, first {ORACLE_ROWS} rows "
-        f"equal the oracle; launches {counts} [{card}]")
-    del table, batches, batch, back
+    add_counts(launches, kernels.counts())
+    log(f"[full] SF1 16 columns: every row of every column equals the "
+        f"generator, l_comment's {data['l_comment'][0].shape[0]} chars row "
+        f"for row; launches (scan) {scan_counts}")
+    counts = rows_round_trip(pt, convert, reference, kernels, table,
+                             "SF1 16 columns", card, launches)
+    for name in KERNELS:
+        if name != "u8_to_u32":          # B7 ran in the scan
+            require(counts[name] > 0, f"full rows: {name} never launched")
+    del table
+    torch.cuda.empty_cache()
+    wall = median_wall(lambda: device_scan.scan_table(raw))
+    log(f"[full] SF1 scan_table of 16 columns: {len(raw)} file bytes, "
+        f"first {first * 1e3:.3f} ms, median of {PATH_REPS} "
+        f"{wall * 1e3:.3f} ms = {len(raw) / wall / 1e9:.3f} GB/s [{card}]")
+    table = device_scan.scan_table(raw)
+    to_wall = median_wall(lambda: pt.convert_to_rows(table))
+    batch = pt.convert_to_rows(table)[0]
+    from_wall = median_wall(lambda: pt.convert_from_rows(batch, table.schema))
+    log(f"[full] SF1 16 columns rows: {batch.num_bytes} row bytes; to_rows "
+        f"(DictColumns materialized once, before) median of {PATH_REPS} "
+        f"{to_wall * 1e3:.3f} ms = {batch.num_bytes / to_wall / 1e9:.3f} "
+        f"GB/s; from_rows {from_wall * 1e3:.3f} ms = "
+        f"{batch.num_bytes / from_wall / 1e9:.3f} GB/s [{card}]")
+    del table, batch
     torch.cuda.empty_cache()
 
 
 def scan_bytes_moved(name: str, args) -> int:
     """Bytes a scan kernel must read once and write once on these inputs."""
+    if name == "pack_rows":
+        return bytes_moved(name, args)
     if name == "extract_rows":
         flat, offs, M = args
         offs = np.asarray(offs, np.int64)
@@ -557,76 +744,29 @@ def library_call(name: str, args):
     return None
 
 
-def capture_scan_inputs(W, device_scan, bytepath, raw) -> dict:
-    """Runs the SF1 scan and the materialization of its dictionary
-    strings once with each scan-kernel wrapper recording its inputs;
-    keeps, per kernel, the call that moves the most bytes."""
-    captured = {}
-    originals = {fn.__name__: fn for fn in bytepath.KERNELS}
+def phase_scan_kernels(device_scan, kernels, raw, cols15, card) -> dict:
+    """Phase 7: B2 and B5-B7 on the largest inputs (by bytes moved) that
+    the scan of the 15 columns and the materialization of its dictionary
+    strings hand them."""
+    def keep(captured, name, args):
+        nb = scan_bytes_moved(name, args)
+        old = captured.get(name)
+        if old is None or nb > old[0]:
+            captured[name] = (nb, args)
 
-    def recorder(fn):
-        def wrapper(*args):
-            nb = scan_bytes_moved(fn.__name__, args)
-            old = captured.get(fn.__name__)
-            if old is None or nb > old[0]:
-                captured[fn.__name__] = (nb, args)
-            return fn(*args)
-        wrapper.launches = 0     # not the main path's: dropped with it
-        return wrapper
-
-    try:
-        for name, fn in originals.items():
-            setattr(bytepath, name, recorder(fn))
-        table = device_scan.scan_table(raw)
+    def run():
+        table = device_scan.scan_table(raw, columns=cols15)
         for col in table.columns:
             if hasattr(col, "materialize"):
                 col.materialize()
-    finally:
-        for name, fn in originals.items():
-            setattr(bytepath, name, fn)
-    torch.cuda.synchronize()
-    return {k: v[1] for k, v in captured.items()}
 
-
-def phase_scan_kernels(W, device_scan, bytepath, raw, card) -> dict:
-    captured = capture_scan_inputs(W, device_scan, bytepath, raw)
+    captured = record_inputs(kernels, SCAN_KERNELS, keep, run)
     results = {}
-    for name in SCAN_REPLACES:
+    for name in SCAN_KERNELS:
         require(name in captured, f"the scan never called {name}")
-        args = captured[name]
-        kernel = getattr(bytepath, name)
-        plain = getattr(bytepath, name + "_plain")
-        got = kernel(*args)
-        want = plain(*args)
-        torch.cuda.synchronize()
-        equal = got.shape == want.shape and torch.equal(got, want)
-        err = 0
-        if got.shape == want.shape and got.numel():
-            diff = (got.view(torch.uint8).to(torch.int16)
-                    - want.view(torch.uint8).to(torch.int16))
-            err = int(diff.abs().max())
-        require(equal, f"{name} disagrees with its plain version")
-        ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
-        plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+        args = captured[name][1]
         lib = library_call(name, args)
-        library_ms = None
-        if lib is not None:
-            require(torch.equal(lib(), got), f"{name}: library call differs")
-            library_ms = time_cuda(lib, KERNEL_REPS)
-        nbytes = scan_bytes_moved(name, args)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        shape = describe(args)
-        if name == "extract_rows":
-            shape[1] = [len(args[1])]       # host offsets: their count
-        log(f"[kernels] {name} (scan) inputs {shape}: equal={equal} "
-            f"max_abs_err={err} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
-            f"bound {bound_ms:.4f} ms for {nbytes} bytes) plain "
-            f"{plain_ms:.4f} ms library_ms "
-            f"{'null' if library_ms is None else f'{library_ms:.4f}'} [{card}]")
-        results[name] = dict(equal=equal, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             library_ms=library_ms, bytes=nbytes,
-                             shape=shape)
+        results[name] = measure(kernels, name, args, card, "scan", lib)
     return results
 
 
@@ -643,57 +783,58 @@ def main(argv=None) -> int:
     from spark_rapids_jni_tpu_torch.models import q6
     from spark_rapids_jni_tpu_torch.parquet import device_scan
     from spark_rapids_jni_tpu_torch.rowconv import (bytepath, convert, ragged,
-                                                    reference)
+                                                    reference, xpack)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tools"))
     import torch_lineitem_parquet as W
 
     phase_build(_native)
+    kernels = Kernels(xpack, ragged, bytepath)
+    require(list(kernels.module_of) ==
+            ["pack_windows", "pack_rows", "unpack_rows", "segmented_copy",
+             "extract_rows", "gather_rows", "u8_to_u32"] == list(KERNELS),
+            "the kernel table and the kernel modules disagree")
 
     n_cols, every, max_len = CASES["spark_12_2str"]
     table = interop.table_from_numpy(
         make_columns(T, n_cols, every, max_len, ROWS,
                      np.random.default_rng(args.seed + 1)), device="cuda")
-    kernel_results = phase_kernels(pt, ragged, table)
+    results = phase_kernels(pt, kernels, table, card)
     del table
     torch.cuda.empty_cache()
 
-    launches = phase_path(pt, T, interop, convert, reference, ragged, card,
-                          args.seed, ROWS)
-    launches.update({fn.__name__: 0 for fn in bytepath.KERNELS})
-
-    raw, data = phase_scan(pt, W, device_scan, bytepath, ragged, card,
-                           args.seed, launches)
-    phase_q6_rows(pt, W, device_scan, q6, convert, reference, bytepath,
-                  ragged, card, raw, data, launches)
+    launches = {name: 0 for name in KERNELS}
+    phase_path(pt, T, interop, convert, reference, kernels, card, args.seed,
+               ROWS, launches)
+    raw, data, cols15 = phase_scan(pt, W, device_scan, kernels, card,
+                                   args.seed, launches)
+    phase_q6_rows(pt, W, device_scan, q6, convert, reference, kernels, card,
+                  raw, data, cols15, launches)
+    scan_results = phase_scan_kernels(device_scan, kernels, raw, cols15, card)
+    phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
+                     raw, data, launches)
     del data
-    scan_results = phase_scan_kernels(W, device_scan, bytepath, raw, card)
 
-    kernels = []
-    for name, replaces in REPLACES.items():
-        r = kernel_results[(MEASURED_CALL[name], name)]
-        others = [v for (d, k), v in kernel_results.items() if k == name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+    out = []
+    for name, (source, replaces, where) in KERNELS.items():
+        r = scan_results[name] if where == "scan" else results[(where, name)]
+        others = ([r] if where == "scan" else
+                  [v for (d, k), v in results.items() if k == name])
+        require(launches[name] > 0, f"{name} never launched on the main path")
+        entry = {
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(o["max_abs_err"] for o in others),
             "equal": all(o["equal"] for o in others),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "bytes": r["bytes"], "shape": r["shape"],
-            "measured_in": MEASURED_CALL[name]})
-    for name, replaces in SCAN_REPLACES.items():
-        r = scan_results[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SCAN_SOURCE,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "equal": r["equal"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": r["library_ms"], "library": SCAN_LIBRARY[name],
+            "library_ms": r["library_ms"], "library": LIBRARY.get(name),
             "bytes": r["bytes"], "shape": r["shape"],
-            "measured_in": "scan"})
-    log(json.dumps({"card": card, "kernels": kernels}))
+            "measured_in": where}
+        if "b2_same_rows_ms" in r:
+            entry["b2_same_rows_ms"] = r["b2_same_rows_ms"]
+        out.append(entry)
+    log(json.dumps({"card": card, "kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

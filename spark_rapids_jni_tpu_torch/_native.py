@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code: CUDA kernels and host helpers.
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds).  Libraries go to ``build/torch_kernels/`` at the
-root of the checkout, named by a hash of their source and flags, and are
-built at first use: nothing is compiled when a module is imported.
+so a build takes seconds).  Each ``csrc/*.cpp`` source is host code (the
+Parquet scan's PLAIN string walker) and compiles with the host C++ compiler,
+so it builds on a machine without the CUDA toolkit too.  Libraries go to
+``build/torch_kernels/`` at the root of the checkout, named by a hash of
+their source and flags, and are built at first use: nothing is compiled
+when a module is imported.
 """
 
 from __future__ import annotations
@@ -19,14 +22,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("ragged.cu", "bytepath.cu")
+SOURCES = ("ragged.cu", "bytepath.cu", "xpack.cu")
+HOST_SOURCES = ("plain_strings.cpp",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-NVCC_TIMEOUT_S = 600
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+BUILD_TIMEOUT_S = 600
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-# argument types of every C entry point, by library
+# argument types of every C entry point, by library; CUDA entry points
+# return a cudaError_t as int
 SIGNATURES = {
     "ragged": {
         "srjt_pack_rows": (_P, _I64, _I64, _P, _P, _I64, _P),
@@ -38,70 +44,104 @@ SIGNATURES = {
         "srjt_gather_rows": (_P, _I64, _I64, _P, _I64, _P, _P),
         "srjt_u8_to_u32": (_P, _I64, _P, _P),
     },
+    "xpack": {
+        "srjt_pack_windows": (_P, _I64, _I64, _P, _P, _P, _I64, _P),
+    },
+}
+# host entry points: (argument types, result type)
+HOST_SIGNATURES = {
+    "plain_strings": {
+        "srjt_byte_array_offsets": ((_P, _I64, _I64, _P), _I64),
+    },
 }
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _tool(name: str, fallback: str, what: str) -> str:
+    found = shutil.which(name) or fallback
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                           "machine with the CUDA toolkit")
+        raise RuntimeError(f"{name} not found: {what}")
     return found
+
+
+def _command(source: str, out: Path) -> list[str]:
+    src = str(CSRC / source)
+    if source.endswith(".cu"):
+        nvcc = _tool("nvcc", "/usr/local/cuda/bin/nvcc",
+                     "the CUDA kernels build only on a machine with the "
+                     "CUDA toolkit")
+        return [nvcc, *NVCC_FLAGS, "-o", str(out), src]
+    cxx = _tool("c++", "/usr/bin/g++", "the host helpers need a C++ compiler")
+    return [cxx, *HOST_FLAGS, "-o", str(out), src]
 
 
 def library_path(source: str) -> Path:
     src = CSRC / source
+    flags = NVCC_FLAGS if source.endswith(".cu") else HOST_FLAGS
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def build() -> dict[str, str]:
-    """Compile every source that has no library yet, one ``nvcc`` process
-    per source, all started together.  Returns the compiler's output (with
-    each kernel's register and shared-memory use) by library name, for the
-    libraries this call built."""
+def build(sources=SOURCES + HOST_SOURCES) -> dict[str, str]:
+    """Compile every one of ``sources`` that has no library yet, one
+    compiler process per source, all started together.  Returns the
+    compilers' output (with each kernel's register and shared-memory use)
+    by library name, for the libraries this call built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for source in SOURCES:
+    for source in sources:
         lib = library_path(source)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(_command(source, tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
         jobs.append((lib, tmp, proc))
     logs, failures = {}, []
     for lib, tmp, proc in jobs:
         try:
-            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             proc.kill()
             out, _ = proc.communicate()
-            failures.append(f"{lib.name}: nvcc timed out\n{out}")
+            failures.append(f"{lib.name}: compiler timed out\n{out}")
             continue
         logs[lib.stem] = out
         if proc.returncode != 0:
-            failures.append(f"{lib.name}: nvcc exited {proc.returncode}\n{out}")
+            failures.append(f"{lib.name}: compiler exited {proc.returncode}"
+                            f"\n{out}")
             continue
         os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise RuntimeError("native build failed:\n" + "\n".join(failures))
     return logs
 
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``, building it first
-    if needed, with ``argtypes``/``restype`` set for every entry point."""
-    build()
+    """The loaded library built from ``csrc/<name>.cu``, building the CUDA
+    sources first if needed, with ``argtypes``/``restype`` set for every
+    entry point."""
+    build(SOURCES)
     lib = ctypes.CDLL(str(library_path(f"{name}.cu")))
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.srjt_error_string.argtypes = (ctypes.c_int,)
     lib.srjt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cpp`` with the host
+    compiler, building it first if needed; raises if the build fails."""
+    source = f"{name}.cpp"
+    build((source,))
+    lib = ctypes.CDLL(str(library_path(source)))
+    for fn, (argtypes, restype) in HOST_SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
 
 

@@ -3,22 +3,25 @@
 The port's subset of the JAX package's ``parquet/decode.py``: the thrift
 field ids and enums, page decompression, the RLE/bit-packed hybrid decoder,
 the sequential page reader, the leaf-schema walk, and PLAIN decode of
-dictionary pages.  Everything here is host numpy and runs before any byte
-reaches the device (``device_scan.py``).
+dictionary pages, and the offsets walk of PLAIN string pages (a C
+function built at first use, :func:`byte_array_offsets`).  Everything here
+is host code and runs before any byte reaches the device
+(``device_scan.py``).
 
 Outside the port so far, and raised as :class:`NotImplementedError` naming
 the encoding, codec or type (no silent host decode): INT96, BOOLEAN,
-FIXED_LEN_BYTE_ARRAY, BYTE_ARRAY and FLBA decimals, PLAIN-encoded strings,
-the DELTA_* encodings, codecs other than UNCOMPRESSED and SNAPPY, and
-nested (repeated) columns.
+FIXED_LEN_BYTE_ARRAY, BYTE_ARRAY and FLBA decimals, the DELTA_* encodings,
+codecs other than UNCOMPRESSED and SNAPPY, and nested (repeated) columns.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct as _struct
 
 import numpy as np
 
+from .. import _native
 from .. import types as T
 from . import snappy
 from .footer import CC, FMD, RG, SE  # noqa: F401  (re-exported field ids)
@@ -164,34 +167,64 @@ def decode_rle_bitpacked_hybrid(buf, bit_width: int, count: int) -> np.ndarray:
     return out
 
 
-def decode_plain_strings(data, n: int) -> tuple[np.ndarray, np.ndarray]:
+def decode_plain_strings(data, n: int,
+                         column: str = "?") -> tuple[np.ndarray, np.ndarray]:
     """PLAIN BYTE_ARRAY values (a string dictionary page) → (chars uint8
-    with the 4-byte length prefixes stripped, int64 offsets [n+1]).  The
-    walk over the prefixes is a host loop: it serves dictionary pages,
-    whose entry count the page size bounds."""
-    mv = memoryview(data)
-    starts = np.empty(n, dtype=np.int64)
-    offsets = np.zeros(n + 1, dtype=np.int64)
-    pos = 0
-    size = len(mv)
-    unpack = _struct.Struct("<I").unpack_from
-    for i in range(n):
-        if pos + 4 > size:
-            raise ValueError("BYTE_ARRAY page ends inside a length prefix")
-        (ln,) = unpack(mv, pos)
-        pos += 4
-        if pos + ln > size:
-            raise ValueError("BYTE_ARRAY value runs past the end of its page")
-        starts[i] = pos
-        offsets[i + 1] = offsets[i] + ln
-        pos += ln
+    with the 4-byte length prefixes stripped, int64 offsets [n+1])."""
+    offsets = byte_array_offsets(data, n, column).astype(np.int64)
     lens = offsets[1:] - offsets[:-1]
-    total = int(offsets[-1])
-    # char k of the output copies from its entry's start plus its place
-    # within the entry
-    row_of = np.repeat(np.arange(n, dtype=np.int64), lens)
-    src = starts[row_of] + np.arange(total, dtype=np.int64) - offsets[row_of]
+    # value i's chars follow its prefix and the i records before it
+    starts = 4 * np.arange(1, n + 1, dtype=np.int64) + offsets[:-1]
+    src = (np.repeat(starts - offsets[:-1], lens)
+           + np.arange(int(offsets[-1]), dtype=np.int64))
     return np.frombuffer(data, dtype=np.uint8)[src], offsets
+
+
+_MAX_CHARS = 2**31 - 1
+
+
+def byte_array_offsets(page, n: int, column: str = "?") -> np.ndarray:
+    """The int32 char offsets [n+1] of the first ``n`` values of a PLAIN
+    BYTE_ARRAY page (length prefixes excluded); the values take the page's
+    first ``4 * n + offsets[n]`` bytes.  The walk is a C function
+    (``csrc/plain_strings.cpp``), built with the host compiler at first
+    use.  A page that ends inside a value, or whose chars pass 2^31 - 1,
+    raises ``ValueError`` naming ``column``."""
+    buf = np.frombuffer(page, dtype=np.uint8)
+    offs = np.empty(n + 1, dtype=np.int32)
+    fn = _native.host_library("plain_strings").srjt_byte_array_offsets
+    total = fn(buf.ctypes.data_as(ctypes.c_void_p) if buf.size else None,
+               buf.size, n, offs.ctypes.data)
+    if total == -2:
+        raise ValueError(f"column {column}: PLAIN string page holds more "
+                         f"than {_MAX_CHARS} chars")
+    if total < 0:
+        raise ValueError(f"column {column}: PLAIN string page ends inside "
+                         f"one of its {n} values")
+    return offs
+
+
+def byte_array_offsets_plain(page, n: int, column: str = "?") -> np.ndarray:
+    """Python twin of :func:`byte_array_offsets`, for the tests."""
+    mv = memoryview(page).cast("B")
+    offs = np.zeros(n + 1, dtype=np.int32)
+    pos = total = 0
+    for i in range(n):
+        if pos + 4 > len(mv):
+            raise ValueError(f"column {column}: PLAIN string page ends "
+                             f"inside one of its {n} values")
+        (ln,) = _struct.unpack_from("<I", mv, pos)
+        pos += 4
+        if ln > len(mv) - pos:
+            raise ValueError(f"column {column}: PLAIN string page ends "
+                             f"inside one of its {n} values")
+        pos += ln
+        total += ln
+        if total > _MAX_CHARS:
+            raise ValueError(f"column {column}: PLAIN string page holds "
+                             f"more than {_MAX_CHARS} chars")
+        offs[i + 1] = total
+    return offs
 
 
 class PageStream:

@@ -6,25 +6,29 @@ The port's counterpart of the JAX package's ``parquet/device_scan.py``
 same:
 
 * host: footer parse, page walk, decompression, the dictionary pages'
-  length prefixes, and the run headers of definition levels and
-  dictionary codes (``rle_device.parse_runs``).  Every byte range the
-  device needs goes into one slab per file (``staging.Slab``), copied to
-  the card once.
+  length prefixes, the char offsets of PLAIN string pages (a C walker,
+  ``decode.byte_array_offsets``), and the run headers of definition
+  levels and dictionary codes (``rle_device.parse_runs``).  Every byte
+  range the device needs goes into one slab per file (``staging.Slab``),
+  copied to the card once.
 * device: PLAIN payloads and numeric dictionaries become owned words with
-  kernel B7 (``bytepath.u8_to_u32``); level and code runs expand with
-  torch ops (``rle_device.expand``); dictionary gathers and the spread of
-  present values over null slots are torch ops.  A dictionary-encoded
-  string column stays a :class:`DictColumn` (codes and dictionary) unless
+  kernel B7 (``bytepath.u8_to_u32``); PLAIN strings lose their length
+  prefixes in one segmented copy (kernel B4, ``ragged.segmented_copy``);
+  level and code runs expand with torch ops (``rle_device.expand``);
+  dictionary gathers and the spread of present values over null slots are
+  torch ops.  A dictionary-encoded string column stays a
+  :class:`DictColumn` (codes and dictionary) unless
   ``dict_strings=False``; its chars materialize through B5 → B6 → B2.
 
 Column kinds, as in the JAX package: ``plain`` (INT32, INT64, FLOAT,
 DOUBLE and their DATE / TIMESTAMP / DECIMAL annotations), ``dict``
-(dictionary-encoded numerics) and ``dict_str`` (dictionary-encoded
-strings).  Row groups whose dictionaries differ are merged: their
-dictionaries concatenate and their codes are rebased.  Anything else
-raises ``NotImplementedError`` naming what it met; there is no host
-fallback.  FLOAT64 is native ``torch.float64`` (the JAX package stores
-uint32 bit pairs).
+(dictionary-encoded numerics), ``plain_str`` (PLAIN strings) and
+``dict_str`` (dictionary-encoded strings).  Row groups whose dictionaries
+differ are merged: their dictionaries concatenate and their codes are
+rebased.  Anything else, chunks that mix PLAIN and dictionary pages
+included, raises ``NotImplementedError`` naming what it met; there is no
+host fallback.  FLOAT64 is native ``torch.float64`` (the JAX package
+stores uint32 bit pairs).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from torch.profiler import record_function
 
 from .. import types as T
 from ..column import Column, DictColumn, Table, resolve_device
-from ..rowconv import bytepath
+from ..rowconv import bytepath, ragged
 from ..rowconv.convert import _reinterpret
 from . import decode as D
 from . import rle_device as RLE
@@ -60,6 +64,8 @@ class _ChunkWalk:
     n: int = 0                        # values (rows) in the chunk
     n_present: int = 0                # non-null values
     values: list = dataclasses.field(default_factory=list)   # PLAIN ranges
+    # per PLAIN string page: its int32 char offsets (prefixes excluded)
+    str_offsets: list = dataclasses.field(default_factory=list)
     dictionary: object = None         # PLAIN bytes, or (chars, offsets)
     n_dict: int = 0
     idx_plans: list = dataclasses.field(default_factory=list)
@@ -94,7 +100,7 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
             m = header.get(D.PH.DICT_PAGE).get(D.DPH.NUM_VALUES)
             data = D.decompress(raw, codec, usize)
             if is_str:
-                walk.dictionary = D.decode_plain_strings(data, m)
+                walk.dictionary = D.decode_plain_strings(data, m, leaf.path)
             else:
                 if len(data) < m * width:
                     raise ValueError(f"column {leaf.path}: dictionary page "
@@ -135,11 +141,13 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
             n_present = RLE.present_count(plan, leaf.max_def)
         walk.def_plans.append((None if n_present == n else plan, n))
 
-        if enc == D.ENC_PLAIN:
-            if is_str:
-                raise NotImplementedError(
-                    f"column {leaf.path}: PLAIN-encoded BYTE_ARRAY strings "
-                    "are not supported by the port's scan yet")
+        if enc == D.ENC_PLAIN and is_str:
+            offs = D.byte_array_offsets(page_vals, n_present, leaf.path)
+            # the page's records, length prefixes and chars, and no more
+            walk.values.append(page_vals[:4 * n_present + int(offs[-1])])
+            walk.str_offsets.append(offs)
+            page_kind = "plain"
+        elif enc == D.ENC_PLAIN:
             need = n_present * width
             if len(page_vals) < need:
                 raise ValueError(f"column {leaf.path}: PLAIN page holds "
@@ -179,11 +187,16 @@ class _ColumnSpec:
 
     leaf: D.Leaf
     dtype: T.DType
-    kind: str                         # "plain" | "dict" | "dict_str"
+    kind: str                         # "plain" | "dict" | "plain_str" |
+    #                                   "dict_str"
     n: int
     n_present: int
     values: tuple = (0, 0)            # (byte offset, bytes): PLAIN values,
-    #                                   dictionary values or chars
+    #                                   PLAIN string records, dictionary
+    #                                   values or chars
+    str_offsets: tuple = (0, 0)       # PLAIN strings: (byte offset, bytes)
+    #                                   of int32 char offsets [n_present+1]
+    n_chars: int = 0
     n_dict: int = 0
     dict_offsets: Optional[np.ndarray] = None     # int64 [D+1], strings
     idx_runs: tuple = (0, 0)          # (int64 offset, runs)
@@ -222,7 +235,7 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
             "encodings are not supported by the port's scan")
     kind = kinds.pop() if kinds else ("dict" if is_str else "plain")
     if is_str:
-        kind = "dict_str"
+        kind = "plain_str" if kind == "plain" else "dict_str"
     spec = _ColumnSpec(leaf, dt, kind, sum(w.n for w in walks),
                        sum(w.n_present for w in walks))
 
@@ -238,6 +251,22 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
 
     if kind == "plain":
         spec.values = _queue_range(slab, [p for w in walks for p in w.values])
+        return spec
+
+    if kind == "plain_str":
+        # the pages' records back to back, then the column's char offsets
+        spec.values = _queue_range(slab, [p for w in walks for p in w.values])
+        offs = np.zeros(spec.n_present + 1, np.int64)
+        pos = 0
+        for o in (o for w in walks for o in w.str_offsets):
+            k = o.shape[0] - 1
+            offs[pos + 1:pos + k + 1] = o[1:] + offs[pos]
+            pos += k
+        if offs[-1] > _MAX_CHARS:
+            raise ValueError(f"column {leaf.path}: PLAIN string chars "
+                             f"({offs[-1]} bytes) exceed int32 offsets")
+        spec.n_chars = int(offs[-1])
+        spec.str_offsets = _queue_range(slab, [offs.astype(np.int32)])
         return spec
 
     # dictionaries: one when every row group wrote the same, else all of
@@ -299,6 +328,26 @@ def _typed(data: torch.Tensor, where: tuple[int, int],
                         dt.torch_storage)
 
 
+def _plain_strings(spec: _ColumnSpec, data: torch.Tensor,
+                   valid: Optional[torch.Tensor]) -> Column:
+    """PLAIN string records in the slab → a string column.  The records
+    were queued back to back, so value i's chars start at the first
+    record's offset + 4·(i+1) (its prefix and those before it) + its char
+    offset; one segmented copy (B4) strips every prefix."""
+    offs = _typed(data, spec.str_offsets, T.int32)
+    o64 = offs.to(torch.int64)
+    lens = o64[1:] - o64[:-1]
+    first = torch.arange(1, spec.n_present + 1, dtype=torch.int64,
+                         device=data.device)
+    src = spec.values[0] + 4 * first + o64[:-1]
+    chars = ragged.segmented_copy(data, src, o64[:-1], lens, spec.n_chars)
+    if valid is not None:
+        full = torch.zeros(spec.n + 1, dtype=torch.int64, device=data.device)
+        torch.cumsum(_spread(lens, valid, spec.n), 0, out=full[1:])
+        offs = full.to(torch.int32)
+    return Column(spec.dtype, chars, offs, valid)
+
+
 def _decode(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
             dict_strings: bool, checks: list) -> Column:
     leaf, dt, n = spec.leaf, spec.dtype, spec.n
@@ -309,6 +358,8 @@ def _decode(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
     if spec.kind == "plain":
         return Column(dt, _spread(_typed(data, spec.values, dt), valid, n),
                       validity=valid)
+    if spec.kind == "plain_str":
+        return _plain_strings(spec, data, valid)
 
     idx = RLE.expand(data, _runs(meta, spec.idx_runs), spec.n_present)
     if spec.n_present and spec.n_dict == 0:

@@ -15,7 +15,7 @@ import torch
 
 import spark_rapids_jni_tpu_torch as pt
 from spark_rapids_jni_tpu_torch import interop
-from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged
+from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged, xpack
 from spark_rapids_jni_tpu_torch.rowconv import reference
 
 
@@ -113,6 +113,98 @@ def test_u8_to_u32_matches_plain_any_start(cuda, start, n_words):
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), host)
 
 
+def _word_rows(rng, n, Mw, sizes, device):
+    dense = rng.integers(-2**31, 2**31, (n, Mw), dtype=np.int64)
+    dense = dense.astype(np.int32)
+    dense[np.arange(Mw) >= np.minimum(sizes, Mw)[:, None]] = 0
+    dst = np.zeros(n + 1, np.int64)
+    np.cumsum(sizes, out=dst[1:])
+    return torch.from_numpy(dense).to(device), torch.from_numpy(dst).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,Mw,lo,hi,extra", [
+    (1 << 20, 24, 4, 24, 0),       # the 12-column table's shape
+    (4099, 16, 2, 16, 3),          # many rows a block, trailing words
+    (7, 2100, 1500, 2100, 0),      # rows wider than a block
+    (3001, 40, 0, 40, 1030),       # empty rows, a block past the rows
+    (1, 8, 8, 8, 0)])              # one row
+def test_pack_windows_matches_plain(cuda, n, Mw, lo, hi, extra):
+    rng = np.random.default_rng(n + Mw)
+    sizes = rng.integers(lo // 2, hi // 2 + 1, n) * 2
+    dense, dst = _word_rows(rng, n, Mw, sizes, cuda)
+    total_w = int(dst[-1]) + extra
+    before = xpack.pack_windows.launches
+    got = xpack.pack_windows(dense, dst, total_w)
+    want = xpack.pack_windows_plain(dense, dst, total_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert xpack.pack_windows.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Mw,shift", [(9, 0), (16, 0), (16, 1)])
+def test_pack_windows_word_offsets_and_pointers(cuda, Mw, shift):
+    """Offsets of any word (not pairs), an odd row width, and rows that
+    start 4 bytes past an 8-byte boundary: the kernel's word-by-word
+    path."""
+    rng = np.random.default_rng(Mw + shift)
+    n = 1500
+    sizes = rng.integers(1, Mw + 1, n)
+    dense, dst = _word_rows(rng, n, Mw, sizes, cuda)
+    if shift:
+        buf = torch.empty(n * Mw + shift, dtype=torch.int32, device=cuda)
+        buf[shift:] = dense.reshape(-1)
+        dense = buf[shift:].view(n, Mw)
+        assert dense.data_ptr() % 8 == 4
+    total_w = int(dst[-1]) + 5
+    got = xpack.pack_windows(dense, dst, total_w)
+    want = xpack.pack_windows_plain(dense, dst, total_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_pack_windows_byte_offsets_past_2gib(cuda):
+    """Three rows whose byte offsets pass 2^31 (word offsets stay int64 up
+    to the kernel): about 2 GiB of output."""
+    sizes = np.array([1 << 28, (1 << 28) + 2, 10])
+    dense, dst = _word_rows(np.random.default_rng(3), 3, 64, sizes, cuda)
+    total_w = int(dst[-1])
+    assert 4 * int(dst[2]) > 2**31
+    got = xpack.pack_windows(dense, dst, total_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[int(dst[2]):], dense[2, :10])
+    assert torch.equal(got[:64], dense[0])
+    assert torch.equal(got[int(dst[1]):int(dst[1]) + 64], dense[1])
+    assert int(torch.count_nonzero(got)) == int(torch.count_nonzero(dense))
+    del got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_to_rows_routes_through_b1(cuda):
+    """A plain string table: B1 packs the batch, B2 does not run."""
+    rng = np.random.default_rng(4)
+    n = 20000
+    lens = rng.integers(0, 50, n)
+    offs = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    cols = [(int(pt.TypeId.STRING), 0,
+             rng.integers(32, 127, int(offs[-1])).astype(np.uint8), offs,
+             rng.random(n) > 0.1),
+            (int(pt.TypeId.INT32), 0, rng.integers(0, 9, n).astype(np.int32),
+             None, None)]
+    table = interop.table_from_numpy(cols, cuda)
+    b1, b2 = xpack.pack_windows.launches, ragged.pack_rows.launches
+    rows = pt.convert_to_rows(table)[0]
+    torch.cuda.synchronize()
+    assert xpack.pack_windows.launches == b1 + 1
+    assert ragged.pack_rows.launches == b2
+    want, _ = reference.to_rows_np(table)
+    np.testing.assert_array_equal(rows.host_bytes(), want)
+
+
 @pytest.mark.gpu
 def test_round_trip_matches_cpu_and_oracle(cuda):
     rng = np.random.default_rng(1)
@@ -185,8 +277,9 @@ def _lineitem_writer():
 @pytest.mark.gpu
 @pytest.mark.parametrize("null_fraction", [0.0, 0.1])
 def test_scan_on_card_matches_cpu(cuda, null_fraction):
-    """The device scan, DictColumn materialization, Q6 and rows of the
-    scanned table on the card equal the same calls on the CPU."""
+    """The device scan (16 columns, PLAIN l_comment among them),
+    DictColumn materialization, Q6 and rows of the scanned table on the
+    card equal the same calls on the CPU."""
     from spark_rapids_jni_tpu_torch.models import q6
     from spark_rapids_jni_tpu_torch.parquet import device_scan
     W = _lineitem_writer()
@@ -194,8 +287,13 @@ def test_scan_on_card_matches_cpu(cuda, null_fraction):
                                    null_fraction=null_fraction,
                                    pages_per_chunk=3)
     before = bytepath.launch_counts()
+    b4 = ragged.segmented_copy.launches
     gpu = device_scan.scan_table(raw, device=cuda)
     cpu = device_scan.scan_table(raw, device="cpu")
+    # l_comment is PLAIN: its prefixes go in one B4 launch
+    assert ragged.segmented_copy.launches == b4 + 1
+    assert gpu[15].dtype == pt.string and not isinstance(gpu[15],
+                                                         pt.DictColumn)
     for g, c in zip(gpu.columns, cpu.columns):
         assert type(g) is type(c)
         if isinstance(g, pt.DictColumn):

@@ -276,12 +276,76 @@ def test_plain_dictionary_page_decoders():
 
 
 # ---------------------------------------------------------------------------
+# the PLAIN string walker
+# ---------------------------------------------------------------------------
+
+def _records(lens, rng, tail=0):
+    """A PLAIN BYTE_ARRAY page of random values of ``lens`` bytes, and
+    ``tail`` more bytes after its records."""
+    vals = [rng.integers(0, 256, int(k)).astype(np.uint8).tobytes()
+            for k in lens]
+    page = b"".join(len(v).to_bytes(4, "little") + v for v in vals)
+    return page + bytes(tail)
+
+
+# (lengths, trailing bytes): short and empty values, long values, one
+# value, no value, bytes after the records (a page's other data)
+WALK_CASES = {
+    "short": (np.arange(300) % 7, 0),
+    "empty_values": (np.zeros(50, np.int64), 0),
+    "long": (np.array([5000, 0, 70000, 3]), 0),
+    "one": (np.array([11]), 0),
+    "none": (np.zeros(0, np.int64), 0),
+    "tail": (np.arange(40) % 5 + 1, 13),
+}
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_byte_array_offsets_match_twin_and_jax(case):
+    lens, tail = WALK_CASES[case]
+    page = _records(lens, np.random.default_rng(len(case)), tail)
+    n = lens.shape[0]
+    want = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    got = PD.byte_array_offsets(page, n, "c")
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(PD.byte_array_offsets_plain(page, n), want)
+    # a memoryview slice of a larger buffer walks the same
+    view = memoryview(b"xy" + page)[2:]
+    np.testing.assert_array_equal(PD.byte_array_offsets(view, n), want)
+    # the JAX package's native walker, when its library loaded in this
+    # process (it returns None otherwise)
+    jax_offs = JD.byte_array_offsets(page, n)
+    if jax_offs is not None:
+        np.testing.assert_array_equal(got, jax_offs)
+
+
+# (values, bytes cut from the end, values asked for)
+TRUNCATED = [(3, 1, 3), (3, 9, 3), (3, 0, 4), (1, 2, 1), (0, 0, 1)]
+
+
+@pytest.mark.parametrize("k,cut,n", TRUNCATED)
+def test_byte_array_offsets_refuse_truncated_pages(k, cut, n):
+    page = _records(np.full(k, 6), np.random.default_rng(k))
+    page = page[:len(page) - cut]
+    for walk in (PD.byte_array_offsets, PD.byte_array_offsets_plain):
+        with pytest.raises(ValueError, match="column l_comment: PLAIN"):
+            walk(page, n, "l_comment")
+    if n:
+        assert JD.byte_array_offsets(page, n) is None
+
+
+# ---------------------------------------------------------------------------
 # the lineitem writer, read back by pyarrow
 # ---------------------------------------------------------------------------
 
 def _expected(name, data, valid):
     v = data[name]
-    if name in W.VOCAB:
+    if name == "l_comment":
+        chars, offs = v
+        out = [chars[a:b].tobytes().decode()
+               for a, b in zip(offs[:-1], offs[1:])]
+    elif name in W.VOCAB:
         out = [W.VOCAB[name][c].decode() for c in v]
     elif name in ("l_shipdate", "l_commitdate", "l_receiptdate"):
         out = [datetime.date(1970, 1, 1) + datetime.timedelta(days=int(d))
@@ -330,3 +394,36 @@ def test_lineitem_distributions():
     assert (flag[receipt > W.CURRENT_DATE] == 1).all()       # 'N'
     assert set(np.unique(flag[receipt <= W.CURRENT_DATE])) == {0, 2}
     assert (np.diff(data["l_orderkey"]) >= 0).all()
+
+
+def test_lineitem_comments():
+    """l_comment: 10-43 chars of the grammar's words, from a generator of
+    its own, so the other 15 columns are the same with or without it."""
+    chars, offs = W.generate_comments(20000, 1)
+    lens = np.diff(offs)
+    assert lens.min() == W.COMMENT_LEN[0] and lens.max() == W.COMMENT_LEN[1]
+    comments = [chars[a:b].tobytes().decode("ascii")
+                for a, b in zip(offs[:2000], offs[1:2001])]
+    tokens = {t for c in comments for t in c.split()}
+    assert len(tokens) > 100
+    # a comment may start or end inside a word
+    assert tokens <= {w for c in W.COMMENT_WORDS for w in _cuts(c)}
+    again = W.generate_comments(20000, 1)
+    np.testing.assert_array_equal(again[0], chars)
+    raw16, data16, _ = W.lineitem_parquet(3000, 4, row_group_rows=1000)
+    raw15, data15, _ = W.lineitem_parquet(3000, 4, row_group_rows=1000,
+                                          columns=W.LINEITEM_NO_COMMENT)
+    t16 = pq.read_table(io.BytesIO(raw16))
+    t15 = pq.read_table(io.BytesIO(raw15))
+    assert t16.column_names == [c[0] for c in W.LINEITEM]
+    assert t15.column_names == t16.column_names[:15]
+    assert t16.select(t15.column_names).equals(t15)
+    assert "l_comment" not in data15
+    md = pq.ParquetFile(io.BytesIO(raw16)).metadata.row_group(0).column(15)
+    assert md.encodings == ("PLAIN", "RLE")
+
+
+def _cuts(word):
+    """A word and every piece of it a comment may start or end with."""
+    return {word[i:j] for i in range(len(word)) for j in range(i + 1,
+                                                               len(word) + 1)}

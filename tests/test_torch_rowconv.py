@@ -7,9 +7,11 @@ packages in both directions and come back column for column.  Exact byte
 equality throughout.
 
 The JAX side runs with ``SRJT_XPACK=0``: off a TPU that takes its XLA
-gather formulation, the CPU stand-in for the ragged-kernel engine this
-port carries (the xpack engine gives the same bytes, and compiles slowly
-on the CPU).
+gather formulation, which the JAX package holds bit-identical to its
+default xpack engine and which compiles far faster on the CPU.  The port
+packs its rows through kernel B1, the xpack contract, either way;
+``tests/test_torch_xpack.py`` holds it against the JAX package's xpack
+engine itself.
 """
 
 import numpy as np

@@ -224,9 +224,23 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_port_imports_no_jax():
     files = sorted((REPO / "spark_rapids_jni_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", *sorted(REPO.glob("tools/torch_*.py"))]
-    assert len(files) > 5
+    rel = {str(f.relative_to(REPO)) for f in files}
+    assert {"spark_rapids_jni_tpu_torch/rowconv/xpack.py",
+            "spark_rapids_jni_tpu_torch/parquet/device_scan.py",
+            "spark_rapids_jni_tpu_torch/parquet/decode.py",
+            "spark_rapids_jni_tpu_torch/_native.py",
+            "tools/torch_lineitem_parquet.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "spark_rapids_jni_tpu"), \
                 f"{f.relative_to(REPO)} imports {mod}"
+    # the native sources include nothing of the JAX package's
+    sources = sorted((REPO / "spark_rapids_jni_tpu_torch" / "csrc").glob("*"))
+    assert {s.name for s in sources} >= {"ragged.cu", "bytepath.cu",
+                                         "xpack.cu", "plain_strings.cpp"}
+    for src in sources:
+        for line in src.read_text().splitlines():
+            if line.startswith("#include"):
+                assert "spark_rapids_jni_tpu" not in line, \
+                    f"{src.name}: {line}"

@@ -7,20 +7,25 @@ Test data for the PyTorch port's device scan, shared by ``chip_smoke.py``
 and the tests: the card's machine has no pyarrow, and the repository holds
 no Parquet file.  The writer emits only what the port's scan reads: PLAIN
 and RLE_DICTIONARY pages (the codes as bit-packed runs of at most 63
-groups, as parquet-mr writes them), definition levels for OPTIONAL
-columns, UNCOMPRESSED data page v1, and a thrift compact footer with
-min/max statistics.  Each row group writes its dictionary in
-first-occurrence order, as parquet-mr and pyarrow do.  The tests read its
-output back with pyarrow, which checks the writer apart from both
-scanners.
+groups, as parquet-mr writes them), PLAIN strings, definition levels for
+OPTIONAL columns, UNCOMPRESSED data page v1, and a thrift compact footer
+with min/max statistics (null counts only for PLAIN strings).  Each row
+group writes its dictionary in first-occurrence order, as parquet-mr and
+pyarrow do.  The tests read its output back with pyarrow, which checks the
+writer apart from both scanners.
 
-The generator follows TPC-H v3.0.1 §4.2.3 for lineitem without
-``l_comment``: keys INT64 (orderkey sparse as dbgen makes it, partkey
-uniform in [1, 200000·SF], suppkey by the spec's formula), linenumber
-INT32, the measures DOUBLE, the dates DATE, and returnflag / linestatus /
-shipinstruct / shipmode as dictionary strings.  Its numbers come from
-numpy's generator, not dbgen's, so the rows differ from dbgen's while
-their distributions match.
+The generator follows TPC-H v3.0.1 §4.2.3 for lineitem's 16 columns: keys
+INT64 (orderkey sparse as dbgen makes it, partkey uniform in
+[1, 200000·SF], suppkey by the spec's formula), linenumber INT32, the
+measures DOUBLE, the dates DATE, returnflag / linestatus / shipinstruct /
+shipmode as dictionary strings, and ``l_comment``, text of 10-43 chars,
+as PLAIN strings with the dictionary off, as Spark writes a
+high-cardinality text column when a user turns the dictionary off for it.
+Like dbgen, a comment is a substring of a text pool made of the grammar's
+words (§4.2.2.10) at a random offset and of a random length.  Its numbers
+come from numpy's generator, not dbgen's, so the rows differ from dbgen's
+while their distributions match.  ``LINEITEM_NO_COMMENT`` names the first
+15 columns, for files without ``l_comment``.
 """
 
 from __future__ import annotations
@@ -63,6 +68,9 @@ class ParquetColumn:
     converted: Optional[str] = None            # UTF8 | DATE
     vocab: Optional[list] = None
     validity: Optional[np.ndarray] = None
+    # PLAIN strings: (chars uint8, int64 offsets [n+1]); ``values`` then
+    # holds the row numbers
+    strings: Optional[tuple] = None
 
 
 def strings_column(name: str, strings, validity=None) -> ParquetColumn:
@@ -71,6 +79,14 @@ def strings_column(name: str, strings, validity=None) -> ParquetColumn:
                                         dtype=object), return_inverse=True)
     return ParquetColumn(name, "BYTE_ARRAY", codes.astype(np.int64), "dict",
                          "UTF8", list(vocab), validity)
+
+
+def plain_strings_column(name: str, chars: np.ndarray, offsets: np.ndarray,
+                         validity=None) -> ParquetColumn:
+    """A PLAIN string column from chars and int64 offsets [n+1]."""
+    n = offsets.shape[0] - 1
+    return ParquetColumn(name, "BYTE_ARRAY", np.arange(n, dtype=np.int64),
+                         "plain", "UTF8", None, validity, (chars, offsets))
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +150,23 @@ def _plain_strings(vocab: list, entries: np.ndarray) -> bytes:
                     for e in entries)
 
 
+def _plain_records(chars: np.ndarray, offsets: np.ndarray,
+                   rows: np.ndarray) -> bytes:
+    """PLAIN BYTE_ARRAY records (4-byte length, chars) of ``rows``."""
+    lens = offsets[rows + 1] - offsets[rows]
+    k = rows.shape[0]
+    rec = np.zeros(k + 1, np.int64)
+    np.cumsum(lens + 4, out=rec[1:])
+    buf = np.empty(int(rec[-1]), np.uint8)
+    buf[(rec[:-1, None] + np.arange(4)).reshape(-1)] = (
+        lens.astype("<u4").view(np.uint8))
+    before = rec[:-1] - 4 * np.arange(k)            # chars of earlier rows
+    within = np.arange(int(lens.sum()), dtype=np.int64)
+    buf[np.repeat(rec[:-1] + 4 - before, lens) + within] = chars[
+        np.repeat(offsets[rows] - before, lens) + within]
+    return buf.tobytes()
+
+
 def _first_occurrence(values: np.ndarray):
     """(distinct values in first-occurrence order, code of every value)."""
     uniq, first, inverse = np.unique(values, return_index=True,
@@ -146,7 +179,7 @@ def _first_occurrence(values: np.ndarray):
 
 def _stat_bytes(col: ParquetColumn, present: np.ndarray):
     """(min, max) PLAIN-encoded, or None when nothing is present."""
-    if present.shape[0] == 0:
+    if present.shape[0] == 0 or col.strings is not None:
         return None
     if col.phys == "BYTE_ARRAY":
         strs = [col.vocab[c] for c in np.unique(present)]
@@ -167,7 +200,14 @@ def _rows_per_page(col: ParquetColumn, bw: int, rows: int,
     if pages_per_chunk:
         per = -(-rows // pages_per_chunk)
     else:
-        bits = _NP[col.phys].itemsize * 8 if col.encoding == "plain" else bw
+        if col.strings is not None:
+            offs = col.strings[1]
+            n = max(offs.shape[0] - 1, 1)
+            bits = 8 * (4 + -(-int(offs[-1] - offs[0]) // n))
+        elif col.encoding == "plain":
+            bits = _NP[col.phys].itemsize * 8
+        else:
+            bits = bw
         bits += 1 if col.validity is not None else 0
         per = data_page_bytes * 8 // max(bits, 1)
     return max(8, -(-per // 8) * 8)
@@ -208,6 +248,10 @@ def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
             body.append(bw)
             body += bit_packed_runs(codes[pos_present:pos_present + k], bw)
             enc = ENC_RLE_DICTIONARY
+        elif col.strings is not None:
+            body += _plain_records(*col.strings,
+                                   present[pos_present:pos_present + k])
+            enc = ENC_PLAIN
         else:
             body += np.ascontiguousarray(present[pos_present:pos_present + k],
                                          _NP[col.phys]).tobytes()
@@ -311,7 +355,39 @@ LINEITEM = (
     ("l_receiptdate", "INT32", "DATE", "dict"),
     ("l_shipinstruct", "BYTE_ARRAY", "UTF8", "dict"),
     ("l_shipmode", "BYTE_ARRAY", "UTF8", "dict"),
+    ("l_comment", "BYTE_ARRAY", "UTF8", "plain"),
 )
+LINEITEM_NO_COMMENT = LINEITEM[:15]
+# TPC-H v3.0.1 §4.2.3: L_COMMENT is text of 10 to 43 chars
+COMMENT_LEN = (10, 43)
+# words of the text grammar (TPC-H v3.0.1 §4.2.2.10): nouns, verbs,
+# adjectives, adverbs and prepositions
+COMMENT_WORDS = tuple("""
+foxes ideas theodolites pinto beans instructions dependencies excuses
+platelets asymptotes courts dolphins multipliers sauternes warthogs frets
+dinos attainments somas Tiresias patterns forges braids hockey players
+frays warhorses dugouts notornis epitaphs pearls tithes waters orbits gifts
+sheaves depths sentiments decoys realms pains grouches escapades
+sleep wake are cajole haggle nag use boost affix detect integrate maintain
+nod was lose sublate solve thrash promise engage hinder print x-ray breach
+eat grow impress mold poach serve run dazzle snooze doze unwind kindle play
+hang believe doubt
+furious sly careful blithe quick fluffy slow quiet ruthless thin close
+dogged daring brave stealthy permanent enticing idle busy regular final
+ironic even bold silent
+sometimes always never furiously slyly carefully blithely quickly fluffily
+slowly quietly ruthlessly thinly closely doggedly daringly bravely
+stealthily permanently enticingly idly busily regularly finally ironically
+evenly boldly silently
+about above across after against along among around at atop before behind
+beneath beside besides between beyond by despite during except for from
+inside into near of on outside over past since through throughout to toward
+under until up upon without with within
+""".split())
+# the text pool comments are cut from (dbgen keeps one of 300 MB)
+TEXT_POOL_BYTES = 1 << 22
+# rows of comments made at a time, to bound the index arrays
+COMMENT_BLOCK_ROWS = 1 << 20
 
 
 def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
@@ -368,29 +444,76 @@ def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
     }
 
 
-def lineitem_columns(data: dict[str, np.ndarray],
-                     validity: Optional[dict] = None) -> list[ParquetColumn]:
+def text_pool(rng: np.random.Generator, size: int = TEXT_POOL_BYTES
+              ) -> np.ndarray:
+    """``size`` bytes of the grammar's words, each followed by a space,
+    drawn uniformly from a seeded word stream."""
+    words = [w.encode() + b" " for w in COMMENT_WORDS]
+    wlen = np.array([len(w) for w in words], np.int64)
+    wstart = np.concatenate([[0], np.cumsum(wlen)[:-1]])
+    table = np.frombuffer(b"".join(words), np.uint8)
+    pick = rng.integers(0, len(words), -(-size // int(wlen.min())))
+    lens = wlen[pick]
+    dst = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    within = np.arange(int(lens.sum()), dtype=np.int64)
+    pool = table[np.repeat(wstart[pick] - dst, lens) + within]
+    return pool[:size]
+
+
+def generate_comments(n_rows: int, seed: int) -> tuple:
+    """``l_comment`` as (chars uint8, int64 offsets [n+1]): each comment
+    a substring of the text pool at a random offset, of a random length in
+    ``COMMENT_LEN`` (dbgen's text rule, §4.2.2.10).  Its own generator, so
+    the other columns do not depend on it."""
+    rng = np.random.default_rng([seed, len(LINEITEM)])
+    pool = text_pool(rng)
+    lo, hi = COMMENT_LEN
+    lens = rng.integers(lo, hi + 1, n_rows)
+    starts = rng.integers(0, pool.shape[0] - lens + 1)
+    offs = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    chars = np.empty(int(offs[-1]), np.uint8)
+    for r0 in range(0, n_rows, COMMENT_BLOCK_ROWS):
+        r1 = min(n_rows, r0 + COMMENT_BLOCK_ROWS)
+        c0, c1 = int(offs[r0]), int(offs[r1])
+        within = np.arange(c1 - c0, dtype=np.int64)
+        chars[c0:c1] = pool[np.repeat(starts[r0:r1] - offs[r0:r1] + c0,
+                                      lens[r0:r1]) + within]
+    return chars, offs
+
+
+def lineitem_columns(data: dict, validity: Optional[dict] = None,
+                     columns=LINEITEM) -> list[ParquetColumn]:
     validity = validity or {}
-    return [ParquetColumn(name, phys, data[name], enc, conv,
-                          VOCAB.get(name), validity.get(name))
-            for name, phys, conv, enc in LINEITEM]
+    out = []
+    for name, phys, conv, enc in columns:
+        if name == "l_comment":
+            out.append(plain_strings_column(name, *data[name],
+                                            validity.get(name)))
+        else:
+            out.append(ParquetColumn(name, phys, data[name], enc, conv,
+                                     VOCAB.get(name), validity.get(name)))
+    return out
 
 
 def lineitem_parquet(n_rows: int, seed: int, row_group_rows: int = 1 << 20,
                      null_fraction: float = 0.0,
                      pages_per_chunk: Optional[int] = None,
-                     data_page_bytes: int = 1 << 20):
+                     data_page_bytes: int = 1 << 20, columns=LINEITEM):
     """(file bytes, column arrays, validity by column or {}) for a
-    lineitem file; with ``null_fraction`` every column is OPTIONAL with
-    that share of nulls."""
+    lineitem file of ``columns`` (all 16, or ``LINEITEM_NO_COMMENT``);
+    with ``null_fraction`` every column is OPTIONAL with that share of
+    nulls.  ``l_comment`` comes as (chars, int64 offsets)."""
     data = generate_lineitem(n_rows, seed)
+    if any(name == "l_comment" for name, *_ in columns):
+        data["l_comment"] = generate_comments(n_rows, seed)
     validity = {}
     if null_fraction:
         rng = np.random.default_rng(seed + 1)
         validity = {name: rng.random(n_rows) >= null_fraction
-                    for name, *_ in LINEITEM}
-    raw = write_parquet(lineitem_columns(data, validity), row_group_rows,
-                        data_page_bytes, pages_per_chunk)
+                    for name, *_ in columns}
+    raw = write_parquet(lineitem_columns(data, validity, columns),
+                        row_group_rows, data_page_bytes, pages_per_chunk)
     return raw, data, validity
 
 
@@ -400,10 +523,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--row-group-rows", type=int, default=1 << 20)
     ap.add_argument("--null-fraction", type=float, default=0.0)
+    ap.add_argument("--no-comment", action="store_true",
+                    help="write the 15 columns without l_comment")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
-    raw, _, _ = lineitem_parquet(args.rows, args.seed, args.row_group_rows,
-                                 args.null_fraction)
+    raw, _, _ = lineitem_parquet(
+        args.rows, args.seed, args.row_group_rows, args.null_fraction,
+        columns=LINEITEM_NO_COMMENT if args.no_comment else LINEITEM)
     with open(args.out, "wb") as f:
         f.write(raw)
     print(f"{args.out}: {args.rows} rows, {len(raw)} bytes")

@@ -4,11 +4,14 @@
     python3 tools/torch_profile_scan.py [--seed N] [--out DIR]
 
 Writes the two lineitem files of ``chip_smoke.py`` phase 5 (SF1, 6,001,215
-rows; and 1,048,576 rows with 10% nulls), then, after one warm-up each,
-profiles with ``torch.profiler`` one call of: the SF1 ``scan_table``, the
-nulls-file ``scan_table``, Q6 on the SF1 file, the materialization of the
-SF1 table's four dictionary-string columns, and ``convert_to_rows`` of the
-scanned SF1 table.  For each it prints the host wall time, the scan's host
+rows and all 16 columns; and 1,048,576 rows of 15 columns with 10% nulls),
+then, after one warm-up each, profiles with ``torch.profiler`` one call of:
+the SF1 ``scan_table`` of the first 15 columns, the nulls-file
+``scan_table``, Q6 on the SF1 file, the materialization of the SF1 table's
+four dictionary-string columns, ``convert_to_rows`` of the scanned
+15-column table, and, for the full table of ``chip_smoke.py`` phase 8, the
+scan of all 16 columns (PLAIN ``l_comment`` among them) and its
+``convert_to_rows``.  For each it prints the host wall time, the scan's host
 spans (page walk, slab upload, decode launches; ``parquet.scan.*`` in
 ``device_scan.scan_table``), the device-busy time (the union of the
 kernels' intervals), the device's idle share, and the device ops that took
@@ -68,22 +71,27 @@ def main(argv=None) -> int:
     raw_n, _, _ = W.lineitem_parquet(
         chip_smoke.NULL_ROWS, args.seed + 1,
         row_group_rows=chip_smoke.NULL_ROWS // chip_smoke.NULL_ROW_GROUPS,
-        null_fraction=chip_smoke.NULL_FRACTION, pages_per_chunk=2)
+        null_fraction=chip_smoke.NULL_FRACTION, pages_per_chunk=2,
+        columns=W.LINEITEM_NO_COMMENT)
+    cols15 = [name for name, *_ in W.LINEITEM_NO_COMMENT]
     lo, hi = chip_smoke.Q6_DATES
-    sf1 = device_scan.scan_table(raw)
+    sf1 = device_scan.scan_table(raw, columns=cols15)
+    full = device_scan.scan_table(raw)
 
     def materialize_all():
-        table = device_scan.scan_table(raw)
+        table = device_scan.scan_table(raw, columns=cols15)
         torch.cuda.synchronize()
         return table, lambda: [c.materialize() for c in table.columns
                                if isinstance(c, pt.DictColumn)]
 
     cases = [
-        ("scan SF1", lambda: device_scan.scan_table(raw)),
+        ("scan SF1", lambda: device_scan.scan_table(raw, columns=cols15)),
         ("scan nulls", lambda: device_scan.scan_table(raw_n)),
         ("q6 SF1", lambda: q6.run(raw, lo, hi)),
         ("materialize SF1 strings", None),
         ("to_rows SF1 scanned", lambda: pt.convert_to_rows(sf1)),
+        ("scan SF1 16 columns", lambda: device_scan.scan_table(raw)),
+        ("to_rows SF1 16 columns", lambda: pt.convert_to_rows(full)),
     ]
     with open(report, "w") as fh:
         for name, fn in cases:
