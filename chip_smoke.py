@@ -13,7 +13,9 @@ fails (non-zero exit, no result line) if anything is wrong:
    ``spark_rapids_jni_tpu_torch/csrc``, all at once;
 3. kernels: runs B1, B3 and B4 on the inputs the row path hands them
    (captured from a run of the 12-column table), holds each byte for byte
-   against its plain PyTorch version, and times both with CUDA events; B2
+   against its plain PyTorch version, and times both with CUDA events
+   (around the wrappers) and the kernel with ``torch.profiler`` (its
+   device rows alone; the library calls of phase 7 likewise); B2
    is timed once on B1's rows too, the choice the routing rule made;
 4. path: ``convert_to_rows`` → ``convert_from_rows`` round trips of three
    tables from the reference's row-conversion benchmark at 1,048,576 rows
@@ -38,7 +40,9 @@ fails (non-zero exit, no result line) if anything is wrong:
 7. scan kernels: B2 and B5–B7 on the largest inputs the scan and the
    materialization hand them, each held byte for byte against its plain
    version and timed with CUDA events beside one PyTorch call that
-   computes the same function, where there is one;
+   computes the same function, where there is one; B2's sector floor
+   beside its bound; B7 and ``clone().view`` on the same bytes at every
+   start % 4 and a 16-aligned start, each exact;
 8. full table: the scan of all 16 columns, timed, ``l_comment`` equal to
    the generator's chars row for row, then the table through
    ``convert_to_rows`` → ``convert_from_rows`` in one batch (about 1 GB of
@@ -54,6 +58,8 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import collections
+import functools
 import json
 import os
 import statistics
@@ -101,6 +107,20 @@ KERNELS = {
     "u8_to_u32": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
                   "spark_rapids_jni_tpu/rowconv/xpallas.py:486", "scan"),
 }
+# the device work of each wrapper's C entry, as torch.profiler names it:
+# the __global__ functions it launches and, where it clears a table
+# first, the memset
+KERNEL_SYMBOLS = {
+    "pack_windows": ("block_rows_kernel", "pack_windows_kernel", "Memset"),
+    "pack_rows": ("pack_rows_kernel",),
+    "unpack_rows": ("unpack_rows_kernel",),
+    "segmented_copy": ("segmented_copy_kernel",),
+    "extract_rows": ("extract_rows_kernel",),
+    "gather_rows": ("gather_rows_kernel",),
+    "u8_to_u32": ("u8_to_u32_kernel",),
+}
+# B7's start alignments timed in phase 7: start % 16 of the copy
+B7_STARTS = (4, 1, 2, 3, 0)
 # one PyTorch call computing the same function, where there is one
 LIBRARY = {
     "gather_rows": "torch.index_select(mat, 0, idx)",
@@ -175,6 +195,94 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# bytes read between profiled calls to push their inputs out of the 50 MB
+# L2 cache (read, so that no dirty line is left to write back), and the
+# kernel that reads them (left out of the sums)
+FLUSH_BYTES = 128 << 20
+# kernel names are C++ signatures; the start is enough to tell them apart
+NAME_CHARS = 60
+# profiled windows a device time is the median of, and windows taken
+# before a measurement fails: the profiler on the card now and then loses
+# some or all of a window's device rows, or gives a whole window short
+# times
+PROFILE_WINDOWS = 3
+PROFILE_TRIES = 6
+FLUSH_KERNEL = "reduce_kernel"
+
+
+@functools.lru_cache(maxsize=1)
+def flush_buffer() -> torch.Tensor:
+    """The buffer the flush reads, checked once: a profiled flush must show
+    only FLUSH_KERNEL rows on the device (a row-wise maximum needs no
+    scratch memset, which the kernels' own memsets would be mistaken for)."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush(buf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flush(buf)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    require(names and all(FLUSH_KERNEL in name for name in names),
+            f"the L2 flush ran other device work: {names}")
+    return buf
+
+
+def flush(buf: torch.Tensor) -> None:
+    buf.view(-1, 1024).amax(dim=1)
+
+
+def device_ms(fn, reps: int, symbols=None) -> tuple:
+    """Mean device milliseconds a call of ``fn`` keeps the card busy, from
+    ``torch.profiler``'s device rows over windows of ``reps`` calls, each
+    call after a read of FLUSH_BYTES so that it reads its inputs from
+    device memory.  A window counts the rows whose names hold one of
+    ``symbols``, or every device row but the flush's: the median row of
+    each name, summed over the names, as every call launches each of its
+    kernels once.  The profiler on the card may lose rows or give them
+    broken times, so a window in which a symbol has no row, or a name fewer
+    than half its calls' rows with a time, is taken again, and the result
+    is the median of PROFILE_WINDOWS windows, within PROFILE_TRIES.  Host
+    time between launches does not count, as it does in :func:`time_cuda`.
+    Returns the time and the rows of the last window, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = flush_buffer()
+    fn()
+    torch.cuda.synchronize()
+    windows, counts = [], {}
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush(buf)
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(list)
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and FLUSH_KERNEL not in e.name
+                    and (symbols is None
+                         or any(s in e.name for s in symbols))):
+                us = e.time_range.end - e.time_range.start
+                if us > 0:
+                    by_name[e.name].append(us)
+        counts = {name[:NAME_CHARS]: len(t) for name, t in by_name.items()}
+        if (by_name and all(2 * len(t) >= reps for t in by_name.values())
+                and all(any(s in name for name in by_name)
+                        for s in symbols or ())):
+            windows.append(sum(statistics.median(t)
+                               for t in by_name.values()))
+            if len(windows) == PROFILE_WINDOWS:
+                return statistics.median(windows) / 1e3, counts
+        else:
+            log(f"[kernels] the profiler lost device rows of {symbols} "
+                f"({counts} of {reps} calls): profiling again")
+    raise SmokeFailure(f"the profiler gave {len(windows)} whole windows of "
+                       f"{symbols} in {PROFILE_TRIES}: {counts}")
 
 
 def bytes_moved(name: str, args) -> int:
@@ -292,11 +400,16 @@ def measure(kernels, name, args, card, what, library=None) -> dict:
         err = int(diff.abs().max())
     require(equal, f"{name} ({what}) disagrees with its plain version")
     ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
+    dev_ms, _ = device_ms(lambda: kernel(*args), KERNEL_REPS,
+                          KERNEL_SYMBOLS[name])
     plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
-    library_ms = None
+    library_ms = library_dev_ms = None
     if library is not None:
         require(torch.equal(library(), got), f"{name}: library call differs")
         library_ms = time_cuda(library, KERNEL_REPS)
+        library_dev_ms, rows = device_ms(library, KERNEL_REPS)
+        log(f"[kernels] {name} ({what}): the library call's device rows "
+            f"{rows}")
     nbytes = (scan_bytes_moved(name, args) if what == "scan"
               else bytes_moved(name, args))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -305,12 +418,17 @@ def measure(kernels, name, args, card, what, library=None) -> dict:
         shape[1] = [len(args[1])]           # host offsets: their count
     log(f"[kernels] {name} ({what}) inputs {shape}: equal={equal} "
         f"max_abs_err={err} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
-        f"bound {bound_ms:.4f} ms for {nbytes} bytes) plain {plain_ms:.4f} ms"
-        f" library_ms "
-        f"{'null' if library_ms is None else f'{library_ms:.4f}'} [{card}]")
-    return dict(equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, library_ms=library_ms, bytes=nbytes,
+        f"bound {bound_ms:.4f} ms for {nbytes} bytes), device {dev_ms:.4f} "
+        f"ms; plain {plain_ms:.4f} ms; library {fmt_ms(library_ms)} ms, "
+        f"device {fmt_ms(library_dev_ms)} ms [{card}]")
+    return dict(equal=equal, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
+                library_device_ms=library_dev_ms, bytes=nbytes,
                 shape=shape, measured_in=what)
+
+
+def fmt_ms(ms) -> str:
+    return "null" if ms is None else f"{ms:.4f}"
 
 
 def phase_kernels(pt, kernels, table, card) -> dict:
@@ -361,9 +479,14 @@ def compare_routes(kernels, args, what, card) -> tuple:
     del b1_out, b2_out
     b1_ms = time_cuda(lambda: b1(*args), KERNEL_REPS)
     b2_ms = time_cuda(lambda: b2(*b2_args), KERNEL_REPS)
+    b1_dev, _ = device_ms(lambda: b1(*args), KERNEL_REPS,
+                          KERNEL_SYMBOLS["pack_windows"])
+    b2_dev, _ = device_ms(lambda: b2(*b2_args), KERNEL_REPS,
+                          KERNEL_SYMBOLS["pack_rows"])
     log(f"[kernels] routing ({what}): on the same {total_w * 4} row bytes "
         f"(rows of {dense_w.shape[1] * 4} bytes padded) B1 pack_windows "
-        f"{b1_ms:.4f} ms, B2 pack_rows {b2_ms:.4f} ms [{card}]")
+        f"{b1_ms:.4f} ms (device {b1_dev:.4f}), B2 pack_rows {b2_ms:.4f} ms "
+        f"(device {b2_dev:.4f}) [{card}]")
     return b1_ms, b2_ms
 
 
@@ -767,7 +890,62 @@ def phase_scan_kernels(device_scan, kernels, raw, cols15, card) -> dict:
         args = captured[name][1]
         lib = library_call(name, args)
         results[name] = measure(kernels, name, args, card, "scan", lib)
+    floor_ms = sector_floor_bytes(*captured["pack_rows"][1]) \
+        / HBM_BYTES_PER_S * 1e3
+    results["pack_rows"]["floor_ms"] = floor_ms
+    log(f"[kernels] pack_rows (scan): sector floor {floor_ms:.4f} ms (every "
+        f"32-byte sector of a row's payload read whole) [{card}]")
+    results["u8_to_u32"]["starts"] = b7_starts(
+        kernels, captured["u8_to_u32"][1], card)
     return results
+
+
+def sector_floor_bytes(dense, offs, total) -> int:
+    """B2's honest floor in bytes: each 32-byte sector of ``dense`` that
+    holds payload is read whole (rows of a few bytes at a stride of M
+    share no sector with the next), plus the offsets and the output."""
+    M = dense.shape[1]
+    ncopy = (offs[1:] - offs[:-1]).clamp(0, M)
+    live = ncopy > 0
+    start = torch.arange(dense.shape[0], device=offs.device)[live] * M
+    first, last = start // 32, (start + ncopy[live] - 1) // 32
+    shared = int((first[1:] == last[:-1]).sum())
+    sectors = int((last - first + 1).sum()) - shared
+    return 32 * sectors + offs.numel() * 8 + total
+
+
+def b7_starts(kernels, args, card) -> dict:
+    """B7 and ``clone().view`` on the bytes phase 7 captured, copied to
+    each start alignment of B7_STARTS (start % 16): exact, and both timed
+    by CUDA events over the wrappers and by the profiler's device rows."""
+    src, start, n = args
+    kernel, plain = kernels.wrapper("u8_to_u32"), kernels.plain("u8_to_u32")
+    log(f"[kernels] u8_to_u32 (scan): captured start {start}, start % 16 = "
+        f"{(src.data_ptr() + start) % 16}, {n} words")
+    want = plain(src, start, n)
+    out = {}
+    for mod in B7_STARTS:
+        buf = torch.empty(4 * n + 64, dtype=torch.uint8, device=src.device)
+        s = (mod - buf.data_ptr()) % 16 + 16
+        buf[s:s + 4 * n] = src[start:start + 4 * n]
+        got = kernel(buf, s, n)
+        lib = lambda: buf[s:s + 4 * n].clone().view(torch.int32)  # noqa: E731
+        torch.cuda.synchronize()
+        require(torch.equal(got, want) and torch.equal(lib(), want),
+                f"u8_to_u32 at start % 16 = {mod} differs")
+        dev, _ = device_ms(lambda: kernel(buf, s, n), KERNEL_REPS,
+                           KERNEL_SYMBOLS["u8_to_u32"])
+        lib_dev, rows = device_ms(lib, KERNEL_REPS)
+        row = dict(ms=time_cuda(lambda: kernel(buf, s, n), KERNEL_REPS),
+                   device_ms=dev, library_ms=time_cuda(lib, KERNEL_REPS),
+                   library_device_ms=lib_dev)
+        out[f"start%16={mod}"] = row
+        log(f"[kernels] u8_to_u32 start % 16 = {mod}: exact; B7 "
+            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms; "
+            f"clone().view {row['library_ms']:.4f} ms, device "
+            f"{row['library_device_ms']:.4f} ms (rows {rows}) [{card}]")
+        del buf, got
+    return out
 
 
 def main(argv=None) -> int:
@@ -826,13 +1004,17 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(o["max_abs_err"] for o in others),
             "equal": all(o["equal"] for o in others),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": r["library_ms"], "library": LIBRARY.get(name),
+            "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "library": LIBRARY.get(name),
             "bytes": r["bytes"], "shape": r["shape"],
             "measured_in": where}
-        if "b2_same_rows_ms" in r:
-            entry["b2_same_rows_ms"] = r["b2_same_rows_ms"]
+        for extra in ("b2_same_rows_ms", "floor_ms", "starts"):
+            if extra in r:
+                entry[extra] = r[extra]
         out.append(entry)
     log(json.dumps({"card": card, "kernels": out}))
     log(json.dumps({"ok": True, "device": {

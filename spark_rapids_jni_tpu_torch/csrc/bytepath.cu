@@ -10,8 +10,12 @@
 // The TPU kernels stage 512-byte windows and whole row blocks in VMEM,
 // place bytes with vector rolls and masks, and bucket their static shapes
 // against Mosaic compiles.  None of that carries over: Hopper addresses
-// bytes, so each kernel here is one thread per output word (or 16-byte
-// vector), reading device memory and writing device memory once.
+// bytes, so each kernel here reads device memory and writes device memory
+// once.  Extract and gather take one thread per output word (or 16-byte
+// vector).  u8 -> u32 is a copy at a byte shift, so it is built like a
+// copy for this card: aligned 16-byte loads, several in flight a thread,
+// the shift done in registers with a lane shuffle and funnel shifts, and a
+// grid sized to the SMs.
 //
 // Bound: every kernel only moves bytes, so its least time on an H100 SXM is
 // (bytes read once + bytes written once) / 3.35 TB/s.
@@ -36,6 +40,26 @@ inline unsigned grid_for(int64_t items) {
   int64_t blocks = (items + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
+}
+
+// The SMs of the current device, read at the first call.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess) {
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+  }
+  return sms > 0 ? sms : 1;
+}
+
+// Blocks of kThreads of ``kernel`` that one SM holds at once.
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  return blocks > 0 ? blocks : 1;
 }
 
 __device__ __forceinline__ int64_t first_thread() {
@@ -103,27 +127,76 @@ gather_rows_kernel(const V* __restrict__ mat, int64_t D, int64_t W,
 }
 
 // u8 -> u32: out[i] = bytes src[4i..4i+3] as one little-endian word, for a
-// source at any byte address.  Each thread reads the aligned word holding
-// its first byte and, unless the source is aligned, the next one, and
-// joins them with a funnel shift.  Aligned 4-byte loads keep a warp's reads
-// to 128 contiguous bytes plus one word, where byte loads would issue four
-// load instructions a word; a word that holds no byte of the source is
-// never read.
+// source at any byte address.
 // Replaces xpallas._transpose_call
 // (spark_rapids_jni_tpu/rowconv/xpallas.py:486).
 // Bound: (4N read + 4N written) / 3.35 TB/s.
+//
+// The source is cut into aligned 16-byte vectors V[v] from src & ~15.  Output
+// unit u (words 4u..4u+3, one 16-byte store: the wrapper's fresh output is
+// 16-aligned) is bytes sh..sh+15 of V[u] V[u+1], sh = src & 15: word k is
+// funnel(W[WS+k], W[WS+k+1], bs) over the eight words W of the pair, with
+// WS = sh / 4 a template constant and bs = 8 (sh % 4).  Lane l of a warp
+// takes units c + 32j + l for j < kUnits: it loads V[u] for each j before
+// any store (kUnits 16-byte loads in flight), takes V[u+1] from lane l+1
+// by __shfl_down_sync, and the warp's last lane loads that one itself.
+// A 16-aligned source is a plain vector copy.
+//
+// No word that holds no byte of the source is read: the vector units are
+// [u_lo, u_hi), those whose vectors hold source bytes only (the host
+// computes the range), and the few words outside it, at the head and the
+// tail, go word by word, each from the aligned word holding its first byte
+// and, unless the source is word-aligned, the next.
+constexpr int kUnits = 4;
+
+template <int WS>
 __global__ void __launch_bounds__(kThreads)
 u8_to_u32_kernel(const uint8_t* __restrict__ src, int64_t n_words,
-                 uint32_t* __restrict__ out) {
+                 int64_t u_lo, int64_t u_hi, int64_t v_hi, int64_t head,
+                 int64_t tail_start, uint32_t* __restrict__ out) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
-  const unsigned shift = static_cast<unsigned>(addr & 3u) * 8u;
-  const uint32_t* aligned = reinterpret_cast<const uint32_t*>(addr & ~uintptr_t{3});
-  for (int64_t i = first_thread(); i < n_words; i += thread_stride()) {
+  const unsigned bs = static_cast<unsigned>(addr & 3u) * 8u;
+  // head and tail, word by word
+  const uint32_t* aligned =
+      reinterpret_cast<const uint32_t*>(addr & ~uintptr_t{3});
+  const int64_t tail = tail_start < n_words ? n_words - tail_start : 0;
+  for (int64_t t = first_thread(); t < head + tail; t += thread_stride()) {
+    const int64_t i = t < head ? t : tail_start + (t - head);
     const uint32_t lo = aligned[i];
-    if (shift == 0) {
-      out[i] = lo;
-    } else {
-      out[i] = __funnelshift_r(lo, aligned[i + 1], shift);
+    out[i] = bs == 0 ? lo : __funnelshift_r(lo, aligned[i + 1], bs);
+  }
+  // the vector units
+  const uint4* vec = reinterpret_cast<const uint4*>(addr & ~uintptr_t{15});
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  const bool shifted = WS != 0 || bs != 0;
+  const int lane = threadIdx.x & 31;
+  const int64_t per_warp = 32 * kUnits;
+  const int64_t warp = first_thread() >> 5;
+  const int64_t warps = thread_stride() >> 5;
+  for (int64_t c = u_lo + warp * per_warp; c < u_hi; c += warps * per_warp) {
+    uint4 v[kUnits], nx[kUnits];
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const int64_t u = c + 32 * j + lane;
+      v[j] = u < v_hi ? vec[u] : make_uint4(0, 0, 0, 0);
+      nx[j] = shifted && lane == 31 && u + 1 < v_hi ? vec[u + 1]
+                                                  : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const uint4 up = make_uint4(__shfl_down_sync(0xffffffffu, v[j].x, 1),
+                                  __shfl_down_sync(0xffffffffu, v[j].y, 1),
+                                  __shfl_down_sync(0xffffffffu, v[j].z, 1),
+                                  __shfl_down_sync(0xffffffffu, v[j].w, 1));
+      if (lane != 31) nx[j] = up;
+      const int64_t u = c + 32 * j + lane;
+      if (u >= u_hi) continue;
+      const uint32_t w[8] = {v[j].x,  v[j].y,  v[j].z,  v[j].w,
+                             nx[j].x, nx[j].y, nx[j].z, nx[j].w};
+      out4[u] = make_uint4(__funnelshift_r(w[WS], w[WS + 1], bs),
+                           __funnelshift_r(w[WS + 1], w[WS + 2], bs),
+                           __funnelshift_r(w[WS + 2], w[WS + 3], bs),
+                           __funnelshift_r(w[WS + 3], w[WS + 4], bs));
     }
   }
 }
@@ -168,10 +241,53 @@ int srjt_gather_rows(const void* mat, int64_t D, int64_t W, const void* idx,
 
 int srjt_u8_to_u32(const void* src, int64_t n_words, void* out, void* stream) {
   if (n_words > 0) {
-    u8_to_u32_kernel<<<grid_for(n_words), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(src), n_words,
-        static_cast<uint32_t*>(out));
+    // relative to the aligned vector at src & ~15: the source's first byte
+    // sh, its last word, and the vectors [v_lo, v_hi) whose four words all
+    // hold source bytes
+    const int64_t sh =
+        static_cast<int64_t>(reinterpret_cast<uintptr_t>(src) & 15u);
+    const int64_t last_word = (sh + 4 * n_words - 1) >> 2;
+    const int64_t v_lo = sh >= 4 ? 1 : 0;
+    const int64_t v_hi = (last_word + 1) >> 2;
+    // units need V[u] and, unless sh == 0, V[u+1]; all four words of the
+    // unit lie in the output
+    int64_t u_lo = v_lo;
+    int64_t u_hi = n_words >> 2;
+    if (u_hi > (sh ? v_hi - 1 : v_hi)) u_hi = sh ? v_hi - 1 : v_hi;
+    if (reinterpret_cast<uintptr_t>(out) % 16 != 0) u_hi = u_lo;
+    if (u_hi < u_lo) u_hi = u_lo;
+    const int64_t head = 4 * u_lo < n_words ? 4 * u_lo : n_words;
+    const int64_t tail_start = 4 * u_hi > head ? 4 * u_hi : head;
+    const int64_t edge =
+        head + (tail_start < n_words ? n_words - tail_start : 0);
+    auto kernel = sh < 4   ? u8_to_u32_kernel<0>
+                  : sh < 8 ? u8_to_u32_kernel<1>
+                  : sh < 12 ? u8_to_u32_kernel<2>
+                            : u8_to_u32_kernel<3>;
+    // one warp a chunk of 32 kUnits units; at most the warps the SMs hold
+    // resident, which then take the same number of chunks each, so that
+    // no wave runs part empty
+    const int64_t chunks = (u_hi - u_lo + 32 * kUnits - 1) / (32 * kUnits);
+    const int64_t warps_per_block = kThreads / 32;
+    static int resident[4] = {0, 0, 0, 0};     // by sh / 4, read once
+    int& per_sm = resident[sh >> 2];
+    if (per_sm == 0) per_sm = resident_blocks(kernel);
+    const int64_t max_warps =
+        static_cast<int64_t>(sm_count()) * per_sm * warps_per_block;
+    int64_t warps = chunks;
+    if (warps > max_warps) {
+      const int64_t rounds = (chunks + max_warps - 1) / max_warps;
+      warps = (chunks + rounds - 1) / rounds;
+    }
+    int64_t blocks = (warps + warps_per_block - 1) / warps_per_block;
+    const int64_t edge_blocks = (edge + kThreads - 1) / kThreads;
+    if (blocks < edge_blocks) blocks = edge_blocks;
+    if (blocks < 1) blocks = 1;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint8_t* p = static_cast<const uint8_t*>(src);
+    uint32_t* o = static_cast<uint32_t*>(out);
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        p, n_words, u_lo, u_hi, v_hi, head, tail_start, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

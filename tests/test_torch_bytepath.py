@@ -53,6 +53,31 @@ def test_u8_to_u32_matches_pallas(monkeypatch, start):
         _u32(got), raw[start:start + 4 * n_words].view("<u4"))
 
 
+# B7's geometry: every start % 16 (its vectors' alignment) with whole
+# 16-byte units and 1-3 words left over, single words and none
+B7_PAD_BYTES = 4096          # one Pallas block shape for every case
+
+
+@pytest.mark.parametrize("n_words", [0, 1, 3, 4, 5, 4 * 200 + 3])
+@pytest.mark.parametrize("start", range(16))
+def test_u8_to_u32_every_start_matches_pallas(monkeypatch, start, n_words):
+    monkeypatch.setenv("SRJT_PALLAS_TRANSPOSE", "interpret")
+    rng = np.random.default_rng(16 * start + n_words)
+    # the source ends exactly at the tensor's end
+    raw = rng.integers(0, 256, start + 4 * n_words, dtype=np.int64) \
+        .astype(np.uint8)
+    # the Pallas kernel takes whole 512-byte blocks: the same bytes,
+    # zero-padded, and the first n_words of its words
+    block = np.zeros(B7_PAD_BYTES, np.uint8)
+    block[:4 * n_words] = raw[start:]
+    want = np.asarray(xpallas.try_u8_to_u32(jnp.asarray(block)))[:n_words]
+    got = _no_launches(lambda: bytepath.u8_to_u32(
+        torch.from_numpy(raw), start, n_words))
+    assert got.dtype == torch.int32 and got.shape == (n_words,)
+    np.testing.assert_array_equal(_u32(got), want)
+    np.testing.assert_array_equal(_u32(got), raw[start:].view("<u4"))
+
+
 def test_u8_to_u32_owns_its_words_and_checks_bounds():
     src = torch.arange(40, dtype=torch.uint8)
     got = bytepath.u8_to_u32(src, 3, 9)

@@ -113,6 +113,95 @@ def test_u8_to_u32_matches_plain_any_start(cuda, start, n_words):
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), host)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", range(16))
+def test_u8_to_u32_every_start_tight_source(cuda, start):
+    """Every start % 16 (the vectors' alignment) with n_words % 4 of 0-3,
+    small and large, on a source that ends exactly at its tensor's end."""
+    rng = np.random.default_rng(start)
+    before = bytepath.u8_to_u32.launches
+    sizes = [1, 2, 3, 4, 5, 6, 7, 8, 9, 4096, 4097, 4098, 4099,
+             1 << 20, (1 << 20) + 3]
+    for n_words in sizes:
+        src = torch.from_numpy(rng.integers(0, 256, start + 4 * n_words)
+                               .astype(np.uint8)).to(cuda)
+        got = bytepath.u8_to_u32(src, start, n_words)
+        assert torch.equal(got, bytepath.u8_to_u32_plain(src, start,
+                                                         n_words))
+    torch.cuda.synchronize()
+    assert bytepath.u8_to_u32.launches == before + len(sizes)
+
+
+def _b2_sizes(case, rng):
+    """(M, row sizes) of B2's edge cases (tests/test_torch_ragged.py) and
+    of SF1's l_shipinstruct, as materialize hands it to B2."""
+    if case == "zero_one_byte":
+        return 16, rng.integers(0, 2, 6000)
+    if case == "all_null":
+        return 16, np.zeros(3000, np.int64)
+    if case == "full_rows":
+        return 24, np.full(700, 24)
+    if case == "wide":
+        return 5000, rng.integers(3000, 5001, 7)
+    if case == "wider_than_a_cta":
+        return 20000, rng.integers(15000, 20001, 5)
+    if case == "one_byte_rows":
+        return 16, np.ones(10000, np.int64)
+    if case == "sparse_one_byte":
+        return 16, (rng.random(20000) < 0.3).astype(np.int64)
+    if case == "past_m":
+        # rows longer than M: the bytes past M are zeros
+        return 8, rng.integers(0, 40, 5000)
+    return 32, np.array([17, 11, 4, 16])[rng.integers(0, 4, 6_001_215)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zero_one_byte", "all_null", "full_rows",
+                                  "wide", "wider_than_a_cta", "one_byte_rows",
+                                  "sparse_one_byte", "past_m",
+                                  "sf1_shipinstruct"])
+def test_pack_rows_kernel_edges_match_plain(cuda, case):
+    rng = np.random.default_rng(len(case))
+    M, sizes = _b2_sizes(case, rng)
+    sizes = torch.from_numpy(np.asarray(sizes, np.int64)).to(cuda)
+    n = sizes.shape[0]
+    offs = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
+    torch.cumsum(sizes, 0, out=offs[1:])
+    dense = torch.randint(1, 256, (n, M), dtype=torch.uint8, device=cuda)
+    dense[torch.arange(M, device=cuda) >= sizes[:, None]] = 0
+    total = int(offs[-1])
+    before = ragged.pack_rows.launches
+    got = ragged.pack_rows(dense, offs, total)
+    want = ragged.pack_rows_plain(dense, offs, total)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ragged.pack_rows.launches == before + (1 if total else 0)
+
+
+@pytest.mark.gpu
+def test_pack_rows_byte_offsets_past_2gib(cuda):
+    """Three rows whose byte offsets pass 2^31, the third at an odd one
+    (rows longer than M pack as their M bytes and zeros): about 2 GiB of
+    output."""
+    M = 64
+    sizes = [(1 << 30) + 5, (1 << 30) + 4, 10]
+    offs = torch.tensor([0, sizes[0], sizes[0] + sizes[1], sum(sizes)],
+                        dtype=torch.int64, device=cuda)
+    dense = torch.randint(1, 256, (3, M), dtype=torch.uint8, device=cuda)
+    dense[2, 10:] = 0
+    total = sum(sizes)
+    o1, o2 = int(offs[1]), int(offs[2])
+    assert o2 > 2**31 and o2 % 2 == 1
+    got = ragged.pack_rows(dense, offs, total)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:M], dense[0])
+    assert torch.equal(got[o1:o1 + M], dense[1])
+    assert torch.equal(got[o2:], dense[2, :10])
+    assert int(torch.count_nonzero(got)) == int(torch.count_nonzero(dense))
+    del got
+    torch.cuda.empty_cache()
+
+
 def _word_rows(rng, n, Mw, sizes, device):
     dense = rng.integers(-2**31, 2**31, (n, Mw), dtype=np.int64)
     dense = dense.astype(np.int32)

@@ -39,6 +39,56 @@ def test_pack_rows_matches_xla(n, M, aligned):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _sized_rows(rng, sizes, M):
+    """Random rows [n, M] zero past each row's size (at most M), their
+    int64 offsets [n+1] and the packed bytes."""
+    sizes = np.asarray(sizes, np.int64)
+    offs = np.zeros(sizes.shape[0] + 1, np.int64)
+    np.cumsum(sizes, out=offs[1:])
+    dense = rng.integers(1, 256, (sizes.shape[0], M)).astype(np.uint8)
+    dense[np.arange(M) >= sizes[:, None]] = 0
+    return dense, offs, dense[np.arange(M) < sizes[:, None]]
+
+
+# (M, sizes from a seeded generator): the edges of the pack kernel, whose
+# CTAs take runs of up to 16 KiB / M rows (at most 1,024) and build their
+# output ranges in 16-byte chunks, the partial chunks at either end shared
+# with the neighbouring CTA
+PACK_EDGE_CASES = {
+    # rows of 0 and 1 byte at the materialized width of a CHAR(1) string
+    "zero_one_byte": (16, lambda rng: rng.integers(0, 2, 6000)),
+    # an all-null column: every row empty, nothing to pack
+    "all_null": (16, lambda rng: np.zeros(3000, np.int64)),
+    # rows of exactly M bytes
+    "full_rows": (24, lambda rng: np.full(700, 24)),
+    # M over 4 KiB and not a multiple of 16: three rows a CTA, read byte
+    # by byte
+    "wide": (5000, lambda rng: rng.integers(3000, 5001, 7)),
+    # M over a CTA's 16 KiB: one row a CTA, some too long for its buffer
+    "wider_than_a_cta": (20000, lambda rng: rng.integers(15000, 20001, 5)),
+    # 10,000 one-byte rows: runs of 1,024 rows, 1 KiB of output each
+    "one_byte_rows": (16, lambda rng: np.ones(10000, np.int64)),
+    # one-byte rows among many empty ones
+    "sparse_one_byte": (16, lambda rng: (rng.random(20000) < 0.3)
+                        .astype(np.int64)),
+    # SF1 l_shipinstruct's shape: entries of 17, 11, 4 and 16 bytes in
+    # rows padded to 32
+    "shipinstruct": (32, lambda rng: np.array([17, 11, 4, 16])
+                     [rng.integers(0, 4, 5000)]),
+}
+
+
+@pytest.mark.parametrize("case", list(PACK_EDGE_CASES))
+def test_pack_rows_kernel_edges_match_xla(case):
+    M, sizes = PACK_EDGE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    dense, offs, flat = _sized_rows(rng, sizes(rng), M)
+    want = np.asarray(jragged.pack_rows_xla(jnp.asarray(dense), offs))
+    np.testing.assert_array_equal(want, flat)
+    got = ragged.pack_rows(_t(dense), _t(offs, np.int64), int(offs[-1]))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("n,M,aligned", PACK_CASES)
 def test_unpack_rows_matches_xla(n, M, aligned):
     dense, offs, flat = random_ragged(np.random.default_rng(n + 1), n, M,
