@@ -12,11 +12,13 @@ fails (non-zero exit, no result line) if anything is wrong:
 2. build: compiles the CUDA kernels and the host walker from
    ``spark_rapids_jni_tpu_torch/csrc``, all at once;
 3. kernels: runs B1, B3 and B4 on the inputs the row path hands them
-   (captured from a run of the 12-column table), holds each byte for byte
-   against its plain PyTorch version, and times both with CUDA events
-   (around the wrappers) and the kernel with ``torch.profiler`` (its
-   device rows alone; the library calls of phase 7 likewise); B2
-   is timed once on B1's rows too, the choice the routing rule made;
+   (captured from a run of the 12-column table, to_rows and from_rows),
+   holds each byte for byte against its plain PyTorch version, and times
+   both with CUDA events (around the wrappers) and the kernel with
+   ``torch.profiler`` (its device rows alone, and a zero-fill its wrapper
+   adds; the library calls of phase 7 likewise), beside its bound and, for
+   B2-B4, its sector floor (every 32-byte sector read whole); B2 is timed
+   once on B1's rows too, the choice the routing rule made;
 4. path: ``convert_to_rows`` → ``convert_from_rows`` round trips of three
    tables from the reference's row-conversion benchmark at 1,048,576 rows
    (212 fixed-width columns; 12 columns with 2 strings of 0-39 chars;
@@ -47,10 +49,15 @@ fails (non-zero exit, no result line) if anything is wrong:
    the generator's chars row for row, then the table through
    ``convert_to_rows`` → ``convert_from_rows`` in one batch (about 1 GB of
    rows), exact, its first 10,000 rows held against the numpy oracle.
-   This path launches every kernel, B1–B7.
+   This path launches every kernel, B1–B7;
+9. SF1 copies: B3 and B4 on the largest input each caller hands them on
+   the 16 columns (the ``l_comment`` prefix strip, to_rows, from_rows),
+   exact against their plain versions (run on pieces of the input where
+   the whole would not fit) and timed as in phase 3.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it holds the per-kernel results as JSON.  Tables and files are
+line before it holds the per-kernel results as JSON (B3's and B4's with
+every input they were measured on).  Tables and files are
 made from ``--seed`` with numpy.  Imports torch, numpy and the port, never
 JAX.
 """
@@ -119,6 +126,10 @@ KERNEL_SYMBOLS = {
     "gather_rows": ("gather_rows_kernel",),
     "u8_to_u32": ("u8_to_u32_kernel",),
 }
+# device work a wrapper may add around its kernel, counted in its device
+# time where it shows: B4's wrapper zero-filled dst before its kernel came
+# to write every byte itself
+WRAPPER_EXTRAS = {"segmented_copy": ("FillFunctor", "Memset")}
 # B7's start alignments timed in phase 7: start % 16 of the copy
 B7_STARTS = (4, 1, 2, 3, 0)
 # one PyTorch call computing the same function, where there is one
@@ -126,6 +137,15 @@ LIBRARY = {
     "gather_rows": "torch.index_select(mat, 0, idx)",
     "u8_to_u32": "src[s:s+4n].clone().view(torch.int32)",
 }
+# what the kernels line keeps of each input a kernel was measured on
+INPUT_KEYS = ("measured_in", "shape", "ms", "device_ms", "bound_ms",
+              "floor_ms", "plain_ms")
+# B3 and B4, whose inputs phase 9 records, and the (run, kernel) pairs it
+# must see
+RAGGED_COPIES = ("unpack_rows", "segmented_copy")
+SF1_COPIES = (("SF1 scan", "segmented_copy"), ("SF1 to_rows", "segmented_copy"),
+              ("SF1 from_rows", "unpack_rows"),
+              ("SF1 from_rows", "segmented_copy"))
 # the kernels whose wrappers phase 7 records
 SCAN_KERNELS = ("pack_rows", "extract_rows", "gather_rows", "u8_to_u32")
 NULL_ROWS = 1 << 20
@@ -236,12 +256,13 @@ def flush(buf: torch.Tensor) -> None:
     buf.view(-1, 1024).amax(dim=1)
 
 
-def device_ms(fn, reps: int, symbols=None) -> tuple:
+def device_ms(fn, reps: int, symbols=None, extras=()) -> tuple:
     """Mean device milliseconds a call of ``fn`` keeps the card busy, from
     ``torch.profiler``'s device rows over windows of ``reps`` calls, each
     call after a read of FLUSH_BYTES so that it reads its inputs from
     device memory.  A window counts the rows whose names hold one of
-    ``symbols``, or every device row but the flush's: the median row of
+    ``symbols`` or ``extras``, or every device row but the flush's (the
+    symbols must all show, the extras may not): the median row of
     each name, summed over the names, as every call launches each of its
     kernels once.  The profiler on the card may lose rows or give them
     broken times, so a window in which a symbol has no row, or a name fewer
@@ -266,7 +287,7 @@ def device_ms(fn, reps: int, symbols=None) -> tuple:
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and FLUSH_KERNEL not in e.name
                     and (symbols is None
-                         or any(s in e.name for s in symbols))):
+                         or any(s in e.name for s in symbols + extras))):
                 us = e.time_range.end - e.time_range.start
                 if us > 0:
                     by_name[e.name].append(us)
@@ -287,6 +308,18 @@ def device_ms(fn, reps: int, symbols=None) -> tuple:
 
 def bytes_moved(name: str, args) -> int:
     """Bytes a kernel must read once and write once on these inputs."""
+    if name == "extract_rows":
+        flat, offs, M = args
+        offs = np.asarray(offs, np.int64)
+        payload = int(np.minimum(offs[1:] - offs[:-1], M).sum())
+        return payload + offs.size * 8 + (offs.size - 1) * (-(-M // 4)) * 4
+    if name == "gather_rows":
+        mat, idx = args
+        return (mat.numel() * 4 + idx.numel() * 4
+                + idx.numel() * mat.shape[1] * 4)
+    if name == "u8_to_u32":
+        src, start, n_words = args
+        return 8 * n_words
     if name == "pack_windows":
         dense, dst, total_w = args
         payload = int((dst[1:] - dst[:-1]).clamp(0, dense.shape[1]).sum())
@@ -387,22 +420,15 @@ def record_inputs(kernels, names, keep, run) -> dict:
 
 def measure(kernels, name, args, card, what, library=None) -> dict:
     """One kernel against its plain version on ``args``: equal, its error,
-    both times, its bound and the library call's time."""
-    kernel, plain = kernels.wrapper(name), kernels.plain(name)
+    both times, its bound, its sector floor and the library call's time."""
+    kernel = kernels.wrapper(name)
     got = kernel(*args)
-    want = plain(*args)
     torch.cuda.synchronize()
-    equal = got.shape == want.shape and torch.equal(got, want)
-    err = 0
-    if got.shape == want.shape and got.numel():
-        diff = (got.contiguous().view(torch.uint8).to(torch.int16)
-                - want.contiguous().view(torch.uint8).to(torch.int16))
-        err = int(diff.abs().max())
+    equal, err, plain_ms = against_plain(kernels, name, args, got)
     require(equal, f"{name} ({what}) disagrees with its plain version")
     ms = time_cuda(lambda: kernel(*args), KERNEL_REPS)
     dev_ms, _ = device_ms(lambda: kernel(*args), KERNEL_REPS,
-                          KERNEL_SYMBOLS[name])
-    plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+                          KERNEL_SYMBOLS[name], WRAPPER_EXTRAS.get(name, ()))
     library_ms = library_dev_ms = None
     if library is not None:
         require(torch.equal(library(), got), f"{name}: library call differs")
@@ -410,21 +436,92 @@ def measure(kernels, name, args, card, what, library=None) -> dict:
         library_dev_ms, rows = device_ms(library, KERNEL_REPS)
         log(f"[kernels] {name} ({what}): the library call's device rows "
             f"{rows}")
-    nbytes = (scan_bytes_moved(name, args) if what == "scan"
-              else bytes_moved(name, args))
+    del got
+    nbytes = bytes_moved(name, args)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    floor = floor_bytes(name, args)
+    floor_ms = None if floor is None else floor / HBM_BYTES_PER_S * 1e3
     shape = describe(args)
     if name == "extract_rows":
         shape[1] = [len(args[1])]           # host offsets: their count
     log(f"[kernels] {name} ({what}) inputs {shape}: equal={equal} "
         f"max_abs_err={err} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
-        f"bound {bound_ms:.4f} ms for {nbytes} bytes), device {dev_ms:.4f} "
-        f"ms; plain {plain_ms:.4f} ms; library {fmt_ms(library_ms)} ms, "
-        f"device {fmt_ms(library_dev_ms)} ms [{card}]")
-    return dict(equal=equal, max_abs_err=err, ms=ms, device_ms=dev_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
-                library_device_ms=library_dev_ms, bytes=nbytes,
-                shape=shape, measured_in=what)
+        f"bound {bound_ms:.4f} ms for {nbytes} bytes, sector floor "
+        f"{fmt_ms(floor_ms)} ms), device {dev_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; library {fmt_ms(library_ms)} ms, device "
+        f"{fmt_ms(library_dev_ms)} ms [{card}]")
+    out = dict(equal=equal, max_abs_err=err, ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
+               library_device_ms=library_dev_ms, bytes=nbytes,
+               shape=shape, measured_in=what)
+    if floor_ms is not None:
+        out["floor_ms"] = floor_ms
+    return out
+
+
+# output bytes above which the plain version runs on pieces of the rows or
+# segments: it holds several int64 words for every byte of output
+PLAIN_PIECE_BYTES = 1 << 26
+
+
+def plain_pieces(name: str, args) -> list:
+    """(slice of the kernel's output, the plain version's inputs for it):
+    the whole input, or for B3 and B4 over PLAIN_PIECE_BYTES of output,
+    runs of consecutive rows or segments (B4's destinations ascend, so a
+    run of segments owns dst from its first start to the next run's)."""
+    if name == "unpack_rows":
+        flat, offs, M = args
+        n = offs.numel() - 1
+        per = max(1, PLAIN_PIECE_BYTES // max(M, 1))
+        if n <= per:
+            return [(slice(None), args)]
+        return [(slice(r, min(r + per, n)),
+                 (flat, offs[r:min(r + per, n) + 1], M))
+                for r in range(0, n, per)]
+    if name == "segmented_copy":
+        src, so, do, sizes, dst_size = args
+        k = sizes.numel()
+        if dst_size <= PLAIN_PIECE_BYTES or k == 0:
+            return [(slice(None), args)]
+        per = max(1, k * PLAIN_PIECE_BYTES // dst_size)
+        firsts = list(range(0, k, per))
+        bounds = [0] + do[firsts[1:]].tolist() + [dst_size]
+        return [(slice(lo, hi),
+                 (src, so[a:a + per], do[a:a + per] - lo, sizes[a:a + per],
+                  hi - lo))
+                for a, lo, hi in zip(firsts, bounds[:-1], bounds[1:])]
+    return [(slice(None), args)]
+
+
+def against_plain(kernels, name, args, got) -> tuple:
+    """(equal, max_abs_err, plain ms) of ``got`` against the plain version
+    on the same inputs, piece by piece (:func:`plain_pieces`).  The plain
+    time is the mean of three calls on a whole input, else the sum of the
+    pieces' times in one pass."""
+    plain = kernels.plain(name)
+    pieces = plain_pieces(name, args)
+    equal, err, ms = True, 0, 0.0
+    for part, piece_args in pieces:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*piece_args)
+        end.record()
+        end.synchronize()
+        ms += start.elapsed_time(end)
+        have = got[part]
+        if have.shape != want.shape:
+            equal = False
+            continue
+        equal = equal and torch.equal(have, want)
+        if want.numel():
+            diff = (have.contiguous().view(torch.uint8).to(torch.int16)
+                    - want.contiguous().view(torch.uint8).to(torch.int16))
+            err = max(err, int(diff.abs().max()))
+        del want, have
+    if len(pieces) == 1:
+        ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+    return equal, err, ms
 
 
 def fmt_ms(ms) -> str:
@@ -841,20 +938,36 @@ def phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
     torch.cuda.empty_cache()
 
 
-def scan_bytes_moved(name: str, args) -> int:
-    """Bytes a scan kernel must read once and write once on these inputs."""
-    if name == "pack_rows":
-        return bytes_moved(name, args)
-    if name == "extract_rows":
-        flat, offs, M = args
-        offs = np.asarray(offs, np.int64)
-        payload = int(np.minimum(offs[1:] - offs[:-1], M).sum())
-        return payload + offs.size * 8 + (offs.size - 1) * (-(-M // 4)) * 4
-    if name == "gather_rows":
-        mat, idx = args
-        return mat.numel() * 4 + idx.numel() * 4 + idx.numel() * mat.shape[1] * 4
-    src, start, n_words = args
-    return 8 * n_words
+def phase_full_kernels(pt, device_scan, kernels, raw, card) -> dict:
+    """Phase 9: B3 and B4 on the largest input each of their callers hands
+    them on SF1's 16 columns: the scan's PLAIN ``l_comment`` prefix strip,
+    the 16-column to_rows and its from_rows (the fixed region and the
+    chars), each held byte for byte against its plain version and timed
+    beside its bound and sector floor."""
+    direction = ["scan"]
+
+    def keep(captured, name, args):
+        key = (f"SF1 {direction[0]}", name)
+        nb = bytes_moved(name, args)
+        if key not in captured or nb > captured[key][0]:
+            captured[key] = (nb, args)
+
+    def run():
+        table = device_scan.scan_table(raw)
+        direction[0] = "to_rows"
+        batch = pt.convert_to_rows(table)[0]
+        direction[0] = "from_rows"
+        pt.convert_from_rows(batch, table.schema)
+
+    captured = record_inputs(kernels, RAGGED_COPIES, keep, run)
+    for key in SF1_COPIES:
+        require(key in captured, f"SF1: {key[1]} never called in {key[0]}")
+    results = {}
+    for key, (_, args) in sorted(captured.items()):
+        results[key] = measure(kernels, key[1], args, card, key[0])
+    del captured
+    torch.cuda.empty_cache()
+    return results
 
 
 def library_call(name: str, args):
@@ -872,7 +985,7 @@ def phase_scan_kernels(device_scan, kernels, raw, cols15, card) -> dict:
     the scan of the 15 columns and the materialization of its dictionary
     strings hand them."""
     def keep(captured, name, args):
-        nb = scan_bytes_moved(name, args)
+        nb = bytes_moved(name, args)
         old = captured.get(name)
         if old is None or nb > old[0]:
             captured[name] = (nb, args)
@@ -890,28 +1003,49 @@ def phase_scan_kernels(device_scan, kernels, raw, cols15, card) -> dict:
         args = captured[name][1]
         lib = library_call(name, args)
         results[name] = measure(kernels, name, args, card, "scan", lib)
-    floor_ms = sector_floor_bytes(*captured["pack_rows"][1]) \
-        / HBM_BYTES_PER_S * 1e3
-    results["pack_rows"]["floor_ms"] = floor_ms
-    log(f"[kernels] pack_rows (scan): sector floor {floor_ms:.4f} ms (every "
-        f"32-byte sector of a row's payload read whole) [{card}]")
     results["u8_to_u32"]["starts"] = b7_starts(
         kernels, captured["u8_to_u32"][1], card)
     return results
 
 
-def sector_floor_bytes(dense, offs, total) -> int:
-    """B2's honest floor in bytes: each 32-byte sector of ``dense`` that
-    holds payload is read whole (rows of a few bytes at a stride of M
-    share no sector with the next), plus the offsets and the output."""
-    M = dense.shape[1]
-    ncopy = (offs[1:] - offs[:-1]).clamp(0, M)
-    live = ncopy > 0
-    start = torch.arange(dense.shape[0], device=offs.device)[live] * M
-    first, last = start // 32, (start + ncopy[live] - 1) // 32
+def sectors_read(starts: torch.Tensor, lens: torch.Tensor) -> int:
+    """The 32-byte sectors that reads of [starts, starts + lens) touch,
+    each counted once: the ranges (which do not overlap) sorted by start,
+    a sector shared by neighbours counted once."""
+    live = lens > 0
+    starts, lens = starts[live], lens[live]
+    starts, order = torch.sort(starts)
+    lens = lens[order]
+    first, last = starts // 32, (starts + lens - 1) // 32
     shared = int((first[1:] == last[:-1]).sum())
-    sectors = int((last - first + 1).sum()) - shared
-    return 32 * sectors + offs.numel() * 8 + total
+    return int((last - first + 1).sum()) - shared
+
+
+def floor_bytes(name: str, args):
+    """B2-B4's honest floor in bytes: every 32-byte sector of the source
+    that holds payload read whole (strings of a few bytes at byte offsets
+    share few sectors), plus the offsets and the output, as in
+    :func:`bytes_moved`; None for the other kernels."""
+    if name == "pack_rows":
+        dense, offs, total = args
+        M = dense.shape[1]
+        rows = torch.arange(dense.shape[0], device=offs.device)
+        ncopy = (offs[1:] - offs[:-1]).clamp(0, M)
+        return (32 * sectors_read(dense.data_ptr() + rows * M, ncopy)
+                + offs.numel() * 8 + total)
+    if name == "unpack_rows":
+        flat, offs, M = args
+        n = offs.numel() - 1
+        lo = offs[:-1]
+        ncopy = (offs[1:].clamp(max=flat.numel()) - lo).clamp(0, M)
+        ncopy[lo < 0] = 0
+        return (32 * sectors_read(flat.data_ptr() + lo, ncopy)
+                + offs.numel() * 8 + n * M)
+    if name == "segmented_copy":
+        src, so, do, sizes, dst_size = args
+        return (32 * sectors_read(src.data_ptr() + so, sizes)
+                + 3 * sizes.numel() * 8 + dst_size)
+    return None
 
 
 def b7_starts(kernels, args, card) -> dict:
@@ -992,12 +1126,15 @@ def main(argv=None) -> int:
     phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
                      raw, data, launches)
     del data
+    results.update(phase_full_kernels(pt, device_scan, kernels, raw, card))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():
         r = scan_results[name] if where == "scan" else results[(where, name)]
         others = ([r] if where == "scan" else
                   [v for (d, k), v in results.items() if k == name])
+        inputs = [{key: o[key] for key in INPUT_KEYS if key in o}
+                  for o in others]
         require(launches[name] > 0, f"{name} never launched on the main path")
         entry = {
             "name": name, "route": "cuda", "source": source,
@@ -1015,6 +1152,8 @@ def main(argv=None) -> int:
         for extra in ("b2_same_rows_ms", "floor_ms", "starts"):
             if extra in r:
                 entry[extra] = r[extra]
+        if len(inputs) > 1:
+            entry["inputs"] = inputs
         out.append(entry)
     log(json.dumps({"card": card, "kernels": out}))
     log(json.dumps({"ok": True, "device": {

@@ -77,7 +77,7 @@ __device__ __forceinline__ int64_t thread_stride() {
 // Bound: (sum of min(size_r, M) read + 8(D+1) offsets + 4·D·Mw written)
 // / 3.35 TB/s.  Dictionary entries are a few bytes, so one thread makes one
 // output word: a warp covers 32 words of consecutive rows and no lane idles
-// on a short row, which a warp per row (unpack_rows_kernel) would.
+// on a short row, which a warp per row would.
 __global__ void __launch_bounds__(kThreads)
 extract_rows_kernel(const uint8_t* __restrict__ flat, int64_t flat_size,
                     const int64_t* __restrict__ offs, int64_t D, int64_t M,

@@ -23,12 +23,16 @@
 // offsets and bytes into shared memory with all loads in flight at once,
 // builds its output range there and stores it in 16-byte chunks.
 //
-// Unpack (B3) and the segmented copy (B4) still copy one row (or segment)
-// a warp straight from device memory to device memory: 8 bytes a lane
-// (256 bytes a step) wherever source and destination share their
-// alignment modulo 8 (JCUDF rows start on 8-byte boundaries), one byte a
-// lane otherwise.  Rows and segments of a few dozen bytes leave most lanes
-// of a step idle; their redesign is later work.
+// Unpack (B3) and the segmented copy (B4) follow the same plan since
+// their redesign: their items (rows, segments) are also a few dozen bytes
+// at byte offsets, where a warp an item kept most lanes idle, moved a byte
+// a lane wherever source and destination disagreed modulo 8, and waited on
+// dependent offset loads.  One CTA takes a run of consecutive items, which
+// own one contiguous destination range; it brings the items' offsets into
+// shared memory by cp.async, builds the range there (zeros, then each
+// item's bytes from aligned 16-byte source loads, a power-of-two group of
+// threads an item) and stores it in 16-byte chunks (build_range).  So each
+// kernel writes every byte of its output itself.
 //
 // Rules shared by the three: offsets arrive as device int64 arrays; index
 // arithmetic is int64 (int only inside a CTA's shared buffers); a kernel
@@ -41,63 +45,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / kWarp;
-// 132 SMs x 8 resident blocks of 256 threads, four waves; warps stride over
-// the rest
-constexpr int64_t kMaxBlocks = 132 * 8 * 4;
-
-inline unsigned grid_for(int64_t items) {
-  int64_t blocks = (items + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
-}
-
-// One warp copies nbytes from src to dst.  Eight bytes a lane where the two
-// pointers agree modulo 8, after a byte-wise head; one byte a lane otherwise.
-__device__ __forceinline__ void warp_copy(uint8_t* __restrict__ dst,
-                                          const uint8_t* __restrict__ src,
-                                          int64_t nbytes, int lane) {
-  const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
-  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
-  if (((d ^ s) & 7u) == 0) {
-    int64_t head = static_cast<int64_t>((8u - (d & 7u)) & 7u);
-    if (head > nbytes) head = nbytes;
-    if (lane < head) dst[lane] = src[lane];
-    const int64_t words = (nbytes - head) >> 3;
-    const uint64_t* s8 = reinterpret_cast<const uint64_t*>(src + head);
-    uint64_t* d8 = reinterpret_cast<uint64_t*>(dst + head);
-    for (int64_t i = lane; i < words; i += kWarp) d8[i] = s8[i];
-    const int64_t done = head + (words << 3);
-    if (lane < nbytes - done) dst[done + lane] = src[done + lane];
-  } else {
-    for (int64_t i = lane; i < nbytes; i += kWarp) dst[i] = src[i];
-  }
-}
-
-// One warp writes nbytes of zeros at dst, eight bytes a lane after the head.
-__device__ __forceinline__ void warp_zero(uint8_t* __restrict__ dst,
-                                          int64_t nbytes, int lane) {
-  const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
-  int64_t head = static_cast<int64_t>((8u - (d & 7u)) & 7u);
-  if (head > nbytes) head = nbytes;
-  if (lane < head) dst[lane] = 0;
-  const int64_t words = (nbytes - head) >> 3;
-  uint64_t* d8 = reinterpret_cast<uint64_t*>(dst + head);
-  for (int64_t i = lane; i < words; i += kWarp) d8[i] = 0;
-  const int64_t done = head + (words << 3);
-  if (lane < nbytes - done) dst[done + lane] = 0;
-}
-
-__device__ __forceinline__ int64_t first_warp() {
-  return static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-}
-
-__device__ __forceinline__ int64_t warp_stride() {
-  return static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
-}
 
 // pack: row r's first offs[r+1]-offs[r] bytes of dense[r, :M] go to
 // out[offs[r]:].  Contract: offs non-decreasing, offs[0] == 0,
@@ -266,53 +213,184 @@ pack_rows_kernel(const uint8_t* __restrict__ dense, int64_t n, int64_t M,
   }
 }
 
+// Run-of-items copies (B3, B4).  A CTA's items are consecutive rows or
+// segments whose destinations lie in one range [lo, hi) of the output that
+// no other CTA writes (with offsets that keep the contract), so the CTA
+// builds that range in shared memory and stores it whole: zeros where no
+// item lands, 16-byte stores for whole chunks, bytes for the partial chunk
+// at either end (the neighbouring CTA writes the rest of it).  A range
+// longer than the buffer is built in windows of kCopyBuf bytes, one after
+// the other; that takes a segment longer than a tile, or broken offsets.
+constexpr int kCopyThreads = 256;
+constexpr int64_t kCopyTile = 16 * 1024;
+constexpr int64_t kCopyBuf = kCopyTile + kChunk;
+constexpr int kUnpackMaxRows = 1024;
+constexpr int kSegMax = 512;
+
+// threads an item: a power of two covering an item of `bytes` in 16-byte
+// chunks, at most the CTA (it measured faster on the main path's inputs
+// than 32 or 64 bytes a thread, or one thread an item: PERF.md)
+inline int log_group(int64_t bytes) {
+  const int64_t chunks = (bytes + kChunk - 1) / kChunk;
+  int log_g = 0;
+  while ((int64_t{1} << log_g) < chunks && (1 << log_g) < kCopyThreads) {
+    ++log_g;
+  }
+  return log_g;
+}
+
+// Writes every byte of dst[lo, hi): item i's bytes src[so, so + len) at
+// dst[d, d + len) where they fall inside [lo, hi), zeros elsewhere.
+// piece(i, so, d, len) reads item i from shared memory; it sets len <= 0
+// for an item that copies nothing, and keeps [so, so + len) inside src.
+// 2^log_g threads an item read its source in aligned 16-byte loads (each
+// holds at least one byte of the item, so none crosses a page the source
+// does not touch) and place its bytes in the window.
+template <class Piece>
+__device__ __forceinline__ void build_range(const uint8_t* __restrict__ src,
+                                            Piece piece, int count,
+                                            int64_t lo, int64_t hi,
+                                            int log_g, uint8_t* s_buf,
+                                            uint8_t* __restrict__ dst) {
+  const int g = 1 << log_g;
+  const int lane = threadIdx.x & (g - 1);
+  const bool vec = reinterpret_cast<uintptr_t>(dst) % kChunk == 0;
+  for (int64_t w0 = lo & ~int64_t{15}; w0 < hi; w0 += kCopyBuf) {
+    const int64_t from = w0 > lo ? w0 : lo;
+    const int64_t to = w0 + kCopyBuf < hi ? w0 + kCopyBuf : hi;
+    for (int v = threadIdx.x; v < kCopyBuf / kChunk; v += kCopyThreads) {
+      reinterpret_cast<uint4*>(s_buf)[v] = make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x >> log_g; i < count; i += kCopyThreads >> log_g) {
+      int64_t so, d, len;
+      piece(i, so, d, len);
+      if (len <= 0) continue;
+      const int64_t a = d > from ? d : from;
+      const int64_t b = d + len < to ? d + len : to;
+      if (a >= b) continue;
+      // bytes [a, b) of the window come from p[0, n)
+      const uint8_t* p = src + so + (a - d);
+      const int head =
+          static_cast<int>(reinterpret_cast<uintptr_t>(p) % kChunk);
+      const uint4* pa = reinterpret_cast<const uint4*>(p - head);
+      const int n = static_cast<int>(b - a);
+      uint8_t* q = s_buf + (a - w0);
+      for (int c = lane; c * kChunk < head + n; c += g) {
+        const uint4 v = __ldg(pa + c);
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int j = c * kChunk + k - head;
+          if (j >= 0 && j < n) q[j] = byte_of(v, k);
+        }
+      }
+    }
+    __syncthreads();
+    for (int64_t at = w0 + threadIdx.x * kChunk; at < to;
+         at += kCopyThreads * kChunk) {
+      const uint8_t* b = s_buf + (at - w0);
+      if (vec && at >= from && at + kChunk <= to) {
+        *reinterpret_cast<uint4*>(dst + at) =
+            *reinterpret_cast<const uint4*>(b);
+      } else {
+        for (int k = 0; k < kChunk; ++k) {
+          if (at + k >= from && at + k < to) dst[at + k] = b[k];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // unpack: out[r, :M] = flat[offs[r]:offs[r+1]] cut to M bytes (the prefix
 // of a longer row), zero-padded.  Every byte of out is written.
 // Replaces ragged._unpack_call (spark_rapids_jni_tpu/rowconv/ragged.py:417).
 // Bound: (sum of min(size_r, M) read + 8(n+1) + n*M written) / 3.35 TB/s.
-// With M not a multiple of 8 (the fixed region of JCUDF rows) source and
-// destination disagree modulo 8 on most rows, which then move a byte a
-// lane: the main gap to the bound.
-__global__ void __launch_bounds__(kThreads)
+// Its callers hand it JCUDF rows whose first M bytes (the fixed region, M
+// not a multiple of 8) are wanted, and one string column's chars.
+//
+// One CTA unpacks `per_cta` consecutive rows (about 16 KiB of output, at
+// most kUnpackMaxRows): their output [r0*M, (r0+rows)*M) is one range.
+// Each row's prefix is read by aligned 16-byte loads of its own, so a
+// narrow prefix of long rows reads only the sectors it needs.  A row whose
+// offsets break the contract (negative start, end before start) comes out
+// as zeros; its end is cut at flat_size.
+__global__ void __launch_bounds__(kCopyThreads)
 unpack_rows_kernel(const uint8_t* __restrict__ flat, int64_t flat_size,
                    const int64_t* __restrict__ offs, int64_t n, int64_t M,
-                   uint8_t* __restrict__ out) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  for (int64_t r = first_warp(); r < n; r += warp_stride()) {
-    const int64_t lo = offs[r];
-    int64_t hi = offs[r + 1];
-    if (hi > flat_size) hi = flat_size;
-    int64_t ncopy = (lo < 0 || hi <= lo) ? 0 : hi - lo;
-    if (ncopy > M) ncopy = M;
-    uint8_t* row = out + r * M;
-    if (ncopy > 0) warp_copy(row, flat + lo, ncopy, lane);
-    warp_zero(row + ncopy, M - ncopy, lane);
+                   int64_t per_cta, int log_g, uint8_t* __restrict__ out) {
+  __shared__ int64_t s_offs[kUnpackMaxRows + 1];
+  __shared__ __align__(16) uint8_t s_buf[kCopyBuf];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * per_cta;
+  const int rows = static_cast<int>(n - r0 < per_cta ? n - r0 : per_cta);
+  for (int i = threadIdx.x; i <= rows; i += kCopyThreads) {
+    cp_async8(s_offs + i, offs + r0 + i);
   }
+  cp_async_wait_all();
+  __syncthreads();
+  auto piece = [&](int i, int64_t& so, int64_t& d, int64_t& len) {
+    so = s_offs[i];
+    const int64_t end = s_offs[i + 1] < flat_size ? s_offs[i + 1] : flat_size;
+    d = (r0 + i) * M;
+    len = so < 0 ? 0 : (end - so < M ? end - so : M);
+  };
+  build_range(flat, piece, rows, r0 * M, (r0 + rows) * M, log_g, s_buf, out);
 }
 
-// segmented copy: dst[dst_offs[k]:+sizes[k]] = src[src_offs[k]:+sizes[k]].
-// The caller zero-fills dst; destination segments must not overlap.
+// segmented copy: dst[dst_offs[s]:+sizes[s]] = src[src_offs[s]:+sizes[s]],
+// every other byte of dst zero.  Destinations ascend and do not overlap;
+// sources may lie anywhere.  Every byte of dst is written.
 // Replaces ragged._segcopy_call (spark_rapids_jni_tpu/rowconv/ragged.py:559).
 // Bound: (sum of sizes read + 24k metadata + dst_size written) / 3.35 TB/s.
-// Segments are strings of a few dozen bytes at byte-granular offsets: a
-// warp a segment keeps most lanes idle, the main gap to the bound.
-__global__ void __launch_bounds__(kThreads)
+// Its callers hand it strings of a few dozen bytes at byte offsets: chars
+// into JCUDF rows (gaps between rows), chars out of rows (sources spread
+// over the rows, column after column), PLAIN string records without their
+// 4-byte prefixes.
+//
+// One CTA copies `per_cta` consecutive segments (per_cta times the mean
+// destination span about 12 KiB, at most kSegMax) and owns dst from its
+// first segment's start to the next CTA's first start (0 for the first
+// CTA, dst_size for the last), so the CTAs tile dst, gaps included.  The
+// CTA boundaries are clamped to [0, dst_size]; with offsets that break the
+// contract, ranges may overlap (racing writes) but still cover dst, and no
+// access leaves src or dst: a segment with a negative offset copies
+// nothing, one past the end of src is cut there.
+__global__ void __launch_bounds__(kCopyThreads)
 segmented_copy_kernel(const uint8_t* __restrict__ src, int64_t src_size,
                       const int64_t* __restrict__ src_offs,
                       const int64_t* __restrict__ dst_offs,
                       const int64_t* __restrict__ sizes, int64_t k,
-                      uint8_t* __restrict__ dst, int64_t dst_size) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  for (int64_t s = first_warp(); s < k; s += warp_stride()) {
-    const int64_t so = src_offs[s];
-    const int64_t d = dst_offs[s];
-    if (so < 0 || d < 0) continue;
-    int64_t len = sizes[s];
-    if (len > src_size - so) len = src_size - so;
-    if (len > dst_size - d) len = dst_size - d;
-    if (len <= 0) continue;
-    warp_copy(dst + d, src + so, len, lane);
+                      int64_t per_cta, int log_g, uint8_t* __restrict__ dst,
+                      int64_t dst_size) {
+  __shared__ int64_t s_so[kSegMax];
+  __shared__ int64_t s_do[kSegMax + 1];
+  __shared__ int64_t s_len[kSegMax];
+  __shared__ __align__(16) uint8_t s_buf[kCopyBuf];
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * per_cta;
+  const int count = static_cast<int>(k - s0 < per_cta ? k - s0 : per_cta);
+  const bool last = s0 + count == k;
+  for (int i = threadIdx.x; i < count; i += kCopyThreads) {
+    cp_async8(s_so + i, src_offs + s0 + i);
+    cp_async8(s_do + i, dst_offs + s0 + i);
+    cp_async8(s_len + i, sizes + s0 + i);
   }
+  if (threadIdx.x == 0 && !last) cp_async8(s_do + count, dst_offs + s0 + count);
+  cp_async_wait_all();
+  __syncthreads();
+  auto clamp = [dst_size](int64_t x) {
+    return x < 0 ? int64_t{0} : (x > dst_size ? dst_size : x);
+  };
+  const int64_t lo = blockIdx.x == 0 ? 0 : clamp(s_do[0]);
+  const int64_t hi = last ? dst_size : clamp(s_do[count]);
+  if (hi <= lo) return;
+  auto piece = [&](int i, int64_t& so, int64_t& d, int64_t& len) {
+    so = s_so[i];
+    d = s_do[i];
+    len = s_len[i];
+    if (so < 0 || d < 0 || so >= src_size) len = 0;
+    else if (len > src_size - so) len = src_size - so;
+  };
+  build_range(src, piece, count, lo, hi, log_g, s_buf, dst);
 }
 
 }  // namespace
@@ -346,26 +424,43 @@ int srjt_pack_rows(const void* dense, int64_t n, int64_t M, const void* offs,
 int srjt_unpack_rows(const void* flat, int64_t flat_size, const void* offs,
                      int64_t n, int64_t M, void* out, void* stream) {
   if (n > 0 && M > 0) {
-    unpack_rows_kernel<<<grid_for(n), kThreads, 0,
+    int64_t per_cta = kCopyTile / M;
+    if (per_cta > kUnpackMaxRows) per_cta = kUnpackMaxRows;
+    if (per_cta < 1) per_cta = 1;
+    unpack_rows_kernel<<<static_cast<unsigned>((n + per_cta - 1) / per_cta),
+                         kCopyThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(flat), flat_size,
-        static_cast<const int64_t*>(offs), n, M, static_cast<uint8_t*>(out));
+        static_cast<const int64_t*>(offs), n, M, per_cta,
+        log_group(flat_size / n < M ? flat_size / n : M),   // the mean row
+        static_cast<uint8_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// Writes every byte of dst when it launches (k, dst_size and src_size all
+// positive); the caller zero-fills dst otherwise.
 int srjt_segmented_copy(const void* src, int64_t src_size,
                         const void* src_offs, const void* dst_offs,
                         const void* sizes, int64_t k, void* dst,
                         int64_t dst_size, void* stream) {
   if (k > 0 && dst_size > 0 && src_size > 0) {
-    segmented_copy_kernel<<<grid_for(k), kThreads, 0,
+    // the mean destination span of a segment, gaps included, sizes the run
+    // of segments a CTA; the threads a segment come from the mean segment,
+    // which is at most that span and the mean source span
+    const int64_t span = dst_size / k > 0 ? dst_size / k : 1;
+    const int64_t bytes = src_size / k < span ? src_size / k : span;
+    int64_t per_cta = kCopyTile * 3 / 4 / span;
+    if (per_cta > kSegMax) per_cta = kSegMax;
+    if (per_cta < 1) per_cta = 1;
+    segmented_copy_kernel<<<static_cast<unsigned>((k + per_cta - 1) / per_cta),
+                            kCopyThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(src), src_size,
         static_cast<const int64_t*>(src_offs),
         static_cast<const int64_t*>(dst_offs),
-        static_cast<const int64_t*>(sizes), k, static_cast<uint8_t*>(dst),
-        dst_size);
+        static_cast<const int64_t*>(sizes), k, per_cta, log_group(bytes),
+        static_cast<uint8_t*>(dst), dst_size);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -188,12 +188,14 @@ def segmented_copy(src: torch.Tensor, src_offs: torch.Tensor,
         raise ValueError("src_offs, dst_offs and sizes must have one length")
     if _route(dev) == "plain":
         return segmented_copy_plain(src, src_offs, dst_offs, sizes, dst_size)
-    out = torch.zeros(dst_size, dtype=torch.uint8, device=dev)
-    if k > 0 and dst_size > 0 and src.shape[0] > 0:
-        _launch("srjt_segmented_copy", dev, src.data_ptr(), src.shape[0],
-                src_offs.data_ptr(), dst_offs.data_ptr(), sizes.data_ptr(),
-                k, out.data_ptr(), dst_size)
-        segmented_copy.launches += 1
+    if k == 0 or dst_size == 0 or src.shape[0] == 0:
+        return torch.zeros(dst_size, dtype=torch.uint8, device=dev)
+    # the kernel writes every byte of dst, gaps included
+    out = torch.empty(dst_size, dtype=torch.uint8, device=dev)
+    _launch("srjt_segmented_copy", dev, src.data_ptr(), src.shape[0],
+            src_offs.data_ptr(), dst_offs.data_ptr(), sizes.data_ptr(),
+            k, out.data_ptr(), dst_size)
+    segmented_copy.launches += 1
     return out
 
 

@@ -17,6 +17,9 @@ import spark_rapids_jni_tpu_torch as pt
 from spark_rapids_jni_tpu_torch import interop
 from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged, xpack
 from spark_rapids_jni_tpu_torch.rowconv import reference
+from torch_ragged_cases import (SEGCOPY_EDGE_CASES, SF1_SEGCOPY_CASES,
+                                SF1_UNPACK_CASES, UNPACK_EDGE_CASES,
+                                dictionary_to_rows, unpack_case)
 
 
 @pytest.fixture
@@ -199,6 +202,142 @@ def test_pack_rows_byte_offsets_past_2gib(cuda):
     assert torch.equal(got[o2:], dense[2, :10])
     assert int(torch.count_nonzero(got)) == int(torch.count_nonzero(dense))
     del got
+    torch.cuda.empty_cache()
+
+
+def _on(device, flat, *offsets):
+    """A uint8 buffer and int64 offset arrays (numpy) on ``device``."""
+    return (torch.from_numpy(flat).to(device),
+            *(torch.from_numpy(np.asarray(o, np.int64)).to(device)
+              for o in offsets))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(UNPACK_EDGE_CASES)
+                         + list(SF1_UNPACK_CASES))
+def test_unpack_rows_kernel_edges_match_plain(cuda, case):
+    make = {**UNPACK_EDGE_CASES, **SF1_UNPACK_CASES}[case]
+    flat, offs, M = make(np.random.default_rng(len(case)))
+    flat, offs = _on(cuda, flat, offs)
+    before = ragged.unpack_rows.launches
+    got = ragged.unpack_rows(flat, offs, M)
+    want = ragged.unpack_rows_plain(flat, offs, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ragged.unpack_rows.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SEGCOPY_EDGE_CASES)
+                         + list(SF1_SEGCOPY_CASES))
+def test_segmented_copy_kernel_edges_match_plain(cuda, case):
+    make = {**SEGCOPY_EDGE_CASES, **SF1_SEGCOPY_CASES}[case]
+    src, so, do, sz, dst_size = make(np.random.default_rng(len(case)))
+    args = (*_on(cuda, src, so, do, sz), dst_size)
+    before = ragged.segmented_copy.launches
+    got = ragged.segmented_copy(*args)
+    want = ragged.segmented_copy_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ragged.segmented_copy.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_ragged_copies_write_every_byte(cuda):
+    """B4's wrapper allocates with torch.empty: a block the caching
+    allocator hands back full of 0xFF must come out equal to the plain
+    version, gaps and all; B3's likewise."""
+    rng = np.random.default_rng(5)
+    src, so, do, sz, dst_size = dictionary_to_rows(rng, 1 << 20)
+    args = (*_on(cuda, src, so, do, sz), dst_size)
+    junk = torch.full((dst_size,), 0xFF, dtype=torch.uint8, device=cuda)
+    ptr = junk.data_ptr()
+    del junk
+    got = ragged.segmented_copy(*args)
+    assert got.data_ptr() == ptr          # the 0xFF block came back
+    assert torch.equal(got, ragged.segmented_copy_plain(*args))
+    del got
+
+    flat, offs, M = unpack_case(rng, 47, rng.integers(6, 18, 1 << 20) * 8)
+    flat, offs = _on(cuda, flat, offs)
+    junk = torch.full((offs.shape[0] - 1, M), 0xFF, dtype=torch.uint8,
+                      device=cuda)
+    ptr = junk.data_ptr()
+    del junk
+    got = ragged.unpack_rows(flat, offs, M)
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, ragged.unpack_rows_plain(flat, offs, M))
+
+
+@pytest.mark.gpu
+def test_ragged_copies_broken_offsets_do_not_fault(cuda):
+    """Offsets that break the contract (negative, past either end, out of
+    order, negative sizes) must not make either kernel fault.  B3 turns
+    such rows to zeros, as its plain version does; B4's bytes are then
+    unspecified but it still covers dst."""
+    rng = np.random.default_rng(11)
+    src = torch.from_numpy(rng.integers(0, 256, 1000, dtype=np.uint8)
+                           ).to(cuda)
+    for trial in range(20):
+        k = int(rng.integers(1, 5000))
+        so, do, sz = (torch.from_numpy(rng.integers(lo, hi, k)).to(cuda)
+                      for lo, hi in ((-100, 1200), (-100, 3000), (-10, 80)))
+        out = ragged.segmented_copy(src, so, do, sz, 2500)
+        offs = torch.from_numpy(rng.integers(-50, 1100, k + 1)).to(cuda)
+        rows = ragged.unpack_rows(src, offs, 37)
+        torch.cuda.synchronize()
+        assert out.shape == (2500,)
+        assert torch.equal(rows, ragged.unpack_rows_plain(src, offs, 37))
+    # the context is sound: a good call still gives the right bytes
+    so = torch.arange(0, 1000, 10, device=cuda)
+    sz = torch.full_like(so, 5)
+    do = torch.arange(0, 500, 5, device=cuda)
+    got = ragged.segmented_copy(src, so, do, sz, 500)
+    assert torch.equal(got, ragged.segmented_copy_plain(src, so, do, sz, 500))
+
+
+@pytest.mark.gpu
+def test_unpack_rows_byte_offsets_past_2gib(cuda):
+    """Rows whose byte offsets pass 2^31, the third at an odd one: about
+    2 GiB of source, each row's first M bytes out."""
+    M = 64
+    sizes = [(1 << 30) + 5, (1 << 30) + 4, 10]
+    total = sum(sizes)
+    flat = torch.randint(0, 256, (total,), dtype=torch.uint8, device=cuda)
+    offs = torch.tensor([0, sizes[0], sizes[0] + sizes[1], total],
+                        dtype=torch.int64, device=cuda)
+    o1, o2 = int(offs[1]), int(offs[2])
+    assert o2 > 2**31 and o2 % 2 == 1
+    got = ragged.unpack_rows(flat, offs, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], flat[:M])
+    assert torch.equal(got[1], flat[o1:o1 + M])
+    assert torch.equal(got[2, :10], flat[o2:])
+    assert not got[2, 10:].any()
+    del flat, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_segmented_copy_byte_offsets_past_2gib(cuda):
+    """Sources and destinations past 2^31 bytes, at odd offsets, with a
+    2 GiB gap of zeros between two segments."""
+    big = (1 << 31) + 100
+    src = torch.randint(0, 256, (big,), dtype=torch.uint8, device=cuda)
+    so = [5, (1 << 31) + 7, (1 << 31) + 51]
+    do = [0, 3, (1 << 31) + 1]
+    sz = [3, 40, 20]
+    dst_size = (1 << 31) + 40
+    args = [torch.tensor(v, dtype=torch.int64, device=cuda)
+            for v in (so, do, sz)]
+    got = ragged.segmented_copy(src, *args, dst_size)
+    torch.cuda.synchronize()
+    nonzero = 0
+    for s, d, n in zip(so, do, sz):
+        assert torch.equal(got[d:d + n], src[s:s + n])
+        nonzero += int(torch.count_nonzero(src[s:s + n]))
+    assert int(torch.count_nonzero(got)) == nonzero
+    del src, got
     torch.cuda.empty_cache()
 
 

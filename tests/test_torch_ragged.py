@@ -18,6 +18,8 @@ from spark_rapids_jni_tpu.rowconv import ragged as jragged
 
 from benchmarks.ragged_data import random_ragged
 from spark_rapids_jni_tpu_torch.rowconv import ragged
+from torch_ragged_cases import (SEGCOPY_EDGE_CASES, UNPACK_EDGE_CASES,
+                                segcopy_loop, unpack_loop)
 
 
 def _t(a, dtype=None):
@@ -110,6 +112,32 @@ def test_unpack_rows_prefix(cut):
         want, np.where(np.arange(cut) < np.diff(offs)[:, None],
                        dense[:, :cut], 0))
     got = ragged.unpack_rows(_t(flat), _t(offs, np.int64), cut)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", list(UNPACK_EDGE_CASES))
+def test_unpack_rows_kernel_edges_match_xla(case):
+    """The edges of the unpack kernel's runs of rows and its windows, and
+    SF1's shapes (``tests/torch_ragged_cases.py``)."""
+    flat, offs, M = UNPACK_EDGE_CASES[case](np.random.default_rng(len(case)))
+    want = np.asarray(jragged.unpack_rows_xla(jnp.asarray(flat), offs, M))
+    np.testing.assert_array_equal(want, unpack_loop(flat, offs, M))
+    got = ragged.unpack_rows(_t(flat), _t(offs, np.int64), M)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", list(SEGCOPY_EDGE_CASES))
+def test_segmented_copy_kernel_edges_match_xla(case):
+    """The edges of the segmented copy's runs of segments and its windows,
+    and SF1's shapes: to_rows, from_rows and the PLAIN prefix strip."""
+    src, so, do, sz, dst_size = SEGCOPY_EDGE_CASES[case](
+        np.random.default_rng(len(case)))
+    want = np.asarray(jragged.segmented_copy_xla(jnp.asarray(src), so, do, sz,
+                                                 dst_size))
+    np.testing.assert_array_equal(want, segcopy_loop(src, so, do, sz,
+                                                     dst_size))
+    got = ragged.segmented_copy(_t(src), _t(so, np.int64), _t(do, np.int64),
+                                _t(sz, np.int64), dst_size)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
