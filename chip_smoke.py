@@ -17,8 +17,9 @@ fails (non-zero exit, no result line) if anything is wrong:
    both with CUDA events (around the wrappers) and the kernel with
    ``torch.profiler`` (its device rows alone, and a zero-fill its wrapper
    adds; the library calls of phase 7 likewise), beside its bound and, for
-   B2-B4, its sector floor (every 32-byte sector read whole); B2 is timed
-   once on B1's rows too, the choice the routing rule made;
+   B1-B5, its sector floor (every 32-byte sector holding payload read
+   whole); B2 is timed once on B1's rows too, the choice the routing rule
+   made;
 4. path: ``convert_to_rows`` → ``convert_from_rows`` round trips of three
    tables from the reference's row-conversion benchmark at 1,048,576 rows
    (212 fixed-width columns; 12 columns with 2 strings of 0-39 chars;
@@ -42,22 +43,25 @@ fails (non-zero exit, no result line) if anything is wrong:
 7. scan kernels: B2 and B5–B7 on the largest inputs the scan and the
    materialization hand them, each held byte for byte against its plain
    version and timed with CUDA events beside one PyTorch call that
-   computes the same function, where there is one; B2's sector floor
-   beside its bound; B7 and ``clone().view`` on the same bytes at every
-   start % 4 and a 16-aligned start, each exact;
+   computes the same function, where there is one; B2's and B5's sector
+   floors beside their bounds; B5 also on a large dictionary (1,048,576
+   entries of 10-43 chars, ``l_comment``'s lengths); B7 and
+   ``clone().view`` on the same bytes at every start % 4 and a 16-aligned
+   start, each exact;
 8. full table: the scan of all 16 columns, timed, ``l_comment`` equal to
    the generator's chars row for row, then the table through
    ``convert_to_rows`` → ``convert_from_rows`` in one batch (about 1 GB of
    rows), exact, its first 10,000 rows held against the numpy oracle.
    This path launches every kernel, B1–B7;
-9. SF1 copies: B3 and B4 on the largest input each caller hands them on
-   the 16 columns (the ``l_comment`` prefix strip, to_rows, from_rows),
-   exact against their plain versions (run on pieces of the input where
-   the whole would not fit) and timed as in phase 3.
+9. SF1 copies: B1, B3 and B4 on the largest input each caller hands them
+   on the 16 columns (the ``l_comment`` prefix strip; to_rows, B4's chars
+   into the row matrix and B1's pack of it; from_rows), exact against
+   their plain versions (run on pieces of the input where the whole would
+   not fit) and timed as in phase 3.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it holds the per-kernel results as JSON (B3's and B4's with
-every input they were measured on).  Tables and files are
+line before it holds the per-kernel results as JSON (B1's, B3's, B4's and
+B5's with every input they were measured on).  Tables and files are
 made from ``--seed`` with numpy.  Imports torch, numpy and the port, never
 JAX.
 """
@@ -107,22 +111,21 @@ KERNELS = {
                     "spark_rapids_jni_tpu/rowconv/ragged.py:417", "from_rows"),
     "segmented_copy": ("spark_rapids_jni_tpu_torch/csrc/ragged.cu",
                        "spark_rapids_jni_tpu/rowconv/ragged.py:559", "to_rows"),
-    "extract_rows": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
+    "extract_rows": ("spark_rapids_jni_tpu_torch/csrc/ragged.cu",
                      "spark_rapids_jni_tpu/rowconv/xpallas.py:312", "scan"),
     "gather_rows": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
                     "spark_rapids_jni_tpu/rowconv/xpallas.py:405", "scan"),
     "u8_to_u32": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
                   "spark_rapids_jni_tpu/rowconv/xpallas.py:486", "scan"),
 }
-# the device work of each wrapper's C entry, as torch.profiler names it:
-# the __global__ functions it launches and, where it clears a table
-# first, the memset
+# the device work of each wrapper, as torch.profiler names it: the
+# __global__ functions it launches (B5's wrapper launches B3's kernel)
 KERNEL_SYMBOLS = {
-    "pack_windows": ("block_rows_kernel", "pack_windows_kernel", "Memset"),
+    "pack_windows": ("pack_windows_kernel",),
     "pack_rows": ("pack_rows_kernel",),
     "unpack_rows": ("unpack_rows_kernel",),
     "segmented_copy": ("segmented_copy_kernel",),
-    "extract_rows": ("extract_rows_kernel",),
+    "extract_rows": ("unpack_rows_kernel",),
     "gather_rows": ("gather_rows_kernel",),
     "u8_to_u32": ("u8_to_u32_kernel",),
 }
@@ -140,14 +143,18 @@ LIBRARY = {
 # what the kernels line keeps of each input a kernel was measured on
 INPUT_KEYS = ("measured_in", "shape", "ms", "device_ms", "bound_ms",
               "floor_ms", "plain_ms")
-# B3 and B4, whose inputs phase 9 records, and the (run, kernel) pairs it
-# must see
-RAGGED_COPIES = ("unpack_rows", "segmented_copy")
+# B1, B3 and B4, whose inputs phase 9 records, and the (run, kernel) pairs
+# it must see
+SF1_KERNELS = ("pack_windows", "unpack_rows", "segmented_copy")
 SF1_COPIES = (("SF1 scan", "segmented_copy"), ("SF1 to_rows", "segmented_copy"),
+              ("SF1 to_rows", "pack_windows"),
               ("SF1 from_rows", "unpack_rows"),
               ("SF1 from_rows", "segmented_copy"))
 # the kernels whose wrappers phase 7 records
 SCAN_KERNELS = ("pack_rows", "extract_rows", "gather_rows", "u8_to_u32")
+# B5's large dictionary in phase 7: entries, and their lengths drawn from
+# [lo, hi) as l_comment's
+LARGE_DICT = (1 << 20, 10, 44)
 NULL_ROWS = 1 << 20
 NULL_ROW_GROUPS = 4
 Q6_DATES = (8766, 9131)          # [1994-01-01, 1995-01-01) in epoch days
@@ -310,9 +317,9 @@ def bytes_moved(name: str, args) -> int:
     """Bytes a kernel must read once and write once on these inputs."""
     if name == "extract_rows":
         flat, offs, M = args
-        offs = np.asarray(offs, np.int64)
-        payload = int(np.minimum(offs[1:] - offs[:-1], M).sum())
-        return payload + offs.size * 8 + (offs.size - 1) * (-(-M // 4)) * 4
+        payload = int((offs[1:] - offs[:-1]).clamp(0, M).sum())
+        width = 4 * -(-M // 4)
+        return payload + offs.numel() * 8 + (offs.numel() - 1) * width
     if name == "gather_rows":
         mat, idx = args
         return (mat.numel() * 4 + idx.numel() * 4
@@ -442,8 +449,6 @@ def measure(kernels, name, args, card, what, library=None) -> dict:
     floor = floor_bytes(name, args)
     floor_ms = None if floor is None else floor / HBM_BYTES_PER_S * 1e3
     shape = describe(args)
-    if name == "extract_rows":
-        shape[1] = [len(args[1])]           # host offsets: their count
     log(f"[kernels] {name} ({what}) inputs {shape}: equal={equal} "
         f"max_abs_err={err} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
         f"bound {bound_ms:.4f} ms for {nbytes} bytes, sector floor "
@@ -466,9 +471,10 @@ PLAIN_PIECE_BYTES = 1 << 26
 
 def plain_pieces(name: str, args) -> list:
     """(slice of the kernel's output, the plain version's inputs for it):
-    the whole input, or for B3 and B4 over PLAIN_PIECE_BYTES of output,
-    runs of consecutive rows or segments (B4's destinations ascend, so a
-    run of segments owns dst from its first start to the next run's)."""
+    the whole input, or for B1, B3 and B4 over PLAIN_PIECE_BYTES of output,
+    runs of consecutive rows or segments (B1's and B4's destinations
+    ascend, so a run owns the output from its first start to the next
+    run's, the last run to the end)."""
     if name == "unpack_rows":
         flat, offs, M = args
         n = offs.numel() - 1
@@ -478,6 +484,17 @@ def plain_pieces(name: str, args) -> list:
         return [(slice(r, min(r + per, n)),
                  (flat, offs[r:min(r + per, n) + 1], M))
                 for r in range(0, n, per)]
+    if name == "pack_windows":
+        dense, dst, total_w = args
+        n, Mw = dense.shape
+        per = max(1, PLAIN_PIECE_BYTES // 4 // max(Mw, 1))
+        if 4 * total_w <= PLAIN_PIECE_BYTES or n <= per:
+            return [(slice(None), args)]
+        firsts = list(range(0, n, per))
+        starts = dst[firsts].tolist() + [total_w]
+        return [(slice(lo, hi),
+                 (dense[r:r + per], dst[r:min(r + per, n) + 1] - lo, hi - lo))
+                for r, lo, hi in zip(firsts, starts[:-1], starts[1:])]
     if name == "segmented_copy":
         src, so, do, sizes, dst_size = args
         k = sizes.numel()
@@ -939,11 +956,12 @@ def phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
 
 
 def phase_full_kernels(pt, device_scan, kernels, raw, card) -> dict:
-    """Phase 9: B3 and B4 on the largest input each of their callers hands
-    them on SF1's 16 columns: the scan's PLAIN ``l_comment`` prefix strip,
-    the 16-column to_rows and its from_rows (the fixed region and the
-    chars), each held byte for byte against its plain version and timed
-    beside its bound and sector floor."""
+    """Phase 9: B1, B3 and B4 on the largest input each of their callers
+    hands them on SF1's 16 columns: the scan's PLAIN ``l_comment`` prefix
+    strip, the 16-column to_rows (the chars into the row matrix, B1's pack
+    of it) and its from_rows (the fixed region and the chars), each held
+    byte for byte against its plain version and timed beside its bound and
+    sector floor."""
     direction = ["scan"]
 
     def keep(captured, name, args):
@@ -959,7 +977,7 @@ def phase_full_kernels(pt, device_scan, kernels, raw, card) -> dict:
         direction[0] = "from_rows"
         pt.convert_from_rows(batch, table.schema)
 
-    captured = record_inputs(kernels, RAGGED_COPIES, keep, run)
+    captured = record_inputs(kernels, SF1_KERNELS, keep, run)
     for key in SF1_COPIES:
         require(key in captured, f"SF1: {key[1]} never called in {key[0]}")
     results = {}
@@ -980,10 +998,13 @@ def library_call(name: str, args):
     return None
 
 
-def phase_scan_kernels(device_scan, kernels, raw, cols15, card) -> dict:
+def phase_scan_kernels(device_scan, kernels, raw, cols15, card,
+                       seed) -> tuple:
     """Phase 7: B2 and B5-B7 on the largest inputs (by bytes moved) that
     the scan of the 15 columns and the materialization of its dictionary
-    strings hand them."""
+    strings hand them; B5 also on a large dictionary (LARGE_DICT), at the
+    row width materialize pads it to.  Returns the results by kernel, and
+    the extra inputs' results by kernel."""
     def keep(captured, name, args):
         nb = bytes_moved(name, args)
         old = captured.get(name)
@@ -1005,7 +1026,19 @@ def phase_scan_kernels(device_scan, kernels, raw, cols15, card) -> dict:
         results[name] = measure(kernels, name, args, card, "scan", lib)
     results["u8_to_u32"]["starts"] = b7_starts(
         kernels, captured["u8_to_u32"][1], card)
-    return results
+    del captured
+    D, lo, hi = LARGE_DICT
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi, D)
+    offs = np.zeros(D + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    flat = torch.from_numpy(rng.integers(32, 127, int(offs[-1]),
+                                         dtype=np.uint8)).cuda()
+    M = -(-(hi - 1) // 16) * 16          # materialize's 16-byte padding
+    large = measure(kernels, "extract_rows",
+                    (flat, torch.from_numpy(offs).cuda(), M), card,
+                    "large dictionary")
+    return results, {"extract_rows": [large]}
 
 
 def sectors_read(starts: torch.Tensor, lens: torch.Tensor) -> int:
@@ -1022,10 +1055,18 @@ def sectors_read(starts: torch.Tensor, lens: torch.Tensor) -> int:
 
 
 def floor_bytes(name: str, args):
-    """B2-B4's honest floor in bytes: every 32-byte sector of the source
-    that holds payload read whole (strings of a few bytes at byte offsets
-    share few sectors), plus the offsets and the output, as in
-    :func:`bytes_moved`; None for the other kernels."""
+    """B1-B5's honest floor in bytes: every 32-byte sector of the source
+    that holds payload read whole (rows and strings of a few bytes at byte
+    offsets share few sectors; B1's rows are read up to their size), plus
+    the offsets and the output, as in :func:`bytes_moved`; None for the
+    other kernels."""
+    if name == "pack_windows":
+        dense, dst, total_w = args
+        n, Mw = dense.shape
+        rows = torch.arange(n, device=dst.device)
+        ncopy = 4 * (dst[1:] - dst[:-1]).clamp(0, Mw)
+        return (32 * sectors_read(dense.data_ptr() + rows * 4 * Mw, ncopy)
+                + dst.numel() * 8 + 4 * total_w)
     if name == "pack_rows":
         dense, offs, total = args
         M = dense.shape[1]
@@ -1033,14 +1074,15 @@ def floor_bytes(name: str, args):
         ncopy = (offs[1:] - offs[:-1]).clamp(0, M)
         return (32 * sectors_read(dense.data_ptr() + rows * M, ncopy)
                 + offs.numel() * 8 + total)
-    if name == "unpack_rows":
+    if name in ("unpack_rows", "extract_rows"):
         flat, offs, M = args
         n = offs.numel() - 1
         lo = offs[:-1]
         ncopy = (offs[1:].clamp(max=flat.numel()) - lo).clamp(0, M)
         ncopy[lo < 0] = 0
+        width = M if name == "unpack_rows" else 4 * -(-M // 4)
         return (32 * sectors_read(flat.data_ptr() + lo, ncopy)
-                + offs.numel() * 8 + n * M)
+                + offs.numel() * 8 + n * width)
     if name == "segmented_copy":
         src, so, do, sizes, dst_size = args
         return (32 * sectors_read(src.data_ptr() + so, sizes)
@@ -1122,7 +1164,8 @@ def main(argv=None) -> int:
                                    args.seed, launches)
     phase_q6_rows(pt, W, device_scan, q6, convert, reference, kernels, card,
                   raw, data, cols15, launches)
-    scan_results = phase_scan_kernels(device_scan, kernels, raw, cols15, card)
+    scan_results, scan_extra = phase_scan_kernels(device_scan, kernels, raw,
+                                                  cols15, card, args.seed)
     phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
                      raw, data, launches)
     del data
@@ -1131,7 +1174,7 @@ def main(argv=None) -> int:
     out = []
     for name, (source, replaces, where) in KERNELS.items():
         r = scan_results[name] if where == "scan" else results[(where, name)]
-        others = ([r] if where == "scan" else
+        others = ([r] + scan_extra.get(name, []) if where == "scan" else
                   [v for (d, k), v in results.items() if k == name])
         inputs = [{key: o[key] for key in INPUT_KEYS if key in o}
                   for o in others]

@@ -40,12 +40,11 @@ SIGNATURES = {
         "srjt_segmented_copy": (_P, _I64, _P, _P, _P, _I64, _P, _I64, _P),
     },
     "bytepath": {
-        "srjt_extract_rows": (_P, _I64, _P, _I64, _I64, _I64, _P, _P),
         "srjt_gather_rows": (_P, _I64, _I64, _P, _I64, _P, _P),
         "srjt_u8_to_u32": (_P, _I64, _P, _P),
     },
     "xpack": {
-        "srjt_pack_windows": (_P, _I64, _I64, _P, _P, _P, _I64, _P),
+        "srjt_pack_windows": (_P, _I64, _I64, _P, _P, _I64, _P),
     },
 }
 # host entry points: (argument types, result type)
@@ -154,9 +153,18 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def launch(name: str, fn: str, device, *args) -> None:
     """Call entry point ``fn`` of library ``name`` with ``args`` and the
-    current stream of ``device``; raise if the launch reported an error."""
+    current stream of ``device``; raise if the launch reported an error.
+
+    The stream comes as a raw handle (``torch.cuda.current_stream`` builds a
+    Python object each call, about half of a launch's host time on the
+    card), and the device is made current only when it is not already."""
     import torch
     lib = library(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         check(lib, getattr(lib, fn)(*args, stream), fn)
+    else:
+        with torch.cuda.device(index):
+            check(lib, getattr(lib, fn)(*args, stream), fn)

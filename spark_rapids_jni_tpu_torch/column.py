@@ -167,8 +167,9 @@ class DictColumn(Column):
         (``device_scan.py:513-527``): kernel B5 cuts the dictionary's chars
         into a padded word matrix [D, Lw], B6 gathers a row per code, and
         B2 packs each row's first length bytes at device offsets into the
-        chars stream.  Syncs: the dictionary offsets (D+1 values), the
-        codes' bounds (B6's wrapper) and the chars total."""
+        chars stream.  The dictionary offsets stay on the device; the syncs
+        are the longest entry, the codes' bounds (B6's wrapper) and the
+        chars total."""
         if self._mat is not None:
             return self._mat
         from .rowconv import bytepath, ragged
@@ -176,10 +177,9 @@ class DictColumn(Column):
         dev = self.codes.device
         n = self.num_rows
         doffs = self.dictionary.offsets.to(torch.int64)
-        doffs_h = doffs.cpu().numpy()
-        D = doffs_h.shape[0] - 1
+        D = doffs.shape[0] - 1
         offs = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        lmax = int((doffs_h[1:] - doffs_h[:-1]).max(initial=0))
+        lmax = int((doffs[1:] - doffs[:-1]).max()) if D > 0 else 0
         if D == 0 or lmax == 0 or n == 0:
             # no chars at all; every code must still name an entry
             if n and D == 0 and bool(self.validity_or_true().any()):
@@ -189,7 +189,7 @@ class DictColumn(Column):
         else:
             # rows padded to 16 bytes, so that B6 moves 16-byte vectors
             lw = -(-lmax // 16) * 4
-            mat = bytepath.extract_rows(self.dictionary.data, doffs_h, lw * 4)
+            mat = bytepath.extract_rows(self.dictionary.data, doffs, lw * 4)
             rows = bytepath.gather_rows(mat, self.codes)
             lens = (doffs[1:] - doffs[:-1])[self.codes.to(torch.int64)]
             if self.validity is not None:

@@ -1,26 +1,29 @@
 // Byte-path kernels of the device Parquet scan, on Hopper.
 //
-// Three kernels, each the counterpart of one Pallas kernel of the JAX
+// Two kernels, each the counterpart of one Pallas kernel of the JAX
 // package (spark_rapids_jni_tpu/rowconv/xpallas.py):
 //
-//   srjt_extract_rows  <- xpallas._extract_call   (xpallas.py:312)
 //   srjt_gather_rows   <- xpallas._gather_call    (xpallas.py:405)
 //   srjt_u8_to_u32     <- xpallas._transpose_call (xpallas.py:486)
+//
+// The third, xpallas._extract_call (xpallas.py:312, B5), computes what B3
+// does (rows cut from flat bytes at offsets, zero-padded), so its wrapper
+// (rowconv/bytepath.py extract_rows) launches B3's kernel in ragged.cu.
 //
 // The TPU kernels stage 512-byte windows and whole row blocks in VMEM,
 // place bytes with vector rolls and masks, and bucket their static shapes
 // against Mosaic compiles.  None of that carries over: Hopper addresses
 // bytes, so each kernel here reads device memory and writes device memory
-// once.  Extract and gather take one thread per output word (or 16-byte
-// vector).  u8 -> u32 is a copy at a byte shift, so it is built like a
-// copy for this card: aligned 16-byte loads, several in flight a thread,
-// the shift done in registers with a lane shuffle and funnel shifts, and a
-// grid sized to the SMs.
+// once.  Gather takes one thread per output word (or 16-byte vector).
+// u8 -> u32 is a copy at a byte shift, so it is built like a copy for this
+// card: aligned 16-byte loads, several in flight a thread, the shift done
+// in registers with a lane shuffle and funnel shifts, and a grid sized to
+// the SMs.
 //
 // Bound: every kernel only moves bytes, so its least time on an H100 SXM is
 // (bytes read once + bytes written once) / 3.35 TB/s.
 //
-// Rules shared by the three (as in ragged.cu): index arithmetic is int64; a
+// Rules shared by the two (as in ragged.cu): index arithmetic is int64; a
 // kernel allocates nothing and does not synchronise; it launches on the
 // stream it is given; every entry returns cudaGetLastError() so the caller
 // sees a refused launch.  Arguments that break a kernel's contract never
@@ -68,36 +71,6 @@ __device__ __forceinline__ int64_t first_thread() {
 
 __device__ __forceinline__ int64_t thread_stride() {
   return static_cast<int64_t>(gridDim.x) * blockDim.x;
-}
-
-// extract: out[r, w] holds bytes 4w..4w+3 of row r, the row being
-// flat[offs[r]:offs[r+1]] cut to its first M bytes and zero-padded to
-// Mw = ceil(M/4) words, little-endian.  Every word of out is written.
-// Replaces xpallas._extract_call (spark_rapids_jni_tpu/rowconv/xpallas.py:312).
-// Bound: (sum of min(size_r, M) read + 8(D+1) offsets + 4·D·Mw written)
-// / 3.35 TB/s.  Dictionary entries are a few bytes, so one thread makes one
-// output word: a warp covers 32 words of consecutive rows and no lane idles
-// on a short row, which a warp per row would.
-__global__ void __launch_bounds__(kThreads)
-extract_rows_kernel(const uint8_t* __restrict__ flat, int64_t flat_size,
-                    const int64_t* __restrict__ offs, int64_t D, int64_t M,
-                    int64_t Mw, uint32_t* __restrict__ out) {
-  const int64_t total = D * Mw;
-  for (int64_t i = first_thread(); i < total; i += thread_stride()) {
-    const int64_t r = i / Mw;
-    const int64_t b0 = (i - r * Mw) * 4;
-    const int64_t lo = offs[r];
-    int64_t hi = offs[r + 1];
-    if (hi > flat_size) hi = flat_size;
-    int64_t len = (lo < 0 || hi <= lo) ? 0 : hi - lo;
-    if (len > M) len = M;
-    uint32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (b0 + k < len) word |= static_cast<uint32_t>(flat[lo + b0 + k]) << (8 * k);
-    }
-    out[i] = word;
-  }
 }
 
 // gather: out[i, :] = mat[idx[i], :] over rows of W 32-bit words.  Rows move
@@ -204,19 +177,6 @@ u8_to_u32_kernel(const uint8_t* __restrict__ src, int64_t n_words,
 }  // namespace
 
 extern "C" {
-
-int srjt_extract_rows(const void* flat, int64_t flat_size, const void* offs,
-                      int64_t D, int64_t M, int64_t Mw, void* out,
-                      void* stream) {
-  if (D > 0 && Mw > 0) {
-    extract_rows_kernel<<<grid_for(D * Mw), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(flat), flat_size,
-        static_cast<const int64_t*>(offs), D, M, Mw,
-        static_cast<uint32_t*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 int srjt_gather_rows(const void* mat, int64_t D, int64_t W, const void* idx,
                      int64_t n, void* out, void* stream) {

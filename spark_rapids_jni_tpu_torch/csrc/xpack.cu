@@ -9,38 +9,49 @@
 // DMAs the window of rows that overlaps the block into VMEM and ORs each
 // row in with byte rolls and masks; the block -> first-row table comes from
 // a segment sum on the device (_first_row_per_boundary), with no host sync.
-// What carries over is the output-centric plan and the device offsets.  The
-// VMEM window DMA, the byte rolls and the shape buckets do not: rows are
-// 8-byte aligned, so every output word belongs to exactly one row (or to
-// none), and placing it is a plain word copy.
+// What carries over is the device offsets.  The VMEM window DMA, the byte
+// rolls and the shape buckets do not: rows are 8-byte aligned, so every
+// output word belongs to exactly one row (or to none), and placing it is a
+// plain word copy.
 //
-// Design: two kernels.  The first, one thread per row, writes the block ->
-// first-row table the TPU kernel takes from its segment sum: row r owns the
-// block boundaries k*1024 that fall in [dst_w[r], dst_w[r+1]), usually none
-// or one.  (A search of dst_w at the start of every CTA, by one thread or
-// by all of them, cost as much as the copy: every CTA waited on its chain
-// of dependent loads.)  The second runs one CTA per 4 KiB output block
-// (1024 words).  It reads its first row and the row at its end from the
-// table and stages those rows' offsets in shared memory (JCUDF rows are at
-// least 8 bytes, so a block overlaps at most 513 rows; a block that
-// overlaps more, possible only with empty rows, searches device memory
-// instead).  Each thread then writes output words at coalesced addresses,
-// two at a time (rows are 8-byte aligned): for word w it finds its row r
-// by a binary search of the staged offsets and reads dense[r, w - dst_w[r]].
-// A row wider than a block spans several CTAs, and a CTA may hold no row
-// start; both follow from the table.
+// Design: one kernel on B2's run-of-rows plan (ragged.cu).  A CTA takes
+// `per_cta` consecutive rows (about kTileBytes of dense), which it knows
+// from its index alone, and their output range [dst_w[r0], dst_w[r0 +
+// rows]) is contiguous: row r's word k goes to dst_w[r] + k, with no search
+// and no block -> row table.  One round trip before any store: cp.async
+// brings the run's offsets and its rows (whole, 16 bytes at a time) into
+// shared memory together.  The CTA then builds its output range there,
+// from the 16-byte boundary below its start: zeros, and each row's first
+// min(size, Mw) words placed by a power-of-two group of threads a row.  It
+// stores the range in 16-byte chunks, the words of the partial chunk at
+// either end on their own (the neighbouring CTAs write the rest of those
+// chunks).  The last CTA also zeroes the words from dst_w[n] to total_w,
+// and the first those before dst_w[0], so every output word is written.
 //
-// Bound: the kernels only move bytes, so their least time on an H100 SXM is
-// (row words read once + 8 bytes an offset + output words written once)
-// / 3.35 TB/s.  Reads of dense are contiguous within a row and writes are
-// contiguous within a block.  Above the bound: the table's pass over the
-// offsets, and the per-word search in shared memory (about ten steps).
+// Outside the tile, the direct path: a row wider than the tile, a range
+// longer than the tile (rows longer than Mw, whose tails are zeros), broken
+// offsets, and rows whose starts are not 16-aligned (Mw not a multiple of
+// 4, or a dense or out pointer not 16-aligned).  There the group of a row
+// copies its words straight from dense to out, kUnroll units a thread in
+// flight before its first store, and the whole CTA zeroes the words past
+// Mw of rows longer than Mw.  The straight copy was also measured as the
+// only path, and lost on every input of the main path (PERF.md,
+// tools/torch_bench_xpack.py).
 //
-// Rules (as in ragged.cu): index arithmetic is int64; the kernel allocates
-// nothing and does not synchronise; it launches on the stream it is given;
-// the entry returns cudaGetLastError() so the caller sees a refused launch.
-// Offsets that are not non-decreasing give zeros or wrong words, never a
-// read or write out of bounds.
+// Bound: the kernel only moves bytes, so its least time on an H100 SXM is
+// (payload words read once + 8 bytes an offset + total_w words written
+// once) / 3.35 TB/s.  The tile brings whole rows, so the kernel reads the
+// zero padding past each row's size too (rows of to_rows are padded to a
+// multiple of 64 bytes): M bytes a row instead of the sectors its payload
+// touches.
+
+// Rules (as in ragged.cu): index arithmetic is int64 (int only within a
+// CTA's run); the kernel allocates nothing and does not synchronise; it
+// launches on the stream it is given; the entry returns cudaGetLastError()
+// so the caller sees a refused launch.  Offsets that break the contract
+// (negative, decreasing, past total_w) give wrong or unwritten words,
+// never a read or write out of bounds: a row reads only its own Mw words,
+// and writes are cut to [0, total_w).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,165 +59,240 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kBlockWords = 1024;            // 4 KiB of output
-// word pairs a thread moves in a block
-constexpr int kPairs = kBlockWords / (2 * kThreads);
-// offsets staged a block: the 513 rows an 8-byte row size allows, the end
-// of the last, and room for blocks of empty rows
-constexpr int kStage = 2 * kBlockWords + 2;
-// 132 SMs x 8 resident blocks of 256 threads, four waves; threads stride
-// over the rest of the rows
-constexpr int64_t kMaxTableBlocks = 132 * 8 * 4;
+constexpr int64_t kTileBytes = 16 * 1024;     // dense a CTA
+constexpr int64_t kTileWords = kTileBytes / 4;
+constexpr int kMaxRows = 1024;
+constexpr int kUnroll = 4;                    // direct path: units in flight
 
-// First index i in [lo, hi) with a[i] > key, or hi.  Whenever the result is
-// above lo, a[result - 1] <= key, whatever the order of a.
-__device__ __forceinline__ int64_t upper_bound(const int64_t* a, int64_t lo,
-                                               int64_t hi, int64_t key) {
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (a[mid] <= key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(dst), "l"(gmem));
 }
 
-// block_rows[k] = the row r with dst_w[r] <= k*1024 < dst_w[r+1], for k in
-// [0, nb]; n past the last row.  The caller fills block_rows with -1 first,
-// so a boundary before the first row (or, with offsets that are not
-// non-decreasing, one no row owns) stays -1.
-__global__ void __launch_bounds__(kThreads)
-block_rows_kernel(const int64_t* __restrict__ dst_w, int64_t n, int64_t nb,
-                  int64_t* __restrict__ block_rows) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       r <= n; r += stride) {
-    const int64_t lo = dst_w[r];
-    // the row's boundaries: the first block start at or after lo, up to
-    // its end (past the last row: every boundary left)
-    const int64_t hi = r < n ? dst_w[r + 1] : (nb + 1) * kBlockWords;
-    int64_t k = lo <= 0 ? 0 : (lo + kBlockWords - 1) / kBlockWords;
-    for (; k <= nb && k * kBlockWords < hi; ++k) block_rows[k] = r;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+// What a thread moves at a time: four words or one.
+template <int W> struct Unit;
+template <> struct Unit<4> { using T = uint4; };
+template <> struct Unit<1> { using T = uint32_t; };
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
+  return j < 2 ? (j == 0 ? v.x : v.y) : (j == 2 ? v.z : v.w);
+}
+
+// The first k (1-4) words of v at out[d]: one 16-byte store where whole and
+// 16-aligned, else 8-byte stores where 8-aligned, else words.  out itself
+// is 16-aligned.
+__device__ __forceinline__ void store_words(uint32_t* out, int64_t d,
+                                            const uint4& v, int k) {
+  if (k == 4 && (d & 3) == 0) {
+    *reinterpret_cast<uint4*>(out + d) = v;
+    return;
+  }
+  int j = 0;
+  if ((d & 1) == 0) {
+    for (; j + 2 <= k; j += 2) {
+      *reinterpret_cast<uint2*>(out + d + j) =
+          make_uint2(word_of(v, j), word_of(v, j + 1));
+    }
+  }
+  for (; j < k; ++j) out[d + j] = word_of(v, j);
+}
+
+__device__ __forceinline__ void store_words(uint32_t* out, int64_t d,
+                                            uint32_t v, int) {
+  out[d] = v;
+}
+
+// out[a, b) = 0 by the whole CTA; 16-byte stores between the 16-byte
+// boundaries when vec (out 16-aligned), words elsewhere.
+__device__ void zero_words(uint32_t* out, int64_t a, int64_t b, bool vec) {
+  if (a >= b) return;
+  int64_t a4 = a, b4 = a;
+  if (vec) {
+    a4 = (a + 3) & ~int64_t{3};
+    if (a4 > b) a4 = b;
+    b4 = b & ~int64_t{3};
+    if (b4 < a4) b4 = a4;
+  }
+  for (int64_t w = a + threadIdx.x; w < a4; w += kThreads) out[w] = 0;
+  for (int64_t q = a4 + 4 * threadIdx.x; q < b4; q += 4 * kThreads) {
+    *reinterpret_cast<uint4*>(out + q) = make_uint4(0, 0, 0, 0);
+  }
+  for (int64_t w = b4 + threadIdx.x; w < b; w += kThreads) out[w] = 0;
+}
+
+// The direct path: rows [0, rows) of the run (src = dense + r0 * Mw) copied
+// straight from dense to out, W words a unit, 2^log_g threads a row (a row
+// of more units takes several passes); then zeros past Mw of rows longer
+// than Mw.  Writes are cut to [0, total_w); a row with a negative start
+// writes nothing.
+template <int W>
+__device__ void copy_rows(const uint32_t* __restrict__ src, int rows,
+                          int64_t Mw, const int64_t* s_offs, int log_g,
+                          uint32_t* __restrict__ out, int64_t total_w) {
+  using V = typename Unit<W>::T;
+  const int g = 1 << log_g;
+  const int lane = threadIdx.x & (g - 1);
+  const int slot = threadIdx.x >> log_g;
+  const int rpp = kThreads >> log_g;                     // rows a pass
+  const int units = static_cast<int>((Mw + W - 1) / W);  // units a row
+  const int cpp = (units + g - 1) >> log_g;              // passes a row
+  const int passes = (rows + rpp - 1) / rpp * cpp;
+  bool long_rows = false;
+  for (int p0 = 0; p0 < passes; p0 += kUnroll) {
+    V v[kUnroll];
+    int64_t at[kUnroll];
+    int cnt[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      cnt[u] = 0;
+      const int p = p0 + u;
+      const int i = slot + (p / cpp) * rpp;
+      if (p >= passes || i >= rows) continue;
+      const int64_t lo = s_offs[i];
+      const int64_t size = s_offs[i + 1] - lo;
+      long_rows |= size > Mw;
+      int64_t len = size < Mw ? size : Mw;
+      if (len > total_w - lo) len = total_w - lo;
+      const int64_t k0 = static_cast<int64_t>(lane + (p % cpp) * g) * W;
+      if (lo < 0 || k0 >= len) continue;
+      cnt[u] = static_cast<int>(len - k0 < W ? len - k0 : W);
+      at[u] = lo + k0;
+      v[u] = *reinterpret_cast<const V*>(src + i * Mw + k0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (cnt[u] > 0) store_words(out, at[u], v[u], cnt[u]);
+    }
+  }
+  if (__syncthreads_or(long_rows)) {
+    for (int i = 0; i < rows; ++i) {
+      const int64_t lo = s_offs[i];
+      const int64_t hi = s_offs[i + 1] < total_w ? s_offs[i + 1] : total_w;
+      if (lo >= 0 && hi - lo > Mw) zero_words(out, lo + Mw, hi, W == 4);
+    }
   }
 }
 
-// The word at output position w: dense[r, w - offs[i]] for the staged row
-// i (row r = first + i) with offs[i] <= w < offs[i+1] and w - offs[i] < Mw;
-// 0 for a word no row covers.
-__device__ __forceinline__ uint32_t word_at(const uint32_t* __restrict__ dense,
-                                            int64_t Mw, const int64_t* offs,
-                                            int64_t count, int64_t first,
-                                            int64_t w) {
-  const int64_t i = upper_bound(offs, 0, count, w) - 1;
-  if (i >= 0 && i < count - 1) {
-    const int64_t k = w - offs[i];
-    if (k < Mw && k < offs[i + 1] - offs[i]) {
-      return dense[(first + i) * Mw + k];
-    }
+// Zeros before the first row (the first CTA) and past the last (the last).
+__device__ __forceinline__ void zero_edges(const int64_t* s_offs, int rows,
+                                           uint32_t* __restrict__ out,
+                                           int64_t total_w, bool vec) {
+  if (blockIdx.x == 0) {
+    zero_words(out, 0, s_offs[0] < total_w ? s_offs[0] : total_w, vec);
   }
-  return 0;
+  if (blockIdx.x == gridDim.x - 1) {
+    zero_words(out, s_offs[rows] > 0 ? s_offs[rows] : 0, total_w, vec);
+  }
 }
 
 // out[w] = dense[r, w - dst_w[r]] for the row r with dst_w[r] <= w <
-// dst_w[r+1] and w - dst_w[r] < Mw; 0 for a word no row covers.  Threads
-// take pairs of words: JCUDF rows are 8-byte aligned, so both words of a
-// pair nearly always lie in one row and move as one 8-byte load and store;
-// a pair that does not (odd offsets, a row's end, misaligned pointers) goes
-// word by word.  Each thread's pairs are loaded before any is stored, so
-// their loads are in flight together.
+// dst_w[r+1] and w - dst_w[r] < Mw; 0 for every other word of [0, total_w).
+// W = 4: every row start and out are 16-aligned, and runs that fit take
+// the tile; W = 1: the direct path, word by word.
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 pack_windows_kernel(const uint32_t* __restrict__ dense, int64_t n, int64_t Mw,
-                    const int64_t* __restrict__ dst_w,
-                    const int64_t* __restrict__ block_rows,
+                    const int64_t* __restrict__ dst_w, int per_cta, int log_g,
                     uint32_t* __restrict__ out, int64_t total_w) {
-  __shared__ int64_t s_offs[kStage];
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kBlockWords;
-  const int64_t b1 = b0 + kBlockWords < total_w ? b0 + kBlockWords : total_w;
-  // the row holding b0 (or the first row), and the row holding the next
-  // block's start, which ends at or after b1 (or the last row)
-  int64_t first = block_rows[blockIdx.x];
-  if (first < 0) first = 0;
-  if (first > n) first = n;
-  int64_t last = block_rows[blockIdx.x + 1];
-  if (last > n - 1 || last < 0) last = n - 1;
-  // offsets of rows first..last and the end of the last
-  const int64_t count = last >= first ? last - first + 2 : 0;
-  const int64_t* offs = dst_w + first;
-  if (count <= kStage) {
-    for (int64_t i = threadIdx.x; i < count; i += kThreads) {
-      s_offs[i] = dst_w[first + i];
-    }
-    offs = s_offs;
+  __shared__ int64_t s_offs[kMaxRows + 1];
+  __shared__ __align__(16) uint32_t s_tile[kTileWords];
+  __shared__ __align__(16) uint32_t s_out[kTileWords + 4];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * per_cta;
+  const int rows = static_cast<int>(n - r0 < per_cta ? n - r0 : per_cta);
+  const uint32_t* src = dense + r0 * Mw;
+  const bool tiled = W == 4 && rows * Mw <= kTileWords;
+  for (int i = threadIdx.x; i <= rows; i += kThreads) {
+    cp_async8(s_offs + i, dst_w + r0 + i);
   }
+  if (tiled) {
+    for (int64_t v = threadIdx.x; v < rows * Mw / 4; v += kThreads) {
+      cp_async16(s_tile + 4 * v, src + 4 * v);
+    }
+    for (int v = threadIdx.x; v < (kTileWords + 4) / 4; v += kThreads) {
+      reinterpret_cast<uint4*>(s_out)[v] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  cp_async_wait_all();
   __syncthreads();
-  const bool vec = (Mw % 2 == 0) &&
-                   ((reinterpret_cast<uintptr_t>(dense) |
-                     reinterpret_cast<uintptr_t>(out)) % 8 == 0);
-  uint2 v[kPairs];
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int64_t w = b0 + 2 * (threadIdx.x + j * kThreads);
-    v[j] = make_uint2(0, 0);
-    if (w >= b1) continue;
-    // i: the last staged offset at or before w; row first + i holds w if
-    // w lies before the row's end and within its Mw words
-    const int64_t i = upper_bound(offs, 0, count, w) - 1;
-    bool whole = false;
-    if (vec && i >= 0 && i < count - 1) {
-      const int64_t k = w - offs[i];
-      const int64_t at = (first + i) * Mw + k;
-      if (k + 1 < Mw && k + 1 < offs[i + 1] - offs[i] && at % 2 == 0) {
-        v[j] = *reinterpret_cast<const uint2*>(dense + at);
-        whole = true;
+  const int64_t o0 = s_offs[0];
+  const int64_t o1 = s_offs[rows];
+  const int64_t a0 = o0 & ~int64_t{3};
+  const int64_t span = o1 - a0;
+  if (tiled && o0 >= 0 && o0 <= o1 && o1 <= total_w &&
+      span <= kTileWords + 4) {
+    // the range in shared memory: row i's words at s_offs[i] - a0
+    const int g = 1 << log_g;
+    const int lane = threadIdx.x & (g - 1);
+    for (int i = threadIdx.x >> log_g; i < rows; i += kThreads >> log_g) {
+      const int64_t at = s_offs[i] - a0;
+      const int64_t size = s_offs[i + 1] - s_offs[i];
+      const int len = static_cast<int>(size < Mw ? size : Mw);
+      if (at < 0 || len <= 0 || at + len > span) continue;
+      for (int k = lane; k < len; k += g) s_out[at + k] = s_tile[i * Mw + k];
+    }
+    __syncthreads();
+    for (int64_t q = a0 + 4 * threadIdx.x; q < o1; q += 4 * kThreads) {
+      const uint4 v = *reinterpret_cast<const uint4*>(s_out + (q - a0));
+      if (q >= o0 && q + 4 <= o1) {
+        *reinterpret_cast<uint4*>(out + q) = v;
+      } else {
+        // the partial chunk at either end: its words of [o0, o1)
+        const int64_t from = q > o0 ? q : o0;
+        const int64_t to = q + 4 < o1 ? q + 4 : o1;
+        for (int64_t w = from; w < to; ++w) out[w] = word_of(v, w - q);
       }
     }
-    if (!whole) {
-      v[j].x = word_at(dense, Mw, offs, count, first, w);
-      if (w + 1 < b1) v[j].y = word_at(dense, Mw, offs, count, first, w + 1);
-    }
+  } else {
+    copy_rows<W>(src, rows, Mw, s_offs, log_g, out, total_w);
   }
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int64_t w = b0 + 2 * (threadIdx.x + j * kThreads);
-    if (w >= b1) continue;
-    if (vec && w + 1 < b1) {
-      *reinterpret_cast<uint2*>(out + w) = v[j];
-    } else {
-      out[w] = v[j].x;
-      if (w + 1 < b1) out[w + 1] = v[j].y;
-    }
-  }
+  zero_edges(s_offs, rows, out, total_w, W == 4);
 }
 
 }  // namespace
 
 extern "C" {
 
-// block_rows: int64 scratch of (total_w + 1023) / 1024 + 1 entries.
 int srjt_pack_windows(const void* dense, int64_t n, int64_t Mw,
-                      const void* dst_w, void* block_rows, void* out,
-                      int64_t total_w, void* stream) {
+                      const void* dst_w, void* out, int64_t total_w,
+                      void* stream) {
   if (n > 0 && Mw > 0 && total_w > 0) {
+    // rows a CTA: as many as kTileBytes of dense hold, at most kMaxRows;
+    // threads a row: a power of two covering its units (16 bytes, or a word
+    // off the 16-byte path), at most the CTA
+    const bool vec = Mw % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(dense) |
+                      reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    const int64_t W = vec ? 4 : 1;
+    int64_t per_cta = kTileBytes / (4 * Mw);
+    if (per_cta > kMaxRows) per_cta = kMaxRows;
+    if (per_cta < 1) per_cta = 1;
+    const int64_t units = (Mw + W - 1) / W;
+    int log_g = 0;
+    while ((int64_t{1} << log_g) < units && (1 << log_g) < kThreads) ++log_g;
+    const unsigned blocks = static_cast<unsigned>((n + per_cta - 1) / per_cta);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t nb = (total_w + kBlockWords - 1) / kBlockWords;
-    cudaError_t err = cudaMemsetAsync(block_rows, 0xFF,
-                                      (nb + 1) * sizeof(int64_t), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int64_t table_blocks = (n + kThreads) / kThreads;
-    if (table_blocks > kMaxTableBlocks) table_blocks = kMaxTableBlocks;
-    block_rows_kernel<<<static_cast<unsigned>(table_blocks), kThreads, 0, s>>>(
-        static_cast<const int64_t*>(dst_w), n, nb,
-        static_cast<int64_t*>(block_rows));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pack_windows_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(dense), n, Mw,
-        static_cast<const int64_t*>(dst_w),
-        static_cast<const int64_t*>(block_rows), static_cast<uint32_t*>(out),
-        total_w);
+    const uint32_t* d = static_cast<const uint32_t*>(dense);
+    const int64_t* o = static_cast<const int64_t*>(dst_w);
+    uint32_t* w = static_cast<uint32_t*>(out);
+    if (vec) {
+      pack_windows_kernel<4><<<blocks, kThreads, 0, s>>>(
+          d, n, Mw, o, static_cast<int>(per_cta), log_g, w, total_w);
+    } else {
+      pack_windows_kernel<1><<<blocks, kThreads, 0, s>>>(
+          d, n, Mw, o, static_cast<int>(per_cta), log_g, w, total_w);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

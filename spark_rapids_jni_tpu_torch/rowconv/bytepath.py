@@ -6,8 +6,10 @@ B5–B7 of the kernel table).  It keeps what each Pallas kernel computes and
 drops the rest: no knob, no envelope check, no ``None`` return.  Each
 wrapper checks its tensors and then, by the device they lie on:
 
-* CUDA: launches its hand-written kernel from ``csrc/bytepath.cu`` on the
-  current stream and adds one to its ``launches`` count, or raises;
+* CUDA: launches its hand-written kernel (B6 and B7 from
+  ``csrc/bytepath.cu``; B5 B3's from ``csrc/ragged.cu``, which computes the
+  same bytes) on the current stream and adds one to its ``launches``
+  count, or raises;
 * CPU: computes the same words with its plain PyTorch version.
 
 Words are int32 tensors, bit for bit the uint32 words of the JAX package
@@ -36,12 +38,19 @@ def _words_from_bytes(b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# B5 extract: flat chars at host offsets → zero-padded word rows
+# B5 extract: flat chars at offsets → zero-padded word rows
 # (xpallas._extract_call, xpallas.py:312)
 # ---------------------------------------------------------------------------
 
-def _host_offsets(offsets) -> np.ndarray:
-    offs = np.ascontiguousarray(offsets, dtype=np.int64).reshape(-1)
+def _offsets_on(offsets, device: torch.device) -> torch.Tensor:
+    """B5's offsets as int64 [D+1] on ``device``: a tensor as it is (it
+    must lie there already), host values copied there."""
+    if isinstance(offsets, torch.Tensor):
+        _check(offsets, "offsets", torch.int64, 1, device)
+        offs = offsets
+    else:
+        offs = torch.from_numpy(np.ascontiguousarray(
+            offsets, dtype=np.int64).reshape(-1)).to(device)
     if offs.shape[0] < 1:
         raise ValueError("extract_rows needs D+1 >= 1 offsets")
     return offs
@@ -49,7 +58,7 @@ def _host_offsets(offsets) -> np.ndarray:
 
 def extract_rows_plain(flat: torch.Tensor, offsets, M: int) -> torch.Tensor:
     """Plain version of :func:`extract_rows`: an index matrix and a mask."""
-    offs = torch.as_tensor(_host_offsets(offsets), device=flat.device)
+    offs = _offsets_on(offsets, flat.device)
     D = offs.shape[0] - 1
     Mw = -(-M // 4)
     size = flat.shape[0]
@@ -65,28 +74,36 @@ def extract_rows_plain(flat: torch.Tensor, offsets, M: int) -> torch.Tensor:
 
 
 def extract_rows(flat: torch.Tensor, offsets, M: int) -> torch.Tensor:
-    """Cut a flat byte buffer at host ``offsets`` (int64 [D+1]) into rows
-    of ``M`` bytes, zero-padded (a longer row yields its first M bytes),
-    as little-endian words: int32 [D, ceil(M/4)].
+    """Cut a flat byte buffer at ``offsets`` (int64 [D+1]) into rows of
+    ``M`` bytes, zero-padded (a longer row yields its first M bytes), as
+    little-endian words: int32 [D, ceil(M/4)].
 
-    This builds the padded dictionary-string matrix that
-    :func:`gather_rows` reads."""
+    ``offsets`` is an int64 tensor on the data's device, which costs the
+    call no copy, or host values (a list or numpy array), which it copies
+    there.  This builds the padded dictionary-string matrix that
+    :func:`gather_rows` reads.  On the card it launches B3's kernel
+    (``csrc/ragged.cu`` ``unpack_rows_kernel``), which computes the same
+    bytes; a width M that is not whole words is padded after it."""
     dev = flat.device
     _check(flat, "flat", torch.uint8, 1, dev)
     if M < 0:
         raise ValueError("extract_rows needs M >= 0")
-    offs = _host_offsets(offsets)
+    offs = _offsets_on(offsets, dev)
     if _route(dev) == "plain":
         return extract_rows_plain(flat, offs, M)
     D = offs.shape[0] - 1
     Mw = -(-M // 4)
-    out = torch.empty((D, Mw), dtype=torch.int32, device=dev)
-    if D > 0 and Mw > 0:
-        offs_dev = torch.from_numpy(offs).to(dev)
-        _launch("srjt_extract_rows", dev, flat.data_ptr(), flat.shape[0],
-                offs_dev.data_ptr(), D, M, Mw, out.data_ptr())
-        extract_rows.launches += 1
-    return out
+    if D == 0 or Mw == 0:
+        return torch.zeros((D, Mw), dtype=torch.int32, device=dev)
+    # B3's kernel computes these bytes: rows cut to M bytes and zero-padded,
+    # every byte written; rows of whole words are the words themselves
+    rows = torch.empty((D, M), dtype=torch.uint8, device=dev)
+    _native.launch("ragged", "srjt_unpack_rows", dev, flat.data_ptr(),
+                   flat.shape[0], offs.data_ptr(), D, M, rows.data_ptr())
+    extract_rows.launches += 1
+    if M % 4:
+        rows = torch.nn.functional.pad(rows, (0, 4 * Mw - M))
+    return rows.view(torch.int32)
 
 
 extract_rows.launches = 0

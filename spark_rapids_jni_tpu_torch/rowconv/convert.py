@@ -10,14 +10,16 @@ the reference's ``row_conversion.cu``.  Output bytes are identical to both.
   the JAX package's word-compose engines were TPU tuning and are not ported.
 * Tables with strings, to rows: the contract of the JAX package's primary
   engine, xpack (``xpack.to_rows_var_x`` :562, ``_to_rows_x_jit``
-  :465-523).  Each row is composed zero-padded in a dense [n, M] matrix
-  (fixed slots and validity, then the chars, moved by B3 or B4 of
-  :mod:`.ragged`), and kernel B1 (:func:`.xpack.pack_windows`) packs the
-  matrix's words at the 8-byte-aligned row offsets, which stay on the
-  device as words.  B1 packs every JCUDF row batch; B2 keeps the
-  byte-granular packs (``DictColumn.materialize``, where chars start at any
-  byte).  The rule follows from the data, so there is no knob between the
-  two, and their launch counts show which one a run took.
+  :465-523).  Each row is composed zero-padded in place in one dense
+  [n, M] matrix a batch, as the JAX package builds its ``dense`` buffer:
+  B4 of :mod:`.ragged` writes the chars and zeros everywhere else, the
+  fixed slots and validity then go into its first columns, and kernel B1
+  (:func:`.xpack.pack_windows`) packs the matrix's words at the
+  8-byte-aligned row offsets, which stay on the device as words.  B1 packs
+  every JCUDF row batch; B2 keeps the byte-granular packs
+  (``DictColumn.materialize``, where chars start at any byte).  The rule
+  follows from the data, so there is no knob between the two, and their
+  launch counts show which one a run took.
 * Tables with strings, from rows: modelled on the DMA branch of
   ``convert_from_rows`` (``:1120-1209``), B3 for the fixed region and one
   B4 for every column's chars.
@@ -81,12 +83,17 @@ class RowBatch:
 # ---------------------------------------------------------------------------
 
 def _reinterpret(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t.view(dtype)`` of a contiguous copy; an empty tensor (whose
-    strides torch may leave at 0) gets a fresh empty one of the new shape."""
+    """``t.view(dtype)`` of a contiguous copy.  An empty tensor (whose
+    strides torch may leave at 0) gets a fresh empty one of the new shape,
+    and a one-row tensor a fresh copy: torch counts a slice of one row as
+    contiguous though it keeps its parent's row stride, which ``view``
+    refuses."""
     if t.numel() == 0:
-        ratio = t.element_size() / torch.empty(0, dtype=dtype).element_size()
-        return torch.empty((*t.shape[:-1], int(t.shape[-1] * ratio)),
+        return torch.empty((*t.shape[:-1],
+                            t.shape[-1] * t.element_size() // dtype.itemsize),
                            dtype=dtype, device=t.device)
+    if t.dim() > 1 and t.shape[0] == 1:
+        t = t.clone(memory_format=torch.contiguous_format)
     return t.contiguous().view(dtype)
 
 
@@ -107,15 +114,15 @@ def _valid_matrix(table: Table) -> torch.Tensor:
     return torch.stack([c.validity_or_true() for c in table.columns]).t()
 
 
-def _fixed_region(layout: RowLayout, table: Table, width: int,
-                  lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """uint8 [n, width]: every column's slot and the validity bytes.
+def _fixed_region(layout: RowLayout, table: Table, out: torch.Tensor,
+                  lens: Optional[torch.Tensor] = None) -> None:
+    """Writes every column's slot and the validity bytes into ``out``, uint8
+    [n, >= fixed_plus_validity] (a view of the row matrix); the bytes no
+    slot covers keep what ``out`` holds, zeros as its callers make it.
 
     ``lens``: int64 [nvar, n] string lengths; a string slot holds
     (fixed_plus_validity + chars of the earlier string columns, length) as
     two uint32 (``convert.py:578-607``)."""
-    n = table.num_rows
-    out = torch.zeros((n, width), dtype=torch.uint8, device=table.device)
     if lens is not None:
         slot_offs = layout.fixed_plus_validity + _prefix_over_columns(lens)
     vi = 0
@@ -131,7 +138,6 @@ def _fixed_region(layout: RowLayout, table: Table, width: int,
     vo = layout.validity_offset
     out[:, vo:vo + layout.validity_bytes] = bitmask.pack_bool_matrix(
         _valid_matrix(table))
-    return out
 
 
 def _fixed_extract(layout: RowLayout, rows: torch.Tensor):
@@ -209,7 +215,8 @@ def _to_rows_fixed(layout: RowLayout, table: Table,
     out = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         sub = slice_table(table, lo, hi)
-        rows = _fixed_region(layout, sub, stride)
+        rows = torch.zeros((hi - lo, stride), dtype=torch.uint8, device=dev)
+        _fixed_region(layout, sub, rows)
         offsets = (torch.arange(hi - lo + 1, dtype=torch.int64, device=dev)
                    * stride).to(torch.int32)
         out.append(RowBatch(rows.reshape(-1), offsets))
@@ -237,28 +244,27 @@ def _row_sizes(layout: RowLayout, lens: torch.Tensor) -> torch.Tensor:
     return (layout.fixed_plus_validity + lens.sum(0) + a - 1) // a * a
 
 
-def _char_region(layout: RowLayout, sub: Table, lens: torch.Tensor,
-                 width: int) -> torch.Tensor:
-    """uint8 [n, width]: each row's chars, string columns in order,
-    zero-padded.  One string column: its chars are already row-contiguous,
-    so one unpack.  More: one segmented copy of all their chars."""
+def _char_rows(layout: RowLayout, sub: Table, lens: torch.Tensor,
+               M: int) -> torch.Tensor:
+    """uint8 [n, M], the row matrix B1 packs, with each row's chars in
+    place: string columns in order from ``fixed_plus_validity``, every
+    other byte zero.  One segmented copy (B4) of all the string columns'
+    chars, a segment a string, at destination ``r * M + fixed_plus_validity
+    + prefix``; B4 writes every byte of its output, gaps included, so the
+    fixed region comes out zero for :func:`_fixed_region` to fill."""
     var_idx = layout.variable_column_indices
     n = sub.num_rows
-    dev = sub.device
-    if len(var_idx) == 1:
-        col = sub[var_idx[0]]
-        return ragged.unpack_rows(col.data, col.offsets.to(torch.int64), width)
-    chars = torch.cat([sub[ci].data for ci in var_idx])
-    bases = np.concatenate([[0], np.cumsum([sub[ci].data.shape[0]
-                                            for ci in var_idx])[:-1]])
+    datas = [sub[ci].data for ci in var_idx]
+    chars = datas[0] if len(datas) == 1 else torch.cat(datas)
+    bases = np.concatenate([[0], np.cumsum([d.shape[0] for d in datas])[:-1]])
     src = torch.stack([sub[ci].offsets[:-1].to(torch.int64) + int(base)
                        for ci, base in zip(var_idx, bases)])
-    row_base = torch.arange(n, dtype=torch.int64, device=dev) * width
+    row_base = (torch.arange(n, dtype=torch.int64, device=sub.device) * M
+                + layout.fixed_plus_validity)
     dst = row_base + _prefix_over_columns(lens)
     # segments in row order, so that destinations ascend
     src, dst, sizes = (t.t().reshape(-1) for t in (src, dst, lens))
-    return ragged.segmented_copy(chars, src, dst, sizes,
-                                 n * width).view(n, width)
+    return ragged.segmented_copy(chars, src, dst, sizes, n * M).view(n, M)
 
 
 def _to_rows_strings(layout: RowLayout, table: Table,
@@ -295,15 +301,17 @@ def _to_rows_strings(layout: RowLayout, table: Table,
         sub = slice_table(table, lo, hi)
         sub_lens = lens[:, lo:hi]
         M = -(-widest // _DENSE_ROW_ROUND) * _DENSE_ROW_ROUND
-        fixed = _fixed_region(layout, sub, fpv, sub_lens)
+        # one row matrix a batch: the chars first, then the fixed region
+        # into its first fpv bytes
         if nchars:
-            tail = _char_region(layout, sub, sub_lens, M - fpv)
+            dense = _char_rows(layout, sub, sub_lens, M)
         else:
-            tail = torch.zeros((rows, M - fpv), dtype=torch.uint8, device=dev)
+            dense = torch.zeros((rows, M), dtype=torch.uint8, device=dev)
+        _fixed_region(layout, sub, dense[:, :fpv], sub_lens)
         # M is a multiple of 64 and row sizes of 8: the rows are whole
         # words, and B1 packs them at word offsets
-        dense = _reinterpret(torch.cat([fixed, tail], dim=1), torch.int32)
-        words = xpack.pack_windows(dense, offsets // 4, nbytes // 4)
+        words = xpack.pack_windows(_reinterpret(dense, torch.int32),
+                                   offsets // 4, nbytes // 4)
         out.append(RowBatch(_reinterpret(words, torch.uint8),
                             offsets.to(torch.int32)))
     return out

@@ -10,7 +10,8 @@ rows are 8-byte aligned, so every row is whole words.
 The wrapper checks its tensors and then, by the device they lie on:
 
 * CUDA: launches the hand-written kernel from ``csrc/xpack.cu`` on the
-  current stream and adds one to its ``launches`` count, or raises;
+  current stream, one launch a call, and adds one to its ``launches``
+  count, or raises;
 * CPU: computes the same words with its plain PyTorch version.
 
 The JAX package's slab gathers, byte rolls, shape buckets and the row-width
@@ -25,21 +26,6 @@ import torch
 
 from .. import _native
 from .ragged import _check, _route
-
-# output words a block of the kernel writes (4 KiB), as _B_PACK of the JAX
-# package's kernel (xpallas.py:112)
-BLOCK_WORDS = 1024
-
-
-def first_row_per_block(dst_w: torch.Tensor, n: int, nb: int,
-                        win: int = BLOCK_WORDS) -> torch.Tensor:
-    """``fr[k]`` = the last row r < n with ``dst_w[r] <= k * win``, for k
-    in [0, nb) (-1 where there is none): the row each block of the kernel
-    starts from, which the kernel's first pass tabulates.  The plain twin
-    of the JAX package's ``_first_row_per_boundary`` (``xpallas.py:115``),
-    by a sorted search where that one takes segment sums."""
-    bounds = torch.arange(nb, dtype=torch.int64, device=dst_w.device) * win
-    return torch.searchsorted(dst_w[:n].contiguous(), bounds, right=True) - 1
 
 
 def pack_windows_plain(dense_w: torch.Tensor, dst_w: torch.Tensor,
@@ -81,14 +67,11 @@ def pack_windows(dense_w: torch.Tensor, dst_w: torch.Tensor,
         return pack_windows_plain(dense_w, dst_w, total_w)
     if n == 0 or Mw == 0:
         return torch.zeros(total_w, dtype=torch.int32, device=dev)
+    # the kernel writes every word of out: no fill
     out = torch.empty(total_w, dtype=torch.int32, device=dev)
     if total_w > 0:
-        # scratch: each block's first row (first_row_per_block's table)
-        block_rows = torch.empty(-(-total_w // BLOCK_WORDS) + 1,
-                                 dtype=torch.int64, device=dev)
         _native.launch("xpack", "srjt_pack_windows", dev, dense_w.data_ptr(),
-                       n, Mw, dst_w.data_ptr(), block_rows.data_ptr(),
-                       out.data_ptr(), total_w)
+                       n, Mw, dst_w.data_ptr(), out.data_ptr(), total_w)
         pack_windows.launches += 1
     return out
 

@@ -129,6 +129,37 @@ def test_extract_rows_matches_pallas(monkeypatch, rows, M, max_len):
         np.testing.assert_array_equal(dense, want)
 
 
+@pytest.mark.parametrize("rows,M,max_len", [(50, 48, 40), (50, 16, 40),
+                                            (1, 8, 30), (200, 64, 5),
+                                            (33, 32, 0)])
+def test_extract_rows_device_offsets_match_host_and_pallas(monkeypatch, rows,
+                                                           M, max_len):
+    """Offsets handed as an int64 tensor on the data's device (as
+    ``DictColumn.materialize`` now hands them, with no copy) give the same
+    words as host offsets, and both the JAX package's Pallas kernel's."""
+    monkeypatch.setenv("SRJT_PALLAS_EXTRACT", "interpret")
+    rng = np.random.default_rng(rows * M + 1)
+    lens = rng.integers(0, max_len + 1, rows)
+    offs = np.zeros(rows + 1, np.int64)
+    offs[1:] = np.cumsum(lens)
+    payload = rng.integers(0, 256, int(offs[-1]) + 3, dtype=np.int64) \
+        .astype(np.uint8)
+    flat = torch.from_numpy(payload)
+    got = _no_launches(lambda: bytepath.extract_rows(
+        flat, torch.from_numpy(offs), M))
+    host = bytepath.extract_rows(flat, offs, M)
+    assert torch.equal(got, host)
+    if int(offs[-1]):
+        want = np.asarray(xpallas.try_extract_rows(
+            jnp.asarray(payload[:int(offs[-1])]), offs, M))
+        np.testing.assert_array_equal(_u32(got).view(np.uint8)
+                                      .reshape(rows, M), want)
+    else:
+        assert not got.any()
+    with pytest.raises(TypeError, match="int64"):
+        bytepath.extract_rows(flat, torch.from_numpy(offs).to(torch.int32), M)
+
+
 def test_extract_rows_odd_width_and_empty():
     flat = torch.arange(1, 11, dtype=torch.uint8)
     got = bytepath.extract_rows(flat, [0, 3, 10], 5)       # 2 words a row

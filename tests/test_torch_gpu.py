@@ -410,6 +410,132 @@ def test_pack_windows_byte_offsets_past_2gib(cuda):
     torch.cuda.empty_cache()
 
 
+# SF1 lineitem's 16 columns as to_rows hands them to B1: 118 fixed bytes,
+# l_returnflag and l_linestatus, the dictionary strings l_shipinstruct and
+# l_shipmode, and l_comment of 10-43 chars, rows padded to 8 bytes, M = 192
+SF1_FIXED, SF1_M = 118, 192
+
+
+def _sf1_row_words(rng, n):
+    chars = (2 + np.array([17, 11, 4, 16])[rng.integers(0, 4, n)]
+             + np.array([7, 3, 4, 4, 5, 4, 3])[rng.integers(0, 7, n)]
+             + rng.integers(10, 44, n))
+    return (SF1_FIXED + chars + 7) // 8 * 2
+
+
+def _b1_case(case, rng):
+    """(n, Mw, row sizes in words, words past the last row) of B1's edge
+    cases; the sizes are any word count where the contract allows it."""
+    if case == "zero_word_rows":
+        return 5000, 16, rng.integers(0, 5, 5000) * 2 * (rng.random(5000)
+                                                          < 0.5), 0
+    if case == "longer_than_mw":
+        return 5000, 8, rng.integers(0, 40, 5000), 3
+    if case == "mw_3000":
+        return 7, 3000, rng.integers(2000, 3001, 7), 0
+    if case == "mw_3000_longer":
+        return 5, 3000, rng.integers(3000, 9000, 5), 11
+    if case == "wider_than_tile":
+        return 5, 5000, rng.integers(3000, 5001, 5), 0
+    if case == "one_row":
+        return 1, 48, np.array([40]), 0
+    if case == "odd_starts":
+        return 20000, 32, rng.integers(1, 33, 20000), 1
+    if case == "odd_width":
+        return 3000, 45, rng.integers(0, 46, 3000), 2
+    return 6_001_215, SF1_M // 4, _sf1_row_words(rng, 6_001_215), 0
+
+
+def _b1_inputs(case, rng, device):
+    n, Mw, sizes, extra = _b1_case(case, rng)
+    sizes = torch.from_numpy(np.asarray(sizes, np.int64)).to(device)
+    dst = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    torch.cumsum(sizes, 0, out=dst[1:])
+    dense = torch.randint(-2**31, 2**31 - 1, (n, Mw), dtype=torch.int32,
+                          device=device)
+    dense[torch.arange(Mw, device=device) >= sizes[:, None]] = 0
+    return dense, dst, int(dst[-1]) + extra
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zero_word_rows", "longer_than_mw",
+                                  "mw_3000", "mw_3000_longer",
+                                  "wider_than_tile", "one_row",
+                                  "odd_starts", "odd_width", "sf1_shape"])
+def test_pack_windows_kernel_edges_match_plain(cuda, case):
+    """Rows of 0 words, rows longer than Mw (zeros past Mw), rows wider
+    than a CTA's tile, one row, rows at odd word offsets (word stores), an
+    odd width (the word path) and SF1's 16-column rows; one launch a
+    call."""
+    dense, dst, total_w = _b1_inputs(case, np.random.default_rng(len(case)),
+                                     cuda)
+    before = xpack.pack_windows.launches
+    got = xpack.pack_windows(dense, dst, total_w)
+    torch.cuda.synchronize()
+    assert xpack.pack_windows.launches == before + 1
+    want = xpack.pack_windows_plain(dense, dst, total_w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_pack_windows_writes_every_word(cuda):
+    """The wrapper allocates with torch.empty: a block the caching
+    allocator hands back full of 0xFF must come out equal to the plain
+    version, the zeros past Mw and past the last row included."""
+    dense, dst, total_w = _b1_inputs("longer_than_mw",
+                                     np.random.default_rng(8), cuda)
+    total_w += 1000
+    junk = torch.full((total_w,), -1, dtype=torch.int32, device=cuda)
+    ptr = junk.data_ptr()
+    del junk
+    got = xpack.pack_windows(dense, dst, total_w)
+    assert got.data_ptr() == ptr          # the 0xFF block came back
+    assert torch.equal(got, xpack.pack_windows_plain(dense, dst, total_w))
+
+
+@pytest.mark.gpu
+def test_pack_windows_broken_offsets_do_not_fault(cuda):
+    """Offsets that break the contract (negative, decreasing, past
+    total_w) give unspecified words but never a fault."""
+    rng = np.random.default_rng(12)
+    dense = torch.randint(-2**31, 2**31 - 1, (4000, 16), dtype=torch.int32,
+                          device=cuda)
+    for trial in range(20):
+        dst = torch.from_numpy(rng.integers(-200, 70000, 4001)).to(cuda)
+        if trial % 2:
+            dst = torch.sort(dst).values
+        out = xpack.pack_windows(dense, dst, 60000)
+        torch.cuda.synchronize()
+        assert out.shape == (60000,)
+    # the context is sound: a good call still gives the right words
+    dense, dst, total_w = _b1_inputs("one_row", rng, cuda)
+    assert torch.equal(xpack.pack_windows(dense, dst, total_w),
+                       xpack.pack_windows_plain(dense, dst, total_w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,M,max_len", [(3000, 48, 43), (1, 4, 9),
+                                         (700, 21, 30)])
+def test_extract_rows_device_offsets(cuda, D, M, max_len):
+    """B5 given its offsets as a tensor on the card (no copy) gives the
+    words of host offsets and of its plain version."""
+    rng = np.random.default_rng(D)
+    lens = rng.integers(0, max_len + 1, D)
+    offs = np.zeros(D + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    flat = torch.from_numpy(rng.integers(0, 256, int(offs[-1]) + 3)
+                            .astype(np.uint8)).to(cuda)
+    before = bytepath.extract_rows.launches
+    got = bytepath.extract_rows(flat, torch.from_numpy(offs).to(cuda), M)
+    host = bytepath.extract_rows(flat, offs, M)
+    torch.cuda.synchronize()
+    assert bytepath.extract_rows.launches == before + 2
+    assert torch.equal(got, host)
+    assert torch.equal(got, bytepath.extract_rows_plain(flat, offs, M))
+    with pytest.raises(ValueError, match="is on"):
+        bytepath.extract_rows(flat, torch.from_numpy(offs), M)
+
+
 @pytest.mark.gpu
 def test_to_rows_routes_through_b1(cuda):
     """A plain string table: B1 packs the batch, B2 does not run."""

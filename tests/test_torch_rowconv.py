@@ -349,6 +349,99 @@ def test_strings_with_offset_base():
         assert torch.equal(got[0].data, want[0].data)
 
 
+# ---------------------------------------------------------------------------
+# the row matrix of a batch with strings, built in place
+# ---------------------------------------------------------------------------
+
+# (schema, rows, null pattern, longest string, max_batch_bytes, the
+# fixed_plus_validity it must have or None): one string column (one B4
+# segment a row) alone and beside fixed columns, the chars starting at
+# fixed_plus_validity % 8 = 2, 4 and 6, no chars at all (empty or null
+# strings), the widest rows the layout allows, one row, and batches split
+# by a small cap
+INPLACE_CASES = {
+    "one_string_column": (["STRING"], 90, "most", 39, None, 9),
+    "one_string_beside_fixed": (["INT64", "STRING", "INT32"], 70, "most", 39,
+                                None, None),
+    "fpv_mod8_2": (["STRING", "INT8"], 60, "most", 21, None, 10),
+    "fpv_mod8_4": (["STRING", "INT16", "INT8"], 60, "few", 21, None, 12),
+    "fpv_mod8_6": (["STRING", "INT32", "INT8"], 60, "most", 21, None, 14),
+    "fpv_mod8_6_two_strings": (["STRING", "INT32", "STRING", "INT8"], 60,
+                               "all", 13, None, 22),
+    "all_chars_empty": (["STRING", "INT64", "STRING"], 40, "all", 0, None,
+                        None),
+    "every_string_null": (["STRING", "INT16", "STRING"], 40, "none", 20,
+                          None, None),
+    "one_row": (["STRING", "INT64"], 1, "all", 30, None, None),
+    "three_strings_mixed": (["STRING", "STRING", "FLOAT64", "STRING"], 80,
+                            "few", 17, None, None),
+    "split_batches": (["STRING", "INT32", "STRING"], 300, "most", 20, 2048,
+                      None),
+    "split_batches_one_string": (["INT8", "STRING"], 300, "most", 30, 1500,
+                                 None),
+}
+
+
+def _spy(monkeypatch, module, name, calls):
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        calls[name] += 1
+        return fn(*args)
+    monkeypatch.setattr(module, name, wrapper)
+
+
+def _to_rows_calls(monkeypatch) -> dict:
+    """Count the calls of the ragged kernels' and B1's wrappers."""
+    from spark_rapids_jni_tpu_torch.rowconv import ragged, xpack
+    calls = {"segmented_copy": 0, "unpack_rows": 0, "pack_windows": 0}
+    _spy(monkeypatch, ragged, "segmented_copy", calls)
+    _spy(monkeypatch, ragged, "unpack_rows", calls)
+    _spy(monkeypatch, xpack, "pack_windows", calls)
+    return calls
+
+
+@pytest.mark.parametrize("case", list(INPLACE_CASES))
+def test_to_rows_row_matrix_in_place(case, monkeypatch):
+    """Each batch's chars go into its row matrix by one B4 call (no B3
+    tile, no concatenate), then B1 packs it: the bytes equal the JAX
+    package's and the oracle's, batch for batch."""
+    kinds, n, pattern, max_len, cap, fpv = INPLACE_CASES[case]
+    rng = np.random.default_rng(len(case) * 7 + n)
+    cols = [make_column(rng, k, n, pattern if k == "STRING" else "most",
+                        max_len) for k in kinds]
+    layout = pt.compute_row_layout(
+        interop.table_from_numpy(cols, device=CPU).schema)
+    if fpv is not None:
+        assert layout.fixed_plus_validity == fpv
+    calls = _to_rows_calls(monkeypatch)
+    pb = check_table(cols, cap, cross_feed=False)
+    chars = sum(int(np.asarray(c[3])[-1]) for c in cols if c[3] is not None)
+    assert calls["pack_windows"] == len(pb)
+    assert calls["unpack_rows"] == len(pb)          # from_rows' fixed region
+    with_chars = len(pb) if chars else 0
+    # to_rows: one B4 a batch with chars; from_rows: one B4 a batch
+    assert calls["segmented_copy"] == with_chars + len(pb)
+    if cap is not None:
+        assert len(pb) > 2
+
+
+def test_to_rows_widest_rows_in_place():
+    """Rows of 1,024 bytes, the most the layout allows: a row matrix of
+    M = 1024 whose chars run to its last byte."""
+    rng = np.random.default_rng(1024)
+    n = 12
+    lens = rng.integers(990, 1008, n)
+    lens[3] = 1007                        # 17 fixed bytes + 1007 chars
+    offs = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    cols = [(STRING, 0, rng.integers(32, 127, int(offs[-1])).astype(np.uint8),
+             offs, None), make_column(rng, "INT64", n, "most")]
+    pb = check_table(cols)
+    sizes = np.diff(pb[0].offsets.numpy())
+    assert sizes.max() == 1024
+
+
 @pytest.mark.parametrize("field,value", [("offset", 3), ("offset", 4000),
                                          ("length", 1 << 20)])
 def test_corrupt_slot_raises(field, value):

@@ -98,7 +98,7 @@ def test_pack_windows_matches_jax(case, monkeypatch):
     np.testing.assert_array_equal(got, lax)
     monkeypatch.setenv("SRJT_PALLAS_PACKWIN", "interpret")
     kernel = xpallas.try_pack_windows(jdense, jdst, total_w, P, nwin)
-    if Mw > xpack.BLOCK_WORDS:
+    if Mw > xpallas._B_PACK // 4:
         # rows wider than the Pallas kernel's VMEM window: outside its
         # envelope, the JAX package packs them on its XLA path
         assert kernel is None
@@ -124,25 +124,6 @@ def test_pack_windows_matches_numpy(n, Mw, lo, hi, extra):
     total_w = int(dst[-1]) + extra
     np.testing.assert_array_equal(_port_pack(dense, dst, total_w),
                                   _pack_np(dense, dst, total_w))
-
-
-@pytest.mark.parametrize("sizes,nb", [([2] * 600, 3), ([2100, 2, 2100], 5),
-                                      ([4, 1020, 1024, 6, 8], 4),
-                                      ([0, 0, 8, 0, 2048], 4), ([1], 1),
-                                      ([8] * 1024, 9), ([1024] * 3, 4),
-                                      ([0] * 5 + [2], 2)])
-def test_first_row_per_block_matches_jax(sizes, nb):
-    sizes = np.asarray(sizes, np.int64)
-    n = sizes.shape[0]
-    dst = np.zeros(n + 1, np.int64)
-    np.cumsum(sizes, out=dst[1:])
-    got = xpack.first_row_per_block(torch.from_numpy(dst), n, nb)
-    want = xpallas._first_row_per_boundary(
-        jnp.asarray(dst.astype(np.int32) * 4), n, nb, 4 * xpack.BLOCK_WORDS)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    # the row each block starts from holds the block's first word
-    for k, r in enumerate(got.tolist()):
-        assert r == -1 or dst[r] <= k * xpack.BLOCK_WORDS
 
 
 def test_pack_windows_checks_its_arguments():

@@ -7,8 +7,11 @@ For each table of ``chip_smoke.py`` (212 fixed-width columns; 12 columns
 with 2 strings; 155 columns with 16 strings), after one warm-up, profiles
 one ``convert_to_rows`` and one ``convert_from_rows`` with ``torch.profiler``
 and prints the host wall time, the device-busy time (the union of the
-kernels' intervals), the device's idle share of the wall time, and the
-device ops that took the most time.  The full per-op tables go to
+kernels' intervals), the device's idle share of the wall time, what the
+call asked of the device (kernels, memsets and copies each way, by their
+device rows; a copy to the host is a synchronisation, and so is each
+stream synchronisation the host made), and the device ops that took the
+most time.  The full per-op tables go to
 ``DIR/torch_profile_rowconv.txt`` (default ``build/profiles``).  Needs a CUDA
 device; imports the port, never JAX.
 """
@@ -46,6 +49,27 @@ def _busy_us(prof) -> float:
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy
+
+
+def _device_work(prof) -> str:
+    """Kernels, memsets and copies the call ran on the device, and the
+    host's stream synchronisations."""
+    counts = {"kernels": 0, "memsets": 0, "HtoD": 0, "DtoH": 0, "DtoD": 0,
+              "syncs": 0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name
+            if name.startswith("Memset"):
+                counts["memsets"] += 1
+            elif name.startswith("Memcpy"):
+                for way in ("HtoD", "DtoH", "DtoD"):
+                    if way in name:
+                        counts[way] += 1
+            else:
+                counts["kernels"] += 1
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            counts["syncs"] += 1
+    return ", ".join(f"{k} {v}" for k, v in counts.items())
 
 
 def _device_total(avg) -> float:
@@ -106,7 +130,8 @@ def main(argv=None) -> int:
                     f"x{a.count}" for a in avgs[:TOP] if _device_total(a) > 0)
                 print(f"[profile] {case} {direction}: wall {wall / 1e3:.3f} ms,"
                       f" device busy {busy / 1e3:.3f} ms, idle share "
-                      f"{1 - busy / wall:.3f}; top device ops: {top}",
+                      f"{1 - busy / wall:.3f}; device work: "
+                      f"{_device_work(prof)}; top device ops: {top}",
                       flush=True)
                 fh.write(f"== {case} {direction} ==\n")
                 fh.write(prof.key_averages().table(
