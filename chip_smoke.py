@@ -57,13 +57,25 @@ fails (non-zero exit, no result line) if anything is wrong:
    on the 16 columns (the ``l_comment`` prefix strip; to_rows, B4's chars
    into the row matrix and B1's pack of it; from_rows), exact against
    their plain versions (run on pieces of the input where the whole would
-   not fit) and timed as in phase 3.
+   not fit) and timed as in phase 3;
+10. Q1: TPC-H SF1 lineitem in Q1's layout (6,001,215 rows, the flags as
+   dictionary strings, ``l_extendedprice`` FLBA DECIMAL(12,2) PLAIN,
+   ``l_discount`` and ``l_tax`` FLBA DECIMAL(4,2) dictionary-encoded;
+   ``tools/torch_lineitem_parquet.py``), ``models.tpch_q1.run`` on it with
+   the cutoff 1998-12-01 minus 90 days, every output column held against
+   an exact integer oracle from the generator's arrays (keys, counts,
+   ``sum_qty`` and the three money sums as unscaled integers; the means
+   to a relative 1e-12), timed as the median wall of three calls; B3 and
+   B4, which Q1 launches for its string keys, and B7, which its scan
+   launches, held against their plain versions on the largest inputs Q1
+   hands them and timed as in phase 3; then Q1 on a 1,048,576-row file
+   with OPTIONAL columns and 10% nulls, exact the same way.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it holds the per-kernel results as JSON (B1's, B3's, B4's and
-B5's with every input they were measured on).  Tables and files are
-made from ``--seed`` with numpy.  Imports torch, numpy and the port, never
-JAX.
+line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
+and B7's with every input they were measured on, Q1's among them).  Tables
+and files are made from ``--seed`` with numpy.  Imports torch, numpy and the
+port, never JAX.
 """
 
 from __future__ import annotations
@@ -159,6 +171,12 @@ NULL_ROWS = 1 << 20
 NULL_ROW_GROUPS = 4
 Q6_DATES = (8766, 9131)          # [1994-01-01, 1995-01-01) in epoch days
 Q6_REL_TOL = 1e-12
+Q1_CUTOFF = 10561 - 90           # 1998-12-01 minus 90 days, in epoch days
+Q1_MEAN_RTOL = 1e-12
+# the kernels Q1 launches: B3 and B4 for its string keys (dictionary_encode's
+# byte matrix, the STRING gathers of the dictionary and of the output
+# keys), B7 for the scan's PLAIN quantities and its dictionaries' values
+Q1_KERNELS = ("unpack_rows", "segmented_copy", "u8_to_u32")
 
 
 class SmokeFailure(RuntimeError):
@@ -1124,6 +1142,149 @@ def b7_starts(kernels, args, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: TPC-H Q1
+# ---------------------------------------------------------------------------
+
+def exact_sum(x: np.ndarray) -> int:
+    """The exact sum of int64 values below 2^62 in magnitude, as a Python
+    int: the high and low 32-bit halves summed apart (each sum fits int64
+    below 2^31 values)."""
+    return (int((x >> 32).sum(dtype=np.int64)) << 32) + int(
+        (x & 0xFFFFFFFF).sum(dtype=np.int64))
+
+
+def q1_oracle(W, data, validity, cutoff) -> list:
+    """Q1's rows from the generator's integer arrays, in the port's
+    semantics: nulls skipped by every aggregate, a null key its own group
+    ordered first, ``count`` the valid quantities, the money sums
+    unscaled."""
+    n = data["l_shipdate"].shape[0]
+
+    def valid(name):
+        v = validity.get(name)
+        return np.ones(n, bool) if v is None else v
+
+    keep = (data["l_shipdate"] <= cutoff) & valid("l_shipdate")
+    flag = np.where(valid("l_returnflag"), data["l_returnflag"] + 1, 0)
+    status = np.where(valid("l_linestatus"), data["l_linestatus"] + 1, 0)
+    group = flag * 3 + status
+    qty = data["l_quantity"].astype(np.int64)
+    price = data["l_extendedprice_unscaled"]
+    disc = data["l_discount_unscaled"]
+    tax = data["l_tax_unscaled"]
+    disc_price = price * (100 - disc)                       # scale -4
+    charge = disc_price * (100 + tax)                       # scale -6
+    vq, vp, vd = valid("l_quantity"), valid("l_extendedprice"), valid(
+        "l_discount")
+    vdp = vp & vd
+    vc = vdp & valid("l_tax")
+    rows = []
+    for g in np.unique(group[keep]):
+        m = keep & (group == g)
+        f, st = divmod(int(g), 3)
+        cq, cp, cd = (int((m & v).sum()) for v in (vq, vp, vd))
+        s_qty, s_price = exact_sum(qty[m & vq]), exact_sum(price[m & vp])
+        rows.append((
+            W.VOCAB["l_returnflag"][f - 1].decode() if f else None,
+            W.VOCAB["l_linestatus"][st - 1].decode() if st else None,
+            s_qty, s_price, exact_sum(disc_price[m & vdp]),
+            exact_sum(charge[m & vc]),
+            s_qty / max(cq, 1), s_price / 100 / max(cp, 1),
+            exact_sum(disc[m & vd]) / 100 / max(cd, 1), cq))
+    return rows
+
+
+def check_q1(T, out, want: list, what: str) -> float:
+    """Every column of Q1's output against the oracle: keys, dtypes,
+    counts and sums exact, the means to Q1_MEAN_RTOL.  Returns the means'
+    largest relative error, which a passing run prints too."""
+    require(out.num_rows == len(want),
+            f"{what}: {out.num_rows} groups, the oracle has {len(want)}")
+    dtypes = [T.string, T.string, T.int64, T.decimal64(-2),
+              T.decimal128(-4), T.decimal128(-6), T.float64, T.float64,
+              T.float64, T.int64]
+    require(out.schema == dtypes, f"{what}: output types {out.schema}")
+    cols = list(zip(*want))
+    for ci in (0, 1, 2, 3, 4, 5, 9):
+        require(out[ci].to_pylist() == list(cols[ci]),
+                f"{what}: column {ci} {out[ci].to_pylist()} != "
+                f"{list(cols[ci])}")
+    worst = 0.0
+    for ci in (6, 7, 8):
+        got = out[ci].to_numpy()
+        exp = np.asarray(cols[ci], np.float64)
+        rel = np.abs(got - exp) / np.maximum(np.abs(exp), 1e-300)
+        require(bool((rel <= Q1_MEAN_RTOL).all()),
+                f"{what}: mean column {ci} {got} vs {exp} (relative "
+                f"{rel.max():.3e})")
+        worst = max(worst, float(rel.max(initial=0.0)))
+    return worst
+
+
+def phase_q1(T, W, tpch_q1, kernels, card, seed, launches) -> dict:
+    """Phase 10: Q1 on SF1 lineitem and on a 10%-null file, exact against
+    the integer oracle; B3 and B4 on the inputs Q1 hands them."""
+    t0 = time.perf_counter()
+    raw, data, _ = W.lineitem_parquet(W.SF1_ROWS, seed + 3,
+                                      columns=W.LINEITEM_Q1)
+    log(f"[q1] SF1 lineitem, Q1 layout: {W.SF1_ROWS} rows, "
+        f"{len(W.LINEITEM_Q1)} columns, {len(raw)} file bytes, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    want = q1_oracle(W, data, {}, Q1_CUTOFF)
+    del data
+    kernels.reset()
+    t0 = time.perf_counter()
+    out = tpch_q1.run(raw, Q1_CUTOFF)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for name in Q1_KERNELS:
+        require(counts[name] > 0, f"Q1: {name} never launched")
+    rel = check_q1(T, out, want, "Q1 SF1")
+    wall = median_wall(lambda: tpch_q1.run(raw, Q1_CUTOFF))
+    log(f"[q1] SF1: {out.num_rows} groups, every column equals the integer "
+        f"oracle (means to {Q1_MEAN_RTOL}: largest relative error "
+        f"{rel:.3e}), {sum(r[9] for r in want)} rows "
+        f"counted; first {first * 1e3:.3f} ms, median of {PATH_REPS} "
+        f"{wall * 1e3:.3f} ms = {len(raw) / wall / 1e9:.3f} GB/s of file; "
+        f"launches {counts} [{card}]")
+
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    captured = record_inputs(kernels, Q1_KERNELS, keep,
+                             lambda: tpch_q1.run(raw, Q1_CUTOFF))
+    results = {("Q1", name): measure(kernels, name, captured[name][1], card,
+                                     "Q1", library_call(name,
+                                                        captured[name][1]))
+               for name in Q1_KERNELS}
+    del captured, out, raw
+    torch.cuda.empty_cache()
+
+    raw_n, data_n, valid_n = W.lineitem_parquet(
+        NULL_ROWS, seed + 4, row_group_rows=NULL_ROWS // NULL_ROW_GROUPS,
+        null_fraction=NULL_FRACTION, pages_per_chunk=2, columns=W.LINEITEM_Q1)
+    kernels.reset()
+    out = tpch_q1.run(raw_n, Q1_CUTOFF)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for name in Q1_KERNELS:
+        require(counts[name] > 0, f"Q1 nulls: {name} never launched")
+    rel = check_q1(T, out, q1_oracle(W, data_n, valid_n, Q1_CUTOFF),
+                   "Q1 nulls")
+    wall = median_wall(lambda: tpch_q1.run(raw_n, Q1_CUTOFF))
+    log(f"[q1] nulls: {NULL_ROWS} rows, {NULL_FRACTION:.0%} nulls, "
+        f"{out.num_rows} groups (a null key's among them), exact (means' "
+        f"largest relative error {rel:.3e}); median of "
+        f"{PATH_REPS} {wall * 1e3:.3f} ms; launches {counts} [{card}]")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1134,7 +1295,7 @@ def main(argv=None) -> int:
     import spark_rapids_jni_tpu_torch as pt
     from spark_rapids_jni_tpu_torch import _native, interop
     from spark_rapids_jni_tpu_torch import types as T
-    from spark_rapids_jni_tpu_torch.models import q6
+    from spark_rapids_jni_tpu_torch.models import q6, tpch_q1
     from spark_rapids_jni_tpu_torch.parquet import device_scan
     from spark_rapids_jni_tpu_torch.rowconv import (bytepath, convert, ragged,
                                                     reference, xpack)
@@ -1170,12 +1331,15 @@ def main(argv=None) -> int:
                      raw, data, launches)
     del data
     results.update(phase_full_kernels(pt, device_scan, kernels, raw, card))
+    del raw
+    results.update(phase_q1(T, W, tpch_q1, kernels, card, args.seed,
+                            launches))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():
         r = scan_results[name] if where == "scan" else results[(where, name)]
-        others = ([r] + scan_extra.get(name, []) if where == "scan" else
-                  [v for (d, k), v in results.items() if k == name])
+        others = ([r] + scan_extra.get(name, []) if where == "scan" else [])
+        others += [v for (d, k), v in results.items() if k == name]
         inputs = [{key: o[key] for key in INPUT_KEYS if key in o}
                   for o in others]
         require(launches[name] > 0, f"{name} never launched on the main path")

@@ -8,8 +8,8 @@ unless the caller passes ``device="cpu"``; without a CUDA device they raise.
 The hand-written kernels are CUDA C++ sources under ``csrc/``, compiled with
 ``nvcc`` at first use (see ``_native.py``).
 
-Ported so far: JCUDF row ↔ column conversion, and the device Parquet scan
-with TPC-H Q6 on it.
+Ported so far: JCUDF row ↔ column conversion, the device Parquet scan
+with TPC-H Q6 on it, the op library TPC-H Q1 needs (``ops``) and Q1.
 """
 
 from . import types  # noqa: F401

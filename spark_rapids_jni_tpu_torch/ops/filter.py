@@ -1,0 +1,169 @@
+"""Row filtering and gathering (libcudf ``apply_boolean_mask``/``gather``).
+
+The port's counterpart of the JAX package's ``ops/filter.py``.  A filter
+is a count and a gather: ``torch.nonzero`` of the mask (its one
+synchronisation, the count), then the surviving rows gathered column by
+column.  ``gather`` is eager (the JAX package's ``LazyColumn`` is not
+ported).  A :class:`DictColumn` gathers its codes only; a STRING column's
+chars move as one segmented copy to device offsets, kernel B4
+(``rowconv.ragged.segmented_copy``), after one synchronisation for the
+chars' total.  ``mask_table`` keeps every row and nulls the failing ones.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import types as T
+from ..column import Column, DictColumn, Table
+from ..rowconv import ragged
+
+_MAX_CHARS = 2**31 - 1
+
+
+def _gather_strings(col: Column, idx: torch.Tensor) -> Column:
+    """The rows ``idx`` of a STRING column: new offsets from the gathered
+    lengths, the chars by B4 (one synchronisation for their total)."""
+    offs = col.offsets.to(torch.int64)
+    lens = (offs[1:] - offs[:-1])[idx]
+    new = torch.zeros(idx.shape[0] + 1, dtype=torch.int64, device=idx.device)
+    torch.cumsum(lens, 0, out=new[1:])
+    total = int(new[-1])
+    if total > _MAX_CHARS:
+        raise ValueError(f"gathered chars ({total} bytes) exceed int32 "
+                         "offsets")
+    chars = ragged.segmented_copy(col.data, offs[:-1][idx], new[:-1], lens,
+                                  total)
+    v = None if col.validity is None else col.validity[idx]
+    return Column(col.dtype, chars, new.to(torch.int32), v)
+
+
+def _gather_column(col: Column, idx: torch.Tensor) -> Column:
+    idx = idx.to(torch.int64)
+    if isinstance(col, DictColumn):
+        v = None if col.validity is None else col.validity[idx]
+        return DictColumn(col.codes[idx], col.dictionary, v)
+    if col.dtype.is_nested:
+        raise NotImplementedError(
+            f"gather of {col.dtype.id.name} columns is not ported")
+    if col.dtype.is_variable_width:
+        return _gather_strings(col, idx)
+    v = None if col.validity is None else col.validity[idx]
+    return Column(col.dtype, col.data[idx], validity=v)
+
+
+def gather(table: Table, idx: torch.Tensor) -> Table:
+    """Rows of ``table`` by index (libcudf gather), every column at once."""
+    return Table([_gather_column(c, idx) for c in table.columns])
+
+
+def apply_boolean_mask(table: Table, mask: torch.Tensor) -> Table:
+    """Keep the rows where ``mask`` is True (compacting).  The JAX
+    package's count and ``sized_nonzero`` are one ``torch.nonzero`` here,
+    whose size is the one synchronisation."""
+    return gather(table, torch.nonzero(mask).reshape(-1))
+
+
+def mask_table(table: Table, mask: torch.Tensor) -> Table:
+    """Filter without compaction: failing rows become null.  Reductions
+    and groupbys honour validity, so the results match the compacting
+    filter's."""
+    out = []
+    for c in table.columns:
+        v = mask if c.validity is None else (c.validity & mask)
+        if isinstance(c, DictColumn):
+            out.append(DictColumn(c.codes, c.dictionary, v))
+        else:
+            out.append(Column(c.dtype, c.data, c.offsets, v))
+    return Table(out)
+
+
+def fill_null(col: Column, value) -> Column:
+    """Nulls replaced by a scalar (Spark ``coalesce(col, lit)``);
+    fixed-width columns only."""
+    if (col.dtype.is_variable_width or col.dtype.is_nested
+            or col.dtype.id == T.TypeId.DECIMAL128):
+        raise TypeError(f"fill_null not supported on {col.dtype.id.name}")
+    if col.validity is None:
+        return col
+    fill = torch.tensor(value, dtype=col.data.dtype, device=col.device)
+    return Column(col.dtype, torch.where(col.validity, col.data, fill))
+
+
+def equality_key(values: torch.Tensor) -> torch.Tensor:
+    """float64 → int64 bits under Spark's equality: -0.0 is 0.0 and every
+    NaN one value (the JAX package's ``f64bits.equality_key_u64``)."""
+    bits = values.contiguous().view(torch.int64)
+    bits = torch.where(values == 0, 0, bits)
+    return torch.where(torch.isnan(values), 0x7FF8000000000000, bits)
+
+
+def isin(col: Column, values) -> torch.Tensor:
+    """Null-safe SQL ``col IN (v1, v2, …)``: a bool mask, False on null
+    rows (Spark).  A probe that does not survive an exact round trip into
+    the column's storage matches nothing; None matches nothing."""
+    dev = col.device
+    if col.dtype.id == T.TypeId.STRING:
+        from . import strings
+        if isinstance(col, DictColumn):
+            nd = col.dictionary.num_rows
+            if nd == 0:
+                m = torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
+            else:
+                dm = isin(col.dictionary, values)
+                m = dm[col.codes.clamp(0, nd - 1).to(torch.int64)]
+        else:
+            payloads = [v.encode() if isinstance(v, str) else bytes(v)
+                        for v in values if v is not None]
+            m = torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
+            if payloads:
+                width = max(strings._max_len(col),
+                            max(len(p) for p in payloads), 1)
+                mat, lens = strings.byte_matrix(col, width)
+                for p in payloads:
+                    eq = lens == len(p)
+                    for k, b in enumerate(p):
+                        eq = eq & (mat[:, k] == b)
+                    m = m | eq
+    elif col.dtype.is_nested or col.dtype.id == T.TypeId.DECIMAL128:
+        raise NotImplementedError(f"isin on {col.dtype.id.name}")
+    elif col.dtype.id == T.TypeId.FLOAT64:
+        probes = []
+        for v in values:
+            if v is None:
+                continue
+            try:
+                fv = np.float64(v)
+            except (OverflowError, ValueError, TypeError):
+                continue
+            if np.isnan(fv) or fv == v or isinstance(v, float):
+                probes.append(fv)
+        if not probes:
+            m = torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
+        else:
+            keys = equality_key(torch.tensor(probes, dtype=torch.float64))
+            m = torch.isin(equality_key(col.data), keys.to(dev))
+    else:
+        storage = col.dtype.storage
+        kept = []
+        for v in values:
+            if v is None:
+                continue
+            try:
+                cast_v = storage.type(v)
+            except (OverflowError, ValueError, TypeError):
+                continue
+            if cast_v == v:
+                kept.append(cast_v)
+        if not kept:
+            return torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
+        probes = torch.from_numpy(np.asarray(kept, storage)).to(dev)
+        if storage.kind == "f":
+            m = torch.isin(col.data, probes)
+        else:
+            from .decimal128 import _as_int64
+            m = torch.isin(_as_int64(col.data), _as_int64(probes))
+    if col.validity is not None:
+        m = m & col.validity
+    return m

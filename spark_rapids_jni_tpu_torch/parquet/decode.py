@@ -9,9 +9,10 @@ is host code and runs before any byte reaches the device
 (``device_scan.py``).
 
 Outside the port so far, and raised as :class:`NotImplementedError` naming
-the encoding, codec or type (no silent host decode): INT96, BOOLEAN,
-FIXED_LEN_BYTE_ARRAY, BYTE_ARRAY and FLBA decimals, the DELTA_* encodings,
-codecs other than UNCOMPRESSED and SNAPPY, and nested (repeated) columns.
+the encoding, codec or type (no silent host decode): INT96, BOOLEAN other
+than PLAIN, FIXED_LEN_BYTE_ARRAY other than a DECIMAL of at most 16 bytes, the
+DELTA_* encodings, codecs other than UNCOMPRESSED and SNAPPY, and nested
+(repeated) columns.
 """
 
 from __future__ import annotations
@@ -88,9 +89,11 @@ class CMD:         # ColumnMetaData (decode-relevant fields)
     STATISTICS = 12
 
 
-_PHYS_DT = {PT_INT32: T.int32, PT_INT64: T.int64,
+_PHYS_DT = {PT_BOOLEAN: T.bool8, PT_INT32: T.int32, PT_INT64: T.int64,
             PT_FLOAT: T.float32, PT_DOUBLE: T.float64,
             PT_BYTE_ARRAY: T.string}
+# the widest decimal the port's lanes hold (DECIMAL128)
+MAX_DECIMAL_BYTES = 16
 
 # ConvertedType enum values (public parquet.thrift)
 CT_UTF8, CT_MAP, CT_MAP_KEY_VALUE, CT_LIST, CT_ENUM, CT_DECIMAL, CT_DATE, \
@@ -261,20 +264,37 @@ class Leaf:
     def phys(self) -> int:
         return self.elem.get(SE.TYPE)
 
+    @property
+    def type_len(self) -> int:
+        """FIXED_LEN_BYTE_ARRAY's width in bytes (0 for other types)."""
+        return self.elem.get(SE.TYPE_LENGTH, 0) or 0
+
     def logical_dtype(self) -> T.DType:
         """Logical dtype from the physical and converted types, for the
-        types the port's scan decodes."""
+        types the port's scan decodes.  A DECIMAL over BYTE_ARRAY or
+        FIXED_LEN_BYTE_ARRAY is decimal32, decimal64 or decimal128 by its
+        precision (at most 9, at most 18, more), as in the JAX package."""
         phys = self.phys
         ct = self.elem.get(SE.CONVERTED_TYPE)
         if ct == CT_DECIMAL:
             scale = -(self.elem.get(SE_SCALE, 0) or 0)
+            precision = self.elem.get(SE_PRECISION, 0) or 0
             if phys == PT_INT32:
                 return T.decimal32(scale)
             if phys == PT_INT64:
                 return T.decimal64(scale)
+            if phys == PT_BYTE_ARRAY or (
+                    phys == PT_FIXED_LEN_BYTE_ARRAY
+                    and 0 < self.type_len <= MAX_DECIMAL_BYTES):
+                if precision and precision <= 9:
+                    return T.decimal32(scale)
+                if precision and precision <= 18:
+                    return T.decimal64(scale)
+                return T.decimal128(scale)
             raise NotImplementedError(
                 f"column {self.path}: DECIMAL on {enum_name(PHYS_NAMES, phys)} "
-                "is not supported by the port's scan")
+                f"of {self.type_len} bytes is not supported by the port's "
+                "scan")
         if ct == CT_DATE and phys == PT_INT32:
             return T.timestamp_days
         if ct == CT_TIMESTAMP_MILLIS and phys == PT_INT64:

@@ -21,14 +21,21 @@ same:
   ``dict_strings=False``; its chars materialize through B5 → B6 → B2.
 
 Column kinds, as in the JAX package: ``plain`` (INT32, INT64, FLOAT,
-DOUBLE and their DATE / TIMESTAMP / DECIMAL annotations), ``dict``
-(dictionary-encoded numerics), ``plain_str`` (PLAIN strings) and
-``dict_str`` (dictionary-encoded strings).  Row groups whose dictionaries
-differ are merged: their dictionaries concatenate and their codes are
-rebased.  Anything else, chunks that mix PLAIN and dictionary pages
-included, raises ``NotImplementedError`` naming what it met; there is no
-host fallback.  FLOAT64 is native ``torch.float64`` (the JAX package
-stores uint32 bit pairs).
+DOUBLE and their DATE / TIMESTAMP / DECIMAL annotations, and
+FIXED_LEN_BYTE_ARRAY decimals), ``dict`` (dictionary-encoded numerics and
+FLBA decimals), ``bool`` (PLAIN BOOLEAN), ``plain_str`` (PLAIN
+strings) and ``dict_str`` (dictionary-encoded strings).  BYTE_ARRAY
+decimals are staged as strings and decoded from their chars.  Decimals
+over byte strings (big-endian two's complement) become (lo, hi) int64
+lanes on the device, narrowed to the low lane for precisions up to 18;
+booleans unpack as a bit-packed run of width 1 (``rle_device.expand``).
+Row groups whose dictionaries differ are merged: their dictionaries
+concatenate and their codes are rebased.  Anything else, chunks that mix
+PLAIN and dictionary pages included, raises ``NotImplementedError`` naming
+what it met; there is no host fallback (the JAX package decodes
+BYTE_ARRAY decimals and BOOLEAN dictionaries on the host).
+FLOAT64 is native ``torch.float64`` (the JAX package stores uint32 bit
+pairs).
 """
 
 from __future__ import annotations
@@ -87,8 +94,11 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
     if start < 0 or start + total > len(mv):
         raise ValueError(f"column {leaf.path}: chunk lies outside the file")
     stream = D.PageStream(mv[start:start + total])
+    # strings and BYTE_ARRAY decimals walk alike: chars and offsets
     is_str = phys == D.PT_BYTE_ARRAY
-    width = _WIDTH.get(phys, 0)
+    is_bool = phys == D.PT_BOOLEAN
+    width = (leaf.type_len if phys == D.PT_FIXED_LEN_BYTE_ARRAY
+             else _WIDTH.get(phys, 0))
     def_bw = D.bit_width(leaf.max_def)
     walk = _ChunkWalk()
     decoded = 0
@@ -99,6 +109,10 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
         if ptype == D.PAGE_DICTIONARY:
             m = header.get(D.PH.DICT_PAGE).get(D.DPH.NUM_VALUES)
             data = D.decompress(raw, codec, usize)
+            if is_bool:
+                raise NotImplementedError(
+                    f"column {leaf.path}: a BOOLEAN dictionary is not "
+                    "supported by the port's scan")
             if is_str:
                 walk.dictionary = D.decode_plain_strings(data, m, leaf.path)
             else:
@@ -141,7 +155,21 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
             n_present = RLE.present_count(plan, leaf.max_def)
         walk.def_plans.append((None if n_present == n else plan, n))
 
-        if enc == D.ENC_PLAIN and is_str:
+        if is_bool:
+            # a PLAIN page's bits are one bit-packed run of width 1
+            if enc != D.ENC_PLAIN:
+                raise NotImplementedError(
+                    f"column {leaf.path}: encoding "
+                    f"{D.enum_name(D.ENCODING_NAMES, enc)} of BOOLEAN is not "
+                    "supported by the port's scan (PLAIN is)")
+            need = (n_present + 7) // 8
+            if len(page_vals) < need:
+                raise ValueError(f"column {leaf.path}: PLAIN BOOLEAN page "
+                                 f"holds {len(page_vals)} bytes, needs {need}")
+            walk.idx_plans.append(RLE.bit_packed_plan(page_vals[:need],
+                                                      n_present))
+            page_kind = "plain"
+        elif enc == D.ENC_PLAIN and is_str:
             offs = D.byte_array_offsets(page_vals, n_present, leaf.path)
             # the page's records, length prefixes and chars, and no more
             walk.values.append(page_vals[:4 * n_present + int(offs[-1])])
@@ -187,8 +215,8 @@ class _ColumnSpec:
 
     leaf: D.Leaf
     dtype: T.DType
-    kind: str                         # "plain" | "dict" | "plain_str" |
-    #                                   "dict_str"
+    kind: str                         # "plain" | "dict" | "bool" |
+    #                                   "plain_str" | "dict_str"
     n: int
     n_present: int
     values: tuple = (0, 0)            # (byte offset, bytes): PLAIN values,
@@ -199,7 +227,8 @@ class _ColumnSpec:
     n_chars: int = 0
     n_dict: int = 0
     dict_offsets: Optional[np.ndarray] = None     # int64 [D+1], strings
-    idx_runs: tuple = (0, 0)          # (int64 offset, runs)
+    idx_runs: tuple = (0, 0)          # (int64 offset, runs): codes, or
+    #                                   BOOLEAN values
     def_runs: Optional[tuple] = None  # (int64 offset, runs), None: no nulls
 
 
@@ -236,6 +265,8 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
     kind = kinds.pop() if kinds else ("dict" if is_str else "plain")
     if is_str:
         kind = "plain_str" if kind == "plain" else "dict_str"
+    if leaf.phys == D.PT_BOOLEAN:
+        kind = "bool"
     spec = _ColumnSpec(leaf, dt, kind, sum(w.n for w in walks),
                        sum(w.n_present for w in walks))
 
@@ -253,6 +284,12 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
         spec.values = _queue_range(slab, [p for w in walks for p in w.values])
         return spec
 
+    if kind == "bool":
+        spec.idx_runs = _queue_runs(
+            slab, [RLE.run_table(plan, slab.add(plan.payload))
+                   for w in walks for plan in w.idx_plans])
+        return spec
+
     if kind == "plain_str":
         # the pages' records back to back, then the column's char offsets
         spec.values = _queue_range(slab, [p for w in walks for p in w.values])
@@ -265,6 +302,8 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
         if offs[-1] > _MAX_CHARS:
             raise ValueError(f"column {leaf.path}: PLAIN string chars "
                              f"({offs[-1]} bytes) exceed int32 offsets")
+        if dt.is_decimal:
+            _check_decimal_widths(offs, leaf)
         spec.n_chars = int(offs[-1])
         spec.str_offsets = _queue_range(slab, [offs.astype(np.int32)])
         return spec
@@ -287,6 +326,8 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
         if offs[-1] > _MAX_CHARS:
             raise ValueError(f"column {leaf.path}: dictionary chars "
                              f"({offs[-1]} bytes) exceed int32 offsets")
+        if dt.is_decimal:
+            _check_decimal_widths(offs, leaf)
         spec.dict_offsets = offs
     else:
         spec.values = _queue_range(slab, [w.dictionary for w in merged])
@@ -299,6 +340,14 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
             addend += w.n_dict
     spec.idx_runs = _queue_runs(slab, tables)
     return spec
+
+
+def _check_decimal_widths(offs: np.ndarray, leaf: D.Leaf) -> None:
+    """BYTE_ARRAY decimals: every value fits the 16 bytes of the lanes
+    (the offsets are the host's, so this costs no synchronisation)."""
+    if offs.shape[0] > 1 and int(np.diff(offs).max()) > D.MAX_DECIMAL_BYTES:
+        raise ValueError(f"column {leaf.path}: a BYTE_ARRAY decimal is wider "
+                         f"than {D.MAX_DECIMAL_BYTES} bytes")
 
 
 def _runs(meta: torch.Tensor, where: tuple[int, int]) -> torch.Tensor:
@@ -316,8 +365,9 @@ def _spread(present: torch.Tensor, valid: Optional[torch.Tensor],
         return torch.zeros((n,) + present.shape[1:], dtype=present.dtype,
                            device=valid.device)
     pos = (torch.cumsum(valid, 0) - 1).clamp(0, present.shape[0] - 1)
-    return torch.where(valid, present[pos], torch.zeros((), dtype=present.dtype,
-                                                        device=valid.device))
+    mask = valid if present.dim() == 1 else valid[:, None]
+    return torch.where(mask, present[pos], torch.zeros((), dtype=present.dtype,
+                                                       device=valid.device))
 
 
 def _typed(data: torch.Tensor, where: tuple[int, int],
@@ -328,12 +378,67 @@ def _typed(data: torch.Tensor, where: tuple[int, int],
                         dt.torch_storage)
 
 
-def _plain_strings(spec: _ColumnSpec, data: torch.Tensor,
-                   valid: Optional[torch.Tensor]) -> Column:
-    """PLAIN string records in the slab → a string column.  The records
-    were queued back to back, so value i's chars start at the first
-    record's offset + 4·(i+1) (its prefix and those before it) + its char
-    offset; one segmented copy (B4) strips every prefix."""
+def _narrow(lanes: torch.Tensor, dt: T.DType) -> torch.Tensor:
+    """(lo, hi) decimal lanes → the column's storage: the lanes for
+    DECIMAL128, the low lane for decimal32 and decimal64."""
+    if dt.id == T.TypeId.DECIMAL128:
+        return lanes
+    return lanes[:, 0].to(dt.torch_storage).contiguous()
+
+
+def _flba_lanes(data: torch.Tensor, where: tuple[int, int],
+                width: int) -> torch.Tensor:
+    """FIXED_LEN_BYTE_ARRAY decimals in the slab (big-endian two's
+    complement of ``width`` <= 16 bytes) → int64 [k, 2] (lo, hi): each
+    value sign-extended to 16 bytes, reversed to little-endian and read
+    as two int64 words (the JAX package's ``_device_flba_decimal``)."""
+    start, nbytes = where
+    k = nbytes // width
+    raw = data[start:start + k * width].view(k, width)
+    full = torch.empty((k, 16), dtype=torch.uint8, device=data.device)
+    if width < 16:
+        fill = torch.where(raw[:, :1] >= 128, 255, 0).to(torch.uint8)
+        full[:, :16 - width] = fill
+    full[:, 16 - width:] = raw
+    return full.flip(1).view(torch.int64)
+
+
+def _varlen_lanes(chars: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """BYTE_ARRAY decimals (big-endian two's complement, at most 16 bytes
+    each, an empty one 0) at int64 ``offs`` [k+1] of ``chars`` → int64
+    [k, 2] (lo, hi): little-endian byte j of value i is its byte
+    ``offs[i+1] - 1 - j``, or the sign's fill past its length."""
+    k = offs.shape[0] - 1
+    dev = chars.device
+    if k == 0 or chars.shape[0] == 0:
+        return torch.zeros((k, 2), dtype=torch.int64, device=dev)
+    last = chars.shape[0] - 1
+    lens = offs[1:] - offs[:-1]
+    j = torch.arange(16, dtype=torch.int64, device=dev)
+    inside = j < lens[:, None]
+    first = chars[offs[:-1].clamp(0, last)]
+    fill = torch.where((lens > 0) & (first >= 128), 255, 0).to(torch.uint8)
+    src = (offs[1:, None] - 1 - j).clamp(0, last)
+    return torch.where(inside, chars[src], fill[:, None]).view(torch.int64)
+
+
+def _values(spec: _ColumnSpec, data: torch.Tensor,
+            where: tuple[int, int]) -> torch.Tensor:
+    """A fixed-width range of the slab (PLAIN values or a dictionary) →
+    the column's storage."""
+    if spec.leaf.phys == D.PT_FIXED_LEN_BYTE_ARRAY:
+        return _narrow(_flba_lanes(data, where, spec.leaf.type_len),
+                       spec.dtype)
+    return _typed(data, where, spec.dtype)
+
+
+def _plain_chars(spec: _ColumnSpec,
+                 data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """PLAIN BYTE_ARRAY records in the slab → (chars, int32 offsets
+    [n_present+1]) of the present values.  The records were queued back
+    to back, so value i's chars start at the first record's offset +
+    4·(i+1) (its prefix and those before it) + its char offset; one
+    segmented copy (B4) strips every prefix."""
     offs = _typed(data, spec.str_offsets, T.int32)
     o64 = offs.to(torch.int64)
     lens = o64[1:] - o64[:-1]
@@ -341,9 +446,18 @@ def _plain_strings(spec: _ColumnSpec, data: torch.Tensor,
                          device=data.device)
     src = spec.values[0] + 4 * first + o64[:-1]
     chars = ragged.segmented_copy(data, src, o64[:-1], lens, spec.n_chars)
+    return chars, offs
+
+
+def _plain_strings(spec: _ColumnSpec, data: torch.Tensor,
+                   valid: Optional[torch.Tensor]) -> Column:
+    """PLAIN string records in the slab → a string column."""
+    chars, offs = _plain_chars(spec, data)
     if valid is not None:
+        o64 = offs.to(torch.int64)
         full = torch.zeros(spec.n + 1, dtype=torch.int64, device=data.device)
-        torch.cumsum(_spread(lens, valid, spec.n), 0, out=full[1:])
+        torch.cumsum(_spread(o64[1:] - o64[:-1], valid, spec.n), 0,
+                     out=full[1:])
         offs = full.to(torch.int32)
     return Column(spec.dtype, chars, offs, valid)
 
@@ -355,8 +469,17 @@ def _decode(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
     if spec.def_runs is not None:
         levels = RLE.expand(data, _runs(meta, spec.def_runs), n)
         valid = levels == leaf.max_def
+    if spec.kind == "bool":
+        present = RLE.expand(data, _runs(meta, spec.idx_runs), spec.n_present)
+        return Column(dt, _spread(present.to(torch.uint8), valid, n),
+                      validity=valid)
     if spec.kind == "plain":
-        return Column(dt, _spread(_typed(data, spec.values, dt), valid, n),
+        return Column(dt, _spread(_values(spec, data, spec.values), valid, n),
+                      validity=valid)
+    if spec.kind == "plain_str" and dt.is_decimal:
+        chars, offs = _plain_chars(spec, data)
+        lanes = _varlen_lanes(chars, offs.to(torch.int64))
+        return Column(dt, _spread(_narrow(lanes, dt), valid, n),
                       validity=valid)
     if spec.kind == "plain_str":
         return _plain_strings(spec, data, valid)
@@ -367,13 +490,18 @@ def _decode(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
     if spec.n_present:
         # checked once for the whole scan, at its one synchronisation
         checks.append(((idx < 0) | (idx >= spec.n_dict)).any())
-    if spec.kind == "dict":
-        dvals = _typed(data, spec.values, dt)
+    start, nbytes = spec.values
+    if spec.kind == "dict" or dt.is_decimal:
+        if spec.kind == "dict":
+            dvals = _values(spec, data, spec.values)
+        else:           # BYTE_ARRAY decimals: the dictionary's chars
+            doffs = torch.from_numpy(spec.dict_offsets).to(data.device)
+            dvals = _narrow(_varlen_lanes(data[start:start + nbytes], doffs),
+                            dt)
         safe = idx.clamp(0, max(spec.n_dict - 1, 0)).to(torch.int64)
-        present = dvals[safe] if spec.n_dict else dvals.new_zeros(0)
+        present = dvals[safe] if spec.n_dict else dvals[:0]
         return Column(dt, _spread(present, valid, n), validity=valid)
 
-    start, nbytes = spec.values
     dictionary = Column(
         T.string, data[start:start + nbytes].clone(),
         torch.from_numpy(spec.dict_offsets.astype(np.int32)).to(data.device))

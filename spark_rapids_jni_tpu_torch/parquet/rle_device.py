@@ -101,6 +101,13 @@ def parse_runs(buf, bw: int, n: int) -> RunPlan:
                    np.asarray(bases, np.int64), b"".join(pl))
 
 
+def bit_packed_plan(payload, n: int) -> RunPlan:
+    """One bit-packed run of ``n`` values of bit width 1 over ``payload``
+    (LSB first): a PLAIN BOOLEAN page's values, expanded like any run."""
+    return RunPlan(n, 1, np.array([n], np.int64), np.array([True]),
+                   np.zeros(1, np.int32), np.zeros(1, np.int64), payload)
+
+
 def _bp_values(plan: RunPlan, r: int) -> np.ndarray:
     cnt = int(plan.counts[r])
     bits = np.unpackbits(

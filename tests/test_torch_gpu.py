@@ -670,3 +670,103 @@ def test_scan_on_card_matches_cpu(cuda, null_fraction):
     assert n_g == n_c > 0
     # the same float64 products summed in another order: a few ulps
     assert rev_g == pytest.approx(rev_c, rel=1e-12, abs=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("null_fraction", [0.0, 0.1])
+def test_q1_on_card_matches_cpu(cuda, null_fraction):
+    """TPC-H Q1 at 20,000 rows (FLBA decimals, dictionary-string flags) on
+    the card equals the port on the CPU: keys, counts and the decimal sums
+    exactly, the means to a relative 1e-12; B3 and B4 launch."""
+    from spark_rapids_jni_tpu_torch.models import tpch_q1
+    W = _lineitem_writer()
+    raw, _, _ = W.lineitem_parquet(20000, 9, row_group_rows=6000,
+                                   null_fraction=null_fraction,
+                                   pages_per_chunk=2, columns=W.LINEITEM_Q1)
+    b3, b4 = ragged.unpack_rows.launches, ragged.segmented_copy.launches
+    gpu = tpch_q1.run(raw, 10561 - 90, device=cuda)
+    assert ragged.unpack_rows.launches > b3
+    assert ragged.segmented_copy.launches > b4
+    cpu = tpch_q1.run(raw, 10561 - 90, device="cpu")
+    assert gpu.schema == cpu.schema and gpu.num_rows == cpu.num_rows > 0
+    for ci, (g, c) in enumerate(zip(gpu.columns, cpu.columns)):
+        if ci in (6, 7, 8):
+            np.testing.assert_allclose(g.to_numpy(), c.to_numpy(),
+                                       rtol=1e-12, atol=0)
+        else:
+            assert g.to_pylist() == c.to_pylist()
+    empty = tpch_q1.run(raw, -10**6, device=cuda)
+    assert empty.num_rows == 0 and empty.schema == cpu.schema
+    assert empty[4].data.shape == (0, 2)
+
+
+@pytest.mark.gpu
+def test_decimal128_and_hashing_on_card_match_cpu(cuda):
+    """decimal128 mul, rescale, segmented_sum and to_float64, and the
+    murmur3 hashes, on the card equal the CPU's bits, the extremes of the
+    128-bit range among the values."""
+    from spark_rapids_jni_tpu_torch.ops import decimal128 as d128, hashing
+    rng = np.random.default_rng(3)
+    ext = [(1 << 127) - 1, -(1 << 127), -1, 0, 1]
+    vals = ext + [int(v) * int(w) for v, w in
+                  zip(rng.integers(-2**62, 2**62, 300),
+                      rng.integers(-2**40, 2**40, 300))]
+    other = vals[::-1]
+    a_c = d128.from_pyints(vals, -2, device="cpu")
+    b_c = d128.from_pyints(other, -3, device="cpu")
+    a_g = d128.from_pyints(vals, -2, device=cuda)
+    b_g = d128.from_pyints(other, -3, device=cuda)
+    seg = torch.from_numpy(rng.integers(0, 7, len(vals)))
+    for g, c in ((d128.mul(a_g, b_g), d128.mul(a_c, b_c)),
+                 (d128.rescale(a_g, -9), d128.rescale(a_c, -9)),
+                 (d128.rescale(a_g, 3), d128.rescale(a_c, 3)),
+                 (d128.segmented_sum(a_g, seg.to(cuda), 7),
+                  d128.segmented_sum(a_c, seg, 7))):
+        assert torch.equal(g.data.cpu(), c.data)
+    assert torch.equal(d128.to_float64(a_g).data.cpu(),
+                       d128.to_float64(a_c).data)
+    for dtype in (torch.int32, torch.int64, torch.int8, torch.float32):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, 1000)).to(dtype)
+        assert torch.equal(hashing.murmur3_32(x.to(cuda)).cpu(),
+                           hashing.murmur3_32(x))
+    lanes = [torch.from_numpy(rng.integers(-2**62, 2**62, 1000))
+             for _ in range(3)]
+    assert torch.equal(
+        hashing.fingerprint64([x.to(cuda) for x in lanes]).cpu(),
+        hashing.fingerprint64(lanes))
+
+
+@pytest.mark.gpu
+def test_string_keys_launch_b3_b4_and_match_plain(cuda):
+    """``strings.byte_matrix`` launches B3 and a STRING gather B4; each
+    equals its plain version on the same inputs, and the CPU's result."""
+    from spark_rapids_jni_tpu_torch.ops import filter as F, strings
+    rng = np.random.default_rng(4)
+    words = [("w" * int(k)) + str(k) for k in rng.integers(0, 40, 5000)]
+    words[::7] = [None] * len(words[::7])
+    col_c = pt.Column.strings_from_list(words, device="cpu")
+    col_g = pt.Column.strings_from_list(words, device=cuda)
+    b3 = ragged.unpack_rows.launches
+    mat, lens = strings.byte_matrix(col_g)
+    assert ragged.unpack_rows.launches == b3 + 1
+    offs = col_g.offsets.to(torch.int64)
+    assert torch.equal(mat, ragged.unpack_rows_plain(col_g.data, offs,
+                                                     mat.shape[1]))
+    assert torch.equal(mat.cpu(), strings.byte_matrix(col_c)[0])
+    idx = torch.from_numpy(rng.integers(0, len(words), 3000))
+    b4 = ragged.segmented_copy.launches
+    got = F._gather_column(col_g, idx.to(cuda))
+    assert ragged.segmented_copy.launches == b4 + 1
+    want = F._gather_column(col_c, idx)
+    assert torch.equal(got.data.cpu(), want.data)
+    assert torch.equal(got.offsets.cpu(), want.offsets)
+    assert got.to_pylist() == [words[i] for i in idx.tolist()]
+    o = offs[:-1][idx.to(cuda)]
+    lens = (offs[1:] - offs[:-1])[idx.to(cuda)]
+    dst = torch.cumsum(lens, 0) - lens
+    assert torch.equal(got.data, ragged.segmented_copy_plain(
+        col_g.data, o, dst, lens, int(lens.sum())))
+    codes, uniq = strings.dictionary_encode(col_g)
+    codes_c, uniq_c = strings.dictionary_encode(col_c)
+    assert torch.equal(codes.data.cpu(), codes_c.data)
+    assert uniq.to_pylist() == uniq_c.to_pylist()

@@ -1,0 +1,431 @@
+"""The port's op library against the JAX package's, on the CPU.
+
+``ops/{filter,sort,strings,groupby,reductions,copying,hashing}.py`` of
+``spark_rapids_jni_tpu_torch`` take the same numpy-seeded columns, nulls
+among them, as their JAX counterparts; outputs must be equal: keys,
+counts, integer and decimal results and selected values exactly (FLOAT64
+as bits), float sums, means, variances and deviations to a relative
+1e-12 (the same values summed in another order).  The murmur3 hashes are
+also held against a scalar implementation of the public algorithm.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from spark_rapids_jni_tpu import ops as jops
+from spark_rapids_jni_tpu.ops import groupby as jgroupby
+from spark_rapids_jni_tpu.ops import hashing as jhashing
+from spark_rapids_jni_tpu.ops import strings as jstrings
+
+import spark_rapids_jni_tpu_torch as pt
+from spark_rapids_jni_tpu_torch import ops
+from spark_rapids_jni_tpu_torch.ops import decimal128 as d128
+from spark_rapids_jni_tpu_torch.ops import groupby, hashing, strings
+
+from test_hashing import _scalar_murmur3_bytes
+from torch_jax_columns import assert_same, assert_same_table, to_jax
+
+CPU = "cpu"
+N = 600
+RTOL = 1e-12
+WORDS = ["", "a", "ab", "a\x00", "b", "zz", "abcdefgh", "abcdefghi"]
+FLOATS = [-0.0, 0.0, np.nan, -np.nan, 1.5, -2.5, np.inf, -np.inf, 1e-300]
+
+
+def _valid(rng, n, share=0.2):
+    return rng.random(n) >= share
+
+
+def make_column(kind: str, rng, n: int = N, nulls: bool = True):
+    """A port column of ``kind`` on the CPU, from the generator."""
+    valid = _valid(rng, n) if nulls else None
+    if kind == "int":
+        return pt.Column.from_numpy(rng.integers(0, 9, n).astype(np.int32),
+                                    validity=valid, device=CPU)
+    if kind == "int64":
+        return pt.Column.from_numpy(rng.integers(-2**62, 2**62, n),
+                                    validity=valid, device=CPU)
+    if kind == "uint8":
+        return pt.Column.from_numpy(rng.integers(0, 256, n).astype(np.uint8),
+                                    validity=valid, device=CPU)
+    if kind == "bool":
+        return pt.Column.from_numpy(rng.integers(0, 2, n).astype(np.uint8),
+                                    pt.bool8, valid, device=CPU)
+    if kind == "float":
+        return pt.Column.from_numpy(rng.choice(np.array(FLOATS), n),
+                                    validity=valid, device=CPU)
+    if kind == "float32":
+        return pt.Column.from_numpy(
+            rng.choice(np.array(FLOATS, np.float32), n), validity=valid,
+            device=CPU)
+    if kind == "decimal64":
+        return pt.Column.from_numpy(rng.integers(-10**6, 10**6, n),
+                                    pt.decimal64(-2), valid, device=CPU)
+    if kind == "decimal128":
+        pool = [(1 << 127) - 1, -(1 << 127), -1, 0, 10**30, 7, -10**20]
+        vals = [pool[i] for i in rng.integers(0, len(pool), n)]
+        if nulls:
+            vals = [v if ok else None for v, ok in zip(vals, valid)]
+        return d128.from_pyints(vals, -4, device=CPU)
+    if kind == "string":
+        vals = [WORDS[i] for i in rng.integers(0, len(WORDS), n)]
+        if nulls:
+            vals = [v if ok else None for v, ok in zip(vals, valid)]
+        return pt.Column.strings_from_list(vals, device=CPU)
+    if kind == "dict":
+        # merged dictionaries hold duplicate entries
+        dictionary = pt.Column.strings_from_list(["b", "a", "zz", "a", ""],
+                                                 device=CPU)
+        codes = rng.integers(0, 5, n).astype(np.int32)
+        if nulls:
+            codes[~valid] = 0
+        return pt.DictColumn(torch.from_numpy(codes), dictionary,
+                             None if valid is None else torch.from_numpy(valid))
+    raise ValueError(kind)
+
+
+def _table(kinds, seed, n=N, nulls=True):
+    rng = np.random.default_rng(seed)
+    return pt.Table([make_column(k, rng, n, nulls) for k in kinds])
+
+
+# ---------------------------------------------------------------------------
+# groupby
+# ---------------------------------------------------------------------------
+
+VALUE_KINDS = ("int", "float", "decimal64")
+KEY_CASES = {
+    "int": ["int"], "float": ["float"], "decimal64": ["decimal64"],
+    "decimal128": ["decimal128"], "string": ["string"], "dict": ["dict"],
+    "multi": ["string", "int", "float"], "dict_int": ["dict", "bool"],
+}
+FLOAT_RESULTS = ("sum", "mean", "var", "std")
+
+
+def _all_aggs(n_keys: int):
+    aggs = []
+    for vi in range(len(VALUE_KINDS)):
+        aggs += [(n_keys + vi, a) for a in groupby._AGGS]
+    aggs += [(n_keys + len(VALUE_KINDS), "sum"),
+             (n_keys + len(VALUE_KINDS), "count")]
+    return aggs
+
+
+def _assert_aggs(out, jout, n_keys, aggs):
+    for ci in range(n_keys):
+        assert_same(out[ci], jout[ci], what=f"key {ci}")
+    for k, (vi, agg) in enumerate(aggs):
+        ci = n_keys + k
+        float_res = agg in FLOAT_RESULTS and out[ci].dtype == pt.float64
+        assert_same(out[ci], jout[ci], RTOL if float_res else None,
+                    what=f"{agg} of column {vi}")
+
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["valid", "nulls"])
+@pytest.mark.parametrize("keys", list(KEY_CASES))
+def test_groupby_aggregate_matches_jax(keys, nulls):
+    kinds = KEY_CASES[keys]
+    t = _table(kinds + list(VALUE_KINDS) + ["decimal128"], 7, nulls=nulls)
+    key_idx = list(range(len(kinds)))
+    aggs = _all_aggs(len(kinds))
+    out = ops.groupby_aggregate(t, key_idx, aggs)
+    jout = jops.groupby_aggregate(to_jax(t), key_idx, aggs)
+    assert out.num_rows == jout.num_rows > 1
+    _assert_aggs(out, jout, len(kinds), aggs)
+
+
+def test_groupby_sums_by_parts_match_jax():
+    """Groups of thousands of rows: the sums go by parts of 1,024 rows
+    (``groupby._parts``), the decimal128 limb sums too; against JAX."""
+    rng = np.random.default_rng(28)
+    n = 6000
+    t = pt.Table([pt.Column.from_numpy(rng.integers(0, 3, n).astype(np.int32),
+                                       validity=_valid(rng, n), device=CPU)]
+                 + [make_column(k, rng, n) for k in VALUE_KINDS]
+                 + [make_column("decimal128", rng, n)])
+    seg = torch.from_numpy(np.sort(rng.integers(0, 3, n)))
+    assert groupby._parts(seg, 3) is not None
+    aggs = _all_aggs(1)
+    out = ops.groupby_aggregate(t, [0], aggs)
+    _assert_aggs(out, jops.groupby_aggregate(to_jax(t), [0], aggs), 1, aggs)
+
+
+def test_sorted_segment_sum_is_exact_for_ints_and_close_for_floats():
+    """By parts, a million equal float addends on a few segments stay
+    within 1e-14 of the exact sums (one run of ``index_add_`` a segment
+    drifts to about 1e-12); int64 sums are exact."""
+    rng = np.random.default_rng(29)
+    n = 1 << 20
+    cents = rng.integers(0, 11, n)
+    seg = np.sort(rng.integers(0, 4, n))
+    s = torch.from_numpy(seg)
+    exact = np.array([int(cents[seg == g].sum()) for g in range(4)])
+    floats = groupby._sorted_segment_sum(torch.from_numpy(cents / 100.0), s, 4)
+    np.testing.assert_allclose(floats.numpy(), exact / 100.0, rtol=1e-14)
+    ints = groupby._sorted_segment_sum(torch.from_numpy(cents), s, 4)
+    np.testing.assert_array_equal(ints.numpy(), exact)
+
+
+def test_groupby_float_keys_follow_spark_equality():
+    vals = np.array([-0.0, 0.0, np.nan, -np.nan, 2.0, 0.0], np.float64)
+    t = pt.Table([pt.Column.from_numpy(vals, device=CPU),
+                  pt.Column.from_numpy(np.arange(6), device=CPU)])
+    out = ops.groupby_aggregate(t, [0], [(1, "count"), (1, "min")])
+    # -0.0 and 0.0 one group, the NaNs one group, ordered NaN last
+    assert out[1].to_pylist() == [3, 1, 2]
+    assert out[2].to_pylist() == [0, 4, 2]
+    assert_same_table(out, jops.groupby_aggregate(to_jax(t), [0],
+                                                  [(1, "count"),
+                                                   (1, "min")]))
+
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["valid", "nulls"])
+def test_grand_total_and_distinct_match_jax(nulls):
+    t = _table(list(VALUE_KINDS) + ["decimal128"], 8, nulls=nulls)
+    aggs = _all_aggs(0)
+    out = ops.groupby_aggregate(t, [], aggs)
+    jout = jops.groupby_aggregate(to_jax(t), [], aggs)
+    assert out.num_rows == 1
+    _assert_aggs(out, jout, 0, aggs)
+    d = _table(["string", "int", "dict", "float"], 9, n=200, nulls=nulls)
+    assert_same_table(ops.distinct(d), jops.distinct(to_jax(d)))
+
+
+@pytest.mark.parametrize("keys", [[0, 1], []], ids=["keyed", "grand_total"])
+def test_groupby_of_no_rows_matches_jax(keys):
+    t = _table(["string", "int"] + list(VALUE_KINDS) + ["decimal128"], 10,
+               n=0)
+    aggs = _all_aggs(2)
+    out = ops.groupby_aggregate(t, keys, aggs)
+    jout = jops.groupby_aggregate(to_jax(t), keys, aggs)
+    assert out.num_rows == jout.num_rows == (0 if keys else 1)
+    assert out.schema == [c.dtype for c in out.columns]
+    for p, j in zip(out.columns, jout.columns):
+        assert (int(p.dtype.id), p.dtype.scale) == (int(j.dtype.id),
+                                                    j.dtype.scale)
+        assert tuple(p.data.shape) == tuple(np.asarray(j.data).shape[:len(
+            p.data.shape)])
+        np.testing.assert_array_equal(p.validity_or_true().numpy(),
+                                      np.asarray(j.validity_or_true()))
+
+
+def test_groupby_rejects_what_jax_rejects():
+    t = _table(["int", "decimal128", "string"], 11)
+    with pytest.raises(NotImplementedError):
+        ops.groupby_aggregate(t, [0], [(1, "mean")])
+    with pytest.raises(NotImplementedError):
+        ops.groupby_aggregate(t, [0], [(2, "sum")])
+    with pytest.raises(ValueError):
+        groupby._agg_segment(t[0].data, None, torch.zeros(N, dtype=torch.int64),
+                             "median", 1, np.dtype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# order_by
+# ---------------------------------------------------------------------------
+
+SORT_KINDS = ("int", "int64", "uint8", "bool", "float", "float32",
+              "decimal128", "string", "dict")
+
+
+@pytest.mark.parametrize("nulls_first", [True, False], ids=["nf", "nl"])
+@pytest.mark.parametrize("ascending", [True, False], ids=["asc", "desc"])
+@pytest.mark.parametrize("kind", SORT_KINDS)
+def test_order_by_matches_jax(kind, ascending, nulls_first):
+    t = _table([kind, "int"], 12)
+    for keys in ([0], [0, 1]):
+        asc = [ascending, not ascending][:len(keys)]
+        nf = [nulls_first, True][:len(keys)]
+        got = ops.order_by(t, keys, asc, nf)
+        want = jops.order_by(to_jax(t), keys, asc, nf)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    sorted_t = ops.sort_table(t, [0], [ascending], [nulls_first])
+    assert_same_table(sorted_t, jops.sort_table(to_jax(t), [0], [ascending],
+                                                [nulls_first]))
+
+
+# ---------------------------------------------------------------------------
+# filter
+# ---------------------------------------------------------------------------
+
+FILTER_KINDS = ["int", "float", "string", "dict", "decimal128", "decimal64"]
+
+
+def test_apply_boolean_mask_and_gather_match_jax():
+    t = _table(FILTER_KINDS, 13)
+    mask = np.random.default_rng(14).random(N) < 0.4
+    got = ops.apply_boolean_mask(t, torch.from_numpy(mask))
+    assert got.num_rows == int(mask.sum())
+    assert_same_table(got, jops.apply_boolean_mask(to_jax(t),
+                                                   jnp.asarray(mask)))
+    idx = np.random.default_rng(15).integers(0, N, 900)
+    assert_same_table(ops.gather(t, torch.from_numpy(idx)),
+                      jops.gather(to_jax(t), jnp.asarray(idx)))
+    empty = ops.apply_boolean_mask(t, torch.zeros(N, dtype=torch.bool))
+    assert empty.num_rows == 0 and empty.schema == t.schema
+
+
+def test_mask_table_and_fill_null_match_jax():
+    t = _table(FILTER_KINDS, 16)
+    mask = np.random.default_rng(17).random(N) < 0.5
+    assert_same_table(ops.mask_table(t, torch.from_numpy(mask)),
+                      jops.mask_table(to_jax(t), jnp.asarray(mask)))
+    for ci, value in ((0, 7), (1, -1.25), (5, 99)):
+        assert_same(ops.fill_null(t[ci], value),
+                    jops.fill_null(to_jax(t[ci]), value))
+    with pytest.raises(TypeError):
+        ops.fill_null(t[2], "x")
+    with pytest.raises(TypeError):
+        ops.fill_null(t[4], 0)
+
+
+@pytest.mark.parametrize("kind,probes", [
+    ("int", [1, 3.5, 2**40, None, 7, 3]),
+    ("float", [np.nan, -0.0, 1.5, None, "x", 2**80]),
+    ("float32", [1.5, np.nan, -2.5, 0.1]),
+    ("string", ["a", "zz", None, "nope", "abcdefghi", ""]),
+    ("dict", ["a", "", "q"]),
+    ("decimal64", [-5, 12]),
+])
+def test_isin_matches_jax(kind, probes):
+    col = make_column(kind, np.random.default_rng(18))
+    got = ops.isin(col, probes)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jops.isin(to_jax(col), probes)))
+
+
+# ---------------------------------------------------------------------------
+# the strings key subset
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["string", "dict"])
+@pytest.mark.parametrize("width", [None, 13])
+def test_byte_matrix_and_sort_lanes_match_jax(kind, width):
+    col = make_column(kind, np.random.default_rng(19))
+    mat, lens = strings.byte_matrix(col, width)
+    jmat, jlens = jstrings.byte_matrix(to_jax(col), width)
+    np.testing.assert_array_equal(mat.numpy(), np.asarray(jmat))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+    for desc in (False, True):
+        for got, want in zip(strings.sort_key_lanes(col, desc),
+                             jstrings.sort_key_lanes(to_jax(col), desc)):
+            np.testing.assert_array_equal(got.numpy(),
+                                          np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize("kind", ["string", "dict"])
+@pytest.mark.parametrize("nulls", [False, True], ids=["valid", "nulls"])
+def test_dictionary_encode_matches_jax(kind, nulls):
+    col = make_column(kind, np.random.default_rng(20), nulls=nulls)
+    codes, uniq = strings.dictionary_encode(col)
+    jcodes, juniq = jstrings.dictionary_encode(to_jax(col))
+    assert_same(codes, jcodes)
+    assert_same(uniq, juniq)
+    if kind == "dict":
+        rank, sdict = strings.dict_rank_codes(col)
+        jrank, jsdict = jstrings.dict_rank_codes(to_jax(col))
+        np.testing.assert_array_equal(rank.numpy(), np.asarray(jrank))
+        assert_same(sdict, jsdict)
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["valid", "nulls"])
+@pytest.mark.parametrize("kind", ["int", "int64", "uint8", "float",
+                                  "float32", "decimal64"])
+def test_reductions_match_jax(kind, nulls):
+    col = make_column(kind, np.random.default_rng(21), nulls=nulls)
+    jcol = to_jax(col)
+    for name in ("sum_", "mean", "min_", "max_", "valid_count"):
+        got = getattr(ops, name)(col)
+        want = np.asarray(getattr(jops, name)(jcol))
+        assert got.dim() == 0
+        if got.is_floating_point() and name in ("sum_", "mean"):
+            np.testing.assert_allclose(got.item(), want, rtol=RTOL, atol=0)
+        else:                            # NaN equals NaN here
+            np.testing.assert_array_equal(got.numpy(), want, name)
+
+
+# ---------------------------------------------------------------------------
+# copying
+# ---------------------------------------------------------------------------
+
+def test_concat_tables_matches_jax():
+    kinds = ["int", "float", "string", "dict", "decimal128"]
+    parts = [_table(kinds, 22 + i, n=n, nulls=i != 1)
+             for i, n in enumerate((50, 0, 120))]
+    got = ops.concat_tables(parts)
+    assert got.num_rows == 170
+    assert_same_table(got, jops.concat_tables([to_jax(t) for t in parts]))
+    with pytest.raises(ValueError):
+        ops.concat_tables([])
+    with pytest.raises(TypeError):
+        ops.concat_tables([_table(["int"], 1, 5), _table(["float"], 1, 5)])
+
+
+@pytest.mark.parametrize("start,length", [(0, None), (17, 40), (590, 100),
+                                          (700, 5), (-3, 2), (5, 0)])
+def test_slice_table_matches_jax(start, length):
+    t = _table(["int", "string", "dict", "decimal128"], 25)
+    assert_same_table(ops.slice_table(t, start, length),
+                      jops.slice_table(to_jax(t), start, length))
+
+
+# ---------------------------------------------------------------------------
+# hashing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64,
+                                   np.uint8, np.uint16, np.uint64, np.bool_,
+                                   np.float32])
+def test_murmur3_matches_jax(dtype):
+    rng = np.random.default_rng(26)
+    if dtype == np.float32:
+        vals = np.concatenate([np.array(FLOATS, np.float32),
+                               rng.standard_normal(500).astype(np.float32)])
+    elif dtype == np.bool_:
+        vals = rng.integers(0, 2, 500).astype(bool)
+    else:
+        info = np.iinfo(dtype)
+        vals = rng.integers(info.min, info.max, 500, dtype=dtype,
+                            endpoint=True)
+        vals[:2] = [info.min, info.max]
+    got = hashing.murmur3_32(torch.from_numpy(vals))
+    want = np.asarray(jhashing.murmur3_32(jnp.asarray(vals)))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    seeds = rng.integers(0, 2**32, vals.shape[0])
+    np.testing.assert_array_equal(
+        hashing.murmur3_32(torch.from_numpy(vals),
+                           torch.from_numpy(seeds)).numpy(),
+        np.asarray(jhashing.murmur3_32(jnp.asarray(vals),
+                                       jnp.asarray(seeds.astype(np.uint32)))))
+
+
+def test_murmur3_matches_the_scalar_spec():
+    for dtype, width in ((np.int32, 4), (np.int64, 8)):
+        vals = np.asarray([0, 1, -1, 42, 2**31 - 1, -2**31], dtype=dtype)
+        got = hashing.murmur3_32(torch.from_numpy(vals)).tolist()
+        assert got == [_scalar_murmur3_bytes(
+            int(v).to_bytes(width, "little", signed=True), 42) for v in vals]
+    with pytest.raises(TypeError, match="float64"):
+        hashing.murmur3_32(torch.ones(3, dtype=torch.float64))
+
+
+def test_fingerprint_and_partition_match_jax():
+    rng = np.random.default_rng(27)
+    lanes = [rng.integers(-2**62, 2**62, 400),
+             rng.integers(0, 9, 400).astype(np.int32)]
+    got = hashing.fingerprint64([torch.from_numpy(x) for x in lanes])
+    want = jhashing.fingerprint64([jnp.asarray(x) for x in lanes])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    h = hashing.murmur3_32(torch.from_numpy(lanes[0]))
+    jh = jhashing.murmur3_32(jnp.asarray(lanes[0]))
+    for parts in (1, 8, 200):
+        p = hashing.hash_partition(h, parts)
+        assert p.dtype == torch.int32
+        np.testing.assert_array_equal(
+            p.numpy(), np.asarray(jhashing.hash_partition(jh, parts)))

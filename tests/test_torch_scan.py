@@ -12,6 +12,7 @@ runs.  FLOAT64 compares as values: the JAX package stores it as uint32
 bit pairs, the port as native float64.
 """
 
+import decimal
 import fcntl
 import io
 import pathlib
@@ -541,6 +542,145 @@ def test_full_lineitem_to_rows_matches_jax(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# TPC-H Q1's scan types: FLBA and BYTE_ARRAY decimals, BOOLEAN
+# ---------------------------------------------------------------------------
+
+_CTX = decimal.Context(prec=60)
+# (precision, the FLBA width pyarrow gives it, the port's type)
+FLBA_CASES = ((4, 2, pt.decimal32(-2)), (12, 6, pt.decimal64(-2)),
+              (38, 16, pt.decimal128(-2)))
+
+
+def _unscaled(values, scale: int = 2) -> list:
+    return [None if v is None else int(v.scaleb(scale, _CTX)) for v in values]
+
+
+def _decimal_values(rng, precision: int, n: int, nulls: bool) -> list:
+    top = 10 ** precision - 1
+    vals = [int(v) for v in rng.integers(-min(top, 2**62), min(top, 2**62),
+                                         n)]
+    vals[:4] = [top, -top, -1, 0]
+    if precision > 18:
+        vals[4:n // 2] = [v * 10 ** (precision - 19) for v in vals[4:n // 2]]
+    if nulls:
+        vals = [None if m else v for v, m in zip(vals, rng.random(n) < 0.2)]
+    return vals
+
+
+def _scan_types_check(raw: bytes, arrow: pa.Table, dtypes) -> None:
+    """The port's scan of every column equals the JAX scan and pyarrow's
+    reading, and has the given types."""
+    got = pscan.scan_table(raw, device=CPU)
+    want = _jax_scan(raw)
+    for i, name in enumerate(arrow.column_names):
+        p = got[i]
+        assert p.dtype == dtypes[i], name
+        assert_column_equal(p, want[i])
+        a = arrow[name].to_pylist()
+        if pa.types.is_decimal(arrow[name].type):
+            a = _unscaled(a, arrow[name].type.scale)
+        if p.dtype == pt.bool8:
+            a = [None if v is None else int(v) for v in a]
+        if pa.types.is_date32(arrow[name].type):
+            assert_matches_arrow(p, arrow[name])
+            continue
+        assert p.to_pylist() == a, name
+
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["req", "opt"])
+@pytest.mark.parametrize("use_dictionary", [True, False], ids=["dict", "plain"])
+def test_scan_flba_decimals_match_jax_and_arrow(use_dictionary, nulls):
+    """FLBA decimals of 2, 6 and 16 bytes (decimal32, decimal64,
+    decimal128 by precision), PLAIN and dictionary-encoded, over two row
+    groups and several pages, with and without nulls."""
+    rng = np.random.default_rng(31)
+    n = 2000
+    cols = {f"d{p}": pa.array([None if v is None else decimal.Decimal(v)
+                               .scaleb(-2, _CTX)
+                               for v in _decimal_values(rng, p, n, nulls)],
+                              pa.decimal128(p, 2))
+            for p, _, _ in FLBA_CASES}
+    t = pa.table(cols)
+    raw = _write(t, use_dictionary=use_dictionary, row_group_size=1200,
+                 data_page_size=2048)
+    md = pq.ParquetFile(io.BytesIO(raw)).metadata
+    widths = [md.schema.column(i).length for i in range(len(FLBA_CASES))]
+    assert widths == [w for _, w, _ in FLBA_CASES]
+    _scan_types_check(raw, t, [dt for _, _, dt in FLBA_CASES])
+
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["req", "opt"])
+@pytest.mark.parametrize("multi_page", [False, True], ids=["1page", "pages"])
+def test_scan_boolean_matches_jax_and_arrow(multi_page, nulls):
+    """PLAIN BOOLEAN, in one page a chunk or in pages whose value counts
+    are not multiples of 8.  RLE booleans (data page v2), which the JAX
+    package decodes on neither path, are refused."""
+    rng = np.random.default_rng(32)
+    n = 3001
+    vals = [bool(v) for v in rng.integers(0, 2, n)]
+    if nulls:
+        vals = [None if m else v for v, m in zip(vals, rng.random(n) < 0.2)]
+    t = pa.table({"b": pa.array(vals, pa.bool_()),
+                  "i": pa.array(np.arange(n, dtype=np.int32))})
+    kw = dict(data_page_size=64, write_batch_size=333) if multi_page else {}
+    raw = _write(t, row_group_size=2000, **kw)
+    _scan_types_check(raw, t, [pt.bool8, pt.int32])
+    _refused(t, "RLE of BOOLEAN", data_page_version="2.0")
+
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["req", "opt"])
+@pytest.mark.parametrize("encoding", ["plain", "dict"])
+def test_scan_byte_array_decimals_match_jax_and_arrow(encoding, nulls):
+    """BYTE_ARRAY decimals (each value in its fewest bytes, from the numpy
+    writer) of precisions 9, 18 and 38, decoded on the device from their
+    chars, against the JAX package's host decode and pyarrow."""
+    rng = np.random.default_rng(33)
+    n = 1500
+    valid = rng.random(n) >= 0.2 if nulls else None
+    cols, dtypes = [], []
+    for precision, dt in ((9, pt.decimal32(-3)), (18, pt.decimal64(-3)),
+                          (38, pt.decimal128(-3))):
+        vals = _decimal_values(rng, precision, n, False)
+        if precision == 38:
+            vals[4:8] = [(1 << 127) - 1, -(1 << 127), 1 << 64, -(1 << 63)]
+        cols.append(W.decimal_column(f"d{precision}", vals, precision, 3,
+                                     encoding, valid, byte_array=True))
+        dtypes.append(dt)
+    raw = W.write_parquet(cols, 1000, pages_per_chunk=2)
+    _scan_types_check(raw, pq.read_table(io.BytesIO(raw)), dtypes)
+
+
+@pytest.mark.parametrize("null_fraction", [0.0, 0.1])
+def test_q1_layout_file_matches_jax_arrow_and_generator(null_fraction):
+    """The numpy writer's Q1 layout (FLBA DECIMAL(12,2) PLAIN, FLBA
+    DECIMAL(4,2) dictionaries, INT64, DATE, dictionary strings) reads the
+    same through the port, the JAX scan and pyarrow, and its decimals are
+    the generator's cents."""
+    raw, data, valid = W.lineitem_parquet(
+        4000, 6, row_group_rows=1500, null_fraction=null_fraction,
+        pages_per_chunk=2, columns=W.LINEITEM_Q1)
+    _scan_types_check(raw, pq.read_table(io.BytesIO(raw)),
+                      [pt.string, pt.string, pt.int64, pt.decimal64(-2),
+                       pt.decimal32(-2), pt.decimal32(-2),
+                       pt.timestamp_days])
+    got = pscan.scan_table(raw, device=CPU)
+    for name in W.Q1_DECIMALS:
+        col = got[[n for n, *_ in W.LINEITEM_Q1].index(name)]
+        want = data[name + "_unscaled"]
+        if name in valid:
+            want = np.where(valid[name], want, 0)
+        np.testing.assert_array_equal(col.data.numpy(), want)
+
+
+def test_byte_array_decimal_past_16_bytes_raises():
+    for encoding in ("plain", "dict"):
+        raw = W.write_parquet([W.decimal_column(
+            "d", [1, 1 << 130], 38, 0, encoding, byte_array=True)], 10)
+        with pytest.raises(ValueError, match="wider than 16 bytes"):
+            pscan.scan_table(raw, device=CPU)
+
+
+# ---------------------------------------------------------------------------
 # what the scan refuses
 # ---------------------------------------------------------------------------
 
@@ -560,18 +700,23 @@ def test_refuses_plain_strings():
 
 
 def test_refuses_boolean_and_delta():
-    _refused(pa.table({"b": [True, False]}), "BOOLEAN")
+    """BOOLEAN scans now (``test_scan_boolean_*``); fixed-size binary that
+    is no decimal, and the DELTA encodings, are refused."""
+    _refused(pa.table({"b": pa.array([b"ab", b"cd"], pa.binary(2))}),
+             "FIXED_LEN_BYTE_ARRAY")
     _refused(pa.table({"i": np.arange(100, dtype=np.int64)}),
              "DELTA_BINARY_PACKED", use_dictionary=False,
              column_encoding={"i": "DELTA_BINARY_PACKED"})
 
 
 def test_refuses_gzip_and_decimal_bytes():
+    """FLBA decimals of up to 16 bytes scan now (``test_scan_flba_*``);
+    a wider one, past DECIMAL128's lanes, is refused."""
     _refused(pa.table({"i": np.arange(10, dtype=np.int64)}), "GZIP",
              compression="GZIP")
     import decimal
     _refused(pa.table({"x": pa.array([decimal.Decimal("1.25")],
-                                     pa.decimal128(20, 2))}), "DECIMAL")
+                                     pa.decimal256(40, 2))}), "DECIMAL")
 
 
 def test_list_columns_refused_only_when_selected():

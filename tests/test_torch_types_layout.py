@@ -229,6 +229,16 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/parquet/device_scan.py",
             "spark_rapids_jni_tpu_torch/parquet/decode.py",
             "spark_rapids_jni_tpu_torch/_native.py",
+            "spark_rapids_jni_tpu_torch/ops/filter.py",
+            "spark_rapids_jni_tpu_torch/ops/sort.py",
+            "spark_rapids_jni_tpu_torch/ops/strings.py",
+            "spark_rapids_jni_tpu_torch/ops/decimal128.py",
+            "spark_rapids_jni_tpu_torch/ops/groupby.py",
+            "spark_rapids_jni_tpu_torch/ops/reductions.py",
+            "spark_rapids_jni_tpu_torch/ops/copying.py",
+            "spark_rapids_jni_tpu_torch/ops/hashing.py",
+            "spark_rapids_jni_tpu_torch/ops/int64bits.py",
+            "spark_rapids_jni_tpu_torch/models/tpch_q1.py",
             "tools/torch_lineitem_parquet.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):

@@ -7,9 +7,12 @@ Test data for the PyTorch port's device scan, shared by ``chip_smoke.py``
 and the tests: the card's machine has no pyarrow, and the repository holds
 no Parquet file.  The writer emits only what the port's scan reads: PLAIN
 and RLE_DICTIONARY pages (the codes as bit-packed runs of at most 63
-groups, as parquet-mr writes them), PLAIN strings, definition levels for
-OPTIONAL columns, UNCOMPRESSED data page v1, and a thrift compact footer
-with min/max statistics (null counts only for PLAIN strings).  Each row
+groups, as parquet-mr writes them), PLAIN strings, DECIMALs as
+FIXED_LEN_BYTE_ARRAY or BYTE_ARRAY (big-endian two's complement, the
+latter at each value's fewest bytes, as parquet-mr's legacy writers do),
+definition levels for OPTIONAL columns, UNCOMPRESSED data page v1, and a
+thrift compact footer with min/max statistics (none for decimals; null
+counts only for PLAIN strings).  Each row
 group writes its dictionary in first-occurrence order, as parquet-mr and
 pyarrow do.  The tests read its output back with pyarrow, which checks the
 writer apart from both scanners.
@@ -26,6 +29,12 @@ words (§4.2.2.10) at a random offset and of a random length.  Its numbers
 come from numpy's generator, not dbgen's, so the rows differ from dbgen's
 while their distributions match.  ``LINEITEM_NO_COMMENT`` names the first
 15 columns, for files without ``l_comment``.
+
+``LINEITEM_Q1`` is TPC-H Q1's layout of ``benchmarks/tpch_data.py``: the
+flags as dictionary strings, ``l_quantity`` INT64, ``l_extendedprice``
+FLBA DECIMAL(12,2) PLAIN (``quantity × retail cents``, exact),
+``l_discount`` and ``l_tax`` FLBA DECIMAL(4,2) dictionary-encoded, and
+``l_shipdate`` DATE (``--q1`` writes it).
 """
 
 from __future__ import annotations
@@ -44,10 +53,11 @@ from spark_rapids_jni_tpu_torch.parquet.thrift import (  # noqa: E402
     CompactWriter, Field, ListValue, Struct, TType)
 
 MAGIC = b"PAR1"
-PHYS = {"INT32": 1, "INT64": 2, "DOUBLE": 5, "BYTE_ARRAY": 6}
+PHYS = {"INT32": 1, "INT64": 2, "DOUBLE": 5, "BYTE_ARRAY": 6,
+        "FIXED_LEN_BYTE_ARRAY": 7}
 _NP = {"INT32": np.dtype("<i4"), "INT64": np.dtype("<i8"),
        "DOUBLE": np.dtype("<f8")}
-CONVERTED = {"UTF8": 0, "DATE": 6}
+CONVERTED = {"UTF8": 0, "DECIMAL": 5, "DATE": 6}
 ENC_PLAIN, ENC_RLE, ENC_RLE_DICTIONARY = 0, 3, 8
 PAGE_DATA, PAGE_DICTIONARY = 0, 2
 MAX_BP_GROUPS = 63           # parquet-mr's longest bit-packed run
@@ -55,22 +65,27 @@ MAX_BP_GROUPS = 63           # parquet-mr's longest bit-packed run
 
 @dataclasses.dataclass
 class ParquetColumn:
-    """One column to write.  Numbers: ``values`` is a numpy array.
-    Strings: ``values`` is int codes into ``vocab`` (a list of bytes).
-    ``validity`` (bool, True = present) makes the column OPTIONAL; null
-    slots of ``values`` are ignored."""
+    """One column to write.  Numbers: ``values`` is a numpy array
+    (FIXED_LEN_BYTE_ARRAY decimals: int64 unscaled values).  Strings and
+    BYTE_ARRAY decimals: ``values`` is int codes into ``vocab`` (a list of
+    bytes).  ``validity`` (bool, True = present) makes the column
+    OPTIONAL; null slots of ``values`` are ignored."""
 
     name: str
     phys: str                                  # INT32 | INT64 | DOUBLE |
-    #                                            BYTE_ARRAY
+    #                                            BYTE_ARRAY |
+    #                                            FIXED_LEN_BYTE_ARRAY
     values: np.ndarray
     encoding: str = "plain"                    # plain | dict
-    converted: Optional[str] = None            # UTF8 | DATE
+    converted: Optional[str] = None            # UTF8 | DATE | DECIMAL
     vocab: Optional[list] = None
     validity: Optional[np.ndarray] = None
     # PLAIN strings: (chars uint8, int64 offsets [n+1]); ``values`` then
     # holds the row numbers
     strings: Optional[tuple] = None
+    # DECIMAL: (precision, scale); FIXED_LEN_BYTE_ARRAY: its width
+    decimal: Optional[tuple] = None
+    type_length: int = 0
 
 
 def strings_column(name: str, strings, validity=None) -> ParquetColumn:
@@ -87,6 +102,64 @@ def plain_strings_column(name: str, chars: np.ndarray, offsets: np.ndarray,
     n = offsets.shape[0] - 1
     return ParquetColumn(name, "BYTE_ARRAY", np.arange(n, dtype=np.int64),
                          "plain", "UTF8", None, validity, (chars, offsets))
+
+
+def flba_width(precision: int) -> int:
+    """The fewest bytes whose two's complement holds every value of
+    ``precision`` digits (parquet's FLBA DECIMAL width)."""
+    w = 1
+    while 10 ** precision - 1 >= 1 << (8 * w - 1):
+        w += 1
+    return w
+
+
+def decimal_column(name: str, values, precision: int, scale: int,
+                   encoding: str = "plain", validity=None,
+                   byte_array: bool = False) -> ParquetColumn:
+    """A DECIMAL(precision, scale) column of unscaled ints: FIXED_LEN_BYTE_ARRAY
+    of ``flba_width(precision)`` bytes (``values`` int64), or with
+    ``byte_array`` BYTE_ARRAY of each value's fewest bytes (``values`` any
+    Python ints)."""
+    if not byte_array:
+        return ParquetColumn(name, "FIXED_LEN_BYTE_ARRAY",
+                             np.asarray(values, np.int64), encoding,
+                             "DECIMAL", validity=validity,
+                             decimal=(precision, scale),
+                             type_length=flba_width(precision))
+    ints = [int(v) for v in values]
+    if encoding == "dict":
+        vocab = sorted(set(ints))
+        index = {v: i for i, v in enumerate(vocab)}
+        return ParquetColumn(name, "BYTE_ARRAY",
+                             np.array([index[v] for v in ints], np.int64),
+                             "dict", "DECIMAL",
+                             [be_bytes(v) for v in vocab], validity,
+                             decimal=(precision, scale))
+    payloads = [be_bytes(v) for v in ints]
+    offs = np.zeros(len(ints) + 1, np.int64)
+    np.cumsum([len(p) for p in payloads], out=offs[1:])
+    chars = np.frombuffer(b"".join(payloads), np.uint8)
+    return ParquetColumn(name, "BYTE_ARRAY",
+                         np.arange(len(ints), dtype=np.int64), "plain",
+                         "DECIMAL", None, validity, (chars, offs),
+                         decimal=(precision, scale))
+
+
+def be_bytes(v: int) -> bytes:
+    """``v`` as big-endian two's complement in its fewest bytes (Java's
+    ``BigInteger.toByteArray``)."""
+    return v.to_bytes(((v if v >= 0 else ~v).bit_length() + 8) // 8, "big",
+                      signed=True)
+
+
+def flba_bytes(values: np.ndarray, width: int) -> bytes:
+    """int64 values as big-endian two's complement of ``width`` bytes."""
+    be = np.ascontiguousarray(values, ">i8").view(np.uint8).reshape(-1, 8)
+    if width <= 8:
+        return be[:, 8 - width:].tobytes()
+    fill = np.where(be[:, :1] >= 0x80, 0xFF, 0).astype(np.uint8)
+    return np.concatenate([np.repeat(fill, width - 8, axis=1), be],
+                          axis=1).tobytes()
 
 
 # ---------------------------------------------------------------------------
@@ -178,8 +251,10 @@ def _first_occurrence(values: np.ndarray):
 
 
 def _stat_bytes(col: ParquetColumn, present: np.ndarray):
-    """(min, max) PLAIN-encoded, or None when nothing is present."""
-    if present.shape[0] == 0 or col.strings is not None:
+    """(min, max) PLAIN-encoded, or None when nothing is present (and for
+    decimals)."""
+    if (present.shape[0] == 0 or col.strings is not None
+            or col.decimal is not None):
         return None
     if col.phys == "BYTE_ARRAY":
         strs = [col.vocab[c] for c in np.unique(present)]
@@ -204,6 +279,8 @@ def _rows_per_page(col: ParquetColumn, bw: int, rows: int,
             offs = col.strings[1]
             n = max(offs.shape[0] - 1, 1)
             bits = 8 * (4 + -(-int(offs[-1] - offs[0]) // n))
+        elif col.phys == "FIXED_LEN_BYTE_ARRAY" and col.encoding == "plain":
+            bits = col.type_length * 8
         elif col.encoding == "plain":
             bits = _NP[col.phys].itemsize * 8
         else:
@@ -226,8 +303,12 @@ def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
     if col.encoding == "dict":
         entries, codes = _first_occurrence(present)
         bw = max(1, int(len(entries) - 1).bit_length())
-        body = (_plain_strings(col.vocab, entries) if col.phys == "BYTE_ARRAY"
-                else np.ascontiguousarray(entries, _NP[col.phys]).tobytes())
+        if col.phys == "BYTE_ARRAY":
+            body = _plain_strings(col.vocab, entries)
+        elif col.phys == "FIXED_LEN_BYTE_ARRAY":
+            body = flba_bytes(entries, col.type_length)
+        else:
+            body = np.ascontiguousarray(entries, _NP[col.phys]).tobytes()
         dict_page_offset = start
         out += _page(PAGE_DICTIONARY, body,
                      (7, TType.STRUCT, _struct(_i32(1, len(entries)),
@@ -251,6 +332,10 @@ def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
         elif col.strings is not None:
             body += _plain_records(*col.strings,
                                    present[pos_present:pos_present + k])
+            enc = ENC_PLAIN
+        elif col.phys == "FIXED_LEN_BYTE_ARRAY":
+            body += flba_bytes(present[pos_present:pos_present + k],
+                               col.type_length)
             enc = ENC_PLAIN
         else:
             body += np.ascontiguousarray(present[pos_present:pos_present + k],
@@ -302,11 +387,14 @@ def write_parquet(columns: list[ParquetColumn], row_group_rows: int,
             _i64(2, size), _i64(3, hi - lo), _i64(5, first), _i64(6, size)))
     schema = [_struct((4, TType.BINARY, b"schema"), _i32(5, len(columns)))]
     for c in columns:
+        precision, scale = c.decimal or (None, None)
         schema.append(_struct(
             _i32(1, PHYS[c.phys]),
+            _i32(2, c.type_length or None),
             _i32(3, 0 if c.validity is None else 1),
             (4, TType.BINARY, c.name.encode()),
-            _i32(6, CONVERTED.get(c.converted))))
+            _i32(6, CONVERTED.get(c.converted)),
+            _i32(7, scale), _i32(8, precision)))
     meta = _struct(
         _i32(1, 1),
         (2, TType.LIST, ListValue(TType.STRUCT, schema)),
@@ -358,6 +446,20 @@ LINEITEM = (
     ("l_comment", "BYTE_ARRAY", "UTF8", "plain"),
 )
 LINEITEM_NO_COMMENT = LINEITEM[:15]
+# TPC-H Q1's columns as benchmarks/tpch_data.py:29-43 types them, in its
+# order; decimals by (precision, scale), written from the generator's
+# unscaled arrays (``<name>_unscaled``)
+LINEITEM_Q1 = (
+    ("l_returnflag", "BYTE_ARRAY", "UTF8", "dict"),
+    ("l_linestatus", "BYTE_ARRAY", "UTF8", "dict"),
+    ("l_quantity", "INT64", None, "plain"),
+    ("l_extendedprice", "FIXED_LEN_BYTE_ARRAY", "DECIMAL", "plain"),
+    ("l_discount", "FIXED_LEN_BYTE_ARRAY", "DECIMAL", "dict"),
+    ("l_tax", "FIXED_LEN_BYTE_ARRAY", "DECIMAL", "dict"),
+    ("l_shipdate", "INT32", "DATE", "dict"),
+)
+Q1_DECIMALS = {"l_extendedprice": (12, 2), "l_discount": (4, 2),
+               "l_tax": (4, 2)}
 # TPC-H v3.0.1 §4.2.3: L_COMMENT is text of 10 to 43 chars
 COMMENT_LEN = (10, 43)
 # words of the text grammar (TPC-H v3.0.1 §4.2.2.10): nouns, verbs,
@@ -393,7 +495,8 @@ COMMENT_BLOCK_ROWS = 1 << 20
 def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
     """Lineitem columns as numpy arrays (strings as int8 codes into
     ``VOCAB``), ``n_rows`` rows; the scale factor follows from the rows
-    (``n_rows / SF1_ROWS``)."""
+    (``n_rows / SF1_ROWS``).  The money columns come in cents too,
+    int64, as ``<name>_unscaled`` (the values of their DECIMAL(…, 2))."""
     rng = np.random.default_rng(seed)
     sf = n_rows / SF1_ROWS
     n_orders = max(1, -(-n_rows // 4))
@@ -425,6 +528,8 @@ def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
     receipt = ship + rng.integers(1, 31, n_rows)
     returnflag = np.where(receipt <= CURRENT_DATE,
                           np.where(rng.random(n_rows) < 0.5, 2, 0), 1)
+    discount = rng.integers(0, 11, n_rows)
+    tax = rng.integers(0, 9, n_rows)
     return {
         "l_orderkey": orderkey[order],
         "l_partkey": partkey,
@@ -432,8 +537,8 @@ def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
         "l_linenumber": linenumber,
         "l_quantity": quantity.astype(np.float64),
         "l_extendedprice": (quantity * retail_cents) / 100.0,
-        "l_discount": rng.integers(0, 11, n_rows) / 100.0,
-        "l_tax": rng.integers(0, 9, n_rows) / 100.0,
+        "l_discount": discount / 100.0,
+        "l_tax": tax / 100.0,
         "l_returnflag": returnflag.astype(np.int8),
         "l_linestatus": (ship > CURRENT_DATE).astype(np.int8),
         "l_shipdate": ship.astype(np.int32),
@@ -441,6 +546,9 @@ def generate_lineitem(n_rows: int, seed: int) -> dict[str, np.ndarray]:
         "l_receiptdate": receipt.astype(np.int32),
         "l_shipinstruct": rng.integers(0, 4, n_rows).astype(np.int8),
         "l_shipmode": rng.integers(0, 7, n_rows).astype(np.int8),
+        "l_extendedprice_unscaled": (quantity * retail_cents).astype(np.int64),
+        "l_discount_unscaled": discount.astype(np.int64),
+        "l_tax_unscaled": tax.astype(np.int64),
     }
 
 
@@ -490,6 +598,10 @@ def lineitem_columns(data: dict, validity: Optional[dict] = None,
         if name == "l_comment":
             out.append(plain_strings_column(name, *data[name],
                                             validity.get(name)))
+        elif conv == "DECIMAL":
+            out.append(decimal_column(name, data[name + "_unscaled"],
+                                      *Q1_DECIMALS[name], enc,
+                                      validity.get(name)))
         else:
             out.append(ParquetColumn(name, phys, data[name], enc, conv,
                                      VOCAB.get(name), validity.get(name)))
@@ -501,7 +613,8 @@ def lineitem_parquet(n_rows: int, seed: int, row_group_rows: int = 1 << 20,
                      pages_per_chunk: Optional[int] = None,
                      data_page_bytes: int = 1 << 20, columns=LINEITEM):
     """(file bytes, column arrays, validity by column or {}) for a
-    lineitem file of ``columns`` (all 16, or ``LINEITEM_NO_COMMENT``);
+    lineitem file of ``columns`` (all 16, ``LINEITEM_NO_COMMENT`` or
+    ``LINEITEM_Q1``);
     with ``null_fraction`` every column is OPTIONAL with that share of
     nulls.  ``l_comment`` comes as (chars, int64 offsets)."""
     data = generate_lineitem(n_rows, seed)
@@ -525,11 +638,14 @@ def main(argv=None) -> int:
     ap.add_argument("--null-fraction", type=float, default=0.0)
     ap.add_argument("--no-comment", action="store_true",
                     help="write the 15 columns without l_comment")
+    ap.add_argument("--q1", action="store_true",
+                    help="write TPC-H Q1's 7 columns (FLBA decimals)")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     raw, _, _ = lineitem_parquet(
         args.rows, args.seed, args.row_group_rows, args.null_fraction,
-        columns=LINEITEM_NO_COMMENT if args.no_comment else LINEITEM)
+        columns=(LINEITEM_Q1 if args.q1 else
+                 LINEITEM_NO_COMMENT if args.no_comment else LINEITEM))
     with open(args.out, "wb") as f:
         f.write(raw)
     print(f"{args.out}: {args.rows} rows, {len(raw)} bytes")

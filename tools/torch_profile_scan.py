@@ -11,7 +11,8 @@ the SF1 ``scan_table`` of the first 15 columns, the nulls-file
 four dictionary-string columns, ``convert_to_rows`` of the scanned
 15-column table, and, for the full table of ``chip_smoke.py`` phase 8, the
 scan of all 16 columns (PLAIN ``l_comment`` among them) and its
-``convert_to_rows``.  For each it prints the host wall time, the scan's host
+``convert_to_rows``; and TPC-H Q1 (``models.tpch_q1.run``) on the SF1 file
+in Q1's layout of ``chip_smoke.py`` phase 10 (FLBA decimals).  For each it prints the host wall time, the scan's host
 spans (page walk, slab upload, decode launches; ``parquet.scan.*`` in
 ``device_scan.scan_table``), the device-busy time (the union of the
 kernels' intervals), the device's idle share, and the device ops that took
@@ -60,7 +61,7 @@ def main(argv=None) -> int:
                                        _device_total, profile_call)
     import spark_rapids_jni_tpu_torch as pt
     from spark_rapids_jni_tpu_torch import _native
-    from spark_rapids_jni_tpu_torch.models import q6
+    from spark_rapids_jni_tpu_torch.models import q6, tpch_q1
     from spark_rapids_jni_tpu_torch.parquet import device_scan
 
     _native.build()
@@ -73,6 +74,8 @@ def main(argv=None) -> int:
         row_group_rows=chip_smoke.NULL_ROWS // chip_smoke.NULL_ROW_GROUPS,
         null_fraction=chip_smoke.NULL_FRACTION, pages_per_chunk=2,
         columns=W.LINEITEM_NO_COMMENT)
+    raw_q1, _, _ = W.lineitem_parquet(W.SF1_ROWS, args.seed + 3,
+                                      columns=W.LINEITEM_Q1)
     cols15 = [name for name, *_ in W.LINEITEM_NO_COMMENT]
     lo, hi = chip_smoke.Q6_DATES
     sf1 = device_scan.scan_table(raw, columns=cols15)
@@ -92,6 +95,7 @@ def main(argv=None) -> int:
         ("to_rows SF1 scanned", lambda: pt.convert_to_rows(sf1)),
         ("scan SF1 16 columns", lambda: device_scan.scan_table(raw)),
         ("to_rows SF1 16 columns", lambda: pt.convert_to_rows(full)),
+        ("q1 SF1", lambda: tpch_q1.run(raw_q1, chip_smoke.Q1_CUTOFF)),
     ]
     with open(report, "w") as fh:
         for name, fn in cases:
