@@ -69,7 +69,27 @@ fails (non-zero exit, no result line) if anything is wrong:
    B4, which Q1 launches for its string keys, and B7, which its scan
    launches, held against their plain versions on the largest inputs Q1
    hands them and timed as in phase 3; then Q1 on a 1,048,576-row file
-   with OPTIONAL columns and 10% nulls, exact the same way.
+   with OPTIONAL columns and 10% nulls, exact the same way;
+11. Spark's files: TPC-H SF1 lineitem, all 16 columns, as Spark's
+   defaults write it (``SPARK_DEFAULTS`` of
+   ``tools/torch_lineitem_parquet.py``: SNAPPY, every column
+   dictionary-encoded with parquet-mr's fallback to PLAIN once a
+   dictionary passes 1 MiB, 1 MiB pages of at most 20,000 rows; row
+   groups of 1,048,576 rows as in phases 5-10, so that the walls
+   compare): the scan of every column exact against the generator
+   (strings materialized; each column's page runs printed), its median
+   wall of three calls and GB/s beside phase 8's UNCOMPRESSED scan of the
+   same rows, and one profiled call's split between the page walk (its
+   decompression apart), the upload and the decode, with the device's
+   idle share, on a line of its own; Q6 on it, exact as in phase 6;
+   row-group pruning by ``l_orderkey`` (sorted) keeping exactly the groups
+   the generator's own bounds reckon, their rows equal to the generator's,
+   and a predicate that prunes every group giving zero rows of the same
+   dtypes; B4 and B7 on the largest inputs this scan hands them, against
+   their plain versions and timed as in phase 3.  11b: 1,048,576 rows as
+   Spark's v2 writer writes them with timestamp dates (GZIP, DataPageV2,
+   10% nulls, the dates INT96 and dictionary-encoded, DELTA_BINARY_PACKED
+   and DELTA_BYTE_ARRAY fallbacks), exact.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -177,6 +197,9 @@ Q1_MEAN_RTOL = 1e-12
 # byte matrix, the STRING gathers of the dictionary and of the output
 # keys), B7 for the scan's PLAIN quantities and its dictionaries' values
 Q1_KERNELS = ("unpack_rows", "segmented_copy", "u8_to_u32")
+# phase 11's row groups: those of phases 5-10, so that the walls compare
+# (Spark's own are 128 MiB)
+SPARK_ROW_GROUP_ROWS = 1 << 20
 
 
 class SmokeFailure(RuntimeError):
@@ -748,6 +771,19 @@ def expected_chars(vocab: list, codes: np.ndarray, valid) -> tuple:
     return flat[src], offs.astype(np.int32)
 
 
+def present_chars(chars: np.ndarray, offs: np.ndarray, valid) -> tuple:
+    """(chars, offsets) of a string column whose null rows have no
+    chars."""
+    if valid is None:
+        return chars, offs
+    lens = np.where(valid, offs[1:] - offs[:-1], 0)
+    out = np.zeros(lens.shape[0] + 1, np.int64)
+    np.cumsum(lens, out=out[1:])
+    src = (np.repeat(offs[:-1] - out[:-1], lens)
+           + np.arange(int(out[-1]), dtype=np.int64))
+    return chars[src], out
+
+
 def check_scanned(pt, W, table, data, validity, what: str) -> None:
     """Every row of every column equals the generator's arrays
     (vectorised on the card); dictionary strings also by their codes,
@@ -765,10 +801,9 @@ def check_scanned(pt, W, table, data, validity, what: str) -> None:
                 f"{what}: {name} validity differs")
         want = data[name]
         if name == "l_comment":
-            require(v is None, f"{what}: l_comment is checked without nulls")
             require(not isinstance(col, pt.DictColumn),
                     f"{what}: l_comment is a DictColumn")
-            chars, offs = want
+            chars, offs = present_chars(*want, v)
             require(torch.equal(col.offsets, torch.from_numpy(
                 offs.astype(np.int32)).cuda()),
                 f"{what}: l_comment offsets differ")
@@ -895,10 +930,10 @@ def rows_round_trip(pt, convert, reference, kernels, table, what, card,
     return counts
 
 
-def phase_q6_rows(pt, W, device_scan, q6, convert, reference, kernels, card,
-                  raw, data, cols15, launches):
-    """Phase 6: Q6 on the SF1 file, then the scanned 15 columns through
-    rows."""
+def run_q6(q6, kernels, raw, data, what: str, card, launches) -> None:
+    """``models.q6.run`` on ``raw``: the matched count equal to numpy's,
+    the revenue to Q6_REL_TOL of ``math.fsum`` over the generator's
+    arrays; timed as the median wall of PATH_REPS calls."""
     import math
     lo, hi = Q6_DATES
     kernels.reset()
@@ -910,16 +945,23 @@ def phase_q6_rows(pt, W, device_scan, q6, convert, reference, kernels, card,
             & (data["l_quantity"] < 24))
     want = math.fsum((data["l_extendedprice"][mask]
                       * data["l_discount"][mask]).tolist())
-    require(matched == int(mask.sum()), f"Q6 matched {matched}, numpy "
-            f"{int(mask.sum())}")
+    require(matched == int(mask.sum()), f"Q6 {what} matched {matched}, "
+            f"numpy {int(mask.sum())}")
     rel = abs(revenue - want) / abs(want)
-    require(rel <= Q6_REL_TOL, f"Q6 revenue {revenue!r} vs fsum {want!r}: "
-            f"relative {rel:.3e}")
+    require(rel <= Q6_REL_TOL, f"Q6 {what} revenue {revenue!r} vs fsum "
+            f"{want!r}: relative {rel:.3e}")
     wall = median_wall(lambda: q6.run(raw, lo, hi))
-    log(f"[q6] SF1: matched {matched} (numpy equal), revenue {revenue!r} "
+    log(f"[q6] {what}: matched {matched} (numpy equal), revenue {revenue!r} "
         f"vs fsum {want!r} (relative {rel:.3e} <= {Q6_REL_TOL}); median of "
         f"{PATH_REPS} {wall * 1e3:.3f} ms; launches {counts} [{card}]")
     add_counts(launches, counts)
+
+
+def phase_q6_rows(pt, W, device_scan, q6, convert, reference, kernels, card,
+                  raw, data, cols15, launches):
+    """Phase 6: Q6 on the SF1 file, then the scanned 15 columns through
+    rows."""
+    run_q6(q6, kernels, raw, data, "SF1", card, launches)
 
     table = device_scan.scan_table(raw, columns=cols15)
     torch.cuda.synchronize()
@@ -960,6 +1002,7 @@ def phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
     log(f"[full] SF1 scan_table of 16 columns: {len(raw)} file bytes, "
         f"first {first * 1e3:.3f} ms, median of {PATH_REPS} "
         f"{wall * 1e3:.3f} ms = {len(raw) / wall / 1e9:.3f} GB/s [{card}]")
+    full_scan = (wall, len(raw))
     table = device_scan.scan_table(raw)
     to_wall = median_wall(lambda: pt.convert_to_rows(table))
     batch = pt.convert_to_rows(table)[0]
@@ -971,6 +1014,7 @@ def phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
         f"{batch.num_bytes / from_wall / 1e9:.3f} GB/s [{card}]")
     del table, batch
     torch.cuda.empty_cache()
+    return full_scan
 
 
 def phase_full_kernels(pt, device_scan, kernels, raw, card) -> dict:
@@ -1285,6 +1329,193 @@ def phase_q1(T, W, tpch_q1, kernels, card, seed, launches) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 11: Parquet files as Spark writes them
+# ---------------------------------------------------------------------------
+
+def slice_rows(data: dict, a: int, b: int) -> dict:
+    """The generator's arrays of rows [a, b)."""
+    out = {}
+    for name, arr in data.items():
+        if name == "l_comment":
+            chars, offs = arr
+            out[name] = (chars[offs[a]:offs[b]], offs[a:b + 1] - offs[a])
+        else:
+            out[name] = arr[a:b]
+    return out
+
+
+def run_kinds(device_scan, raw) -> dict:
+    """Each column's kinds of page runs over its row groups, as the scan's
+    page walk finds them: "dict", "plain" (PLAIN or DELTA), or both (a
+    dictionary that fell back)."""
+    from spark_rapids_jni_tpu_torch.parquet import decode as D
+    from spark_rapids_jni_tpu_torch.parquet.footer import extract_footer_bytes
+    from spark_rapids_jni_tpu_torch.parquet.thrift import parse_struct
+    mv = memoryview(raw)
+    meta = parse_struct(bytes(extract_footer_bytes(mv)))
+    leaves = D.leaf_schema_elements(meta)
+    kinds = {leaf.name: set() for leaf in leaves}
+    for g in meta.get(D.FMD.ROW_GROUPS).values:
+        for leaf, chunk in zip(leaves, g.get(D.RG.COLUMNS).values):
+            kinds[leaf.name].update(
+                k for k, _ in device_scan._walk_chunk(mv, chunk, leaf).runs)
+    return {name: "+".join(sorted(k)) for name, k in kinds.items()}
+
+
+def scan_split(device_scan, raw) -> dict:
+    """One profiled ``scan_table`` of ``raw``: its wall, host spans (the
+    page walk, the decompression inside it, the slab's upload and the
+    decode launches; ``parquet.scan.*``), the device's busy time and idle
+    share, all in milliseconds."""
+    from torch_profile_rowconv import _busy_us, profile_call
+    from torch_profile_scan import _span_ms
+    prof, wall = profile_call(lambda: device_scan.scan_table(raw))
+    busy = _busy_us(prof)
+    out = {k: round(v, 3) for k, v in _span_ms(prof).items()}
+    out.update(wall_ms=round(wall / 1e3, 3), device_busy_ms=round(busy / 1e3, 3),
+               idle_share=round(1 - busy / wall, 3))
+    return out
+
+
+def phase_spark(pt, W, device_scan, q6, kernels, card, seed, launches,
+                full_scan) -> dict:
+    """Phase 11: SF1 lineitem, all 16 columns, as Spark's defaults write
+    it (``W.SPARK_DEFAULTS``: SNAPPY, every column dictionary-encoded with
+    the fallback to PLAIN at a 1 MiB dictionary, 1 MiB pages of at most
+    20,000 rows; row groups of 1,048,576 rows as in phases 5-10): the scan
+    exact, timed beside phase 8's UNCOMPRESSED scan of the same rows
+    (``full_scan``: its median wall and file bytes), Q6 exact, row-group
+    pruning on the sorted ``l_orderkey`` against the generator's own
+    per-group bounds, and a predicate that prunes every group; then 11b
+    (:func:`phase_spark_v2`).  Returns B4's and B7's results on the
+    largest inputs this scan hands them."""
+    t0 = time.perf_counter()
+    raw, data, _ = W.lineitem_parquet(W.SF1_ROWS, seed,
+                                      row_group_rows=SPARK_ROW_GROUP_ROWS,
+                                      **W.SPARK_DEFAULTS)
+    log(f"[spark] SF1 lineitem as Spark writes it ({W.SPARK_DEFAULTS}): "
+        f"{W.SF1_ROWS} rows, {len(raw)} file bytes, written in "
+        f"{time.perf_counter() - t0:.2f} s; row groups of "
+        f"{SPARK_ROW_GROUP_ROWS} rows")
+    spans = scan_split(device_scan, raw)            # also the warm-up
+    kernels.reset()
+    t0 = time.perf_counter()
+    table = device_scan.scan_table(raw)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = kernels.counts()
+    check_scanned(pt, W, table, data, {}, "Spark SF1")
+    check_materialized(W, table, data, {}, "Spark SF1")
+    torch.cuda.synchronize()
+    add_counts(launches, kernels.counts())
+    for name in ("segmented_copy", "extract_rows", "gather_rows",
+                 "pack_rows", "u8_to_u32"):
+        require(counts[name] > 0, f"Spark scan: {name} never launched")
+    log(f"[spark] SF1: every row of every column equals the generator, "
+        f"strings materialized; page runs by column "
+        f"{run_kinds(device_scan, raw)}; host-decoded columns "
+        f"{table.host_decoded_cols}; launches (scan) {counts}")
+    del table
+    torch.cuda.empty_cache()
+    wall = median_wall(lambda: device_scan.scan_table(raw))
+    full_wall, full_bytes = full_scan
+    log(f"[spark] SF1 SNAPPY scan_table of 16 columns: median of {PATH_REPS} "
+        f"{wall * 1e3:.3f} ms = {len(raw) / wall / 1e9:.3f} GB/s of "
+        f"{len(raw)} file bytes ({full_bytes / wall / 1e9:.3f} GB/s of the "
+        f"UNCOMPRESSED file's bytes), first {first * 1e3:.3f} ms; phase 8's "
+        f"UNCOMPRESSED scan of the same rows {full_wall * 1e3:.3f} ms = "
+        f"{full_bytes / full_wall / 1e9:.3f} GB/s [{card}]")
+    log("[spark] split " + json.dumps(dict(
+        spans, median_wall_ms=round(wall * 1e3, 3),
+        gb_per_s=round(len(raw) / wall / 1e9, 3), file_bytes=len(raw),
+        phase8_wall_ms=round(full_wall * 1e3, 3), card=card)))
+
+    run_q6(q6, kernels, raw, data, "Spark SF1", card, launches)
+
+    # pruning: [lo, hi] on the sorted l_orderkey, against the generator's
+    # own per-group bounds
+    keys = data["l_orderkey"]
+    rg = SPARK_ROW_GROUP_ROWS
+    lo, hi = int(keys[5 * rg // 2]), int(keys[7 * rg // 2])
+    bounds = [(a, min(a + rg, keys.shape[0]))
+              for a in range(0, keys.shape[0], rg)]
+    want = [g for g, (a, b) in enumerate(bounds)
+            if not (keys[a:b].max() < lo or keys[a:b].min() > hi)]
+    require(0 < len(want) < len(bounds), f"pruning keeps {want}")
+    conds = [("l_orderkey", "ge", lo), ("l_orderkey", "le", hi)]
+    kernels.reset()
+    t0 = time.perf_counter()
+    table = device_scan.scan_table(raw, rowgroup_predicate=conds)
+    torch.cuda.synchronize()
+    pruned_s = time.perf_counter() - t0
+    add_counts(launches, kernels.counts())
+    a, b = bounds[want[0]][0], bounds[want[-1]][1]
+    require(want == list(range(want[0], want[-1] + 1)),
+            f"kept groups {want} are not contiguous")
+    check_scanned(pt, W, table, slice_rows(data, a, b), {}, "Spark pruned")
+    log(f"[spark] pruning l_orderkey in [{lo}, {hi}]: groups {want} of "
+        f"{len(bounds)} kept, as the generator's bounds reckon; rows "
+        f"[{a}, {b}) equal the generator's, {pruned_s * 1e3:.3f} ms [{card}]")
+    schema = table.schema
+    del table
+    none = device_scan.scan_table(raw,
+                                  rowgroup_predicate=[("l_orderkey", "lt", 0)])
+    require(none.num_rows == 0 and none.schema == schema,
+            f"the all-pruned scan gave {none.num_rows} rows of {none.schema}")
+    log(f"[spark] all groups pruned: zero rows, dtypes {none.schema}")
+
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    captured = record_inputs(kernels, ("segmented_copy", "u8_to_u32"), keep,
+                             lambda: device_scan.scan_table(raw))
+    results = {("SF1 Spark scan", name): measure(
+        kernels, name, args, card, "SF1 Spark scan", library_call(name, args))
+        for name, (_, args) in sorted(captured.items())}
+    del captured, raw, data
+    torch.cuda.empty_cache()
+    phase_spark_v2(pt, W, device_scan, kernels, card, seed, launches)
+    return results
+
+
+def phase_spark_v2(pt, W, device_scan, kernels, card, seed, launches) -> None:
+    """Phase 11b: 1,048,576 rows as Spark writes them with
+    ``parquet.writer.version=v2`` and timestamp dates: GZIP, DataPageV2,
+    10% nulls, the three dates INT96 and dictionary-encoded, the fallback
+    to DELTA_BINARY_PACKED for the keys and DELTA_BYTE_ARRAY for
+    ``l_comment`` (one row group: Spark's 128 MiB row groups hold these
+    rows), exact against the generator."""
+    raw, data, valid = W.lineitem_parquet(
+        NULL_ROWS, seed + 5, row_group_rows=NULL_ROWS,
+        null_fraction=NULL_FRACTION, int96_dates=True,
+        **dict(W.SPARK_DEFAULTS, codec="GZIP", page_version=2))
+    kernels.reset()
+    table = device_scan.scan_table(raw)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    dates = ("l_shipdate", "l_commitdate", "l_receiptdate")
+    for name in dates:
+        require(table[[n for n, *_ in W.LINEITEM].index(name)].dtype
+                == pt.timestamp_ns, f"11b: {name} is not TIMESTAMP_NS")
+    ns = dict(data, **{n: data[n].astype(np.int64) * W.NS_PER_DAY
+                       for n in dates})
+    check_scanned(pt, W, table, ns, valid, "Spark v2")
+    check_materialized(W, table, data, valid, "Spark v2")
+    require(table.host_decoded_cols > 0, "11b: no DELTA page was decoded")
+    wall = median_wall(lambda: device_scan.scan_table(raw))
+    log(f"[spark] v2: {NULL_ROWS} rows, GZIP, DataPageV2, "
+        f"{NULL_FRACTION:.0%} nulls, INT96 dates, {len(raw)} bytes: exact; "
+        f"{table.host_decoded_cols} columns decoded on the host (DELTA); "
+        f"median of {PATH_REPS} {wall * 1e3:.3f} ms; launches {counts} "
+        f"[{card}]")
+    del table
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1327,13 +1558,15 @@ def main(argv=None) -> int:
                   raw, data, cols15, launches)
     scan_results, scan_extra = phase_scan_kernels(device_scan, kernels, raw,
                                                   cols15, card, args.seed)
-    phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
-                     raw, data, launches)
+    full_scan = phase_full_table(pt, W, device_scan, convert, reference,
+                                 kernels, card, raw, data, launches)
     del data
     results.update(phase_full_kernels(pt, device_scan, kernels, raw, card))
     del raw
     results.update(phase_q1(T, W, tpch_q1, kernels, card, args.seed,
                             launches))
+    results.update(phase_spark(pt, W, device_scan, q6, kernels, card,
+                               args.seed, launches, full_scan))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():

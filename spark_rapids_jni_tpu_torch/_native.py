@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds).  Each ``csrc/*.cpp`` source is host code (the
-Parquet scan's PLAIN string walker) and compiles with the host C++ compiler,
-so it builds on a machine without the CUDA toolkit too.  Libraries go to
+Parquet scan's PLAIN string walker and Snappy decompressor) and compiles
+with the host C++ compiler, so it builds on a machine without the CUDA
+toolkit too.  Libraries go to
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of
 their source and flags, and are built at first use: nothing is compiled
 when a module is imported.
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("ragged.cu", "bytepath.cu", "xpack.cu")
-HOST_SOURCES = ("plain_strings.cpp",)
+HOST_SOURCES = ("plain_strings.cpp", "snappy_native.cpp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
@@ -51,6 +52,10 @@ SIGNATURES = {
 HOST_SIGNATURES = {
     "plain_strings": {
         "srjt_byte_array_offsets": ((_P, _I64, _I64, _P), _I64),
+        "srjt_delta_byte_array": ((_P, _P, _I64, _P, _I64, _P, _I64), _I64),
+    },
+    "snappy_native": {
+        "srjt_snappy_decompress": ((_P, _I64, _P, _I64), _I64),
     },
 }
 

@@ -236,9 +236,12 @@ class DictColumn(Column):
 
 @dataclasses.dataclass
 class Table:
-    """An ordered collection of equal-length columns."""
+    """An ordered collection of equal-length columns.  A scanned table
+    counts in ``host_decoded_cols`` the columns whose values were decoded
+    on the host (``parquet.device_scan.scan_table``)."""
 
     columns: list[Column]
+    host_decoded_cols: int = 0
 
     def __post_init__(self):
         if self.columns:

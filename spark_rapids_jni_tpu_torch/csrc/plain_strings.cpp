@@ -1,4 +1,4 @@
-// PLAIN BYTE_ARRAY page walk for the device Parquet scan, on the host.
+// BYTE_ARRAY page walks for the device Parquet scan, on the host.
 //
 // A PLAIN string page is a run of (4-byte little-endian length, bytes)
 // records.  Each record's position depends on every length before it, an
@@ -38,6 +38,35 @@ int64_t srjt_byte_array_offsets(const unsigned char* payload, int64_t size,
     out_offs[i + 1] = static_cast<int32_t>(total);
   }
   return total;
+}
+
+// DELTA_BYTE_ARRAY values, rebuilt: value i is the first prefix[i] bytes of
+// value i-1, then the next suffix_len[i] bytes of the suffix stream, a
+// sequential recurrence like the walk above.  Writes the n values back to
+// back into out[0:out_len] and returns the bytes written; returns -1 if a
+// prefix is longer than the value before it (the first value's must be 0),
+// -2 if the suffixes run past suffix_size, -3 if the values pass out_len and
+// -4 on a negative length.
+int64_t srjt_delta_byte_array(const int64_t* prefix, const int64_t* suffix_len,
+                              int64_t n, const unsigned char* suffix,
+                              int64_t suffix_size, unsigned char* out,
+                              int64_t out_len) {
+  int64_t prev = 0, prev_len = 0, cursor = 0, spos = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t p = prefix[i], s = suffix_len[i];
+    if (p < 0 || s < 0) return -4;
+    if (p > prev_len) return -1;
+    if (s > suffix_size - spos) return -2;
+    if (p + s > out_len - cursor) return -3;
+    // the prefix lies before cursor, so the ranges never overlap
+    std::memcpy(out + cursor, out + prev, size_t(p));
+    std::memcpy(out + cursor + p, suffix + spos, size_t(s));
+    prev = cursor;
+    prev_len = p + s;
+    cursor += p + s;
+    spos += s;
+  }
+  return cursor;
 }
 
 }  // extern "C"

@@ -1,30 +1,36 @@
 """Parquet page walk: the host half of the device scan.
 
 The port's subset of the JAX package's ``parquet/decode.py``: the thrift
-field ids and enums, page decompression, the RLE/bit-packed hybrid decoder,
-the sequential page reader, the leaf-schema walk, and PLAIN decode of
-dictionary pages, and the offsets walk of PLAIN string pages (a C
-function built at first use, :func:`byte_array_offsets`).  Everything here
-is host code and runs before any byte reaches the device
+field ids and enums, page decompression (SNAPPY in C, ``csrc/
+snappy_native.cpp``; GZIP through ``zlib``), the RLE/bit-packed hybrid
+decoder, the sequential page reader, the leaf-schema walk, PLAIN decode of
+dictionary pages, the offsets walk of PLAIN string pages (a C function
+built at first use, :func:`byte_array_offsets`), and the DELTA_* decoders.
+Everything here is host code and runs before any byte reaches the device
 (``device_scan.py``).
 
-Outside the port so far, and raised as :class:`NotImplementedError` naming
-the encoding, codec or type (no silent host decode): INT96, BOOLEAN other
-than PLAIN, FIXED_LEN_BYTE_ARRAY other than a DECIMAL of at most 16 bytes, the
-DELTA_* encodings, codecs other than UNCOMPRESSED and SNAPPY, and nested
-(repeated) columns.
+The DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY
+pages are the only values decoded on the host (:func:`delta_page`, as the
+JAX package decodes them); they reach the device as PLAIN values.  INT96
+is a TIMESTAMP_NANOSECONDS column, its days and nanoseconds combined on
+the device.  Outside the port so far, and raised as
+:class:`NotImplementedError` naming the encoding, codec or type (no
+silent host decode): BOOLEAN other than PLAIN, FIXED_LEN_BYTE_ARRAY other
+than a DECIMAL of at most 16 bytes, codecs other than UNCOMPRESSED,
+SNAPPY and GZIP, and nested (repeated) columns.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct as _struct
+import zlib
 
 import numpy as np
+from torch.profiler import record_function
 
 from .. import _native
 from .. import types as T
-from . import snappy
 from .footer import CC, FMD, RG, SE  # noqa: F401  (re-exported field ids)
 from .thrift import CompactReader, Struct
 
@@ -89,9 +95,21 @@ class CMD:         # ColumnMetaData (decode-relevant fields)
     STATISTICS = 12
 
 
+class ST:          # Statistics (row-group pruning fields)
+    MAX = 1        # deprecated physical-order max (fallback)
+    MIN = 2        # deprecated physical-order min (fallback)
+    NULL_COUNT = 3
+    DISTINCT_COUNT = 4
+    MAX_VALUE = 5  # logical-order max (preferred)
+    MIN_VALUE = 6  # logical-order min (preferred)
+
+
 _PHYS_DT = {PT_BOOLEAN: T.bool8, PT_INT32: T.int32, PT_INT64: T.int64,
-            PT_FLOAT: T.float32, PT_DOUBLE: T.float64,
-            PT_BYTE_ARRAY: T.string}
+            PT_INT96: T.timestamp_ns, PT_FLOAT: T.float32,
+            PT_DOUBLE: T.float64, PT_BYTE_ARRAY: T.string}
+# bytes of a PLAIN value of each fixed-width physical type
+PHYS_WIDTH = {PT_INT32: 4, PT_INT64: 8, PT_INT96: 12, PT_FLOAT: 4,
+              PT_DOUBLE: 8}
 # the widest decimal the port's lanes hold (DECIMAL128)
 MAX_DECIMAL_BYTES = 16
 
@@ -108,15 +126,40 @@ def enum_name(names: tuple, i) -> str:
     return names[i] if isinstance(i, int) and 0 <= i < len(names) else str(i)
 
 
-def decompress(data, codec: int, uncompressed_size: int):
-    """A page body in its codec → raw page bytes (a memoryview or bytes)."""
+def decompress(data, codec: int, uncompressed_size: int, column: str = "?"):
+    """A page body in its codec → raw page bytes (a memoryview or bytes) of
+    the header's ``uncompressed_size``.  SNAPPY goes through the C
+    decompressor, GZIP through ``zlib``; a body either rejects, or that
+    comes out at another size, raises ``ValueError`` naming ``column``."""
     if codec == CODEC_UNCOMPRESSED:
         return data
-    if codec == CODEC_SNAPPY:
-        return snappy.decompress(data, expected_size=uncompressed_size)
-    raise NotImplementedError(
-        f"parquet codec {enum_name(CODEC_NAMES, codec)} is not supported by the "
-        "port's scan (UNCOMPRESSED and SNAPPY are)")
+    if codec not in (CODEC_SNAPPY, CODEC_GZIP):
+        raise NotImplementedError(
+            f"parquet codec {enum_name(CODEC_NAMES, codec)} is not supported "
+            "by the port's scan (UNCOMPRESSED, SNAPPY and GZIP are)")
+    # what tools/torch_profile_scan.py reads as the walk's decompression
+    with record_function("parquet.scan.decompress"):
+        if codec == CODEC_GZIP:
+            try:
+                out = zlib.decompress(data, wbits=31)
+            except zlib.error as e:
+                raise ValueError(f"column {column}: GZIP page does not "
+                                 f"decompress ({e})") from None
+            if len(out) != uncompressed_size:
+                raise ValueError(f"column {column}: GZIP page holds "
+                                 f"{len(out)} bytes, its header says "
+                                 f"{uncompressed_size}")
+            return out
+        src = np.frombuffer(data, dtype=np.uint8)
+        out = np.empty(uncompressed_size, dtype=np.uint8)
+        fn = _native.host_library("snappy_native").srjt_snappy_decompress
+        rc = fn(src.ctypes.data if src.size else None, src.size,
+                out.ctypes.data, uncompressed_size)
+        if rc != uncompressed_size:
+            raise ValueError(f"column {column}: SNAPPY page rejected by the "
+                             f"decompressor (code {rc}, expected "
+                             f"{uncompressed_size} bytes)")
+        return memoryview(out)
 
 
 def bit_width(max_level: int) -> int:
@@ -228,6 +271,209 @@ def byte_array_offsets_plain(page, n: int, column: str = "?") -> np.ndarray:
                              f"more than {_MAX_CHARS} chars")
         offs[i + 1] = total
     return offs
+
+
+def _uleb128(buf, pos: int, column: str) -> tuple[int, int]:
+    out = shift = 0
+    while True:
+        if pos >= len(buf) or shift > 63:
+            raise ValueError(f"column {column}: DELTA stream ends inside a "
+                             "varint")
+        b = buf[pos]
+        pos += 1
+        out |= (b & 0x7F) << shift
+        if not b & 0x80:
+            if out >> 64:
+                raise ValueError(f"column {column}: DELTA varint passes 64 "
+                                 "bits")
+            return out, pos
+        shift += 7
+
+
+def _zigzag(v: int) -> int:
+    return (v >> 1) ^ -(v & 1)
+
+
+def decode_delta_binary_packed(buf, pos: int = 0, column: str = "?"
+                               ) -> tuple[np.ndarray, int]:
+    """DELTA_BINARY_PACKED at ``buf[pos:]`` → (int64 values, end position).
+
+    The layout of the parquet encodings spec: ULEB128 block size,
+    miniblocks a block, value count, zigzag first value; then per block a
+    zigzag min delta, one bit width a miniblock and the LSB-first packed
+    deltas.  Values are the first plus the running sum of (min delta +
+    delta), wrapping as int64 (the JAX package's
+    ``decode_delta_binary_packed``, ``spark_rapids_jni_tpu/parquet/
+    decode.py:238-283``).  The host walks the block headers; each bit
+    width's miniblocks unpack in one numpy pass.  A miniblock past the
+    last value has no bytes, whatever bit width its header gives (the
+    spec's rule; the JAX package skips ``width × values / 8`` bytes there,
+    which writers that leave those widths 0 make the same)."""
+    buf = memoryview(buf).cast("B")
+    block_size, pos = _uleb128(buf, pos, column)
+    n_mini, pos = _uleb128(buf, pos, column)
+    total, pos = _uleb128(buf, pos, column)
+    first_raw, pos = _uleb128(buf, pos, column)
+    if n_mini == 0 or block_size % n_mini or (block_size // n_mini) % 8:
+        raise ValueError(f"column {column}: DELTA block of {block_size} "
+                         f"values in {n_mini} miniblocks")
+    per = block_size // n_mini
+    starts, widths, mins = [], [], []
+    remaining = total - 1
+    while remaining > 0:
+        min_raw, pos = _uleb128(buf, pos, column)
+        if pos + n_mini > len(buf):
+            raise ValueError(f"column {column}: DELTA block header past the "
+                             "end of its page")
+        bws = bytes(buf[pos:pos + n_mini])
+        pos += n_mini
+        for bw in bws:
+            if remaining <= 0:
+                break
+            if bw > 64:
+                raise ValueError(f"column {column}: DELTA bit width {bw}")
+            starts.append(pos)
+            widths.append(bw)
+            mins.append(_zigzag(min_raw))
+            pos += bw * per // 8
+            remaining -= per
+    if pos > len(buf):
+        raise ValueError(f"column {column}: DELTA miniblocks past the end "
+                         "of their page")
+    raw = np.frombuffer(buf, np.uint8)
+    deltas = np.zeros((len(starts), per), np.uint64)
+    widths_a = np.asarray(widths, np.int64)
+    starts_a = np.asarray(starts, np.int64)
+    for bw in np.unique(widths_a[widths_a > 0]).tolist():
+        sel = np.flatnonzero(widths_a == bw)
+        nb = bw * per // 8
+        chunk = raw[starts_a[sel, None] + np.arange(nb)]
+        bits = np.unpackbits(chunk, axis=1, bitorder="little").reshape(
+            sel.shape[0], per, bw)
+        acc = np.zeros((sel.shape[0], per), np.uint64)
+        for b in range(bw):
+            acc |= bits[:, :, b].astype(np.uint64) << np.uint64(b)
+        deltas[sel] = acc
+    deltas += np.asarray(mins, np.int64).astype(np.uint64)[:, None]
+    out = np.empty(max(total, 0), np.int64)
+    if total:
+        steps = deltas.reshape(-1)[:total - 1].view(np.int64)
+        out[0] = _zigzag(first_raw)
+        np.cumsum(steps, out=out[1:])
+        out[1:] += out[0]
+    return out, pos
+
+
+def decode_delta_length_byte_array(buf, n: int, column: str = "?"
+                                   ) -> tuple[np.ndarray, np.ndarray]:
+    """DELTA_LENGTH_BYTE_ARRAY → (chars uint8, int64 lengths [n]): the
+    lengths DELTA_BINARY_PACKED, then every value's chars back to back."""
+    lens, pos = decode_delta_binary_packed(buf, 0, column)
+    if lens.shape[0] < n or (lens[:n] < 0).any():
+        raise ValueError(f"column {column}: DELTA_LENGTH_BYTE_ARRAY lengths "
+                         f"hold {lens.shape[0]} values, expected {n}")
+    lens = lens[:n]
+    total = int(lens.sum())
+    if pos + total > len(buf):
+        raise ValueError(f"column {column}: DELTA_LENGTH_BYTE_ARRAY chars "
+                         "run past the end of their page")
+    return np.frombuffer(buf, np.uint8, total, pos), lens
+
+
+def decode_delta_byte_array(buf, n: int, column: str = "?"
+                            ) -> tuple[np.ndarray, np.ndarray]:
+    """DELTA_BYTE_ARRAY → (chars uint8, int64 lengths [n]): prefix lengths
+    and suffix lengths, both DELTA_BINARY_PACKED, then the suffixes; value
+    i is value i-1's first prefix[i] bytes and its suffix.  The rebuild is
+    a C function (``csrc/plain_strings.cpp``)."""
+    prefix, pos = decode_delta_binary_packed(buf, 0, column)
+    suffix, pos = decode_delta_binary_packed(buf, pos, column)
+    if prefix.shape[0] < n or suffix.shape[0] < n:
+        raise ValueError(f"column {column}: DELTA_BYTE_ARRAY lengths hold "
+                         f"{min(prefix.shape[0], suffix.shape[0])} values, "
+                         f"expected {n}")
+    prefix = np.ascontiguousarray(prefix[:n])
+    suffix = np.ascontiguousarray(suffix[:n])
+    lens = prefix + suffix
+    if (prefix < 0).any() or (suffix < 0).any():
+        raise ValueError(f"column {column}: DELTA_BYTE_ARRAY negative length")
+    stream = np.frombuffer(buf, np.uint8)[pos:]
+    out = np.empty(int(lens.sum()), np.uint8)
+    fn = _native.host_library("plain_strings").srjt_delta_byte_array
+    rc = fn(prefix.ctypes.data, suffix.ctypes.data, n,
+            stream.ctypes.data if stream.size else None, stream.size,
+            out.ctypes.data, out.size)
+    if rc != out.size:
+        raise ValueError(f"column {column}: DELTA_BYTE_ARRAY values do not "
+                         f"rebuild (code {rc})")
+    return out, lens
+
+
+def delta_byte_array_plain(prefix, suffix_lens, stream) -> np.ndarray:
+    """Python twin of the C rebuild in :func:`decode_delta_byte_array`
+    (the JAX package's loop), for the tests."""
+    lens = [int(p) + int(s) for p, s in zip(prefix, suffix_lens)]
+    out = bytearray()
+    prev = spos = 0
+    for p, s, ln in zip(prefix, suffix_lens, lens):
+        start = len(out)
+        out += out[prev:prev + int(p)]
+        out += bytes(stream[spos:spos + int(s)])
+        spos += int(s)
+        prev = start
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def plain_records(chars: np.ndarray, lens: np.ndarray) -> bytes:
+    """Values as PLAIN BYTE_ARRAY records (4-byte little-endian length,
+    then the chars), the form the scan stages strings in."""
+    k = lens.shape[0]
+    rec = np.zeros(k + 1, np.int64)
+    np.cumsum(lens + 4, out=rec[1:])
+    out = np.empty(int(rec[-1]), np.uint8)
+    out[(rec[:-1, None] + np.arange(4)).reshape(-1)] = (
+        lens.astype("<u4").view(np.uint8))
+    mask = np.ones(out.shape[0], bool)
+    mask[(rec[:-1, None] + np.arange(4)).reshape(-1)] = False
+    out[mask] = chars
+    return out.tobytes()
+
+
+def delta_page(page, enc: int, leaf: "Leaf", n: int):
+    """A DELTA_* page's ``n`` values decoded on the host, in the form the
+    scan stages PLAIN values in: little-endian words for INT32 and INT64,
+    the values back to back for FIXED_LEN_BYTE_ARRAY, and (PLAIN records,
+    int32 char offsets [n+1]) for BYTE_ARRAY.  Raises
+    ``NotImplementedError`` for an encoding the physical type cannot
+    take."""
+    phys, column = leaf.phys, leaf.path
+    if enc == ENC_DELTA_BINARY_PACKED and phys in (PT_INT32, PT_INT64):
+        vals, _ = decode_delta_binary_packed(page, 0, column)
+        if vals.shape[0] < n:
+            raise ValueError(f"column {column}: DELTA_BINARY_PACKED page "
+                             f"holds {vals.shape[0]} values, expected {n}")
+        return vals[:n].astype("<i4" if phys == PT_INT32 else "<i8").tobytes()
+    if enc == ENC_DELTA_LENGTH_BYTE_ARRAY and phys == PT_BYTE_ARRAY:
+        chars, lens = decode_delta_length_byte_array(page, n, column)
+    elif enc == ENC_DELTA_BYTE_ARRAY and phys in (PT_BYTE_ARRAY,
+                                                    PT_FIXED_LEN_BYTE_ARRAY):
+        chars, lens = decode_delta_byte_array(page, n, column)
+    else:
+        raise NotImplementedError(
+            f"column {column}: encoding {enum_name(ENCODING_NAMES, enc)} of "
+            f"{enum_name(PHYS_NAMES, phys)} is not supported by the port's "
+            "scan")
+    if phys == PT_FIXED_LEN_BYTE_ARRAY:
+        if (lens != leaf.type_len).any():
+            raise ValueError(f"column {column}: a DELTA_BYTE_ARRAY value is "
+                             f"not {leaf.type_len} bytes")
+        return chars.tobytes()
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    if offs[-1] > _MAX_CHARS:
+        raise ValueError(f"column {column}: DELTA string page holds more "
+                         f"than {_MAX_CHARS} chars")
+    return plain_records(chars, lens), offs.astype(np.int32)
 
 
 class PageStream:

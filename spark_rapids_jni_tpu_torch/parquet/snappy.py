@@ -10,10 +10,10 @@ the raw Snappy block format (no framing, as used inside Parquet pages):
 * elements: tag byte, low two bits select literal / 1-2-4-byte-offset copy
   (https format description lives in the public snappy repo's format_description.txt).
 
-The port's own copy of the JAX package's ``parquet/snappy.py``.  It runs
-at host-Python element rate, which suits tests and small files; the device
-scan treats page decompression as a host staging step, the way the
-reference stages host buffers before the copy to the device.
+The port's own copy of the JAX package's ``parquet/snappy.py``, kept as
+the plain version of the scan's C decompressor (``csrc/snappy_native.cpp``,
+``decode.decompress``): the tests hold the two against each other.  It
+runs at host-Python element rate, so the scan never calls it.
 """
 
 from __future__ import annotations

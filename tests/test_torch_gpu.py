@@ -770,3 +770,67 @@ def test_string_keys_launch_b3_b4_and_match_plain(cuda):
     codes_c, uniq_c = strings.dictionary_encode(col_c)
     assert torch.equal(codes.data.cpu(), codes_c.data)
     assert uniq.to_pylist() == uniq_c.to_pylist()
+
+
+def _same_scans(gpu, cpu):
+    assert gpu.num_columns == cpu.num_columns
+    for g, c in zip(gpu.columns, cpu.columns):
+        assert type(g) is type(c) and g.dtype == c.dtype
+        assert torch.equal(g.validity_or_true().cpu(), c.validity_or_true())
+        assert torch.equal(g.data.cpu(), c.data)          # materializes
+        if g.dtype.is_variable_width:
+            assert torch.equal(g.offsets.cpu(), c.offsets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page_version", [1, 2])
+def test_spark_file_on_card_matches_cpu(cuda, page_version):
+    """A lineitem file as Spark writes it (SNAPPY, dictionary fallback to
+    PLAIN; with the v2 writer GZIP, DataPageV2, DELTA fallbacks and INT96
+    dates, 10% nulls) scans the same on the card as on the CPU; its mixed
+    string chunk launches B4 for the PLAIN runs and B5, B6 and B2 for the
+    dictionary runs."""
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    W = _lineitem_writer()
+    kw = dict(W.SPARK_DEFAULTS, dict_page_bytes=8192, page_row_limit=200)
+    if page_version == 2:
+        kw.update(codec="GZIP", page_version=2, int96_dates=True)
+    raw, _, _ = W.lineitem_parquet(20000, 9, row_group_rows=6000,
+                                   null_fraction=0.1 * (page_version - 1),
+                                   **kw)
+    before = bytepath.launch_counts()
+    b4 = ragged.segmented_copy.launches
+    b2 = ragged.pack_rows.launches
+    gpu = device_scan.scan_table(raw, device=cuda)
+    assert ragged.segmented_copy.launches > b4
+    assert ragged.pack_rows.launches > b2
+    delta = _launches_delta(before, bytepath.launch_counts())
+    assert all(v > 0 for v in delta.values()), delta
+    assert not isinstance(gpu[15], pt.DictColumn)        # mixed l_comment
+    cpu = device_scan.scan_table(raw, device="cpu")
+    assert gpu.host_decoded_cols == cpu.host_decoded_cols
+    if page_version == 2:
+        assert gpu[10].dtype == pt.timestamp_ns and gpu.host_decoded_cols > 0
+    _same_scans(gpu, cpu)
+
+
+@pytest.mark.gpu
+def test_pruned_scan_on_card_matches_cpu(cuda):
+    """Row-group pruning on the sorted l_orderkey, and a predicate that
+    prunes every group, on the card and on the CPU."""
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    W = _lineitem_writer()
+    raw, data, _ = W.lineitem_parquet(20000, 9, row_group_rows=4000,
+                                      **W.SPARK_DEFAULTS)
+    keys = data["l_orderkey"]
+    lo, hi = int(keys[5000]), int(keys[13000])
+    conds = [("l_orderkey", "ge", lo), ("l_orderkey", "le", hi)]
+    gpu = device_scan.scan_table(raw, rowgroup_predicate=conds, device=cuda)
+    cpu = device_scan.scan_table(raw, rowgroup_predicate=conds, device="cpu")
+    assert gpu.num_rows == 12000                 # groups 1, 2 and 3
+    _same_scans(gpu, cpu)
+    none = [("l_orderkey", "lt", 0)]
+    gpu = device_scan.scan_table(raw, rowgroup_predicate=none, device=cuda)
+    cpu = device_scan.scan_table(raw, rowgroup_predicate=none, device="cpu")
+    assert gpu.num_rows == 0 and gpu.schema == cpu.schema
+    _same_scans(gpu, cpu)

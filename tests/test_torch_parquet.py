@@ -12,6 +12,7 @@ import datetime
 import io
 import pathlib
 import sys
+import zlib
 
 import numpy as np
 import pyarrow as pa
@@ -163,6 +164,8 @@ def test_snappy_matches_jax(kind):
     comp = pa.compress(data, codec="snappy", asbytes=True)
     got = PS.decompress(comp, expected_size=len(data))
     assert got == data == JS.decompress(comp, expected_size=len(data))
+    # the scan's C decompressor, which the Python one is the plain twin of
+    assert bytes(PD.decompress(comp, PD.CODEC_SNAPPY, len(data))) == data
     with pytest.raises(PS.SnappyError):
         PS.decompress(comp, expected_size=len(data) + 1)
 
@@ -271,8 +274,12 @@ def test_plain_dictionary_page_decoders():
         PD.decode_plain_strings(page[:2], 1)
     chars, offs = PD.decode_plain_strings(b"", 0)
     assert chars.size == 0 and offs.tolist() == [0]
-    with pytest.raises(NotImplementedError, match="GZIP"):
-        PD.decompress(b"", PD.CODEC_GZIP, 0)
+    # GZIP pages decompress now (zlib, gzip framing), as in the JAX package
+    page = b"".join(len(v).to_bytes(4, "little") + v for v in vocab)
+    gz = zlib.compressobj(6, zlib.DEFLATED, 31)
+    packed = gz.compress(page) + gz.flush()
+    assert bytes(PD.decompress(packed, PD.CODEC_GZIP, len(page))) == page
+    assert JD._decompress(packed, JD.CODEC_GZIP, len(page)) == page
 
 
 # ---------------------------------------------------------------------------

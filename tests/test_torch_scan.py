@@ -691,29 +691,42 @@ def _refused(table: pa.Table, match: str, **kw):
 
 
 def test_refuses_plain_strings():
-    """PLAIN strings scan (``test_plain_strings_*``), but a chunk whose
-    dictionary filled up and went on in PLAIN pages is refused, as the JAX
-    scan sends it to its host path."""
-    _refused(pa.table({"s": [f"value-{i}" for i in range(5000)]}),
-             "mixes PLAIN and dictionary", dictionary_pagesize_limit=2000,
-             data_page_size=1000, write_batch_size=100)
+    """A chunk whose dictionary filled up and went on in PLAIN pages used
+    to be refused; it scans now (the JAX scan sends it to its host path),
+    materialized, equal to the JAX scan and to pyarrow."""
+    t = pa.table({"s": [f"value-{i}" for i in range(5000)]})
+    raw = _write(t, dictionary_pagesize_limit=2000, data_page_size=1000,
+                 write_batch_size=100)
+    got = pscan.scan_table(raw, device=CPU)
+    assert not isinstance(got[0], pt.DictColumn)
+    assert_column_equal(got[0], jscan.scan_table(raw)[0])
+    assert_matches_arrow(got[0], t["s"])
 
 
 def test_refuses_boolean_and_delta():
-    """BOOLEAN scans now (``test_scan_boolean_*``); fixed-size binary that
-    is no decimal, and the DELTA encodings, are refused."""
+    """BOOLEAN scans now (``test_scan_boolean_*``), and so does
+    DELTA_BINARY_PACKED (decoded on the host, equal to the JAX scan);
+    fixed-size binary that is no decimal is still refused."""
     _refused(pa.table({"b": pa.array([b"ab", b"cd"], pa.binary(2))}),
              "FIXED_LEN_BYTE_ARRAY")
-    _refused(pa.table({"i": np.arange(100, dtype=np.int64)}),
-             "DELTA_BINARY_PACKED", use_dictionary=False,
-             column_encoding={"i": "DELTA_BINARY_PACKED"})
+    t = pa.table({"i": np.arange(100, dtype=np.int64) * -7})
+    raw = _write(t, use_dictionary=False,
+                 column_encoding={"i": "DELTA_BINARY_PACKED"})
+    got = pscan.scan_table(raw, device=CPU)
+    assert got.host_decoded_cols == 1
+    assert_column_equal(got[0], jscan.scan_table(raw)[0])
+    assert_matches_arrow(got[0], t["i"])
 
 
 def test_refuses_gzip_and_decimal_bytes():
-    """FLBA decimals of up to 16 bytes scan now (``test_scan_flba_*``);
-    a wider one, past DECIMAL128's lanes, is refused."""
-    _refused(pa.table({"i": np.arange(10, dtype=np.int64)}), "GZIP",
-             compression="GZIP")
+    """GZIP pages scan now, equal to the JAX scan; FLBA decimals of up to
+    16 bytes scan (``test_scan_flba_*``); a wider one, past DECIMAL128's
+    lanes, is refused."""
+    t = pa.table({"i": np.arange(10, dtype=np.int64)})
+    raw = _write(t, compression="GZIP")
+    got = pscan.scan_table(raw, device=CPU)
+    assert_column_equal(got[0], jscan.scan_table(raw)[0])
+    assert_matches_arrow(got[0], t["i"])
     import decimal
     _refused(pa.table({"x": pa.array([decimal.Decimal("1.25")],
                                      pa.decimal256(40, 2))}), "DECIMAL")

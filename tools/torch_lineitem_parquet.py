@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A numpy-only Parquet writer and TPC-H lineitem generator.
 
-    python3 tools/torch_lineitem_parquet.py --rows 6001215 --out lineitem.parquet
+    python3 tools/torch_lineitem_parquet.py --rows 6001215 [--spark] --out lineitem.parquet
 
 Test data for the PyTorch port's device scan, shared by ``chip_smoke.py``
 and the tests: the card's machine has no pyarrow, and the repository holds
@@ -10,12 +10,19 @@ and RLE_DICTIONARY pages (the codes as bit-packed runs of at most 63
 groups, as parquet-mr writes them), PLAIN strings, DECIMALs as
 FIXED_LEN_BYTE_ARRAY or BYTE_ARRAY (big-endian two's complement, the
 latter at each value's fewest bytes, as parquet-mr's legacy writers do),
-definition levels for OPTIONAL columns, UNCOMPRESSED data page v1, and a
-thrift compact footer with min/max statistics (none for decimals; null
-counts only for PLAIN strings).  Each row
-group writes its dictionary in first-occurrence order, as parquet-mr and
-pyarrow do.  The tests read its output back with pyarrow, which checks the
-writer apart from both scanners.
+INT96 timestamps, DELTA_BINARY_PACKED and DELTA_BYTE_ARRAY pages,
+definition levels for OPTIONAL columns, data pages v1 or DataPageV2,
+UNCOMPRESSED, SNAPPY (a small greedy compressor in C,
+``tools/torch_snappy_compress.cpp``, built with the host compiler into
+``build/torch_tools/`` at first use) or GZIP (``zlib``), and a thrift
+compact footer with min/max statistics (none for decimals and INT96; null
+counts only for PLAIN strings).  Each row group writes its dictionary in
+first-occurrence order, as parquet-mr and pyarrow do; with a dictionary
+page size, a dictionary-encoded chunk keeps its leading dictionary pages
+and falls back to PLAIN (DELTA for the v2 writer) from the first page
+that would take its dictionary past that size, as parquet-mr does
+(``SPARK_DEFAULTS``, ``--spark``).  The tests read its output back with
+pyarrow, which checks the writer apart from both scanners.
 
 The generator follows TPC-H v3.0.1 §4.2.3 for lineitem's 16 columns: keys
 INT64 (orderkey sparse as dbgen makes it, partkey uniform in
@@ -40,27 +47,50 @@ FLBA DECIMAL(12,2) PLAIN (``quantity × retail cents``, exact),
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
+import functools
+import hashlib
 import os
+import shutil
 import struct
+import subprocess
 import sys
+import zlib
 from typing import Optional
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 from spark_rapids_jni_tpu_torch.parquet.thrift import (  # noqa: E402
     CompactWriter, Field, ListValue, Struct, TType)
 
 MAGIC = b"PAR1"
-PHYS = {"INT32": 1, "INT64": 2, "DOUBLE": 5, "BYTE_ARRAY": 6,
+PHYS = {"INT32": 1, "INT64": 2, "INT96": 3, "DOUBLE": 5, "BYTE_ARRAY": 6,
         "FIXED_LEN_BYTE_ARRAY": 7}
 _NP = {"INT32": np.dtype("<i4"), "INT64": np.dtype("<i8"),
        "DOUBLE": np.dtype("<f8")}
 CONVERTED = {"UTF8": 0, "DECIMAL": 5, "DATE": 6}
-ENC_PLAIN, ENC_RLE, ENC_RLE_DICTIONARY = 0, 3, 8
-PAGE_DATA, PAGE_DICTIONARY = 0, 2
+ENC_PLAIN, ENC_RLE, ENC_DELTA_BINARY_PACKED, ENC_DELTA_BYTE_ARRAY, \
+    ENC_RLE_DICTIONARY = 0, 3, 5, 7, 8
+PAGE_DATA, PAGE_DICTIONARY, PAGE_DATA_V2 = 0, 2, 3
+CODECS = {"UNCOMPRESSED": 0, "SNAPPY": 1, "GZIP": 2}
 MAX_BP_GROUPS = 63           # parquet-mr's longest bit-packed run
+# DELTA_BINARY_PACKED blocks as parquet-mr writes them: 128 values in 4
+# miniblocks of 32
+DELTA_BLOCK, DELTA_MINIBLOCKS = 128, 4
+DELTA_PER_MINI = DELTA_BLOCK // DELTA_MINIBLOCKS
+JULIAN_UNIX_EPOCH = 2440588          # Julian day of 1970-01-01
+NS_PER_DAY = 86_400_000_000_000
+# what Spark 3 (parquet-mr 1.12 and later) writes by default: SNAPPY,
+# every column dictionary-encoded with a fallback once its dictionary
+# passes 1 MiB (parquet.dictionary.page.size), pages of 1 MiB
+# (parquet.page.size) and of at most 20,000 rows
+# (parquet.page.row.count.limit); parquet.writer.version=v2 adds
+# DataPageV2 and the DELTA fallbacks
+SPARK_DEFAULTS = dict(codec="SNAPPY", dict_page_bytes=1 << 20,
+                      data_page_bytes=1 << 20, page_row_limit=20_000)
 
 
 @dataclasses.dataclass
@@ -72,11 +102,12 @@ class ParquetColumn:
     OPTIONAL; null slots of ``values`` are ignored."""
 
     name: str
-    phys: str                                  # INT32 | INT64 | DOUBLE |
-    #                                            BYTE_ARRAY |
+    phys: str                                  # INT32 | INT64 | INT96 |
+    #                                            DOUBLE | BYTE_ARRAY |
     #                                            FIXED_LEN_BYTE_ARRAY
-    values: np.ndarray
-    encoding: str = "plain"                    # plain | dict
+    values: np.ndarray                         # INT96: int64 nanoseconds,
+    #                                            or raw records [n, 12]
+    encoding: str = "plain"                    # plain | dict | delta
     converted: Optional[str] = None            # UTF8 | DATE | DECIMAL
     vocab: Optional[list] = None
     validity: Optional[np.ndarray] = None
@@ -243,18 +274,227 @@ def _plain_records(chars: np.ndarray, offsets: np.ndarray,
 def _first_occurrence(values: np.ndarray):
     """(distinct values in first-occurrence order, code of every value)."""
     uniq, first, inverse = np.unique(values, return_index=True,
-                                     return_inverse=True)
+                                     return_inverse=True,
+                                     axis=0 if values.ndim > 1 else None)
     order = np.argsort(first, kind="stable")
     rank = np.empty_like(order)
     rank[order] = np.arange(order.shape[0])
     return uniq[order], rank[inverse.reshape(-1)]
 
 
+# ---------------------------------------------------------------------------
+# codecs
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _snappy_library() -> ctypes.CDLL:
+    """``torch_snappy_compress.cpp`` built with the host compiler into
+    ``build/torch_tools/`` (named by a hash of its source) and loaded."""
+    from spark_rapids_jni_tpu_torch import _native
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_snappy_compress.cpp")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_native.HOST_FLAGS)
+                                .encode()).hexdigest()[:16]
+    build = os.path.join(ROOT, "build", "torch_tools")
+    lib = os.path.join(build, f"libtorch_snappy_compress_{digest}.so")
+    if not os.path.exists(lib):
+        os.makedirs(build, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cxx = shutil.which("c++") or "/usr/bin/g++"
+        subprocess.run([cxx, *_native.HOST_FLAGS, "-o", tmp, src], check=True,
+                       capture_output=True, timeout=_native.BUILD_TIMEOUT_S)
+        os.replace(tmp, lib)
+    dll = ctypes.CDLL(lib)
+    dll.srjt_snappy_compress.argtypes = (ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p, ctypes.c_void_p)
+    dll.srjt_snappy_compress.restype = ctypes.c_int64
+    dll.srjt_snappy_max_compressed.argtypes = (ctypes.c_int64,)
+    dll.srjt_snappy_max_compressed.restype = ctypes.c_int64
+    return dll
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """``data`` as one raw Snappy block (the greedy compressor of
+    ``tools/torch_snappy_compress.cpp``)."""
+    lib = _snappy_library()
+    src = np.frombuffer(data, np.uint8)
+    dst = np.empty(lib.srjt_snappy_max_compressed(src.size), np.uint8)
+    table = np.empty(1 << 16, np.int64)
+    n = lib.srjt_snappy_compress(src.ctypes.data if src.size else None,
+                                 src.size, dst.ctypes.data, table.ctypes.data)
+    return dst[:n].tobytes()
+
+
+def compress(body: bytes, codec: str) -> bytes:
+    """A page body in ``codec`` (UNCOMPRESSED, SNAPPY or GZIP)."""
+    if codec == "UNCOMPRESSED":
+        return body
+    if codec == "GZIP":
+        z = zlib.compressobj(6, zlib.DEFLATED, 31)       # gzip framing
+        return z.compress(body) + z.flush()
+    if codec == "SNAPPY":
+        return snappy_compress(body)
+    raise ValueError(f"codec {codec}")
+
+
+# ---------------------------------------------------------------------------
+# PLAIN and DELTA values
+# ---------------------------------------------------------------------------
+
+def int96_bytes(ns: np.ndarray) -> bytes:
+    """int64 nanoseconds since the epoch as INT96 timestamps: 8
+    little-endian bytes of nanoseconds in the day, then the 4-byte Julian
+    day (Impala's layout, Spark's default timestamp type)."""
+    ns = np.asarray(ns, np.int64)
+    days = np.floor_divide(ns, NS_PER_DAY)
+    rec = np.empty((ns.shape[0], 12), np.uint8)
+    rec[:, :8] = (ns - days * NS_PER_DAY).astype("<i8").view(
+        np.uint8).reshape(-1, 8)
+    rec[:, 8:] = (days + JULIAN_UNIX_EPOCH).astype("<i4").view(
+        np.uint8).reshape(-1, 4)
+    return rec.tobytes()
+
+
+def _zigzag(v: int) -> int:
+    return (v << 1) ^ (v >> 63)
+
+
+def _bit_lengths(x: np.ndarray) -> np.ndarray:
+    """The bit length of each uint64."""
+    out = np.zeros(x.shape[0], np.int64)
+    x = x.copy()
+    while x.any():
+        out += x != 0
+        x >>= np.uint64(1)
+    return out
+
+
+def delta_binary_packed(values: np.ndarray) -> bytes:
+    """DELTA_BINARY_PACKED of int64 values, as parquet-mr writes it: blocks
+    of 128 deltas in 4 miniblocks of 32, each block's deltas less its
+    smallest, bit-packed LSB first at its miniblock's width; a miniblock
+    past the last value gets width 0 and no bytes.  Deltas wrap as
+    int64."""
+    v = np.asarray(values, np.int64)
+    n = v.shape[0]
+    out = bytearray(_uleb(DELTA_BLOCK) + _uleb(DELTA_MINIBLOCKS) + _uleb(n)
+                    + _uleb(_zigzag(int(v[0]) if n else 0)))
+    if n <= 1:
+        return bytes(out)
+    d = (v[1:].view(np.uint64) - v[:-1].view(np.uint64)).view(np.int64)
+    nb = -(-d.shape[0] // DELTA_BLOCK)
+    mins = np.array([d[b * DELTA_BLOCK:(b + 1) * DELTA_BLOCK].min()
+                     for b in range(nb)], np.int64)
+    blocks = np.repeat(mins, DELTA_BLOCK).reshape(nb, DELTA_BLOCK)
+    blocks.reshape(-1)[:d.shape[0]] = d
+    rel = blocks.view(np.uint64) - mins.view(np.uint64)[:, None]
+    minis = rel.reshape(-1, DELTA_PER_MINI)
+    widths = _bit_lengths(minis.max(axis=1))
+    needed = np.arange(minis.shape[0]) * DELTA_PER_MINI < d.shape[0]
+    widths[~needed] = 0
+    packed = [b""] * minis.shape[0]
+    for w in np.unique(widths[widths > 0]).tolist():
+        sel = np.flatnonzero(widths == w)
+        bits = ((minis[sel, :, None] >> np.arange(w, dtype=np.uint64))
+                & np.uint64(1)).astype(np.uint8)
+        rows = np.packbits(bits.reshape(sel.shape[0], -1), axis=1,
+                           bitorder="little")
+        for i, row in zip(sel.tolist(), rows):
+            packed[i] = row.tobytes()
+    for b in range(nb):
+        out += _uleb(_zigzag(int(mins[b])))
+        out += bytes(widths[b * DELTA_MINIBLOCKS:(b + 1) * DELTA_MINIBLOCKS]
+                     .astype(np.uint8))
+        out += b"".join(packed[b * DELTA_MINIBLOCKS:(b + 1) * DELTA_MINIBLOCKS])
+    return bytes(out)
+
+
+def delta_byte_array(chars: np.ndarray, offsets: np.ndarray) -> bytes:
+    """DELTA_BYTE_ARRAY of the values at int64 ``offsets`` [k+1] of
+    ``chars``: each value's prefix shared with the value before it and
+    the lengths of the rest, both DELTA_BINARY_PACKED, then those rests
+    back to back."""
+    k = offsets.shape[0] - 1
+    lens = offsets[1:] - offsets[:-1]
+    prefix = np.zeros(k, np.int64)
+    if k > 1:
+        most = np.minimum(lens[1:], lens[:-1])
+        alive = np.flatnonzero(most > 0)
+        j = 0
+        while alive.shape[0]:
+            same = (chars[offsets[1:-1][alive] + j]
+                    == chars[offsets[:-2][alive] + j])
+            alive = alive[same]
+            prefix[alive + 1] += 1
+            j += 1
+            alive = alive[most[alive] > j]
+    rest = lens - prefix
+    dst = np.zeros(k + 1, np.int64)
+    np.cumsum(rest, out=dst[1:])
+    src = (np.repeat(offsets[:-1] + prefix - dst[:-1], rest)
+           + np.arange(int(dst[-1]), dtype=np.int64))
+    return (delta_binary_packed(prefix) + delta_binary_packed(rest)
+            + chars[src].tobytes())
+
+
+def _string_values(col: ParquetColumn, present: np.ndarray) -> tuple:
+    """(chars, int64 offsets [k+1]) of the present values of a BYTE_ARRAY
+    or FIXED_LEN_BYTE_ARRAY column."""
+    if col.phys == "FIXED_LEN_BYTE_ARRAY":
+        w = col.type_length
+        return (np.frombuffer(flba_bytes(present, w), np.uint8),
+                np.arange(present.shape[0] + 1, dtype=np.int64) * w)
+    if col.strings is not None:
+        chars, offs = col.strings
+        lo, hi = offs[present], offs[present + 1]
+    else:
+        vlen = np.array([len(v) for v in col.vocab], np.int64)
+        vstart = np.concatenate([[0], np.cumsum(vlen)[:-1]]).astype(np.int64)
+        chars = np.frombuffer(b"".join(col.vocab), np.uint8)
+        lo = vstart[present]
+        hi = lo + vlen[present]
+    out = np.zeros(present.shape[0] + 1, np.int64)
+    np.cumsum(hi - lo, out=out[1:])
+    src = (np.repeat(lo - out[:-1], hi - lo)
+           + np.arange(int(out[-1]), dtype=np.int64))
+    return chars[src], out
+
+
+def _encode(col: ParquetColumn, present: np.ndarray, enc: int) -> bytes:
+    """Present values (numbers, unscaled decimals, row numbers or vocab
+    codes) in encoding ``enc``."""
+    if enc == ENC_DELTA_BINARY_PACKED:
+        return delta_binary_packed(present)
+    if enc == ENC_DELTA_BYTE_ARRAY:
+        return delta_byte_array(*_string_values(col, present))
+    if col.phys == "BYTE_ARRAY":
+        if col.strings is not None:
+            return _plain_records(*col.strings, present)
+        return _plain_strings(col.vocab, present)
+    if col.phys == "FIXED_LEN_BYTE_ARRAY":
+        return flba_bytes(present, col.type_length)
+    if col.phys == "INT96":
+        return (int96_bytes(present) if present.ndim == 1
+                else np.ascontiguousarray(present, np.uint8).tobytes())
+    return np.ascontiguousarray(present, _NP[col.phys]).tobytes()
+
+
+def _entry_bytes(col: ParquetColumn, entries: np.ndarray) -> np.ndarray:
+    """Bytes each dictionary entry takes in the PLAIN dictionary page."""
+    if col.phys == "BYTE_ARRAY":
+        _, offs = _string_values(col, entries)
+        return 4 + (offs[1:] - offs[:-1])
+    width = {"INT96": 12, "FIXED_LEN_BYTE_ARRAY": col.type_length}.get(
+        col.phys) or _NP[col.phys].itemsize
+    return np.full(entries.shape[0], width, np.int64)
+
+
 def _stat_bytes(col: ParquetColumn, present: np.ndarray):
     """(min, max) PLAIN-encoded, or None when nothing is present (and for
-    decimals)."""
+    decimals, INT96 and PLAIN-string columns)."""
     if (present.shape[0] == 0 or col.strings is not None
-            or col.decimal is not None):
+            or col.decimal is not None or col.phys == "INT96"):
         return None
     if col.phys == "BYTE_ARRAY":
         strs = [col.vocab[c] for c in np.unique(present)]
@@ -264,88 +504,157 @@ def _stat_bytes(col: ParquetColumn, present: np.ndarray):
             np.asarray(present.max(), dt).tobytes())
 
 
-def _page(ptype: int, body: bytes, header_field) -> bytes:
-    header = _struct(_i32(1, ptype), _i32(2, len(body)), _i32(3, len(body)),
-                     header_field)
-    return _thrift(header) + body
+def _page(ptype: int, body: bytes, header_field, codec: str = "UNCOMPRESSED",
+          plain_prefix: bytes = b"") -> tuple[bytes, int]:
+    """(header and stored page, bytes of header and uncompressed page):
+    ``plain_prefix`` (a DataPageV2's levels) stays uncompressed."""
+    stored = plain_prefix + compress(body, codec)
+    usize = len(plain_prefix) + len(body)
+    header = _thrift(_struct(_i32(1, ptype), _i32(2, usize),
+                             _i32(3, len(stored)), header_field))
+    return header + stored, len(header) + usize
+
+
+@dataclasses.dataclass
+class WriteOptions:
+    """How :func:`write_parquet` cuts and encodes the pages."""
+
+    data_page_bytes: int = 1 << 20
+    pages_per_chunk: Optional[int] = None
+    codec: str = "UNCOMPRESSED"
+    # with a size, a dictionary-encoded chunk falls back, as parquet-mr's
+    # does, at the first page whose values take its dictionary past it
+    dict_page_bytes: Optional[int] = None
+    page_version: int = 1                  # 2: DataPageV2, DELTA fallback
+    page_row_limit: Optional[int] = None
 
 
 def _rows_per_page(col: ParquetColumn, bw: int, rows: int,
-                   data_page_bytes: int, pages_per_chunk) -> int:
-    if pages_per_chunk:
-        per = -(-rows // pages_per_chunk)
+                   opts: WriteOptions) -> int:
+    if opts.pages_per_chunk:
+        per = -(-rows // opts.pages_per_chunk)
     else:
         if col.strings is not None:
             offs = col.strings[1]
             n = max(offs.shape[0] - 1, 1)
             bits = 8 * (4 + -(-int(offs[-1] - offs[0]) // n))
-        elif col.phys == "FIXED_LEN_BYTE_ARRAY" and col.encoding == "plain":
-            bits = col.type_length * 8
-        elif col.encoding == "plain":
-            bits = _NP[col.phys].itemsize * 8
-        else:
+        elif col.encoding == "dict":
             bits = bw
+        elif col.phys in ("FIXED_LEN_BYTE_ARRAY", "INT96"):
+            bits = 8 * (col.type_length or 12)
+        else:
+            bits = _NP[col.phys].itemsize * 8
         bits += 1 if col.validity is not None else 0
-        per = data_page_bytes * 8 // max(bits, 1)
+        per = opts.data_page_bytes * 8 // max(bits, 1)
+    if opts.page_row_limit:
+        per = min(per, opts.page_row_limit)
     return max(8, -(-per // 8) * 8)
 
 
+def _fallback_encoding(col: ParquetColumn, opts: WriteOptions) -> int:
+    """The encoding of the pages after a dictionary's fallback (and of a
+    ``delta`` column): PLAIN for the v1 writer; for the v2 writer, and for
+    ``delta``, DELTA_BINARY_PACKED for INT32 and INT64, DELTA_BYTE_ARRAY
+    for byte arrays, PLAIN for the rest, as parquet-mr chooses."""
+    if opts.page_version == 1 and col.encoding != "delta":
+        return ENC_PLAIN
+    if col.phys in ("INT32", "INT64"):
+        return ENC_DELTA_BINARY_PACKED
+    if col.phys in ("BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY"):
+        return ENC_DELTA_BYTE_ARRAY
+    if col.encoding == "delta":
+        raise ValueError(f"column {col.name}: no DELTA encoding for "
+                         f"{col.phys}")
+    return ENC_PLAIN
+
+
+def _dictionary_pages(col: ParquetColumn, codes: np.ndarray,
+                      entries: np.ndarray, page_present: list,
+                      opts: WriteOptions) -> int:
+    """How many leading pages stay dictionary-encoded: all of them, or,
+    with ``opts.dict_page_bytes``, those before the first page whose
+    values take the dictionary (its entries in first-occurrence order)
+    past that size.  (parquet-mr also falls back when the first page's
+    codes and dictionary outweigh its PLAIN bytes; that test is left
+    out, so a column of distinct values keeps one leading dictionary
+    page.)"""
+    if opts.dict_page_bytes is None or codes.shape[0] == 0:
+        return len(page_present)
+    size = np.cumsum(_entry_bytes(col, entries))
+    seen = np.maximum.accumulate(codes) + 1      # entries after each value
+    for p, (a, b) in enumerate(page_present):
+        if b > a and size[seen[b - 1] - 1] > opts.dict_page_bytes:
+            return p
+    return len(page_present)
+
+
 def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
-                 data_page_bytes: int, pages_per_chunk) -> Struct:
+                 opts: WriteOptions) -> Struct:
     """Append one column chunk at the end of ``out``; returns its
     ColumnChunk struct."""
     start = len(out)
     vals = col.values[lo:hi]
     valid = None if col.validity is None else col.validity[lo:hi]
     present = vals if valid is None else vals[valid]
-    dict_page_offset = None
+    rows = hi - lo
+    codes = entries = None
     bw = 0
     if col.encoding == "dict":
         entries, codes = _first_occurrence(present)
         bw = max(1, int(len(entries) - 1).bit_length())
-        if col.phys == "BYTE_ARRAY":
-            body = _plain_strings(col.vocab, entries)
-        elif col.phys == "FIXED_LEN_BYTE_ARRAY":
-            body = flba_bytes(entries, col.type_length)
-        else:
-            body = np.ascontiguousarray(entries, _NP[col.phys]).tobytes()
+    per = _rows_per_page(col, bw, rows, opts)
+    cuts = [(p0, min(rows, p0 + per)) for p0 in range(0, max(rows, 1), per)]
+    counts = [p1 - p0 if valid is None else int(valid[p0:p1].sum())
+              for p0, p1 in cuts]
+    ends = np.cumsum([0] + counts)
+    page_present = list(zip(ends[:-1].tolist(), ends[1:].tolist()))
+    n_dict_pages = (_dictionary_pages(col, codes, entries, page_present, opts)
+                    if col.encoding == "dict" else 0)
+    fallback = _fallback_encoding(col, opts)
+    dict_page_offset = None
+    usize = 0
+    used = {ENC_RLE}
+    if n_dict_pages:
+        last = page_present[n_dict_pages - 1][1]
+        n_entries = int(codes[:last].max()) + 1 if last else 0
+        entries = entries[:n_entries]
+        bw = max(1, int(n_entries - 1).bit_length())
         dict_page_offset = start
-        out += _page(PAGE_DICTIONARY, body,
-                     (7, TType.STRUCT, _struct(_i32(1, len(entries)),
-                                               _i32(2, ENC_PLAIN))))
+        page, size = _page(
+            PAGE_DICTIONARY, _encode(col, entries, ENC_PLAIN),
+            (7, TType.STRUCT, _struct(_i32(1, n_entries), _i32(2, ENC_PLAIN))),
+            opts.codec)
+        out += page
+        usize += size
+        used |= {ENC_PLAIN, ENC_RLE_DICTIONARY}
     data_page_offset = len(out)
-    rows = hi - lo
-    per = _rows_per_page(col, bw, rows, data_page_bytes, pages_per_chunk)
-    pos_present = 0
-    for p0 in range(0, max(rows, 1), per):
-        p1 = min(rows, p0 + per)
-        body = bytearray()
-        k = p1 - p0
+    for p, ((p0, p1), (a, b)) in enumerate(zip(cuts, page_present)):
+        levels = b""
         if valid is not None:
             levels = bit_packed_runs(valid[p0:p1].astype(np.uint8), 1)
-            body += struct.pack("<I", len(levels)) + levels
-            k = int(valid[p0:p1].sum())
-        if col.encoding == "dict":
-            body.append(bw)
-            body += bit_packed_runs(codes[pos_present:pos_present + k], bw)
+        if p < n_dict_pages:
             enc = ENC_RLE_DICTIONARY
-        elif col.strings is not None:
-            body += _plain_records(*col.strings,
-                                   present[pos_present:pos_present + k])
-            enc = ENC_PLAIN
-        elif col.phys == "FIXED_LEN_BYTE_ARRAY":
-            body += flba_bytes(present[pos_present:pos_present + k],
-                               col.type_length)
-            enc = ENC_PLAIN
+            body = bytes([bw]) + bit_packed_runs(codes[a:b], bw)
         else:
-            body += np.ascontiguousarray(present[pos_present:pos_present + k],
-                                         _NP[col.phys]).tobytes()
-            enc = ENC_PLAIN
-        pos_present += k
-        out += _page(PAGE_DATA, bytes(body),
-                     (5, TType.STRUCT, _struct(_i32(1, p1 - p0), _i32(2, enc),
-                                               _i32(3, ENC_RLE),
-                                               _i32(4, ENC_RLE))))
+            enc = fallback
+            body = _encode(col, present[a:b], enc)
+        used.add(enc)
+        if opts.page_version == 2:
+            page, size = _page(PAGE_DATA_V2, body, (8, TType.STRUCT, _struct(
+                _i32(1, p1 - p0), _i32(2, (p1 - p0) - (b - a)),
+                _i32(3, p1 - p0), _i32(4, enc), _i32(5, len(levels)),
+                _i32(6, 0),
+                (7, TType.BOOL_TRUE, opts.codec != "UNCOMPRESSED"))),
+                opts.codec, levels)
+        else:
+            if valid is not None:
+                levels = struct.pack("<I", len(levels)) + levels
+            page, size = _page(PAGE_DATA, levels + body, (
+                5, TType.STRUCT, _struct(_i32(1, p1 - p0), _i32(2, enc),
+                                         _i32(3, ENC_RLE), _i32(4, ENC_RLE))),
+                opts.codec)
+        out += page
+        usize += size
     size = len(out) - start
     stats = _stat_bytes(col, present)
     null_count = 0 if valid is None else int((~valid).sum())
@@ -353,14 +662,12 @@ def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
         _i64(3, null_count),
         (5, TType.BINARY, None if stats is None else stats[1]),
         (6, TType.BINARY, None if stats is None else stats[0]))
-    encodings = ([ENC_RLE_DICTIONARY, ENC_PLAIN, ENC_RLE]
-                 if col.encoding == "dict" else [ENC_PLAIN, ENC_RLE])
     md = _struct(
         _i32(1, PHYS[col.phys]),
-        (2, TType.LIST, ListValue(TType.I32, encodings)),
+        (2, TType.LIST, ListValue(TType.I32, sorted(used))),
         (3, TType.LIST, ListValue(TType.BINARY, [col.name.encode()])),
-        _i32(4, 0),                                  # UNCOMPRESSED
-        _i64(5, rows), _i64(6, size), _i64(7, size),
+        _i32(4, CODECS[opts.codec]),
+        _i64(5, rows), _i64(6, usize), _i64(7, size),
         _i64(9, data_page_offset), _i64(11, dict_page_offset),
         (12, TType.STRUCT, statistics))
     return _struct(_i64(2, start), (3, TType.STRUCT, md))
@@ -368,19 +675,22 @@ def _write_chunk(out: bytearray, col: ParquetColumn, lo: int, hi: int,
 
 def write_parquet(columns: list[ParquetColumn], row_group_rows: int,
                   data_page_bytes: int = 1 << 20,
-                  pages_per_chunk: Optional[int] = None) -> bytes:
+                  pages_per_chunk: Optional[int] = None,
+                  **options) -> bytes:
     """The Parquet file holding ``columns`` (equal lengths), cut into row
     groups of ``row_group_rows`` and data pages of about
     ``data_page_bytes`` (or ``pages_per_chunk`` pages a chunk).  A table
-    of zero rows gets one row group of zero rows."""
+    of zero rows gets one row group of zero rows.  ``options`` are the
+    other fields of :class:`WriteOptions`: the codec, the dictionary
+    fallback's size, the page version and the rows a page may hold."""
+    opts = WriteOptions(data_page_bytes, pages_per_chunk, **options)
     n = columns[0].values.shape[0]
     out = bytearray(MAGIC)
     groups = []
     for lo in range(0, max(n, 1), max(row_group_rows, 1)):
         hi = min(n, lo + row_group_rows)
         first = len(out)
-        chunks = [_write_chunk(out, c, lo, hi, data_page_bytes,
-                               pages_per_chunk) for c in columns]
+        chunks = [_write_chunk(out, c, lo, hi, opts) for c in columns]
         size = len(out) - first
         groups.append(_struct(
             (1, TType.LIST, ListValue(TType.STRUCT, chunks)),
@@ -591,17 +901,28 @@ def generate_comments(n_rows: int, seed: int) -> tuple:
 
 
 def lineitem_columns(data: dict, validity: Optional[dict] = None,
-                     columns=LINEITEM) -> list[ParquetColumn]:
+                     columns=LINEITEM, int96_dates: bool = False,
+                     all_dictionary: bool = False) -> list[ParquetColumn]:
+    """The ParquetColumns of ``columns``; with ``int96_dates`` the DATE
+    columns become INT96 timestamps (midnight of each day), with
+    ``all_dictionary`` every column is dictionary-encoded, as parquet-mr
+    encodes them."""
     validity = validity or {}
     out = []
     for name, phys, conv, enc in columns:
+        enc = "dict" if all_dictionary else enc
         if name == "l_comment":
-            out.append(plain_strings_column(name, *data[name],
-                                            validity.get(name)))
+            col = plain_strings_column(name, *data[name], validity.get(name))
+            col.encoding = enc
+            out.append(col)
         elif conv == "DECIMAL":
             out.append(decimal_column(name, data[name + "_unscaled"],
                                       *Q1_DECIMALS[name], enc,
                                       validity.get(name)))
+        elif conv == "DATE" and int96_dates:
+            out.append(ParquetColumn(name, "INT96",
+                                     data[name].astype(np.int64) * NS_PER_DAY,
+                                     enc, None, None, validity.get(name)))
         else:
             out.append(ParquetColumn(name, phys, data[name], enc, conv,
                                      VOCAB.get(name), validity.get(name)))
@@ -611,12 +932,24 @@ def lineitem_columns(data: dict, validity: Optional[dict] = None,
 def lineitem_parquet(n_rows: int, seed: int, row_group_rows: int = 1 << 20,
                      null_fraction: float = 0.0,
                      pages_per_chunk: Optional[int] = None,
-                     data_page_bytes: int = 1 << 20, columns=LINEITEM):
+                     data_page_bytes: int = 1 << 20, columns=LINEITEM,
+                     codec: str = "UNCOMPRESSED",
+                     dict_page_bytes: Optional[int] = None,
+                     page_version: int = 1, int96_dates: bool = False,
+                     page_row_limit: Optional[int] = None):
     """(file bytes, column arrays, validity by column or {}) for a
     lineitem file of ``columns`` (all 16, ``LINEITEM_NO_COMMENT`` or
     ``LINEITEM_Q1``);
     with ``null_fraction`` every column is OPTIONAL with that share of
-    nulls.  ``l_comment`` comes as (chars, int64 offsets)."""
+    nulls.  ``l_comment`` comes as (chars, int64 offsets).  ``codec`` is
+    UNCOMPRESSED, SNAPPY or GZIP.  With ``dict_page_bytes`` every column
+    is dictionary-encoded and falls back, as parquet-mr's writer does, at
+    the first page that takes its dictionary past that size: to PLAIN, or
+    with ``page_version`` 2 (DataPageV2 pages, parquet-mr's v2 writer) to
+    DELTA_BINARY_PACKED for the keys and DELTA_BYTE_ARRAY for strings.
+    ``int96_dates`` writes the three dates as INT96 timestamps.
+    ``page_row_limit`` caps the rows of a page.  ``SPARK_DEFAULTS`` holds
+    the options of a file as Spark writes it."""
     data = generate_lineitem(n_rows, seed)
     if any(name == "l_comment" for name, *_ in columns):
         data["l_comment"] = generate_comments(n_rows, seed)
@@ -625,8 +958,13 @@ def lineitem_parquet(n_rows: int, seed: int, row_group_rows: int = 1 << 20,
         rng = np.random.default_rng(seed + 1)
         validity = {name: rng.random(n_rows) >= null_fraction
                     for name, *_ in columns}
-    raw = write_parquet(lineitem_columns(data, validity, columns),
-                        row_group_rows, data_page_bytes, pages_per_chunk)
+    cols = lineitem_columns(data, validity, columns, int96_dates,
+                            dict_page_bytes is not None)
+    raw = write_parquet(cols, row_group_rows, data_page_bytes,
+                        pages_per_chunk, codec=codec,
+                        dict_page_bytes=dict_page_bytes,
+                        page_version=page_version,
+                        page_row_limit=page_row_limit)
     return raw, data, validity
 
 
@@ -640,12 +978,16 @@ def main(argv=None) -> int:
                     help="write the 15 columns without l_comment")
     ap.add_argument("--q1", action="store_true",
                     help="write TPC-H Q1's 7 columns (FLBA decimals)")
+    ap.add_argument("--spark", action="store_true",
+                    help="write the file as Spark's defaults do "
+                         "(SPARK_DEFAULTS)")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     raw, _, _ = lineitem_parquet(
         args.rows, args.seed, args.row_group_rows, args.null_fraction,
         columns=(LINEITEM_Q1 if args.q1 else
-                 LINEITEM_NO_COMMENT if args.no_comment else LINEITEM))
+                 LINEITEM_NO_COMMENT if args.no_comment else LINEITEM),
+        **(SPARK_DEFAULTS if args.spark else {}))
     with open(args.out, "wb") as f:
         f.write(raw)
     print(f"{args.out}: {args.rows} rows, {len(raw)} bytes")

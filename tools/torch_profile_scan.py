@@ -11,10 +11,14 @@ the SF1 ``scan_table`` of the first 15 columns, the nulls-file
 four dictionary-string columns, ``convert_to_rows`` of the scanned
 15-column table, and, for the full table of ``chip_smoke.py`` phase 8, the
 scan of all 16 columns (PLAIN ``l_comment`` among them) and its
-``convert_to_rows``; and TPC-H Q1 (``models.tpch_q1.run``) on the SF1 file
-in Q1's layout of ``chip_smoke.py`` phase 10 (FLBA decimals).  For each it prints the host wall time, the scan's host
-spans (page walk, slab upload, decode launches; ``parquet.scan.*`` in
-``device_scan.scan_table``), the device-busy time (the union of the
+``convert_to_rows``; TPC-H Q1 (``models.tpch_q1.run``) on the SF1 file in
+Q1's layout of ``chip_smoke.py`` phase 10 (FLBA decimals); and the scan
+of the 16 columns written as Spark's defaults write them
+(``chip_smoke.py`` phase 11: SNAPPY, dictionary fallback to PLAIN).  For
+each it prints the host wall time, the scan's host spans (page walk, the
+decompression inside it, slab upload, decode launches;
+``parquet.scan.*`` in ``device_scan.scan_table`` and
+``decode.decompress``), the device-busy time (the union of the
 kernels' intervals), the device's idle share, and the device ops that took
 the most time.  The full per-op tables go to
 ``DIR/torch_profile_scan.txt`` (default ``build/profiles``).  Needs a CUDA
@@ -30,7 +34,8 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SPANS = ("parquet.scan.walk", "parquet.scan.upload", "parquet.scan.decode")
+SPANS = ("parquet.scan.walk", "parquet.scan.decompress",
+         "parquet.scan.upload", "parquet.scan.decode")
 
 
 def _span_ms(prof) -> dict:
@@ -76,6 +81,9 @@ def main(argv=None) -> int:
         columns=W.LINEITEM_NO_COMMENT)
     raw_q1, _, _ = W.lineitem_parquet(W.SF1_ROWS, args.seed + 3,
                                       columns=W.LINEITEM_Q1)
+    raw_spark, _, _ = W.lineitem_parquet(
+        W.SF1_ROWS, args.seed, row_group_rows=chip_smoke.SPARK_ROW_GROUP_ROWS,
+        **W.SPARK_DEFAULTS)
     cols15 = [name for name, *_ in W.LINEITEM_NO_COMMENT]
     lo, hi = chip_smoke.Q6_DATES
     sf1 = device_scan.scan_table(raw, columns=cols15)
@@ -96,6 +104,7 @@ def main(argv=None) -> int:
         ("scan SF1 16 columns", lambda: device_scan.scan_table(raw)),
         ("to_rows SF1 16 columns", lambda: pt.convert_to_rows(full)),
         ("q1 SF1", lambda: tpch_q1.run(raw_q1, chip_smoke.Q1_CUTOFF)),
+        ("scan SF1 Spark SNAPPY", lambda: device_scan.scan_table(raw_spark)),
     ]
     with open(report, "w") as fh:
         for name, fn in cases:
