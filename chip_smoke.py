@@ -9,7 +9,9 @@ fails (non-zero exit, no result line) if anything is wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
    no CUDA device is a failure;
-2. build: compiles the CUDA kernels and the host walker from
+2. build: compiles the CUDA kernels, the host walker and decompressor, and
+   the JVM-facing library (host tables, the host JCUDF and footer engines,
+   the JNI natives, the trampoline to ``bridge.py``) from
    ``spark_rapids_jni_tpu_torch/csrc``, all at once;
 3. kernels: runs B1, B3 and B4 on the inputs the row path hands them
    (captured from a run of the 12-column table, to_rows and from_rows),
@@ -89,7 +91,19 @@ fails (non-zero exit, no result line) if anything is wrong:
    their plain versions and timed as in phase 3.  11b: 1,048,576 rows as
    Spark's v2 writer writes them with timestamp dates (GZIP, DataPageV2,
    10% nulls, the dates INT96 and dictionary-encoded, DELTA_BINARY_PACKED
-   and DELTA_BYTE_ARRAY fallbacks), exact.
+   and DELTA_BYTE_ARRAY fallbacks), exact;
+12. the JNI/C surface (run after phase 9, on its file): SF1's 16 columns,
+   strings materialized, as a C host table handle through
+   ``srjt_to_rows_device`` (997,969,848 row bytes, equal to
+   ``convert_to_rows``' and to the host C++ engine's ``srjt_to_rows``)
+   and back through ``srjt_from_rows_device`` (every column exact), B1, B3
+   and B4 launched; the RowConversion natives on phase 3's 12-column table
+   through a ctypes JNIEnv, against the host engine, and
+   ParquetFooter.readAndFilter on the SF1 footer, against ``footer.py``;
+   the median walls of the device calls and of the host engine's, beside
+   ``convert_to_rows`` / ``convert_from_rows``, and the device calls'
+   split (handle read, upload, convert, download, import), on a
+   ``[jni] split`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -102,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes as C
 import functools
 import json
 import os
@@ -407,8 +422,8 @@ def phase_device() -> str:
 def phase_build(native) -> None:
     t0 = time.perf_counter()
     logs = native.build()
-    names = (native.library_path(s).name
-             for s in native.SOURCES + native.HOST_SOURCES)
+    names = (native.library_path(s).name for s in
+             native.SOURCES + native.HOST_SOURCES + (native.JNI_LIBRARY,))
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.strip().splitlines():
@@ -1516,6 +1531,404 @@ def phase_spark_v2(pt, W, device_scan, kernels, card, seed, launches) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the JNI/C surface on the card
+# ---------------------------------------------------------------------------
+
+# the kernels the bridge's row conversion launches on SF1's 16 columns
+JNI_KERNELS = ("pack_windows", "unpack_rows", "segmented_copy")
+# bytes held against each other at a time when 1 GB of rows is compared
+COMPARE_CHUNK = 1 << 26
+
+
+class JniEnv:
+    """A minimal ``JNIEnv`` in ctypes: the slots of the JNI function table
+    that the RowConversion, HostTable, HostColumn and ParquetFooter natives
+    touch (JNI 6 numbering, as ``csrc/jni_min.h`` has it), over Python
+    objects registered by id.  ``thrown`` holds (class, message) of the
+    last exception a native threw."""
+
+    SLOTS = 233
+
+    def __init__(self):
+        self.objects, self.thrown, self._keep = {}, None, []
+        table = (C.c_void_p * self.SLOTS)()
+        vp, i32, i64 = C.c_void_p, C.c_int32, C.c_int64
+
+        def put(slot, restype, argtypes, fn):
+            cb = C.CFUNCTYPE(restype, *argtypes)(fn)
+            self._keep.append(cb)
+            table[slot] = C.cast(cb, vp)
+
+        def region(env, arr, start, n, out):
+            for i in range(n):
+                out[i] = self.objects[arr][start + i]
+
+        def set_region(env, arr, start, n, vals):
+            for i in range(n):
+                self.objects[arr][start + i] = vals[i]
+
+        def utf(env, s, is_copy):
+            buf = C.create_string_buffer(self.objects[s].encode())
+            self._keep.append(buf)
+            return C.cast(buf, vp).value
+
+        def throw(env, cls, msg):
+            self.thrown = (self.objects[cls], msg.decode())
+            return 0
+
+        put(6, vp, [vp, C.c_char_p], lambda env, n: self.ref(n.decode()))
+        put(14, i32, [vp, vp, C.c_char_p], throw)
+        put(169, vp, [vp, vp, vp], utf)
+        put(170, None, [vp, vp, C.c_char_p], lambda env, s, c: None)
+        put(171, i32, [vp, vp], lambda env, a: len(self.objects[a]))
+        put(173, vp, [vp, vp, i32], lambda env, a, i: self.objects[a][i])
+        put(180, vp, [vp, i32], lambda env, n: self.ref([0] * n))
+        put(203, None, [vp, vp, i32, i32, C.POINTER(i32)], region)
+        put(204, None, [vp, vp, i32, i32, C.POINTER(i64)], region)
+        put(212, None, [vp, vp, i32, i32, C.POINTER(i64)], set_region)
+        self._table = table
+        self._table_p = C.cast(table, vp)
+        self.env = C.pointer(self._table_p)
+
+    def ref(self, obj) -> int:
+        """A "jobject" for ``obj`` (a list stands for a Java array)."""
+        oid = len(self.objects) + 1
+        self.objects[oid] = obj
+        return oid
+
+
+def jni_natives(lib) -> dict:
+    """The JNI natives phase 12 calls, by ``Class_method``, each taking the
+    env first (the jclass argument is passed as null)."""
+    vp, i32, i64 = C.c_void_p, C.c_int32, C.c_int64
+    sigs = {
+        "HostColumn_makeFixed": (i64, [i32, i32, i64, i64, i64]),
+        "HostColumn_makeString": (i64, [i64, i64, i64, i64]),
+        "HostColumn_close": (None, [i64]),
+        "HostColumn_dataSize": (i64, [i64]),
+        "HostColumn_dataAddress": (i64, [i64]),
+        "HostColumn_offsetsAddress": (i64, [i64]),
+        "HostColumn_validAddress": (i64, [i64]),
+        "HostTable_makeTable": (i64, [vp]),
+        "HostTable_rowCount": (i64, [i64]),
+        "HostTable_columns": (vp, [i64]),
+        "HostTable_close": (None, [i64]),
+        "RowConversion_convertToRows": (i64, [i64]),
+        "RowConversion_convertFromRows": (i64, [i64, i32, vp, vp]),
+        "RowConversion_freeRows": (None, [i64]),
+        "ParquetFooter_readAndFilter": (i64, [i64, i64, i64, i64, vp, vp, vp,
+                                              i32, C.c_uint8]),
+        "ParquetFooter_getNumRows": (i64, [i64]),
+        "ParquetFooter_getNumColumns": (i64, [i64]),
+        "ParquetFooter_serializeThriftFile": (i64, [i64, i64, i64]),
+        "ParquetFooter_close": (None, [i64]),
+    }
+    out = {}
+    for name, (restype, argtypes) in sigs.items():
+        fn = C.CFUNCTYPE(restype, vp, vp, *argtypes)(
+            ("Java_com_tpu_rapids_jni_" + name, lib))
+        out[name] = (lambda f: lambda env, *a: f(env.env, None, *a))(fn)
+    return out
+
+
+def c_view(addr, n: int, dtype=np.uint8) -> np.ndarray:
+    """``n`` items of ``dtype`` at C address ``addr``, a numpy view."""
+    if not n:
+        return np.zeros(0, dtype)
+    buf = (C.c_uint8 * (n * np.dtype(dtype).itemsize)).from_address(addr)
+    return np.frombuffer(buf, dtype)
+
+
+def same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    """Byte equality, COMPARE_CHUNK bytes at a time."""
+    a, b = a.view(np.uint8).reshape(-1), b.view(np.uint8).reshape(-1)
+    return a.size == b.size and all(
+        np.array_equal(a[i:i + COMPARE_CHUNK], b[i:i + COMPARE_CHUNK])
+        for i in range(0, a.size, COMPARE_CHUNK))
+
+
+def handle_columns(lib, t) -> list:
+    """(type, data, offsets, validity) views of every column of host table
+    ``t``; the column handles it opens are freed (the table keeps the
+    buffers)."""
+    n = lib.srjt_table_rows(t)
+    out = []
+    for i in range(lib.srjt_table_cols(t)):
+        h = lib.srjt_table_column(t, i)
+        offs, valid = lib.srjt_column_offsets(h), lib.srjt_column_valid(h)
+        out.append((lib.srjt_column_type(h),
+                    c_view(lib.srjt_column_data(h),
+                           lib.srjt_column_data_size(h)),
+                    c_view(offs, n + 1, np.int32) if offs else None,
+                    c_view(valid, n) if valid else None))
+        lib.srjt_column_free(h)
+    return out
+
+
+def row_batch(lib, rows) -> tuple:
+    """(bytes, int32 offsets) views of a one-batch RowBatches handle."""
+    require(lib.srjt_rows_num_batches(rows) == 1, "expected one row batch")
+    n = lib.srjt_rows_batch_rows(rows, 0)
+    return (c_view(lib.srjt_rows_batch_data(rows, 0),
+                   lib.srjt_rows_batch_size(rows, 0)),
+            c_view(lib.srjt_rows_batch_offsets(rows, 0), n + 1, np.int32))
+
+
+def host_handle(lib, cols) -> int:
+    """A host table handle holding copies of ``interop`` column tuples."""
+    handles = []
+    for tid, scale, data, offs, valid in cols:
+        v = None if valid is None else valid.astype(np.uint8)
+        vp = None if v is None else v.ctypes.data
+        h = (lib.srjt_column_fixed(tid, scale, data.shape[0],
+                                   data.ctypes.data, vp) if offs is None else
+             lib.srjt_column_string(offs.size - 1, offs.ctypes.data,
+                                    data.ctypes.data, vp))
+        require(bool(h), f"the host table refused a column of type {tid}")
+        handles.append(h)
+    t = lib.srjt_table((C.c_void_p * len(handles))(*handles), len(handles))
+    for h in handles:
+        lib.srjt_column_free(h)
+    require(bool(t), "srjt_table refused the columns")
+    return t
+
+
+def split_ms(steps, cleanup, reps: int = PATH_REPS) -> dict:
+    """Median ms of each step of a chain, run one after another with a
+    synchronisation around each: ``steps`` is [(name, fn)], each fn called
+    with the previous one's result (the first with None), the last result
+    handed to ``cleanup`` outside the timing."""
+    times = collections.defaultdict(list)
+    for _ in range(reps):
+        out = None
+        for name, fn in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(out)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+        cleanup(out)
+    return {k: statistics.median(v) * 1e3 for k, v in times.items()}
+
+
+def phase_jni(pt, T, W, interop, bridge, native, device_scan, kernels, card,
+              raw, seed, launches) -> None:
+    """Phase 12: the JNI/C surface on the card.  SF1's 16 columns as a C
+    host table through ``srjt_to_rows_device`` and back through
+    ``srjt_from_rows_device``, exact against the port's
+    ``convert_to_rows`` and the host C++ engine; the RowConversion natives
+    on the 12-column table through a ctypes JNIEnv, and ParquetFooter's on
+    the SF1 file's footer; the walls and their split."""
+    lib = native.jni_library()
+    scanned = device_scan.scan_table(raw)
+    table = pt.Table([c.materialize() if isinstance(c, pt.DictColumn) else c
+                      for c in scanned.columns])
+    del scanned
+    t0 = time.perf_counter()
+    cols = interop.table_to_numpy(table)
+    t = host_handle(lib, cols)
+    log(f"[jni] SF1 16 columns as a host table handle in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tids = np.asarray([c[0] for c in cols], np.int32)
+    scales = np.asarray([c[1] for c in cols], np.int32)
+    ncols = len(cols)
+
+    # the main path: the C entry points
+    kernels.reset()
+    rows = lib.srjt_to_rows_device(t)
+    require(bool(rows), "srjt_to_rows_device failed: "
+            + lib.srjt_device_last_error().decode())
+    back = lib.srjt_from_rows_device(rows, 0, tids.ctypes.data,
+                                     scales.ctypes.data, ncols)
+    require(bool(back), "srjt_from_rows_device failed: "
+            + lib.srjt_device_last_error().decode())
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    for name in JNI_KERNELS:
+        require(counts[name] > 0, f"jni: {name} never launched")
+    add_counts(launches, counts)
+
+    data, offs = row_batch(lib, rows)
+    want = pt.convert_to_rows(table)
+    require(len(want) == 1, "convert_to_rows: expected one batch")
+    require(same_bytes(data, want[0].data.cpu().numpy())
+            and same_bytes(offs, want[0].offsets.cpu().numpy()),
+            "srjt_to_rows_device differs from convert_to_rows")
+    del want
+    host = lib.srjt_to_rows(t)
+    require(bool(host), "srjt_to_rows failed")
+    hdata, hoffs = row_batch(lib, host)
+    require(same_bytes(data, hdata) and same_bytes(offs, hoffs),
+            "srjt_to_rows_device differs from the host engine")
+    for ci, (a, b) in enumerate(zip(handle_columns(lib, t),
+                                    handle_columns(lib, back))):
+        require(a[0] == b[0] and same_bytes(a[1], b[1]),
+                f"jni: column {ci} data differs after the round trip")
+        require((a[2] is None) == (b[2] is None)
+                and (a[2] is None or same_bytes(a[2], b[2])),
+                f"jni: column {ci} offsets differ after the round trip")
+        valid = np.ones(table.num_rows, np.uint8) if a[3] is None else a[3]
+        require(b[3] is not None and same_bytes(valid, b[3]),
+                f"jni: column {ci} validity differs after the round trip")
+    log(f"[jni] SF1 16 columns: srjt_to_rows_device gave {data.size} row "
+        f"bytes equal to convert_to_rows' and the host engine's; "
+        f"srjt_from_rows_device gave back every column exactly; launches "
+        f"{counts}")
+    lib.srjt_table_free(back)
+
+    # the walls (each call alone, its result freed outside the timing),
+    # then the bridge's steps one by one
+    free_rows, free_table = lib.srjt_rows_free, lib.srjt_table_free
+    batch = pt.convert_to_rows(table)[0]
+    schema = table.schema
+    walls = {}
+    for name, fn, cleanup in (
+            ("to_rows_device", lambda _: lib.srjt_to_rows_device(t),
+             free_rows),
+            ("to_rows_host", lambda _: lib.srjt_to_rows(t), free_rows),
+            ("convert_to_rows", lambda _: pt.convert_to_rows(table),
+             lambda _: None),
+            ("from_rows_device", lambda _: lib.srjt_from_rows_device(
+                rows, 0, tids.ctypes.data, scales.ctypes.data, ncols),
+             free_table),
+            ("from_rows_host", lambda _: lib.srjt_from_rows(
+                rows, 0, tids.ctypes.data, scales.ctypes.data, ncols),
+             free_table),
+            ("convert_from_rows", lambda _: pt.convert_from_rows(
+                batch, schema), lambda _: None)):
+        walls[name] = split_ms([(name, fn)], cleanup)[name]
+    del batch
+    dev = table.device
+    split_to = split_ms([
+        ("read", lambda _: bridge.read_table(lib, t)),
+        ("upload", lambda c: bridge.upload(c, dev)),
+        ("convert", lambda tb: pt.convert_to_rows(tb)),
+        ("download", lambda b: bridge.download(b)),
+        ("import", lambda h: bridge.import_rows(lib, h))], free_rows)
+    split_from = split_ms([
+        ("read", lambda _: bridge.read_rows(lib, rows, 0)),
+        ("upload", lambda r: bridge.upload_rows(r, dev)),
+        ("convert", lambda b: pt.convert_from_rows(b, schema)),
+        ("download", lambda tb: bridge.download_table(tb)),
+        ("import", lambda c: bridge.import_table(lib, c))], free_table)
+    log(f"[jni] SF1 walls, median of {PATH_REPS} (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
+    log("[jni] split " + json.dumps({
+        "card": card, "rows": table.num_rows, "row_bytes": int(data.size),
+        "column_bytes": sum(a.nbytes for c in cols for a in c[2:]
+                            if a is not None),
+        "walls_ms": walls, "to_rows_device_split_ms": split_to,
+        "from_rows_device_split_ms": split_from}))
+    for h in (rows, host):
+        lib.srjt_rows_free(h)
+    lib.srjt_table_free(t)
+    del table, cols, data, offs, hdata, hoffs
+    torch.cuda.empty_cache()
+
+    phase_jni_natives(T, W, lib, kernels, card, raw, seed, launches)
+
+
+def phase_jni_natives(T, W, lib, kernels, card, raw, seed,
+                      launches) -> None:
+    """The RowConversion natives through a ctypes JNIEnv on the 12-column
+    table of phase 3 (1,048,576 rows, 10% nulls), against the host engine;
+    ParquetFooter's on the SF1 file's footer, against ``footer.py``."""
+    from spark_rapids_jni_tpu_torch.parquet import footer
+    jni, env = jni_natives(lib), JniEnv()
+    n_cols, every, max_len = CASES["spark_12_2str"]
+    cols = make_columns(T, n_cols, every, max_len, ROWS,
+                        np.random.default_rng(seed + 1))
+    handles = []
+    for tid, scale, data, offs, valid in cols:
+        v = valid.astype(np.uint8)
+        h = (jni["HostColumn_makeFixed"](env, tid, scale, ROWS,
+                                         data.ctypes.data, v.ctypes.data)
+             if offs is None else
+             jni["HostColumn_makeString"](env, ROWS, offs.ctypes.data,
+                                          data.ctypes.data, v.ctypes.data))
+        require(bool(h) and env.thrown is None, f"makeFixed/makeString: "
+                f"{env.thrown}")
+        handles.append(h)
+    t = jni["HostTable_makeTable"](env, env.ref(handles))
+    require(bool(t) and env.thrown is None, f"makeTable: {env.thrown}")
+    for h in handles:
+        jni["HostColumn_close"](env, h)
+    tids = env.ref([c[0] for c in cols])
+    scales = env.ref([c[1] for c in cols])
+
+    kernels.reset()
+    rows = jni["RowConversion_convertToRows"](env, t)
+    require(bool(rows) and env.thrown is None,
+            f"convertToRows threw {env.thrown}")
+    back = jni["RowConversion_convertFromRows"](env, rows, 0, tids, scales)
+    require(bool(back) and env.thrown is None,
+            f"convertFromRows threw {env.thrown}")
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    for name in JNI_KERNELS:
+        require(counts[name] > 0, f"jni natives: {name} never launched")
+    add_counts(launches, counts)
+
+    host = lib.srjt_to_rows(t)
+    data, offs = row_batch(lib, rows)
+    hdata, hoffs = row_batch(lib, host)
+    require(same_bytes(data, hdata) and same_bytes(offs, hoffs),
+            "convertToRows differs from the host engine")
+    lib.srjt_rows_free(host)
+    out = env.objects[jni["HostTable_columns"](env, back)]
+    require(jni["HostTable_rowCount"](env, back) == ROWS, "row count differs")
+    for ci, (h, (tid, _, cdata, coffs, valid)) in enumerate(zip(out, cols)):
+        got = c_view(jni["HostColumn_dataAddress"](env, h),
+                     jni["HostColumn_dataSize"](env, h))
+        require(same_bytes(got, cdata), f"natives: column {ci} data differs")
+        if coffs is not None:
+            got = c_view(jni["HostColumn_offsetsAddress"](env, h), ROWS + 1,
+                         np.int32)
+            require(same_bytes(got, coffs),
+                    f"natives: column {ci} offsets differ")
+        got = c_view(jni["HostColumn_validAddress"](env, h), ROWS)
+        require(same_bytes(got, valid.astype(np.uint8)),
+                f"natives: column {ci} validity differs")
+        jni["HostColumn_close"](env, h)
+    jni["RowConversion_freeRows"](env, rows)
+    for h in (t, back):
+        jni["HostTable_close"](env, h)
+    log(f"[jni] natives: convertToRows of the 12-column table "
+        f"({ROWS} rows, {data.size} row bytes) equals the host engine, "
+        f"convertFromRows gives back every column; launches {counts} "
+        f"[{card}]")
+
+    # ParquetFooter on the SF1 file's footer
+    blob = footer.extract_footer_bytes(bytes(raw))
+    names = [name for name, *_ in W.LINEITEM]
+    schema = footer.StructElement("root", *map(footer.ValueElement, names))
+    want = footer.read_and_filter(blob, 0, len(raw), schema)
+    flat, nc, tags = schema.flatten_depth_first()
+    buf = np.frombuffer(blob, np.uint8).copy()
+    h = jni["ParquetFooter_readAndFilter"](
+        env, buf.ctypes.data, buf.size, 0, len(raw), env.ref(
+            [env.ref(s) for s in flat]), env.ref(nc), env.ref(tags),
+        len(schema.children), 0)
+    require(bool(h) and env.thrown is None, f"readAndFilter threw "
+            f"{env.thrown}")
+    n_rows = jni["ParquetFooter_getNumRows"](env, h)
+    require(n_rows == want.num_rows, f"ParquetFooter rows {n_rows}, "
+            f"footer.py {want.num_rows}")
+    require(jni["ParquetFooter_getNumColumns"](env, h) == want.num_columns,
+            "ParquetFooter columns differ from footer.py")
+    ser = want.serialize_thrift_file()
+    got = np.zeros(len(ser) + 64, np.uint8)
+    size = jni["ParquetFooter_serializeThriftFile"](env, h, got.ctypes.data,
+                                                    got.size)
+    require(bytes(got[:size]) == ser, "ParquetFooter's serialized footer "
+            "differs from footer.py's")
+    jni["ParquetFooter_close"](env, h)
+    log(f"[jni] ParquetFooter.readAndFilter of the SF1 footer ({len(blob)} "
+        f"bytes, {len(names)} columns): {n_rows} rows, its serialized "
+        f"footer equal to footer.py's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1524,7 +1937,7 @@ def main(argv=None) -> int:
     card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spark_rapids_jni_tpu_torch as pt
-    from spark_rapids_jni_tpu_torch import _native, interop
+    from spark_rapids_jni_tpu_torch import _native, bridge, interop
     from spark_rapids_jni_tpu_torch import types as T
     from spark_rapids_jni_tpu_torch.models import q6, tpch_q1
     from spark_rapids_jni_tpu_torch.parquet import device_scan
@@ -1562,6 +1975,8 @@ def main(argv=None) -> int:
                                  kernels, card, raw, data, launches)
     del data
     results.update(phase_full_kernels(pt, device_scan, kernels, raw, card))
+    phase_jni(pt, T, W, interop, bridge, _native, device_scan, kernels, card,
+              raw, args.seed, launches)
     del raw
     results.update(phase_q1(T, W, tpch_q1, kernels, card, args.seed,
                             launches))

@@ -14,9 +14,12 @@ import pytest
 import torch
 
 import spark_rapids_jni_tpu_torch as pt
-from spark_rapids_jni_tpu_torch import interop
+from spark_rapids_jni_tpu_torch import _native, interop
 from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged, xpack
 from spark_rapids_jni_tpu_torch.rowconv import reference
+from torch_jni_env import (Jni, MockEnv, assert_same_batches,
+                           assert_same_tables, jni_table, row_batches,
+                           seeded_columns, table_columns, table_handle)
 from torch_ragged_cases import (SEGCOPY_EDGE_CASES, SF1_SEGCOPY_CASES,
                                 SF1_UNPACK_CASES, UNPACK_EDGE_CASES,
                                 dictionary_to_rows, unpack_case)
@@ -834,3 +837,100 @@ def test_pruned_scan_on_card_matches_cpu(cuda):
     cpu = device_scan.scan_table(raw, rowgroup_predicate=none, device="cpu")
     assert gpu.num_rows == 0 and gpu.schema == cpu.schema
     _same_scans(gpu, cpu)
+
+
+# ---------------------------------------------------------------------------
+# the JNI/C surface on the card (csrc/jni_bridge.cpp, device_bridge.cpp)
+# ---------------------------------------------------------------------------
+
+def _schema_arrays(cols):
+    return (np.asarray([c[0] for c in cols], np.int32),
+            np.asarray([c[1] for c in cols], np.int32))
+
+
+def _row_kernel_counts() -> dict:
+    return {**xpack.launch_counts(), **ragged.launch_counts()}
+
+
+@pytest.mark.gpu
+def test_c_entry_points_on_card_match_host_engine(cuda):
+    """srjt_to_rows_device / srjt_from_rows_device on the card, through B1,
+    B3 and B4, equal the host C++ engine byte for byte."""
+    lib = _native.jni_library()
+    cols = seeded_columns("mixed", 4099, 3)
+    tids, scales = _schema_arrays(cols)
+    t = table_handle(lib, cols)
+    before = _row_kernel_counts()
+    rows = lib.srjt_to_rows_device(t)
+    assert rows, lib.srjt_device_last_error()
+    host = lib.srjt_to_rows(t)
+    assert_same_batches(row_batches(lib, rows), row_batches(lib, host))
+    back = lib.srjt_from_rows_device(rows, 0, tids.ctypes.data,
+                                     scales.ctypes.data, len(cols))
+    assert back, lib.srjt_device_last_error()
+    torch.cuda.synchronize()
+    delta = _launches_delta(before, _row_kernel_counts())
+    for name in ("pack_windows", "unpack_rows", "segmented_copy"):
+        assert delta[name] > 0, delta
+    hback = lib.srjt_from_rows(host, 0, tids.ctypes.data, scales.ctypes.data,
+                               len(cols))
+    assert_same_tables(table_columns(lib, back), table_columns(lib, hback))
+    for h in (t, back, hback):
+        lib.srjt_table_free(h)
+    for h in (rows, host):
+        lib.srjt_rows_free(h)
+
+
+@pytest.mark.gpu
+def test_jni_natives_on_card_match_host_engine(cuda):
+    lib = _native.jni_library()
+    jni, env = Jni(lib), MockEnv()
+    cols = seeded_columns("mixed", 3001, 4)
+    tids, scales = _schema_arrays(cols)
+    t = jni_table(jni, env, cols)
+    before = _row_kernel_counts()
+    rows = jni.RowConversion_convertToRows(env, t)
+    assert rows and env.thrown is None
+    back = jni.RowConversion_convertFromRows(
+        env, rows, 0, env.int_array(tids), env.int_array(scales))
+    assert back and env.thrown is None
+    torch.cuda.synchronize()
+    delta = _launches_delta(before, _row_kernel_counts())
+    for name in ("pack_windows", "unpack_rows", "segmented_copy"):
+        assert delta[name] > 0, delta
+    host = lib.srjt_to_rows(t)
+    assert_same_batches(row_batches(lib, rows), row_batches(lib, host))
+    hback = lib.srjt_from_rows(host, 0, tids.ctypes.data, scales.ctypes.data,
+                               len(cols))
+    assert_same_tables(table_columns(lib, back), table_columns(lib, hback))
+    lib.srjt_rows_free(host)
+    lib.srjt_table_free(hback)
+    jni.RowConversion_freeRows(env, rows)
+    for h in (t, back):
+        jni.HostTable_close(env, h)
+
+
+@pytest.mark.gpu
+def test_failed_launch_throws_java_exception(cuda, monkeypatch):
+    """A kernel launch that reports a CUDA error surfaces as the Java
+    exception, with the error's text; no host engine runs instead."""
+    lib = _native.jni_library()
+    jni, env = Jni(lib), MockEnv()
+    cols = seeded_columns("mixed", 2000, 5)
+    tids, scales = _schema_arrays(cols)
+    t = jni_table(jni, env, cols)
+    host = lib.srjt_to_rows(t)
+
+    def failed_launch(name, fn, device, *args):
+        _native.check(_native.library(name), 719, fn)   # as the C side reports
+
+    monkeypatch.setattr(_native, "launch", failed_launch)
+    assert jni.RowConversion_convertToRows(env, t) == 0
+    assert env.thrown[0] == "java/lang/IllegalArgumentException"
+    assert "CUDA error 719" in env.thrown[1], env.thrown
+    env.thrown = None
+    assert jni.RowConversion_convertFromRows(
+        env, host, 0, env.int_array(tids), env.int_array(scales)) == 0
+    assert "CUDA error 719" in env.thrown[1], env.thrown
+    lib.srjt_rows_free(host)
+    jni.HostTable_close(env, t)

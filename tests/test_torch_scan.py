@@ -13,11 +13,9 @@ bit pairs, the port as native float64.
 """
 
 import decimal
-import fcntl
 import io
 import pathlib
 import sys
-import time
 
 import numpy as np
 import pyarrow as pa
@@ -28,7 +26,6 @@ import torch
 import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, set by conftest)
 import spark_rapids_jni_tpu as sr
 from spark_rapids_jni_tpu.column import DictColumn as JDictColumn
-from spark_rapids_jni_tpu import native as jnative
 from spark_rapids_jni_tpu.models import q6 as jq6
 from spark_rapids_jni_tpu.parquet import device_scan as jscan
 
@@ -40,35 +37,10 @@ from spark_rapids_jni_tpu_torch.rowconv import bytepath
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
 import torch_lineitem_parquet as W  # noqa: E402
+from torch_jni_env import load_jax_native  # noqa: E402
 
 CPU = "cpu"
 N = 3000
-REPO = pathlib.Path(__file__).resolve().parent.parent
-
-
-def _load_jax_native(tries: int = 30) -> bool:
-    """Load the JAX package's native library, retrying until it loads.
-
-    The JAX scan keeps dictionary strings as DictColumns and walks PLAIN
-    strings natively only when that library loads.  Test processes that
-    import the JAX package build it with ``make`` at first use, and a
-    loader that met a half-written library gives up for good
-    (``native._tried``).  Each try here holds a file lock, so the
-    processes that reach this point build and load one at a time, and a
-    failed try is forgotten before the next."""
-    lock_path = REPO / "build" / "jax_native_load.lock"
-    lock_path.parent.mkdir(parents=True, exist_ok=True)
-    for _ in range(tries):
-        with open(lock_path, "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            try:
-                if jnative.load() is not None:
-                    return True
-                jnative._tried = False
-            finally:
-                fcntl.flock(lock, fcntl.LOCK_UN)
-        time.sleep(2)
-    return False
 
 
 # At import: a test worker imports every test file before it runs any test,
@@ -76,7 +48,7 @@ def _load_jax_native(tries: int = 30) -> bool:
 # library before any JAX test reaches for it lazily.  A failure is reported
 # by the fixture below, not here, so that every worker collects the same
 # tests.
-JAX_NATIVE_LOADED = _load_jax_native()
+JAX_NATIVE_LOADED = load_jax_native()
 
 
 @pytest.fixture(scope="module", autouse=True)

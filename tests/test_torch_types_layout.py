@@ -7,6 +7,7 @@ the same answer: equal layouts, equal batch geometry, equal bytes.
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -239,18 +240,36 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/ops/hashing.py",
             "spark_rapids_jni_tpu_torch/ops/int64bits.py",
             "spark_rapids_jni_tpu_torch/models/tpch_q1.py",
+            "spark_rapids_jni_tpu_torch/bridge.py",
+            "spark_rapids_jni_tpu_torch/rowconv/native.py",
+            "spark_rapids_jni_tpu_torch/rowconv/host.py",
+            "spark_rapids_jni_tpu_torch/parquet/footer_native.py",
             "tools/torch_lineitem_parquet.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "spark_rapids_jni_tpu"), \
                 f"{f.relative_to(REPO)} imports {mod}"
-    # the native sources include nothing of the JAX package's
+    # the native sources include nothing of the JAX package's and name no
+    # module of it: the trampoline imports its bridge by a string, so no
+    # string literal may be a JAX module and no text a dotted module name
+    # of the JAX package (citations of its files, by path, stay allowed)
     sources = sorted((REPO / "spark_rapids_jni_tpu_torch" / "csrc").glob("*"))
-    assert {s.name for s in sources} >= {"ragged.cu", "bytepath.cu",
-                                         "xpack.cu", "plain_strings.cpp"}
+    assert {s.name for s in sources} >= {
+        "ragged.cu", "bytepath.cu", "xpack.cu", "plain_strings.cpp",
+        "host_table.cpp", "rowconv_engine.cpp", "thrift_compact.cpp",
+        "thrift_compact.hpp", "footer_engine.cpp", "jni_min.h",
+        "jni_bridge.cpp", "device_bridge.cpp"}
+    jax_module = re.compile(r"(jax|jaxlib|spark_rapids_jni_tpu)(\.|$)")
     for src in sources:
-        for line in src.read_text().splitlines():
+        text = src.read_text()
+        for line in text.splitlines():
             if line.startswith("#include"):
                 assert "spark_rapids_jni_tpu" not in line, \
                     f"{src.name}: {line}"
+        for literal in re.findall(r'"([^"\n]*)"', text):
+            assert not jax_module.match(literal), f"{src.name}: {literal!r}"
+        assert not re.search(r"\bspark_rapids_jni_tpu\.", text), src.name
+    trampoline = (REPO / "spark_rapids_jni_tpu_torch" / "csrc"
+                  / "device_bridge.cpp").read_text()
+    assert '"spark_rapids_jni_tpu_torch.bridge"' in trampoline
