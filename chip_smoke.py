@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main paths, JCUDF row ↔ column conversion and the
-device Parquet scan, through their public entry points on the card, and
+Drives the port's main paths, JCUDF row ↔ column conversion, the
+device Parquet scan and the queries on it (TPC-H Q6 and Q1, 16 TPC-DS
+join queries), through their public entry points on the card, and
 fails (non-zero exit, no result line) if anything is wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
@@ -103,7 +104,21 @@ fails (non-zero exit, no result line) if anything is wrong:
    the median walls of the device calls and of the host engine's, beside
    ``convert_to_rows`` / ``convert_from_rows``, and the device calls'
    split (handle read, upload, convert, download, import), on a
-   ``[jni] split`` JSON line.
+   ``[jni] split`` JSON line;
+13. TPC-DS joins: the five tables of ``benchmarks/tpcds_data.generate``
+   at 10,000,000 ``store_sales`` rows, 20,000 items and 50 stores
+   (BASELINE config #3's SF1 scale), written by
+   ``tools/torch_tpcds_parquet.py``; ``models.tpcds.load_tables`` timed;
+   each of the 16 queries of ``models.tpcds.QUERIES`` with parameters
+   picked from the data, its result held against the numpy oracle
+   (``tools/torch_tpcds_oracle.py``: exact, float sums within a relative
+   1e-12 of the exact cents sums), the median wall of three calls after
+   the first and the engine, key plan and fused path each join took
+   (``ops.join_plan.COUNTS``); q3's two joins with each engine pinned,
+   identical; q3 and q_channel_day profiled (device busy, idle share,
+   largest device ops); B3, B4 and B7 on the largest inputs the phase
+   hands them, against their plain versions and timed as in phase 3.
+   A ``[tpcds] summary`` JSON line holds the walls, paths and launches.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -1929,11 +1944,172 @@ def phase_jni_natives(T, W, lib, kernels, card, raw, seed,
         f"footer equal to footer.py's")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: TPC-DS joins
+# ---------------------------------------------------------------------------
+
+# BASELINE config #3's SF1 scale, tools/query_bench.py:134-135's arguments
+TPCDS_ARGS = dict(n_sales=10_000_000, n_items=20_000, n_stores=50, seed=5)
+# the kernels phase 13 launches: B3 for its string keys' byte matrix, B4
+# for the STRING gathers of the keys, B7 for the scan
+TPCDS_KERNELS = ("unpack_rows", "segmented_copy", "u8_to_u32")
+TPCDS_PROFILED = ("q3", "q_channel_day")
+TPCDS_TOP = 8
+
+
+def tpcds_profile(fn, card) -> dict:
+    """Device busy ms, idle share and the largest device ops of one call
+    of ``fn`` after a warm-up, by ``torch.profiler``."""
+    from torch_profile_rowconv import (NAME_CHARS, _busy_us, _device_total,
+                                       profile_call)
+    fn()
+    prof, wall_us = profile_call(fn)
+    busy = _busy_us(prof)
+    avgs = sorted(prof.key_averages(), key=_device_total, reverse=True)
+    top = [(a.key[:NAME_CHARS], round(_device_total(a) / 1e3, 3), a.count)
+           for a in avgs[:TPCDS_TOP] if _device_total(a) > 0]
+    return dict(wall_ms=round(wall_us / 1e3, 3),
+                device_busy_ms=round(busy / 1e3, 3),
+                idle_share=round(1 - busy / wall_us, 3), top=top, card=card)
+
+
+def q3_indices(tables, params, join_plan, engine) -> list:
+    """q3's two joins' indices with ``engine`` pinned: store_sales ⋈ the
+    filtered items, then that join's rows ⋈ the filtered dates."""
+    from spark_rapids_jni_tpu_torch import ops
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    ss, item, dd = (tables["store_sales"], tables["item"],
+                    tables["date_dim"])
+    item_cols, date_cols = tpcds.ITEM_COLS, tpcds.DATE_COLS
+    item_f = ops.apply_boolean_mask(item, tpcds._eq_scalar_mask(
+        item[item_cols.index("i_manufact_id")], params["manufact_id"]))
+    dd_f = ops.apply_boolean_mask(dd, tpcds._eq_scalar_mask(
+        dd[date_cols.index("d_moy")], params["moy"]))
+    ss_item = tpcds.SS_COLS.index("ss_item_sk")
+    ss_date = tpcds.SS_COLS.index("ss_sold_date_sk")
+    with join_plan.force_engine(engine):
+        li, ri = ops.join_indices(ss[ss_item], item_f[0], "inner")
+        j1 = ops.inner_join(ss, item_f, ss_item, 0)
+        li2, ri2 = ops.join_indices(j1[ss_date], dd_f[0], "inner")
+        torch.cuda.synchronize()
+        return [li, ri, li2, ri2]
+
+
+def phase_tpcds(kernels, card, launches) -> dict:
+    """Phase 13: 16 TPC-DS join queries on a 10,000,000-row store_sales,
+    each against the numpy oracle; both engines on q3; B3, B4 and B7 on
+    the inputs the queries hand them; q3 and q_channel_day profiled."""
+    import torch_tpcds_oracle as O
+    import torch_tpcds_parquet as TW
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.ops import join_plan
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    files, arrays = TW.tpcds_parquet(**TPCDS_ARGS)
+    log(f"[tpcds] {TPCDS_ARGS}: files written in "
+        f"{time.perf_counter() - t0:.2f} s, rows "
+        f"{ {t: len(next(iter(a.values()))) for t, a in arrays.items()} }, "
+        f"bytes { {t: len(b) for t, b in files.items()} }")
+    params = O.query_params(arrays)
+    t0 = time.perf_counter()
+    want = {name: O.answer(name, arrays, params[name])
+            for name in tpcds.QUERIES}
+    log(f"[tpcds] the numpy oracle answered in "
+        f"{time.perf_counter() - t0:.2f} s; parameters {params}")
+
+    kernels.reset()
+    t0 = time.perf_counter()
+    tables = tpcds.load_tables(files)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    require(all(t.device.type == "cuda" for t in tables.values()),
+            "load_tables left a table off the card")
+    load_wall = median_wall(lambda: tpcds.load_tables(files))
+    total_bytes = sum(len(b) for b in files.values())
+    log(f"[tpcds] load_tables: first {first * 1e3:.3f} ms, median of "
+        f"{PATH_REPS} {load_wall * 1e3:.3f} ms for {total_bytes} file "
+        f"bytes ({total_bytes / load_wall / 1e9:.3f} GB/s); launches "
+        f"{counts} [{card}]")
+
+    phase_counts = collections.Counter(counts)
+    report = {"card": card, "load_tables_ms": round(load_wall * 1e3, 3),
+              "queries": {}}
+    for name, fn in tpcds.QUERIES.items():
+        kw = params[name]
+        kernels.reset()
+        join_plan.reset_counts()
+        t0 = time.perf_counter()
+        out = fn(tables, **kw)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = kernels.counts()
+        paths = dict(sorted(join_plan.COUNTS.items()))
+        add_counts(launches, counts)
+        phase_counts.update(counts)
+        try:
+            rel = O.check(name, out, want[name])
+        except AssertionError as e:
+            raise SmokeFailure(f"tpcds {name}: {e}") from None
+        wall = median_wall(lambda: fn(tables, **kw))
+        report["queries"][name] = dict(
+            wall_ms=round(wall * 1e3, 3), first_ms=round(first * 1e3, 3),
+            rows=out.num_rows, max_rel_err=rel, paths=paths)
+        log(f"[tpcds] {name} {kw}: {out.num_rows} rows equal the oracle "
+            f"(floats' largest relative error {rel:.3e}); median of "
+            f"{PATH_REPS} {wall * 1e3:.3f} ms, first {first * 1e3:.3f} ms; "
+            f"engines and paths {paths}; launches {counts} [{card}]")
+        del out
+    for name in TPCDS_KERNELS:
+        require(phase_counts[name] > 0, f"tpcds: {name} never launched")
+
+    # the engines against each other at full size
+    q3p = params["q3"]
+    dense = q3_indices(tables, q3p, join_plan, "dense")
+    srt = q3_indices(tables, q3p, join_plan, "sorted")
+    require(all(torch.equal(a, b) for a, b in zip(dense, srt)),
+            "q3: the dense and sorted engines give different indices")
+    log(f"[tpcds] q3's two joins, dense vs sorted engine: identical "
+        f"indices ({dense[0].numel()} and {dense[2].numel()} pairs)")
+    del dense, srt
+
+    for name in TPCDS_PROFILED:
+        prof = tpcds_profile(lambda: tpcds.QUERIES[name](tables,
+                                                          **params[name]),
+                             card)
+        report["queries"][name]["profile"] = prof
+        log(f"[tpcds] profile {name}: " + json.dumps(prof))
+
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    def run_all():
+        t = tpcds.load_tables(files)
+        for name, fn in tpcds.QUERIES.items():
+            fn(t, **params[name])
+
+    captured = record_inputs(kernels, TPCDS_KERNELS, keep, run_all)
+    results = {("TPC-DS", name): measure(kernels, name, args, card, "TPC-DS",
+                                         library_call(name, args))
+               for name, (_, args) in sorted(captured.items())}
+    report["launches"] = dict(phase_counts)
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[tpcds] summary " + json.dumps(report))
+    del tables, files, arrays, captured
+    torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_run = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spark_rapids_jni_tpu_torch as pt
@@ -1982,6 +2158,7 @@ def main(argv=None) -> int:
                             launches))
     results.update(phase_spark(pt, W, device_scan, q6, kernels, card,
                                args.seed, launches, full_scan))
+    results.update(phase_tpcds(kernels, card, launches))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():
@@ -2010,6 +2187,8 @@ def main(argv=None) -> int:
         if len(inputs) > 1:
             entry["inputs"] = inputs
         out.append(entry)
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s "
+        f"[{card}]")
     log(json.dumps({"card": card, "kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

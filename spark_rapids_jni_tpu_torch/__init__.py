@@ -9,7 +9,9 @@ The hand-written kernels are CUDA C++ sources under ``csrc/``, compiled with
 ``nvcc`` at first use (see ``_native.py``).
 
 Ported so far: JCUDF row ↔ column conversion, the device Parquet scan
-with TPC-H Q6 on it, the op library TPC-H Q1 needs (``ops``) and Q1.
+with TPC-H Q6 on it, the op library TPC-H Q1 needs (``ops``) and Q1, the
+join engine with lazy columns, and 16 TPC-DS join queries
+(``models.tpcds``).
 """
 
 from . import types  # noqa: F401
@@ -20,7 +22,8 @@ from .types import (  # noqa: F401
     timestamp_days, timestamp_seconds, timestamp_ms, timestamp_us, timestamp_ns,
     decimal32, decimal64, decimal128,
 )
-from .column import Column, DictColumn, Table  # noqa: F401
+from .column import (Column, DictColumn, LazyColumn, Table,  # noqa: F401
+                     force_column)
 from .rowconv import (  # noqa: F401
     RowBatch, RowLayout, compute_row_layout, build_batches,
     convert_to_rows, convert_from_rows,

@@ -234,6 +234,84 @@ class DictColumn(Column):
                 f"dictionary={self.dictionary.num_rows} entries)")
 
 
+def as_dict_column(col: Column) -> Optional[DictColumn]:
+    """``col`` as a :class:`DictColumn` if it is one, looking through a
+    lazy wrapper (which this forces), else None: the dispatch point of the
+    ops that read dictionary codes."""
+    if isinstance(col, DictColumn):
+        return col
+    if isinstance(col, LazyColumn):
+        inner = col._force()
+        if isinstance(inner, DictColumn):
+            return inner
+    return None
+
+
+class LazyColumn(Column):
+    """A column whose payload is computed on first access.
+
+    The counterpart of the JAX package's ``LazyColumn``
+    (``spark_rapids_jni_tpu/column.py:353-425``): the row gathers of
+    filters, joins, sorts and concatenations return these, so that a
+    column the rest of the plan never reads is never gathered, and a
+    STRING column never pays its gather's synchronisation.  Reading
+    ``data``, ``offsets`` or ``validity`` runs the thunk once and keeps
+    its column; ``dtype``, ``num_rows`` and ``device`` answer without
+    forcing.  The thunk may return a :class:`DictColumn`; ops that read
+    codes see it through :func:`as_dict_column`.
+    """
+
+    def __init__(self, dtype: T.DType, num_rows: int, device, thunk):
+        self.dtype = dtype
+        self._n = num_rows
+        self._device = torch.device(device)
+        self._thunk = thunk
+        self._col: Optional[Column] = None
+
+    def _force(self) -> Column:
+        if self._col is None:
+            self._col = self._thunk()
+            self._thunk = None
+        return self._col
+
+    @property
+    def forced(self) -> bool:
+        return self._col is not None
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self._force().data
+
+    @property
+    def offsets(self) -> Optional[torch.Tensor]:
+        return self._force().offsets
+
+    @property
+    def validity(self) -> Optional[torch.Tensor]:
+        return self._force().validity
+
+    @property
+    def num_rows(self) -> int:
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def to_pylist(self):
+        return self._force().to_pylist()
+
+    def __repr__(self) -> str:
+        state = "forced" if self.forced else "deferred"
+        return f"LazyColumn({self.dtype.id.name}, rows={self._n}, {state})"
+
+
+def force_column(col: Column) -> Column:
+    """The eager form of ``col``: a :class:`LazyColumn`'s column, forced
+    (a :class:`DictColumn` stays one), else ``col`` itself."""
+    return col._force() if isinstance(col, LazyColumn) else col
+
+
 @dataclasses.dataclass
 class Table:
     """An ordered collection of equal-length columns.  A scanned table

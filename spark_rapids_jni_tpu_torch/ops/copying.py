@@ -1,11 +1,13 @@
 """Table copies: concatenate and slice (libcudf ``concatenate``,
 ``slice``).
 
-The port's counterpart of the JAX package's ``ops/copying.py``, eager
-(the JAX package defers concatenated columns as ``LazyColumn``s, which
-are not ported).  Concatenation joins each column's buffers and rebases
-string offsets on the device; a slice takes host bounds, and a STRING
-slice reads its two char bounds (one synchronisation).  A
+The port's counterpart of the JAX package's ``ops/copying.py``.
+Concatenation defers each column as a :class:`LazyColumn`, as the JAX
+package's does, so that concatenating lazy join outputs forces none of
+the columns the plan never reads; forced, it joins the column's
+buffers and rebases string offsets on the device.  A slice takes host
+bounds, and a STRING slice reads its two char bounds (one
+synchronisation).  A
 :class:`DictColumn` concatenates or slices as its materialized chars, as
 in the JAX package.
 """
@@ -16,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from ..column import Column, Table
+from ..column import Column, LazyColumn, Table
 
 
 def _concat_validity(cols: Sequence[Column]):
@@ -49,7 +51,8 @@ def _concat_columns(cols: Sequence[Column]) -> Column:
 
 
 def concat_tables(tables: Sequence[Table]) -> Table:
-    """Row-wise concatenation (libcudf ``concatenate``)."""
+    """Row-wise concatenation (libcudf ``concatenate``), each column
+    deferred.  Type mismatches raise here, not when a column is forced."""
     tables = list(tables)
     if not tables:
         raise ValueError("concat_tables needs at least one table")
@@ -57,8 +60,19 @@ def concat_tables(tables: Sequence[Table]) -> Table:
     for t in tables:
         if t.num_columns != ncols:
             raise ValueError("concat_tables: column count mismatch")
-    return Table([_concat_columns([t[i] for t in tables])
-                  for i in range(ncols)])
+    for i in range(ncols):
+        dt = tables[0][i].dtype
+        for t in tables[1:]:
+            if t[i].dtype != dt:
+                raise TypeError(
+                    f"concat dtype mismatch: {t[i].dtype} vs {dt}")
+    n_out = sum(t.num_rows for t in tables)
+    # each thunk holds its own column list only, not every input table
+    by_index = [[t[i] for t in tables] for i in range(ncols)]
+    return Table([
+        LazyColumn(cols[0].dtype, n_out, cols[0].device,
+                   lambda cols=cols: _concat_columns(cols))
+        for cols in by_index])
 
 
 def _slice_column(col: Column, start: int, stop: int) -> Column:

@@ -1,13 +1,15 @@
 """Row filtering and gathering (libcudf ``apply_boolean_mask``/``gather``).
 
 The port's counterpart of the JAX package's ``ops/filter.py``.  A filter
-is a count and a gather: ``torch.nonzero`` of the mask (its one
-synchronisation, the count), then the surviving rows gathered column by
-column.  ``gather`` is eager (the JAX package's ``LazyColumn`` is not
-ported).  A :class:`DictColumn` gathers its codes only; a STRING column's
-chars move as one segmented copy to device offsets, kernel B4
-(``rowconv.ragged.segmented_copy``), after one synchronisation for the
-chars' total.  ``mask_table`` keeps every row and nulls the failing ones.
+is a count and a gather: the count of the mask (its one synchronisation),
+then :func:`sized_nonzero`'s indices of the surviving rows.  ``gather``
+returns :class:`LazyColumn`s, as the JAX package's does: a column is
+gathered when the plan first reads it, and a column it never reads is
+never gathered.  A :class:`DictColumn` gathers its codes only, at once; a
+STRING column's chars move, when forced, as one segmented copy to device
+offsets, kernel B4 (``rowconv.ragged.segmented_copy``), after one
+synchronisation for the chars' total.  ``mask_table`` keeps every row and
+nulls the failing ones, deferred likewise.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..column import Column, DictColumn, Table
+from ..column import (Column, DictColumn, LazyColumn, Table, as_dict_column,
+                      force_column)
 from ..rowconv import ragged
 
 _MAX_CHARS = 2**31 - 1
@@ -40,10 +43,14 @@ def _gather_strings(col: Column, idx: torch.Tensor) -> Column:
 
 
 def _gather_column(col: Column, idx: torch.Tensor) -> Column:
+    """The rows ``idx`` of ``col``, eager (a lazy input is forced)."""
     idx = idx.to(torch.int64)
-    if isinstance(col, DictColumn):
-        v = None if col.validity is None else col.validity[idx]
-        return DictColumn(col.codes[idx], col.dictionary, v)
+    d = as_dict_column(col)
+    if d is not None:
+        # codes only: the dictionary is shared and no byte is read
+        v = None if d.validity is None else d.validity[idx]
+        return DictColumn(d.codes[idx], d.dictionary, v)
+    col = force_column(col)
     if col.dtype.is_nested:
         raise NotImplementedError(
             f"gather of {col.dtype.id.name} columns is not ported")
@@ -54,29 +61,60 @@ def _gather_column(col: Column, idx: torch.Tensor) -> Column:
 
 
 def gather(table: Table, idx: torch.Tensor) -> Table:
-    """Rows of ``table`` by index (libcudf gather), every column at once."""
-    return Table([_gather_column(c, idx) for c in table.columns])
+    """Rows of ``table`` by index (libcudf gather).  Each column comes back
+    a :class:`LazyColumn` that gathers when first read; a
+    :class:`DictColumn` gathers its codes at once (no synchronisation, and
+    it stays visible as a dictionary column)."""
+    n_out = int(idx.shape[0])
+    return Table([
+        _gather_column(c, idx) if isinstance(c, DictColumn) else
+        LazyColumn(c.dtype, n_out, idx.device,
+                   lambda c=c: _gather_column(c, idx))
+        for c in table.columns])
+
+
+def sized_nonzero(mask: torch.Tensor, n_keep: int) -> torch.Tensor:
+    """Ascending int64 indices of the True rows, shaped ``[n_keep]``: cut
+    to the first ``n_keep``, or padded with zeros, as the JAX package's
+    (``ops/filter.py:72-93``).  ``n_keep`` comes from the caller's count,
+    so this adds no synchronisation: each True row scatters its index to
+    its rank, the others to a slot past the end."""
+    mask = mask.to(torch.bool)
+    dev = mask.device
+    n = mask.shape[0]
+    rank = torch.cumsum(mask, 0) - 1
+    keep = mask & (rank < n_keep)
+    out = torch.zeros(n_keep + 1, dtype=torch.int64, device=dev)
+    out.scatter_(0, torch.where(keep, rank, n_keep),
+                 torch.arange(n, dtype=torch.int64, device=dev))
+    return out[:n_keep]
 
 
 def apply_boolean_mask(table: Table, mask: torch.Tensor) -> Table:
-    """Keep the rows where ``mask`` is True (compacting).  The JAX
-    package's count and ``sized_nonzero`` are one ``torch.nonzero`` here,
-    whose size is the one synchronisation."""
-    return gather(table, torch.nonzero(mask).reshape(-1))
+    """Keep the rows where ``mask`` is True (compacting): the count (one
+    synchronisation), then :func:`sized_nonzero` and a lazy gather."""
+    n_keep = int(mask.sum())
+    return gather(table, sized_nonzero(mask, n_keep))
+
+
+def _masked(c: Column, mask: torch.Tensor) -> Column:
+    v = mask if c.validity is None else (c.validity & mask)
+    if isinstance(c, DictColumn):
+        return DictColumn(c.codes, c.dictionary, v)
+    return Column(c.dtype, c.data, c.offsets, v)
 
 
 def mask_table(table: Table, mask: torch.Tensor) -> Table:
     """Filter without compaction: failing rows become null.  Reductions
     and groupbys honour validity, so the results match the compacting
-    filter's."""
-    out = []
-    for c in table.columns:
-        v = mask if c.validity is None else (c.validity & mask)
-        if isinstance(c, DictColumn):
-            out.append(DictColumn(c.codes, c.dictionary, v))
-        else:
-            out.append(Column(c.dtype, c.data, c.offsets, v))
-    return Table(out)
+    filter's.  A :class:`DictColumn` is masked at once (a validity AND);
+    other columns are deferred, so that masking a wide table forces none
+    of them."""
+    return Table([
+        _masked(c, mask) if isinstance(c, DictColumn) else
+        LazyColumn(c.dtype, c.num_rows, c.device,
+                   lambda c=c: _masked(force_column(c), mask))
+        for c in table.columns])
 
 
 def fill_null(col: Column, value) -> Column:
@@ -106,13 +144,14 @@ def isin(col: Column, values) -> torch.Tensor:
     dev = col.device
     if col.dtype.id == T.TypeId.STRING:
         from . import strings
-        if isinstance(col, DictColumn):
-            nd = col.dictionary.num_rows
+        d = as_dict_column(col)
+        if d is not None:
+            nd = d.dictionary.num_rows
             if nd == 0:
                 m = torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
             else:
-                dm = isin(col.dictionary, values)
-                m = dm[col.codes.clamp(0, nd - 1).to(torch.int64)]
+                dm = isin(d.dictionary, values)
+                m = dm[d.codes.clamp(0, nd - 1).to(torch.int64)]
         else:
             payloads = [v.encode() if isinstance(v, str) else bytes(v)
                         for v in values if v is not None]

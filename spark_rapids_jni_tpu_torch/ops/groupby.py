@@ -337,6 +337,17 @@ def _agg_out_dtype(src: T.DType, agg: str) -> T.DType:
     return T.float64 if src.storage.kind == "f" else T.int64
 
 
+def _cast_res(res: torch.Tensor, dt: T.DType) -> torch.Tensor:
+    """An aggregate's result in ``dt``'s storage."""
+    return res.to(dt.torch_storage)
+
+
+def _take_rows(col: Column, idx: torch.Tensor) -> Column:
+    """Rows of a fixed-width column, eager."""
+    v = None if col.validity is None else col.validity[idx]
+    return Column(col.dtype, col.data[idx], validity=v)
+
+
 def _empty_column_of(dt: T.DType, device) -> Column:
     if dt.is_variable_width:
         return Column(dt, torch.zeros(0, dtype=torch.uint8, device=device),

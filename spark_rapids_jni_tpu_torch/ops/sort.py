@@ -20,7 +20,7 @@ from typing import Sequence
 import torch
 
 from .. import types as T
-from ..column import Column, DictColumn, Table
+from ..column import Column, Table, as_dict_column
 from .filter import gather
 from .int64bits import MASK32, TOPBIT
 
@@ -66,9 +66,10 @@ def f64_sort_key_lanes(col: Column, descending: bool = False
 
 
 def _key_lanes(col: Column, asc: bool) -> list[torch.Tensor]:
-    if isinstance(col, DictColumn):
+    d = as_dict_column(col)
+    if d is not None:
         from . import strings
-        rank, _ = strings.dict_rank_codes(col)
+        rank, _ = strings.dict_rank_codes(d)
         return [rank if asc else ~rank]
     if col.dtype.id == T.TypeId.STRING:
         from . import strings

@@ -11,18 +11,21 @@ kernel B3's work (``rowconv.ragged.unpack_rows``); on the CPU its plain
 version's.  Lanes are int64 tensors holding the JAX package's uint32
 values.
 
-The rest of the JAX module (equality, LIKE, case, substrings, shared
-encodings) is not ported yet.
+Equality (``equal_to``, ``equal_to_scalar``, a :class:`DictColumn`'s
+predicate over its dictionary) and ``encode_shared``, the one dictionary
+that string join keys are coded against (:239-325), came with the joins.
+The rest of the JAX module (LIKE, case, substrings, concatenation) is
+not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from .. import types as T
-from ..column import Column, DictColumn
+from ..column import Column, DictColumn, as_dict_column
 from ..rowconv import ragged
 from .int64bits import MASK32
 
@@ -99,11 +102,12 @@ def dictionary_encode(col: Column) -> tuple[Column, Column]:
     and indexes the returned dictionary.  Null rows encode as the empty
     key, which they share, with the validity carried through.  A
     :class:`DictColumn` re-encodes through its dictionary only."""
-    if isinstance(col, DictColumn):
-        rows, uniq = dict_rank_codes(col)
-        if col.validity is not None:
-            rows = torch.where(col.validity, rows, 0)
-        return Column(T.int32, rows, validity=col.validity), uniq
+    d = as_dict_column(col)
+    if d is not None:
+        rows, uniq = dict_rank_codes(d)
+        if d.validity is not None:
+            rows = torch.where(d.validity, rows, 0)
+        return Column(T.int32, rows, validity=d.validity), uniq
     from .filter import _gather_column
     from .sort import lexsort
     n = col.num_rows
@@ -141,3 +145,100 @@ def dictionary_encode(col: Column) -> tuple[Column, Column]:
                                 first_pos)
     uniq = _gather_column(Column(col.dtype, col.data, col.offsets), first_pos)
     return Column(T.int32, codes, validity=col.validity), uniq
+
+
+def _as_bool_column(mask: torch.Tensor, validity) -> Column:
+    return Column(T.bool8, mask.to(torch.uint8), validity=validity)
+
+
+def _dict_predicate(col: Column, fn) -> Optional[Column]:
+    """A per-row string predicate of a :class:`DictColumn`: ``fn`` once
+    over the dictionary, then gathered by code; None when ``col`` holds
+    no dictionary (the caller takes the byte-matrix path)."""
+    d = as_dict_column(col)
+    if d is None:
+        return None
+    nd = d.dictionary.num_rows
+    if nd == 0:
+        bits = torch.zeros(d.num_rows, dtype=torch.bool, device=d.device)
+    else:
+        dmask = fn(d.dictionary)
+        bits = (dmask.data != 0)[d.codes.clamp(0, nd - 1).to(torch.int64)]
+    return _as_bool_column(bits, d.validity)
+
+
+def encode_shared(cols: Sequence[Column]) -> list[Column]:
+    """Codes of several STRING columns against one shared dictionary, so
+    that code equality is string equality across them (the string
+    equi-join key).  :class:`DictColumn` inputs add their dictionaries to
+    the encode, not their rows, and map their codes with one gather."""
+    dicts = [as_dict_column(c) for c in cols]
+    if any(d is not None for d in dicts):
+        parts = [d.dictionary if d is not None else c
+                 for c, d in zip(cols, dicts)]
+        shared = encode_shared(parts)
+        out = []
+        for c, d, s in zip(cols, dicts, shared):
+            if d is None:
+                out.append(s)
+                continue
+            nd = d.dictionary.num_rows
+            rows = (s.data[d.codes.clamp(0, nd - 1).to(torch.int64)] if nd
+                    else torch.zeros_like(d.codes))
+            if d.validity is not None:
+                rows = torch.where(d.validity, rows, 0)
+            out.append(Column(T.int32, rows, validity=d.validity))
+        return out
+    dev = cols[0].device
+    sizes = [c.num_rows for c in cols]
+    chars = torch.cat([c.data for c in cols])
+    offs_parts = [torch.zeros(1, dtype=torch.int64, device=dev)]
+    char_base = 0
+    for c in cols:
+        offs_parts.append(c.offsets[1:].to(torch.int64) + char_base)
+        char_base += int(c.data.shape[0])
+    if char_base >= 2**31:
+        raise ValueError(f"encode_shared: {char_base} chars exceed int32 "
+                         "offsets")
+    validity = (None if all(c.validity is None for c in cols)
+                else torch.cat([c.validity_or_true() for c in cols]))
+    combined = Column(T.string, chars, torch.cat(offs_parts).to(torch.int32),
+                      validity)
+    codes, _ = dictionary_encode(combined)
+    out, base = [], 0
+    for c, sz in zip(cols, sizes):
+        out.append(Column(T.int32, codes.data[base:base + sz],
+                          validity=c.validity))
+        base += sz
+    return out
+
+
+def equal_to(a: Column, b: Column) -> Column:
+    """Row-wise string equality, a BOOL8 column, null where either side
+    is."""
+    la, lb = _lengths(a), _lengths(b)
+    width = max(_max_len(a), _max_len(b))
+    ma, _ = byte_matrix(a, width)
+    mb, _ = byte_matrix(b, width)
+    eq = (la == lb) & (ma == mb).all(dim=1)
+    v = None
+    if a.validity is not None or b.validity is not None:
+        v = a.validity_or_true() & b.validity_or_true()
+    return _as_bool_column(eq, v)
+
+
+def equal_to_scalar(col: Column, value) -> Column:
+    """``col == value`` (a str or bytes), a BOOL8 column; null rows stay
+    null.  A :class:`DictColumn` compares its dictionary only."""
+    hit = _dict_predicate(col, lambda u: equal_to_scalar(u, value))
+    if hit is not None:
+        return hit
+    payload = value.encode("utf-8") if isinstance(value, str) else bytes(value)
+    lens = _lengths(col)
+    mat, _ = byte_matrix(col, max(len(payload), 1))
+    target = torch.zeros(mat.shape[1], dtype=torch.uint8)
+    if payload:
+        target[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                                 dtype=torch.uint8)
+    eq = (lens == len(payload)) & (mat == target.to(mat.device)).all(dim=1)
+    return _as_bool_column(eq, col.validity)

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..column import Column, DictColumn, Table
+from ..column import Column, DictColumn, Table, force_column
 from ..utils import bitmask
 from . import ragged, xpack
 from .layout import (BATCH_ROW_MULTIPLE, JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES,
@@ -317,6 +317,13 @@ def _to_rows_strings(layout: RowLayout, table: Table,
     return out
 
 
+def _eager(col):
+    """A column as rows read it: lazy columns forced, dictionary strings
+    materialized."""
+    col = force_column(col)
+    return col.materialize() if isinstance(col, DictColumn) else col
+
+
 def convert_to_rows(table: Table,
                     max_batch_bytes: Optional[int] = None) -> list[RowBatch]:
     """Table → JCUDF row batches (``convert_to_rows``,
@@ -325,8 +332,7 @@ def convert_to_rows(table: Table,
     Rows are the output boundary: a :class:`DictColumn` materializes its
     chars here, as the JAX package's ``.data`` access does."""
     max_batch_bytes = max_batch_bytes or MAX_BATCH_BYTES
-    table = Table([c.materialize() if isinstance(c, DictColumn) else c
-                   for c in table.columns])
+    table = Table([_eager(c) for c in table.columns])
     layout = compute_row_layout(table.schema)
     if layout.fixed_width_only:
         return _to_rows_fixed(layout, table, max_batch_bytes)

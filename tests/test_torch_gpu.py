@@ -934,3 +934,102 @@ def test_failed_launch_throws_java_exception(cuda, monkeypatch):
     assert "CUDA error 719" in env.thrown[1], env.thrown
     lib.srjt_rows_free(host)
     jni.HostTable_close(env, t)
+
+
+def _join_keys(rng, kind):
+    """(left keys, right keys) on the CPU for the join tests on the card."""
+    def col(v, valid=None):
+        return pt.Column.from_numpy(v, validity=valid, device="cpu")
+    if kind == "dup_nulls":
+        return (col(rng.integers(0, 300, 20000).astype(np.int32),
+                    rng.random(20000) < 0.9),
+                col(rng.integers(0, 300, 900).astype(np.int32),
+                    rng.random(900) < 0.9))
+    if kind == "unique":
+        rk = rng.permutation(np.arange(5000, 9000, dtype=np.int64))[:3000]
+        return (col(np.where(rng.random(50000) < 0.7,
+                             rk[rng.integers(0, 3000, 50000)],
+                             rng.integers(0, 20000, 50000))), col(rk))
+    if kind == "composite":
+        return ([col(rng.integers(0, 90, 30000)),
+                 col(rng.integers(0, 40, 30000).astype(np.int32))],
+                [col(rng.integers(0, 90, 2000)),
+                 col(rng.integers(0, 40, 2000).astype(np.int32))])
+    if kind == "fingerprint":
+        base = rng.integers(-2**61, 2**61, 200)
+        return ([col(base[rng.integers(0, 200, 8000)]),
+                 col(base[rng.integers(0, 200, 8000)])],
+                [col(base[rng.integers(0, 200, 900)]),
+                 col(base[rng.integers(0, 200, 900)])])
+    pool = np.array([-0.0, 0.0, np.nan, 1.5, -2.5, np.inf, 3.25])
+    return (col(rng.choice(pool, 5000), rng.random(5000) < 0.9),
+            col(rng.choice(pool, 300)))
+
+
+def _cols_on(c, dev):
+    if isinstance(c, list):
+        return [_cols_on(x, dev) for x in c]
+    return pt.Column(c.dtype, c.data.to(dev),
+                     None if c.offsets is None else c.offsets.to(dev),
+                     None if c.validity is None else c.validity.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["dense", "sorted"])
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
+@pytest.mark.parametrize("kind", ["dup_nulls", "unique", "composite",
+                                  "fingerprint", "float"])
+def test_join_indices_on_card_match_cpu(cuda, kind, how, engine):
+    from spark_rapids_jni_tpu_torch.ops import join_plan
+    from spark_rapids_jni_tpu_torch.ops.join import join_indices
+    lk, rk = _join_keys(np.random.default_rng(len(kind)), kind)
+    with join_plan.force_engine(engine):
+        want = join_indices(lk, rk, how)
+        got = join_indices(_cols_on(lk, cuda), _cols_on(rk, cuda), how)
+    torch.cuda.synchronize()
+    if how in ("semi", "anti"):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["right_join", "full_outer_join"])
+def test_outer_table_joins_on_card_match_cpu(cuda, kind):
+    from spark_rapids_jni_tpu_torch import ops
+    rng = np.random.default_rng(3)
+    cols = [pt.Column.from_numpy(rng.integers(0, 500, 4000), device="cpu"),
+            pt.Column.strings_from_list([f"v{i}" for i in range(4000)],
+                                        device="cpu")]
+    rcols = [pt.Column.from_numpy(rng.integers(0, 500, 700), device="cpu"),
+             pt.Column.from_numpy(rng.random(700), device="cpu")]
+    want = getattr(ops, kind)(pt.Table(cols), pt.Table(rcols), 0, 0)
+    got = getattr(ops, kind)(pt.Table(_cols_on(cols, cuda)),
+                             pt.Table(_cols_on(rcols, cuda)), 0, 0)
+    assert got.num_rows == want.num_rows
+    for g, w in zip(got.columns, want.columns):
+        assert torch.equal(g.validity_or_true().cpu(), w.validity_or_true())
+        assert torch.equal(g.data.cpu(), w.data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["q3", "q_channel_day"])
+def test_tpcds_on_card_matches_oracle(cuda, name):
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "tools"))
+    import torch_tpcds_oracle as O
+    import torch_tpcds_parquet as TW
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    files, arrays = TW.tpcds_parquet(n_sales=200_000, n_items=2000, seed=7)
+    params = O.query_params(arrays)[name]
+    tables = tpcds.load_tables(files, device=cuda)
+    before = ragged.launch_counts()
+    out = tpcds.QUERIES[name](tables, **params)
+    torch.cuda.synchronize()
+    assert all(c.device.type == "cuda" for c in out.columns)
+    O.check(name, out, O.answer(name, arrays, params))
+    # the string group keys' byte matrix is B3's on the card
+    assert ragged.launch_counts()["unpack_rows"] > before["unpack_rows"]

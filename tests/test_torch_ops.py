@@ -429,3 +429,117 @@ def test_fingerprint_and_partition_match_jax():
         assert p.dtype == torch.int32
         np.testing.assert_array_equal(
             p.numpy(), np.asarray(jhashing.hash_partition(jh, parts)))
+
+
+# ---------------------------------------------------------------------------
+# lazy columns, string equality and shared codes
+# ---------------------------------------------------------------------------
+
+def test_lazy_column_forces_once_and_counts_rows_without_forcing():
+    calls = []
+    inner = pt.Column.from_numpy(np.arange(5, dtype=np.int32), device=CPU)
+
+    def thunk():
+        calls.append(1)
+        return inner
+
+    lazy = pt.LazyColumn(pt.int32, 5, CPU, thunk)
+    t = pt.Table([lazy])
+    assert (lazy.num_rows, len(lazy), t.num_rows, t.device.type) == \
+        (5, 5, 5, "cpu")
+    assert calls == [] and not lazy.forced
+    assert lazy.data is inner.data and lazy.validity is None
+    assert lazy.to_pylist() == [0, 1, 2, 3, 4]
+    assert calls == [1] and lazy.forced
+    assert pt.force_column(lazy) is inner and pt.force_column(inner) is inner
+
+
+def test_gather_is_lazy_and_unread_columns_are_never_gathered():
+    t = _table(["int", "string", "float"], 30)
+    idx = torch.from_numpy(np.random.default_rng(31).integers(0, N, 200))
+    got = ops.gather(t, idx)
+    assert all(isinstance(c, pt.LazyColumn) and not c.forced
+               for c in got.columns)
+    # a groupby on one column forces only what it reads
+    ops.groupby_aggregate(got, [0], [(0, "count")])
+    assert got[0].forced and not got[1].forced and not got[2].forced
+    # filters, joins and concatenations of lazy tables stay lazy
+    both = ops.concat_tables([got, got])
+    assert not any(c.forced for c in both.columns[1:])
+    assert_same_table(both, jops.concat_tables([to_jax(got), to_jax(got)]))
+    assert got[1].forced and got[2].forced
+
+
+def test_lazy_dict_column_is_seen_through():
+    t = _table(["dict", "int"], 32)
+    mask = torch.from_numpy(np.random.default_rng(33).random(N) < 0.5)
+    masked = ops.mask_table(t, mask)
+    assert isinstance(masked[0], pt.DictColumn)
+    lazy = pt.LazyColumn(pt.string, N, CPU, lambda: t[0])
+    assert pt.column.as_dict_column(lazy) is t[0]
+    assert pt.column.as_dict_column(t[1]) is None
+    # dictionary-aware ops take the codes through the wrapper
+    got = ops.gather(pt.Table([lazy, t[1]]), torch.arange(N - 1, -1, -1))
+    assert isinstance(pt.force_column(got[0]), pt.DictColumn)
+    probe = ["a", "zz"]
+    np.testing.assert_array_equal(ops.isin(lazy, probe).numpy(),
+                                  np.asarray(jops.isin(to_jax(t[0]), probe)))
+    codes, _ = strings.dictionary_encode(lazy)
+    jcodes, _ = jstrings.dictionary_encode(to_jax(t[0]))
+    assert_same(codes, jcodes)
+    order = ops.order_by(pt.Table([lazy]), [0])
+    np.testing.assert_array_equal(
+        order.numpy(), np.asarray(jops.order_by(to_jax(pt.Table([t[0]])),
+                                                [0])))
+
+
+def test_rows_of_a_lazy_table_equal_the_eager_table():
+    from spark_rapids_jni_tpu_torch.rowconv import convert
+    t = _table(["int", "string", "dict", "float"], 34)
+    idx = torch.from_numpy(np.random.default_rng(35).integers(0, N, 300))
+    lazy = ops.gather(t, idx)
+    eager = pt.Table([ops.filter._gather_column(c, idx) for c in t.columns])
+    eager = pt.Table([c.materialize() if isinstance(c, pt.DictColumn) else c
+                      for c in eager.columns])
+    a = convert.convert_to_rows(lazy)
+    b = convert.convert_to_rows(eager)
+    assert len(a) == len(b) == 1
+    assert torch.equal(a[0].data, b[0].data)
+    assert torch.equal(a[0].offsets, b[0].offsets)
+
+
+@pytest.mark.parametrize("n_keep", [0, 37, 120, 400])
+def test_sized_nonzero_matches_jax(n_keep):
+    from spark_rapids_jni_tpu.ops.filter import sized_nonzero as jsized
+    mask = np.random.default_rng(36).random(300) < 0.4
+    got = ops.filter.sized_nonzero(torch.from_numpy(mask), n_keep)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jsized(jnp.asarray(mask),
+                                                    n_keep)))
+
+
+@pytest.mark.parametrize("kind", ["string", "dict"])
+def test_equal_to_scalar_matches_jax(kind):
+    col = make_column(kind, np.random.default_rng(37))
+    for value in ["a", "", "zz", "abcdefghi", "nope", b"ab"]:
+        assert_same(strings.equal_to_scalar(col, value),
+                    jstrings.equal_to_scalar(to_jax(col), value),
+                    what=repr(value))
+
+
+def test_equal_to_matches_jax():
+    rng = np.random.default_rng(38)
+    a, b = make_column("string", rng), make_column("string", rng)
+    assert_same(strings.equal_to(a, b),
+                jstrings.equal_to(to_jax(a), to_jax(b)))
+
+
+@pytest.mark.parametrize("kinds", [("string", "string"), ("dict", "string"),
+                                   ("dict", "dict")])
+def test_encode_shared_matches_jax(kinds):
+    rng = np.random.default_rng(39)
+    cols = [make_column(k, rng, n) for k, n in zip(kinds, (N, 250))]
+    got = strings.encode_shared(cols)
+    want = jstrings.encode_shared([to_jax(c) for c in cols])
+    for g, w in zip(got, want):
+        assert_same(g, w)

@@ -244,7 +244,12 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/rowconv/native.py",
             "spark_rapids_jni_tpu_torch/rowconv/host.py",
             "spark_rapids_jni_tpu_torch/parquet/footer_native.py",
-            "tools/torch_lineitem_parquet.py"} <= rel
+            "tools/torch_lineitem_parquet.py",
+            "spark_rapids_jni_tpu_torch/ops/join.py",
+            "spark_rapids_jni_tpu_torch/ops/join_plan.py",
+            "spark_rapids_jni_tpu_torch/models/tpcds.py",
+            "tools/torch_tpcds_parquet.py",
+            "tools/torch_tpcds_oracle.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
