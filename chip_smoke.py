@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Drives the port's main paths, JCUDF row ↔ column conversion, the
-device Parquet scan and the queries on it (TPC-H Q6 and Q1, 16 TPC-DS
-join queries), through their public entry points on the card, and
+device Parquet scan and the queries on it (TPC-H Q6 and Q1, the 50
+TPC-DS queries), through their public entry points on the card, and
 fails (non-zero exit, no result line) if anything is wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
@@ -105,20 +105,23 @@ fails (non-zero exit, no result line) if anything is wrong:
    ``convert_to_rows`` / ``convert_from_rows``, and the device calls'
    split (handle read, upload, convert, download, import), on a
    ``[jni] split`` JSON line;
-13. TPC-DS joins: the five tables of ``benchmarks/tpcds_data.generate``
+13. TPC-DS: the five tables of ``benchmarks/tpcds_data.generate``
    at 10,000,000 ``store_sales`` rows, 20,000 items and 50 stores
    (BASELINE config #3's SF1 scale), written by
    ``tools/torch_tpcds_parquet.py``; ``models.tpcds.load_tables`` timed;
-   each of the 16 queries of ``models.tpcds.QUERIES`` with parameters
-   picked from the data, its result held against the numpy oracle
-   (``tools/torch_tpcds_oracle.py``: exact, float sums within a relative
-   1e-12 of the exact cents sums), the median wall of three calls after
-   the first and the engine, key plan and fused path each join took
-   (``ops.join_plan.COUNTS``); q3's two joins with each engine pinned,
-   identical; q3 and q_channel_day profiled (device busy, idle share,
-   largest device ops); B3, B4 and B7 on the largest inputs the phase
-   hands them, against their plain versions and timed as in phase 3.
-   A ``[tpcds] summary`` JSON line holds the walls, paths and launches.
+   each of the 50 queries of ``models.tpcds.QUERIES`` (joins, grouping
+   sets, windows, LIKE) with parameters picked from the data, its
+   result held against the numpy oracle (``tools/torch_tpcds_oracle.py``:
+   exact, float sums within a relative 1e-12 of the exact cents sums,
+   deviations and ratios within 1e-11), the median wall of three calls
+   after the first and the engine, key plan and fused path each join
+   took (``ops.join_plan.COUNTS``); q3's joins with each engine pinned,
+   identical; q3, q_channel_day, q36_rollup and q27_cube profiled
+   (device busy, idle share, largest device ops); the build-index
+   cache's entries, bytes and evictions; B3, B4 and B7 on the largest
+   inputs the phase hands them, against their plain versions and timed
+   as in phase 3.  A ``[tpcds] summary`` JSON line holds the walls,
+   paths and launches.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -1953,7 +1956,7 @@ TPCDS_ARGS = dict(n_sales=10_000_000, n_items=20_000, n_stores=50, seed=5)
 # the kernels phase 13 launches: B3 for its string keys' byte matrix, B4
 # for the STRING gathers of the keys, B7 for the scan
 TPCDS_KERNELS = ("unpack_rows", "segmented_copy", "u8_to_u32")
-TPCDS_PROFILED = ("q3", "q_channel_day")
+TPCDS_PROFILED = ("q3", "q_channel_day", "q36_rollup", "q27_cube")
 TPCDS_TOP = 8
 
 
@@ -1996,9 +1999,10 @@ def q3_indices(tables, params, join_plan, engine) -> list:
 
 
 def phase_tpcds(kernels, card, launches) -> dict:
-    """Phase 13: 16 TPC-DS join queries on a 10,000,000-row store_sales,
+    """Phase 13: the 50 TPC-DS queries on a 10,000,000-row store_sales,
     each against the numpy oracle; both engines on q3; B3, B4 and B7 on
-    the inputs the queries hand them; q3 and q_channel_day profiled."""
+    the inputs the queries hand them; four queries profiled; the
+    build-index cache's bytes and evictions."""
     import torch_tpcds_oracle as O
     import torch_tpcds_parquet as TW
     from spark_rapids_jni_tpu_torch.models import tpcds
@@ -2064,6 +2068,9 @@ def phase_tpcds(kernels, card, launches) -> dict:
         del out
     for name in TPCDS_KERNELS:
         require(phase_counts[name] > 0, f"tpcds: {name} never launched")
+    report["index_cache_after_queries"] = join_plan.index_cache_stats()
+    log(f"[tpcds] build-index cache after the queries: "
+        f"{report['index_cache_after_queries']}")
 
     # the engines against each other at full size
     q3p = params["q3"]
@@ -2096,6 +2103,11 @@ def phase_tpcds(kernels, card, launches) -> dict:
     results = {("TPC-DS", name): measure(kernels, name, args, card, "TPC-DS",
                                          library_call(name, args))
                for name, (_, args) in sorted(captured.items())}
+    cache = join_plan.index_cache_stats()
+    log(f"[tpcds] build-index cache at the end of the phase: "
+        f"{cache['entries']} entries, {cache['bytes']} bytes (cap "
+        f"{join_plan.INDEX_CACHE_CAP}), {cache['evictions']} evictions")
+    report["index_cache"] = cache
     report["launches"] = dict(phase_counts)
     report["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log("[tpcds] summary " + json.dumps(report))

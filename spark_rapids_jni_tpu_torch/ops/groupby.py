@@ -2,7 +2,8 @@
 
 The port's counterpart of the JAX package's ``ops/groupby.py``
 (``groupby_aggregate`` with every aggregate of ``_AGGS``, its empty and
-grand-total paths, and ``distinct``).  The keys are sorted
+grand-total paths, ``distinct``, the grouping sets, rollup, cube and
+``nunique``).  The keys are sorted
 (``ops.sort.order_by``), a segment starts wherever a key changes, and
 the aggregates are segment reductions: ``index_add_`` for sums and counts
 (int64 sums are exact in any order; float sums are not, and are held to
@@ -16,12 +17,14 @@ decimal means, variances and deviations are taken in the value domain;
 FLOAT64 keys group under Spark's equality (-0.0 is 0.0, every NaN one
 value), and FLOAT64 min, max, first and last return a row's own value.
 
-Grouping sets, rollup, cube, ``nunique`` and the mergeable partial states
-are not ported yet.
+Grouping sets, rollup and cube are one groupby a set, concatenated with a
+``grouping_id``; ``nunique`` is two groupbys.  The mergeable partial
+states are not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -382,6 +385,76 @@ def _grand_total_empty(table: Table, aggs) -> Table:
                            validity=torch.zeros(1, dtype=torch.bool,
                                                 device=dev)))
     return Table(cols)
+
+
+def groupby_grouping_sets(table: Table, key_indices: Sequence[int],
+                          sets: Sequence[Sequence[int]],
+                          aggs: Sequence[tuple[int, str]]) -> Table:
+    """GROUP BY GROUPING SETS (Spark's, libcudf groupby with grouping
+    sets).
+
+    ``sets`` holds positions into ``key_indices`` (rollup over keys [a, b]
+    is ``[[0, 1], [0], []]``).  The output: every key column (null where
+    the set drops it), the aggregates, then an int64 ``grouping_id``
+    (Spark's bigint grouping_id) whose bit ``k``, the first key the most
+    significant, is set when key ``k`` is not in the set.  One sorted
+    ``groupby_aggregate`` a set, the results concatenated; callers order
+    the result."""
+    from .copying import concat_tables
+    from .join import _null_column
+    key_indices = list(key_indices)
+    nk = len(key_indices)
+    dev = table.device
+    parts = []
+    for s in sets:
+        included = sorted(s)
+        sub = groupby_aggregate(table, [key_indices[i] for i in included],
+                                aggs)
+        n = sub.num_rows
+        gid = 0
+        cols: list[Column] = []
+        for k in range(nk):
+            if k in included:
+                cols.append(sub[included.index(k)])
+            else:
+                gid |= 1 << (nk - 1 - k)
+                cols.append(_null_column(table[key_indices[k]].dtype, n,
+                                         dev))
+        cols += [sub[len(included) + ai] for ai in range(len(aggs))]
+        cols.append(Column(T.int64, torch.full((n,), gid, dtype=torch.int64,
+                                               device=dev)))
+        parts.append(Table(cols))
+    return concat_tables(parts)
+
+
+def groupby_rollup(table: Table, key_indices: Sequence[int],
+                   aggs: Sequence[tuple[int, str]]) -> Table:
+    """GROUP BY ROLLUP (Spark's rollup): grouping sets over every prefix
+    of the key list, from all keys down to the grand total."""
+    nk = len(key_indices)
+    sets = [list(range(k)) for k in range(nk, -1, -1)]
+    return groupby_grouping_sets(table, key_indices, sets, aggs)
+
+
+def groupby_cube(table: Table, key_indices: Sequence[int],
+                 aggs: Sequence[tuple[int, str]]) -> Table:
+    """GROUP BY CUBE (Spark's cube): grouping sets over every subset of
+    the keys, the larger first."""
+    nk = len(key_indices)
+    sets = []
+    for r in range(nk, -1, -1):
+        sets.extend(itertools.combinations(range(nk), r))
+    return groupby_grouping_sets(table, key_indices, sets, aggs)
+
+
+def groupby_nunique(table: Table, key_indices: Sequence[int],
+                    value_index: int) -> Table:
+    """COUNT(DISTINCT value) GROUP BY keys (Spark's countDistinct, nulls
+    not counted): the distinct (keys, value) tuples, then the valid
+    values of each key group counted, two sorted groupbys."""
+    sub = groupby_aggregate(table, list(key_indices) + [value_index], [])
+    k = len(key_indices)
+    return groupby_aggregate(sub, list(range(k)), [(k, "count")])
 
 
 def distinct(table: Table) -> Table:

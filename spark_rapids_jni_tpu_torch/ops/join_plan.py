@@ -25,13 +25,18 @@ is one ``.item()``, where the JAX package has one ``syncs.scalar``.
 
 Indexes and multi-key plans are cached on the identity of their key
 tensors: a weak reference and the tensor's ``_version``, so that an entry
-dies with its tensor and an in-place write misses it.
+dies with its tensor and an in-place write misses it.  The index cache is
+an LRU over its indexes' device bytes, capped at :data:`INDEX_CACHE_CAP`
+(the JAX package's ``SRJT_INDEX_CACHE_CAP`` default, 512 MiB); each
+eviction counts in ``build_index.evictions`` and in
+:func:`index_cache_stats`.
 
 Which engine, key plan and fused path each call took is counted in
 :data:`COUNTS` (``engine.dense``, ``pack.composite``,
 ``fused.unique_gather``, ...), as a kernel wrapper counts its launches.
-The JAX module's ``SRJT_JOIN_ENGINE`` knob, its metrics spans, the spill
-registration of cached indexes and its lock sanitizer are not ported.
+The JAX module's ``SRJT_JOIN_ENGINE`` and ``SRJT_INDEX_CACHE_CAP`` knobs,
+its metrics spans, the spill registration of cached indexes and its lock
+sanitizer are not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from .filter import _gather_column, sized_nonzero
 DENSE_SPAN_FACTOR = 2
 DENSE_SPAN_FLOOR = 4096
 DENSE_SPAN_CAP = 1 << 23
+#: the build-index cache's cap on its indexes' device bytes
+INDEX_CACHE_CAP = 512 << 20
 
 #: calls by engine, key plan and fused path, since :func:`reset_counts`
 COUNTS: collections.Counter = collections.Counter()
@@ -101,17 +108,28 @@ class BuildIndex(NamedTuple):
 class _IdentityCache:
     """LRU memo keyed on the identity of key tensors: a weak reference to
     each (the entry drops when one dies) and each one's ``_version`` (an
-    in-place write makes it a different key)."""
+    in-place write makes it a different key).  Bounded by ``cap`` entries
+    and by ``byte_cap()`` bytes (the ``nbytes`` each ``put`` declares):
+    past either, the least recently used entries go, the newest always
+    stays, and each one gone counts in ``evictions``."""
 
-    def __init__(self, cap: Optional[int] = None):
+    def __init__(self, cap: Optional[int] = None, byte_cap=None):
         self._d: "collections.OrderedDict[tuple, dict]" = \
             collections.OrderedDict()
         self._cap = cap
+        self._byte_cap = byte_cap
         self._mu = threading.RLock()
+        self.nbytes = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._d)
 
     def _drop(self, key) -> None:
         with self._mu:
-            self._d.pop(key, None)
+            e = self._d.pop(key, None)
+            if e is not None:
+                self.nbytes -= e["nbytes"]
 
     def get(self, key, tensors):
         with self._mu:
@@ -124,22 +142,45 @@ class _IdentityCache:
             self._d.move_to_end(key)
             return e["value"]
 
-    def put(self, key, tensors, value) -> None:
+    def _over(self) -> bool:
+        if self._cap is not None and len(self._d) > self._cap:
+            return True
+        byte_cap = None if self._byte_cap is None else self._byte_cap()
+        return byte_cap is not None and self.nbytes > byte_cap
+
+    def put(self, key, tensors, value, nbytes: int = 0) -> None:
         refs = tuple(weakref.ref(t, lambda _, k=key: self._drop(k))
                      for t in tensors)
         with self._mu:
-            self._d[key] = {"refs": refs, "value": value,
+            self._drop(key)
+            self._d[key] = {"refs": refs, "value": value, "nbytes": nbytes,
                             "versions": tuple(t._version for t in tensors)}
-            self._d.move_to_end(key)
-            while self._cap is not None and len(self._d) > self._cap:
-                self._d.popitem(last=False)
+            self.nbytes += nbytes
+            while len(self._d) > 1 and self._over():
+                self._drop(next(iter(self._d)))
+                self.evictions += 1
 
     def clear(self) -> None:
         with self._mu:
             self._d.clear()
+            self.nbytes = 0
 
 
-_INDEX_CACHE = _IdentityCache()
+_INDEX_CACHE = _IdentityCache(byte_cap=lambda: INDEX_CACHE_CAP)
+
+
+def _index_nbytes(ix: BuildIndex) -> int:
+    """The device bytes of an index's tensors, as the JAX package counts
+    them."""
+    return sum(t.numel() * t.element_size() for t in
+               (ix.row_ids, ix.sorted_keys, ix.lut_lo, ix.lut_cnt)
+               if t is not None)
+
+
+def index_cache_stats() -> dict:
+    """The build-index cache's entries, device bytes and evictions."""
+    return {"entries": len(_INDEX_CACHE), "bytes": _INDEX_CACHE.nbytes,
+            "evictions": _INDEX_CACHE.evictions}
 
 
 def _key(tag: str, tensors) -> tuple:
@@ -173,7 +214,10 @@ def build_index(data: torch.Tensor, valid, dense_ok: bool) -> BuildIndex:
                       forced == "dense")
     COUNTS["build_index.cache_miss"] += 1
     COUNTS[f"engine.{ix.kind}"] += 1
-    _INDEX_CACHE.put(key, tensors, ix)
+    evicted = _INDEX_CACHE.evictions
+    _INDEX_CACHE.put(key, tensors, ix, _index_nbytes(ix))
+    if _INDEX_CACHE.evictions > evicted:
+        COUNTS["build_index.evictions"] += _INDEX_CACHE.evictions - evicted
     return ix
 
 

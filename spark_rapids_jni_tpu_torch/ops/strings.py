@@ -13,9 +13,13 @@ values.
 
 Equality (``equal_to``, ``equal_to_scalar``, a :class:`DictColumn`'s
 predicate over its dictionary) and ``encode_shared``, the one dictionary
-that string join keys are coded against (:239-325), came with the joins.
-The rest of the JAX module (LIKE, case, substrings, concatenation) is
-not ported yet.
+that string join keys are coded against (:239-325), came with the joins;
+the matchers ``contains``, ``starts_with``, ``ends_with`` and ``like``
+(:587-716) with the grouping sets: a :class:`DictColumn` matches its
+dictionary only, any other column compares the pattern's bytes at every
+start of its byte matrix (B3's on the card).  The rest of the JAX module
+(the parsers, the formatters, case, substrings, concatenation) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -242,3 +246,120 @@ def equal_to_scalar(col: Column, value) -> Column:
                                                  dtype=torch.uint8)
     eq = (lens == len(payload)) & (mat == target.to(mat.device)).all(dim=1)
     return _as_bool_column(eq, col.validity)
+
+
+# -- substring search (cudf strings::contains / find; Spark LIKE) ----------
+
+def _match_at(mat: torch.Tensor, lens: torch.Tensor, pat: bytes,
+              wildcard: Optional[int] = None) -> torch.Tensor:
+    """bool [n, L]: does ``pat`` match at byte position s?  One compare a
+    pattern byte; ``wildcard`` bytes (SQL '_') match any byte.  A match
+    must fit inside its row: positions with s + len(pat) > len are
+    False."""
+    n, L = mat.shape
+    s = torch.arange(L, dtype=torch.int64, device=mat.device)
+    ok = (s[None, :] + len(pat)) <= lens[:, None]
+    for k, pb in enumerate(pat):
+        if wildcard is not None and pb == wildcard:
+            continue
+        cmp = torch.zeros((n, L), dtype=torch.bool, device=mat.device)
+        cmp[:, :L - k] = mat[:, k:] == pb
+        ok = ok & cmp
+    return ok
+
+
+def _search_matrix(col: Column, min_width: int):
+    """The byte matrix as wide as the longest row and the pattern both
+    (``byte_matrix``'s width pins L: the pattern's length alone would cut
+    longer rows and lose matches)."""
+    return byte_matrix(col, width=max(_max_len(col), min_width, 1))
+
+
+def _pattern(pat) -> bytes:
+    return pat.encode() if isinstance(pat, str) else bytes(pat)
+
+
+def contains(col: Column, pat) -> Column:
+    """True where the row contains ``pat`` (Spark ``contains``, LIKE
+    '%pat%'); the empty pattern matches every row; null rows stay null."""
+    hit = _dict_predicate(col, lambda u: contains(u, pat))
+    if hit is not None:
+        return hit
+    p = _pattern(pat)
+    mat, lens = _search_matrix(col, len(p))
+    return _as_bool_column(_match_at(mat, lens, p).any(dim=1), col.validity)
+
+
+def starts_with(col: Column, pat) -> Column:
+    hit = _dict_predicate(col, lambda u: starts_with(u, pat))
+    if hit is not None:
+        return hit
+    p = _pattern(pat)
+    mat, lens = _search_matrix(col, len(p))
+    return _as_bool_column(_match_at(mat, lens, p)[:, 0], col.validity)
+
+
+def _at_end(hits: torch.Tensor, lens: torch.Tensor, m: int) -> torch.Tensor:
+    """Each row's hit at position len - m (clamped into the matrix, as
+    the JAX package's ``take_along_axis``) and that position."""
+    pos = (lens.to(torch.int64) - m).clamp(0, hits.shape[1] - 1)
+    return torch.gather(hits, 1, pos[:, None])[:, 0], pos
+
+
+def ends_with(col: Column, pat) -> Column:
+    hit = _dict_predicate(col, lambda u: ends_with(u, pat))
+    if hit is not None:
+        return hit
+    p = _pattern(pat)
+    mat, lens = _search_matrix(col, len(p))
+    at_end, _ = _at_end(_match_at(mat, lens, p), lens, len(p))
+    return _as_bool_column(at_end & (lens >= len(p)), col.validity)
+
+
+def like(col: Column, pattern: str) -> Column:
+    """SQL LIKE with ``%`` (any run) and ``_`` (any one byte), the Spark
+    and cudf ``strings::like`` subset without an escape character.
+
+    The pieces between ``%`` match left to right, each at its earliest
+    position past the previous piece's end; a first piece is anchored at
+    the start unless the pattern starts with ``%``, a last one at the end
+    unless it ends with ``%``."""
+    hit = _dict_predicate(col, lambda u: like(u, pattern))
+    if hit is not None:
+        return hit
+    pat = pattern.encode()
+    pieces = pat.split(b"%")
+    anchored_start = not pattern.startswith("%")
+    anchored_end = not pattern.endswith("%")
+    mat, lens = _search_matrix(col, max((len(p) for p in pieces),
+                                        default=0))
+    n, L = mat.shape
+    dev = mat.device
+    okv = torch.ones(n, dtype=torch.bool, device=dev)
+    cur = torch.zeros(n, dtype=torch.int64, device=dev)   # earliest start
+    idx = torch.arange(L, dtype=torch.int64, device=dev)
+    for pi, piece in enumerate(pieces):
+        if not piece:
+            continue
+        hits = _match_at(mat, lens, piece, wildcard=ord("_"))
+        is_first, is_last = pi == 0, pi == len(pieces) - 1
+        if is_first and anchored_start:
+            okv = okv & hits[:, 0]
+            cur = cur.clamp(min=len(piece))
+            if is_last and anchored_end:
+                okv = okv & (lens == len(piece))
+            continue
+        if is_last and anchored_end:
+            at_end, pos = _at_end(hits, lens, len(piece))
+            okv = okv & at_end & (lens >= len(piece)) & (pos >= cur)
+            continue
+        # a floating piece: its earliest match at a position >= cur
+        usable = hits & (idx[None, :] >= cur[:, None])
+        okv = okv & usable.any(dim=1)
+        # torch's argmax takes no bool: the first 1 of the uint8 view
+        cur = usable.to(torch.uint8).argmax(dim=1) + len(piece)
+    if not any(pieces):
+        # all '%' (or empty): "%...%" matches every row, "" the empty one
+        okv = (torch.ones(n, dtype=torch.bool, device=dev) if b"%" in pat
+               else lens == 0)
+    return _as_bool_column(okv, col.validity)

@@ -9,6 +9,8 @@ element for element in every ``how``, with each engine pinned by
 included), string, decimal128 and float keys; the table joins (inner,
 left, right, full outer, semi, anti) and each ``join_aggregate`` path
 must give the JAX package's tables, float sums to a relative 1e-12.
+The build-index cache evicts past a lowered byte cap with unchanged
+joins.
 """
 
 import threading
@@ -160,6 +162,65 @@ def test_cache_hit_join_indices_identical():
     b = join_indices(lt, rt, "inner")
     assert_same_indices(a, b)
     assert join_plan.COUNTS["build_index.cache_hit"] >= 1
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_index_cache_evicts_past_a_lowered_byte_cap(engine, monkeypatch):
+    """Past ``INDEX_CACHE_CAP`` the least recently used indexes go (the
+    newest stays), the bytes held never pass the cap, each eviction
+    counts, and every join gives the indices it gave uncapped, which are
+    the JAX package's."""
+    rng = np.random.default_rng(8)
+    builds = [col(rng.permutation(np.arange(400 + 50 * k, dtype=np.int64)))
+              for k in range(6)]
+    probe = col(rng.integers(0, 700, 3000, dtype=np.int64))
+    join_plan._INDEX_CACHE.clear()
+    want = []
+    for b in builds:
+        got, jax_want = both(probe, b, "inner", engine)
+        assert_same_indices(got, jax_want)
+        want.append(got)
+    # uncapped (512 MiB), all six stay
+    assert join_plan.index_cache_stats()["entries"] == 6
+    assert join_plan.INDEX_CACHE_CAP == 512 << 20
+    with join_plan.force_engine(engine):
+        sizes = [join_plan._index_nbytes(join_plan.build_index(
+            b.data, None, True)) for b in builds]
+    cap = sizes[-1] + sizes[-2]
+    monkeypatch.setattr(join_plan, "INDEX_CACHE_CAP", cap)
+    join_plan._INDEX_CACHE.clear()
+    join_plan.reset_counts()
+    before = join_plan.index_cache_stats()["evictions"]
+    with join_plan.force_engine(engine):
+        for _ in range(2):
+            for b, w in zip(builds, want):
+                assert_same_indices(join_indices(probe, b, "inner"), w)
+                assert join_plan._INDEX_CACHE.nbytes <= cap
+    stats = join_plan.index_cache_stats()
+    evicted = stats["evictions"] - before
+    # LRU over a cycle of six builds, two at most held: every call misses
+    assert join_plan.COUNTS["build_index.cache_miss"] == 12
+    assert evicted >= 12 - 2
+    assert join_plan.COUNTS["build_index.evictions"] == evicted
+    assert 1 <= stats["entries"] <= 2 and stats["bytes"] <= cap
+    # the newest entry stays even when it alone passes the cap
+    monkeypatch.setattr(join_plan, "INDEX_CACHE_CAP", 1)
+    with join_plan.force_engine(engine):
+        assert_same_indices(join_indices(probe, builds[0], "inner"), want[0])
+    assert join_plan.index_cache_stats()["entries"] == 1
+    assert join_plan._INDEX_CACHE.nbytes == sizes[0]
+
+
+def test_index_cache_bytes_follow_entries_dying():
+    """An entry that dies with its key tensor takes its bytes along."""
+    join_plan._INDEX_CACHE.clear()
+    data = torch.arange(10, 5000, dtype=torch.int64)
+    ix = join_plan.build_index(data, None, True)
+    assert join_plan._INDEX_CACHE.nbytes == join_plan._index_nbytes(ix) > 0
+    del data, ix
+    assert join_plan.index_cache_stats() == {
+        "entries": 0, "bytes": 0,
+        "evictions": join_plan._INDEX_CACHE.evictions}
 
 
 def test_force_engine_is_per_thread():

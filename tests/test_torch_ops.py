@@ -6,7 +6,11 @@ among them, as their JAX counterparts; outputs must be equal: keys,
 counts, integer and decimal results and selected values exactly (FLOAT64
 as bits), float sums, means, variances and deviations to a relative
 1e-12 (the same values summed in another order).  The murmur3 hashes are
-also held against a scalar implementation of the public algorithm.
+also held against a scalar implementation of the public algorithm.  The
+grouping sets (rollup, cube, explicit sets, ``nunique``) and the string
+matchers (``contains``, ``starts_with``, ``ends_with``, ``like``; plain
+and dictionary columns, patterns longer than every row, empty, all-%
+and with ``_``) are held against the JAX package the same way.
 """
 
 import numpy as np
@@ -209,6 +213,68 @@ def test_groupby_of_no_rows_matches_jax(keys):
             p.data.shape)])
         np.testing.assert_array_equal(p.validity_or_true().numpy(),
                                       np.asarray(j.validity_or_true()))
+
+
+GROUPING_KEYS = {"string_int": ["string", "int"],
+                 "dict_float": ["dict", "float"],
+                 "decimal128_int_bool": ["decimal128", "int", "bool"]}
+# (value column of VALUE_KINDS, aggregate)
+GROUPING_AGGS = ((0, "sum"), (0, "min"), (1, "mean"), (1, "max"),
+                 (2, "sum"), (2, "count"))
+
+
+def _grouping_case(keys, seed, n=N):
+    kinds = GROUPING_KEYS[keys]
+    t = _table(kinds + list(VALUE_KINDS), seed, n=n)
+    aggs = [(len(kinds) + vi, a) for vi, a in GROUPING_AGGS]
+    return t, list(range(len(kinds))), aggs
+
+
+def _assert_grouping(out, jout, nk, aggs):
+    assert out.num_rows == jout.num_rows
+    _assert_aggs(out, jout, nk, aggs)
+    assert_same(out[nk + len(aggs)], jout[nk + len(aggs)],
+                what="grouping_id")
+
+
+@pytest.mark.parametrize("fn", ["rollup", "cube", "sets"])
+@pytest.mark.parametrize("keys", list(GROUPING_KEYS))
+def test_grouping_sets_match_jax(keys, fn):
+    """ROLLUP, CUBE and explicit GROUPING SETS: keys null where a set
+    drops them, the aggregates, Spark's grouping_id; the sets in order."""
+    t, key_idx, aggs = _grouping_case(keys, 40 + len(keys))
+    jt = to_jax(t)
+    if fn == "sets":
+        nk = len(key_idx)
+        sets = [[nk - 1], [], [0, nk - 1], [0]]
+        out = ops.groupby_grouping_sets(t, key_idx, sets, aggs)
+        jout = jops.groupby_grouping_sets(jt, key_idx, sets, aggs)
+    else:
+        out = getattr(ops, f"groupby_{fn}")(t, key_idx, aggs)
+        jout = getattr(jops, f"groupby_{fn}")(jt, key_idx, aggs)
+    _assert_grouping(out, jout, len(key_idx), aggs)
+    gid = out[len(key_idx) + len(aggs)].data
+    assert int(gid.max()) == (1 << len(key_idx)) - 1
+
+
+def test_grouping_sets_of_no_rows_match_jax():
+    t, key_idx, aggs = _grouping_case("string_int", 44, n=0)
+    out = ops.groupby_rollup(t, key_idx, aggs)
+    jout = jops.groupby_rollup(to_jax(t), key_idx, aggs)
+    # the grand total's one row: counts 0, the rest null
+    assert out.num_rows == 1
+    _assert_grouping(out, jout, len(key_idx), aggs)
+
+
+@pytest.mark.parametrize("value,keys,nulls", [
+    ("int", [0, 1], True), ("string", [0, 1], True), ("float", [1], True),
+    ("dict", [0], True), ("int", [], False)])
+def test_groupby_nunique_matches_jax(value, keys, nulls):
+    """COUNT(DISTINCT value): null values not counted, null keys one
+    group."""
+    t = _table(["string", "int", value], 46, n=200, nulls=nulls)
+    out = ops.groupby_nunique(t, keys, 2)
+    assert_same_table(out, jops.groupby_nunique(to_jax(t), keys, 2))
 
 
 def test_groupby_rejects_what_jax_rejects():
@@ -543,3 +609,53 @@ def test_encode_shared_matches_jax(kinds):
     want = jstrings.encode_shared([to_jax(c) for c in cols])
     for g, w in zip(got, want):
         assert_same(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the matchers: contains, starts_with, ends_with, LIKE
+# ---------------------------------------------------------------------------
+
+# "abcdefghijklmnop" is longer than every row; "" and "%..." match all
+PATTERNS = ["a", "ab", "b", "zz", "gh", "abcdefghi", "abcdefghijklmnop", "",
+            "a\x00"]
+LIKE_PATTERNS = ["a", "ab", "", "%", "%%", "_", "__", "a_", "_b", "a%", "%a",
+                 "%b%", "a%h", "%c%e%", "a%c%", "ab%_%i", "_%_", "%zz",
+                 "abcdefghijklmnop%", "%abcdefghijklmnop", "a\x00",
+                 "%\x00", "abcdefgh_"]
+
+
+@pytest.mark.parametrize("kind", ["string", "dict"])
+@pytest.mark.parametrize("fn", ["contains", "starts_with", "ends_with"])
+def test_matchers_match_jax(fn, kind):
+    col = make_column(kind, np.random.default_rng(47))
+    jcol = to_jax(col)
+    for pat in PATTERNS + [b"ab", b"zz"]:
+        assert_same(getattr(strings, fn)(col, pat),
+                    getattr(jstrings, fn)(jcol, pat), what=repr(pat))
+
+
+@pytest.mark.parametrize("kind", ["string", "dict"])
+def test_like_matches_jax(kind):
+    col = make_column(kind, np.random.default_rng(48))
+    jcol = to_jax(col)
+    for pat in LIKE_PATTERNS:
+        assert_same(strings.like(col, pat), jstrings.like(jcol, pat),
+                    what=repr(pat))
+
+
+def test_like_matches_python_on_brand_like_words():
+    """LIKE against a regex of the same pattern, on TPC-DS-like words
+    with repeats, so that a floating piece must take its earliest
+    match."""
+    import re
+    rng = np.random.default_rng(49)
+    words = [f"brand#{int(b)}" for b in rng.integers(1, 130, 300)]
+    words += ["#1#1", "##11", "brand#", "", "1#1brand#1"]
+    col = pt.Column.strings_from_list(words, device=CPU)
+    for pat in ["%#1%", "brand#1_", "%#1", "b%#%1", "%1%1%", "_r%d#_",
+                "brand#1%1", "%#1#%", "#1%"]:
+        rx = re.compile("^" + "".join(
+            ".*" if ch == "%" else "." if ch == "_" else re.escape(ch)
+            for ch in pat) + "$", re.S)
+        want = [bool(rx.match(w)) for w in words]
+        assert strings.like(col, pat).to_pylist() == want, pat

@@ -248,6 +248,8 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/ops/join.py",
             "spark_rapids_jni_tpu_torch/ops/join_plan.py",
             "spark_rapids_jni_tpu_torch/models/tpcds.py",
+            "spark_rapids_jni_tpu_torch/ops/scan.py",
+            "spark_rapids_jni_tpu_torch/ops/window.py",
             "tools/torch_tpcds_parquet.py",
             "tools/torch_tpcds_oracle.py"} <= rel
     for f in files:
