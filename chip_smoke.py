@@ -5,8 +5,9 @@
 
 Drives the port's main paths, JCUDF row ↔ column conversion, the
 device Parquet scan and the queries on it (TPC-H Q6 and Q1, the 50
-TPC-DS queries), through their public entry points on the card, and
-fails (non-zero exit, no result line) if anything is wrong:
+TPC-DS queries, the Mortgage ETL), through their public entry points on
+the card, and fails (non-zero exit, no result line) if anything is
+wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
    no CUDA device is a failure;
@@ -122,6 +123,18 @@ fails (non-zero exit, no result line) if anything is wrong:
    inputs the phase hands them, against their plain versions and timed
    as in phase 3.  A ``[tpcds] summary`` JSON line holds the walls,
    paths and launches.
+14. Mortgage ETL (BASELINE config #5): ``benchmarks/mortgage_data.
+   generate``'s files at 1,000,000 loans x 12 periods (12,000,000
+   performance rows in 12 row groups, 1,000,000 acquisitions, seed 11),
+   written as pyarrow's defaults write them by
+   ``tools/torch_mortgage_parquet.py``; ``models.mortgage.load_tables``
+   and ``etl_tables`` timed (first call and median of three), each
+   profiled after a warm-up; every feature column held against the numpy
+   oracle (``tools/torch_mortgage_oracle.py``: exact, ``mean_upb`` within
+   a relative 1e-12); each dictionary column's materialization timed;
+   B2-B7 on the largest inputs the phase hands them, against their plain
+   versions and timed as in phase 3, on a ``[mortgage] summary`` JSON
+   line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -1960,7 +1973,7 @@ TPCDS_PROFILED = ("q3", "q_channel_day", "q36_rollup", "q27_cube")
 TPCDS_TOP = 8
 
 
-def tpcds_profile(fn, card) -> dict:
+def profile_summary(fn, card) -> dict:
     """Device busy ms, idle share and the largest device ops of one call
     of ``fn`` after a warm-up, by ``torch.profiler``."""
     from torch_profile_rowconv import (NAME_CHARS, _busy_us, _device_total,
@@ -2083,7 +2096,7 @@ def phase_tpcds(kernels, card, launches) -> dict:
     del dense, srt
 
     for name in TPCDS_PROFILED:
-        prof = tpcds_profile(lambda: tpcds.QUERIES[name](tables,
+        prof = profile_summary(lambda: tpcds.QUERIES[name](tables,
                                                           **params[name]),
                              card)
         report["queries"][name]["profile"] = prof
@@ -2112,6 +2125,158 @@ def phase_tpcds(kernels, card, launches) -> dict:
     report["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log("[tpcds] summary " + json.dumps(report))
     del tables, files, arrays, captured
+    torch.cuda.empty_cache()
+    return results
+
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the Mortgage ETL
+# ---------------------------------------------------------------------------
+
+# one acquisition quarter of the Single-Family Loan Performance data on the
+# order of its loans, 12 monthly records each (generate's default), and
+# tools/mortgage_bench.py:53's seed
+MORTGAGE_ARGS = dict(n_loans=1_000_000, periods_per_loan=12, seed=11)
+# the kernels phase 14 launches: B7 and B4 in the scan, B5 -> B6 -> B2 to
+# materialize the dictionary strings the parsers read, B3 for their byte
+# matrices
+MORTGAGE_KERNELS = ("pack_rows", "unpack_rows", "segmented_copy",
+                    "extract_rows", "gather_rows", "u8_to_u32")
+
+
+def phase_mortgage(kernels, card, launches) -> dict:
+    """Phase 14: the Mortgage ETL on 1,000,000 loans x 12 periods, every
+    feature column against the numpy oracle; the scan and the ETL timed
+    and profiled; each dictionary column's materialization timed; B2-B7
+    on the largest inputs the phase hands them."""
+    import torch_mortgage_oracle as MO
+    import torch_mortgage_parquet as MW
+    from spark_rapids_jni_tpu_torch import DictColumn, Table
+    from spark_rapids_jni_tpu_torch.models import mortgage
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    files, arrays = MW.mortgage_parquet(**MORTGAGE_ARGS)
+    write_s = time.perf_counter() - t0
+    n_loans = MORTGAGE_ARGS["n_loans"]
+    n_perf = n_loans * MORTGAGE_ARGS["periods_per_loan"]
+    sizes = {name: len(raw) for name, raw in files.items()}
+    groups = {"perf": -(-n_perf // MW.ROW_GROUP_ROWS),
+              "acq": -(-n_loans // MW.ROW_GROUP_ROWS)}
+    log(f"[mortgage] {MORTGAGE_ARGS}: files written in {write_s:.2f} s: "
+        f"perf {n_perf} rows in {groups['perf']} row groups, "
+        f"{sizes['perf']} bytes; acq {n_loans} rows in {groups['acq']} "
+        f"row group(s), {sizes['acq']} bytes")
+    t0 = time.perf_counter()
+    want = MO.features(arrays)
+    oracle_s = time.perf_counter() - t0
+    del arrays
+    log(f"[mortgage] the numpy oracle built the feature table in "
+        f"{oracle_s:.2f} s")
+
+    # the main path: the scan, then the ETL, each read alone
+    kernels.reset()
+    t0 = time.perf_counter()
+    tables = mortgage.load_tables(files)
+    torch.cuda.synchronize()
+    scan_first = time.perf_counter() - t0
+    scan_counts = kernels.counts()
+    require(all(t.device.type == "cuda" for t in tables.values()),
+            "load_tables left a table off the card")
+    kernels.reset()
+    t0 = time.perf_counter()
+    out = mortgage.etl_tables(tables)
+    torch.cuda.synchronize()
+    etl_first = time.perf_counter() - t0
+    etl_counts = kernels.counts()
+    add_counts(launches, scan_counts)
+    add_counts(launches, etl_counts)
+    phase_counts = collections.Counter(scan_counts)
+    phase_counts.update(etl_counts)
+    require(all(c.data.device.type == "cuda" for c in out.columns),
+            "etl_tables left a column off the card")
+    try:
+        rel = MO.check(out, want)
+    except AssertionError as e:
+        raise SmokeFailure(f"mortgage: {e}") from None
+    rows_out = out.num_rows
+    del out, want
+    for name in MORTGAGE_KERNELS:
+        require(phase_counts[name] > 0, f"mortgage: {name} never launched")
+    log(f"[mortgage] {rows_out} feature rows equal the oracle (mean_upb's "
+        f"largest relative error {rel:.3e}); launches: scan {scan_counts}, "
+        f"etl {etl_counts}")
+
+    def fresh():
+        """The loaded tables with unmaterialized dictionary columns (a
+        DictColumn keeps its chars once built), so that each timed ETL
+        call pays the materialization a first call pays."""
+        return {k: Table([DictColumn(c.codes, c.dictionary, c.validity)
+                          if isinstance(c, DictColumn) else c
+                          for c in t.columns])
+                for k, t in tables.items()}
+
+    total = sum(sizes.values())
+    scan_wall = median_wall(lambda: mortgage.load_tables(files))
+    etl_wall = median_wall(lambda: mortgage.etl_tables(fresh()))
+    log(f"[mortgage] load_tables: first {scan_first * 1e3:.3f} ms, median "
+        f"of {PATH_REPS} {scan_wall * 1e3:.3f} ms for {total} file bytes "
+        f"({total / scan_wall / 1e9:.3f} GB/s) [{card}]")
+    log(f"[mortgage] etl_tables: first {etl_first * 1e3:.3f} ms, median of "
+        f"{PATH_REPS} {etl_wall * 1e3:.3f} ms over {n_perf} performance "
+        f"rows ({n_perf / etl_wall / 1e6:.1f} M rows/s) [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mortgage.etl_tables(fresh())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    profiles = {"etl_tables": profile_summary(
+                    lambda: mortgage.etl_tables(fresh()), card),
+                "load_tables": profile_summary(
+                    lambda: mortgage.load_tables(files), card)}
+    for what, prof in profiles.items():
+        log(f"[mortgage] profile {what}: " + json.dumps(prof))
+
+    # the dictionary columns' materialization (B5 -> B6 -> B2), which the
+    # parsers pay before B3 cuts their byte matrices
+    materialize = {}
+    for key, cols in (("perf", mortgage.PERF_COLS),
+                      ("acq", mortgage.ACQ_COLS)):
+        for name, c in zip(cols, tables[key].columns):
+            if isinstance(c, DictColumn):
+                materialize[name] = round(1e3 * median_wall(
+                    lambda c=c: DictColumn(c.codes, c.dictionary,
+                                           c.validity).materialize()), 3)
+    log(f"[mortgage] materialize ms (median of {PATH_REPS}): {materialize} "
+        f"[{card}]")
+
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    captured = record_inputs(
+        kernels, MORTGAGE_KERNELS, keep,
+        lambda: mortgage.etl_tables(mortgage.load_tables(files)))
+    results = {("Mortgage", name): measure(kernels, name, args, card,
+                                           "Mortgage",
+                                           library_call(name, args))
+               for name, (_, args) in sorted(captured.items())}
+    report = {"card": card, "args": MORTGAGE_ARGS, "file_bytes": sizes,
+              "row_groups": groups, "write_s": round(write_s, 2),
+              "oracle_s": round(oracle_s, 2),
+              "load_tables_ms": round(scan_wall * 1e3, 3),
+              "load_tables_first_ms": round(scan_first * 1e3, 3),
+              "scan_gb_s": round(total / scan_wall / 1e9, 3),
+              "etl_tables_ms": round(etl_wall * 1e3, 3),
+              "etl_tables_first_ms": round(etl_first * 1e3, 3),
+              "etl_peak_bytes": peak, "mean_upb_max_rel_err": rel,
+              "rows_out": rows_out, "profiles": profiles,
+              "materialize_ms": materialize, "launches": dict(phase_counts)}
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[mortgage] summary " + json.dumps(report))
+    del tables, files, captured
     torch.cuda.empty_cache()
     return results
 
@@ -2171,6 +2336,7 @@ def main(argv=None) -> int:
     results.update(phase_spark(pt, W, device_scan, q6, kernels, card,
                                args.seed, launches, full_scan))
     results.update(phase_tpcds(kernels, card, launches))
+    results.update(phase_mortgage(kernels, card, launches))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():

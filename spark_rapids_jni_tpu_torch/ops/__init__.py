@@ -1,10 +1,11 @@
 """The columnar op library of the port: the counterparts of the JAX
-package's ``ops`` modules ported so far (filter, sort, the string keys,
-equality and matchers, decimal128, groupby with its grouping sets,
-reductions, scans, windows, copying, hashing, and the join engine:
-``join`` and ``join_plan``), exported under the JAX package's names."""
+package's ``ops`` modules, every one of them (cast, filter, sort,
+strings, decimal128, groupby with its grouping sets, reductions, scans,
+windows, copying, hashing, and the join engine: ``join`` and
+``join_plan``), exported under the JAX package's names."""
 
 from . import decimal128, hashing, strings, window  # noqa: F401
+from .cast import cast  # noqa: F401
 from .filter import (apply_boolean_mask, fill_null, gather,  # noqa: F401
                      isin, mask_table)
 from .copying import concat_tables, slice_table  # noqa: F401

@@ -1,25 +1,35 @@
-"""String keys: the padded byte matrix, sort lanes and dictionary codes.
+"""STRING columns: byte matrices, keys, matchers, casts and transforms.
 
-The port's counterpart of the key subset of the JAX package's
-``ops/strings.py`` (``byte_matrix``, ``sort_key_lanes``,
-``dict_rank_codes``, ``dictionary_encode``, :46-237): what sorts,
-groupbys and string ``isin`` need.  A STRING column's rows become a
-zero-padded byte matrix [n, L] (L the longest row rounded up to 4, one
-synchronisation), packed big-endian into 32-bit lanes so that numeric
-lane order is lexicographic byte order.  On the card the matrix is
-kernel B3's work (``rowconv.ragged.unpack_rows``); on the CPU its plain
-version's.  Lanes are int64 tensors holding the JAX package's uint32
-values.
+The port's counterpart of the JAX package's ``ops/strings.py``, the whole
+module.  A STRING column's rows become a zero-padded byte matrix [n, L]
+(L the longest row rounded up to 4, one synchronisation): on the card
+kernel B3's work (``rowconv.ragged.unpack_rows``), on the CPU its plain
+version's.  On it rest:
 
-Equality (``equal_to``, ``equal_to_scalar``, a :class:`DictColumn`'s
-predicate over its dictionary) and ``encode_shared``, the one dictionary
-that string join keys are coded against (:239-325), came with the joins;
-the matchers ``contains``, ``starts_with``, ``ends_with`` and ``like``
-(:587-716) with the grouping sets: a :class:`DictColumn` matches its
-dictionary only, any other column compares the pattern's bytes at every
-start of its byte matrix (B3's on the card).  The rest of the JAX module
-(the parsers, the formatters, case, substrings, concatenation) is not
-ported yet.
+* the keys (``byte_matrix``, ``sort_key_lanes``, ``dict_rank_codes``,
+  ``dictionary_encode``, :46-237): 32-bit big-endian lanes, held in int64
+  tensors, whose numeric order is lexicographic byte order;
+* equality and ``encode_shared``, the one dictionary that string join
+  keys are coded against (:239-325);
+* the matchers ``contains``, ``starts_with``, ``ends_with`` and ``like``
+  (:587-716): a :class:`DictColumn` matches its dictionary only;
+* the parsers ``to_int64``, ``to_decimal``, ``to_date`` and ``to_bool``
+  (:403-585, :876-898), Spark CAST semantics: whitespace trimmed, null
+  for a malformed row, for more than 18 significant digits and for an
+  impossible date, round half up on dropped digits.  A
+  :class:`DictColumn` reaches them materialized (B5 → B6 → B2), as in
+  the JAX package.
+
+The formatters ``format_int64``, ``format_decimal``, ``format_date`` and
+``format_bool`` (:717-874, :900-909) lay each row's text into a byte
+matrix and cut the rows out of it with one gather.  Torch has almost no
+uint64 arithmetic, so the digits of a uint64 magnitude come from int64
+tensors that hold its bits: an unsigned ``u // 10`` is
+``((u >> 1) & INT64_MAX) // 5``, and ``u - 10 * q`` wraps to the digit.
+``upper``, ``lower``, ``substring`` and ``concat`` (:327-400) gather
+chars; the first three transform a :class:`DictColumn`'s dictionary and
+keep its codes.  Each op that builds chars synchronises once, on their
+total.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 from .. import types as T
 from ..column import Column, DictColumn, as_dict_column
 from ..rowconv import ragged
-from .int64bits import MASK32
+from .int64bits import MASK32, TOPBIT
 
 
 def _lengths(col: Column) -> torch.Tensor:
@@ -363,3 +373,493 @@ def like(col: Column, pattern: str) -> Column:
         okv = (torch.ones(n, dtype=torch.bool, device=dev) if b"%" in pat
                else lens == 0)
     return _as_bool_column(okv, col.validity)
+
+
+# -- elementwise transforms --------------------------------------------------
+
+def upper(col: Column) -> Column:
+    """ASCII uppercase; a :class:`DictColumn` transforms its dictionary."""
+    d = as_dict_column(col)
+    if d is not None:
+        return DictColumn(d.codes, upper(d.dictionary), d.validity)
+    c = col.data
+    return Column(T.string, torch.where((c >= 97) & (c <= 122), c - 32, c),
+                  col.offsets, col.validity)
+
+
+def lower(col: Column) -> Column:
+    """ASCII lowercase; a :class:`DictColumn` transforms its dictionary."""
+    d = as_dict_column(col)
+    if d is not None:
+        return DictColumn(d.codes, lower(d.dictionary), d.validity)
+    c = col.data
+    return Column(T.string, torch.where((c >= 65) & (c <= 90), c + 32, c),
+                  col.offsets, col.validity)
+
+
+def _new_offsets(lens: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """int32 offsets [n+1] of rows of ``lens`` bytes, and their total (the
+    one synchronisation)."""
+    offs = torch.zeros(lens.shape[0] + 1, dtype=torch.int32,
+                       device=lens.device)
+    offs[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    return offs, int(offs[-1])
+
+
+def _char_rows(offs: torch.Tensor, total: int):
+    """(row of each output char, its position within the row): the JAX
+    package's ``_segment_of``, without a synchronisation."""
+    lens = (offs[1:] - offs[:-1]).to(torch.int64)
+    row_of = torch.repeat_interleave(
+        torch.arange(lens.shape[0], device=offs.device), lens,
+        output_size=total)
+    within = (torch.arange(total, dtype=torch.int64, device=offs.device)
+              - offs[:-1].to(torch.int64)[row_of])
+    return row_of, within
+
+
+def _empty_chars(device) -> torch.Tensor:
+    return torch.zeros(0, dtype=torch.uint8, device=device)
+
+
+def substring(col: Column, start: int, length: Optional[int] = None) -> Column:
+    """The 0-based byte substring [start, start+length) of every row; a
+    :class:`DictColumn` cuts its dictionary."""
+    if start < 0:
+        raise ValueError("substring start must be >= 0")
+    d = as_dict_column(col)
+    if d is not None:
+        return DictColumn(d.codes, substring(d.dictionary, start, length),
+                          d.validity)
+    new_lens = (_lengths(col) - start).clamp(min=0)
+    if length is not None:
+        new_lens = new_lens.clamp(max=length)
+    new_offs, total = _new_offsets(new_lens)
+    if total == 0:
+        return Column(T.string, _empty_chars(col.device), new_offs,
+                      col.validity)
+    row_of, within = _char_rows(new_offs, total)
+    src = col.offsets[:-1].to(torch.int64)[row_of] + start + within
+    return Column(T.string, col.data[src], new_offs, col.validity)
+
+
+def concat(a: Column, b: Column) -> Column:
+    """Row-wise ``a[i] + b[i]``, null where either side is (Spark
+    ``concat``)."""
+    la, lb = _lengths(a), _lengths(b)
+    valid = None
+    if a.validity is not None or b.validity is not None:
+        valid = a.validity_or_true() & b.validity_or_true()
+        la = torch.where(valid, la, 0)
+        lb = torch.where(valid, lb, 0)
+    new_offs, total = _new_offsets(la + lb)
+    if total == 0:
+        return Column(T.string, _empty_chars(a.device), new_offs, valid)
+    row_of, within = _char_rows(new_offs, total)
+    la_row = la.to(torch.int64)[row_of]
+
+    def side(col, src):
+        n = col.data.shape[0]
+        if n == 0:
+            return torch.zeros(total, dtype=torch.uint8, device=a.device)
+        return col.data[src.clamp(0, n - 1)]
+
+    ca = side(a, a.offsets[:-1].to(torch.int64)[row_of] + within)
+    cb = side(b, b.offsets[:-1].to(torch.int64)[row_of] + within - la_row)
+    return Column(T.string, torch.where(within < la_row, ca, cb), new_offs,
+                  valid)
+
+
+# -- numeric and date parsing (cudf strings::to_integers / to_fixed_point /
+#    to_timestamps; the Mortgage ETL's casts) --------------------------------
+
+_POW10 = [10 ** k for k in range(20)]
+
+
+def _pow10(exp: torch.Tensor) -> torch.Tensor:
+    """10 ** exp for int64 exponents in [0, 18], by a table gather."""
+    table = torch.tensor(_POW10[:19], dtype=torch.int64, device=exp.device)
+    return table[exp]
+
+
+def _positions(mat: torch.Tensor) -> torch.Tensor:
+    return torch.arange(mat.shape[1], dtype=torch.int64, device=mat.device)
+
+
+def _row_cumsum(mask: torch.Tensor) -> torch.Tensor:
+    """int64 [n, L]: the inclusive count of ``mask``'s trues along each
+    row, by a scan over the outer dimension of the transpose.  Torch's
+    scan along a short innermost dimension is slow on the card: on an
+    H100 its scans held 850 of the Mortgage ETL's 920 busy ms at
+    12,000,000 × 12 (``PERF.md`` §5)."""
+    return torch.cumsum(mask.t().to(torch.int64).contiguous(), dim=0).t()
+
+
+def _suffix_count(mask: torch.Tensor) -> torch.Tensor:
+    """int64 [n, L]: how many of ``mask``'s trues lie right of each
+    position (the position itself excluded)."""
+    return mask.sum(dim=1, keepdim=True) - _row_cumsum(mask)
+
+
+def _leading_run(mask: torch.Tensor) -> torch.Tensor:
+    """int64 [n]: the trues at the start of each row, before its first
+    false (the sum of the JAX package's ``cumprod``)."""
+    first_false = (~mask).to(torch.uint8).argmax(dim=1)
+    return torch.where(mask.all(dim=1), mask.shape[1], first_false)
+
+
+def _trimmed(mat: torch.Tensor, lens: torch.Tensor):
+    """Each row left-justified past its leading whitespace, its trailing
+    whitespace dropped from the length: Spark CAST trims all ASCII
+    whitespace (space, \\t, \\n, \\v, \\f, \\r; UTF8String.trimAll)."""
+    L = mat.shape[1]
+    j = _positions(mat)
+    lens64 = lens.to(torch.int64)
+    in_row = j[None, :] < lens64[:, None]
+    is_space = (mat == ord(" ")) | ((mat >= 9) & (mat <= 13))
+    lead = _leading_run(is_space & in_row)
+    trail = _leading_run((is_space | ~in_row).flip(1)) - (L - lens64)
+    new_lens = (lens64 - lead - trail.clamp(min=0)).clamp(min=0)
+    src = (j[None, :] + lead[:, None]).clamp(0, L - 1)
+    shifted = torch.gather(mat, 1, src)
+    shifted = torch.where(j[None, :] < new_lens[:, None], shifted, 0)
+    return shifted, new_lens.to(lens.dtype)
+
+
+def _digit_scan(mat: torch.Tensor, lens: torch.Tensor):
+    """(digits int64 [n, L], -1 off the digits; neg bool [n]; is_digit
+    bool [n, L]): a leading '-' or '+' is consumed, any other byte is the
+    caller's to judge."""
+    j = _positions(mat)
+    in_row = j[None, :] < lens.to(torch.int64)[:, None]
+    neg = mat[:, 0] == ord("-")
+    signed = neg | (mat[:, 0] == ord("+"))
+    consumed = signed[:, None] & (j[None, :] == 0)
+    is_digit = in_row & ~consumed & (mat >= ord("0")) & (mat <= ord("9"))
+    digits = torch.where(is_digit, mat.to(torch.int64) - ord("0"), -1)
+    return digits, neg, is_digit
+
+
+def _junk(mat: torch.Tensor, lens: torch.Tensor, allowed: torch.Tensor):
+    """bool [n]: the row holds a byte that is neither ``allowed`` nor a
+    sign in its first position."""
+    j = _positions(mat)
+    in_row = j[None, :] < lens.to(torch.int64)[:, None]
+    sign0 = ((mat == ord("-")) | (mat == ord("+"))) & (j[None, :] == 0)
+    return (in_row & ~allowed & ~sign0).any(dim=1)
+
+
+def _significant_digits(digits: torch.Tensor,
+                        which: torch.Tensor) -> torch.Tensor:
+    """Per row, the digits in ``which`` from its first nonzero one on."""
+    seen = _row_cumsum(which & (digits > 0)) > 0
+    return (which & seen).sum(dim=1)
+
+
+def _valid(ok: torch.Tensor, col: Column) -> torch.Tensor:
+    return ok if col.validity is None else ok & col.validity
+
+
+def to_int64(col: Column) -> Column:
+    """Decimal integer strings → INT64, null for an empty or malformed row
+    and past 18 significant digits (Spark CAST): each digit weighted by
+    10 ** (the digits right of it), one sum a row."""
+    mat, lens = byte_matrix(col)
+    mat, lens = _trimmed(mat, lens)
+    digits, neg, is_digit = _digit_scan(mat, lens)
+    ok = (is_digit.any(dim=1) & ~_junk(mat, lens, is_digit)
+          & (_significant_digits(digits, is_digit) <= 18))
+    weight = torch.where(is_digit,
+                         _pow10(_suffix_count(is_digit).clamp(0, 18)), 0)
+    vals = (torch.where(is_digit, digits, 0) * weight).sum(dim=1)
+    vals = torch.where(neg, -vals, vals)
+    return Column(T.int64, vals, validity=_valid(ok, col))
+
+
+def to_decimal(col: Column, scale: int) -> Column:
+    """"123.45"-style strings → DECIMAL64(scale), rounding half up on the
+    first dropped digit; null for a malformed row and when the integer
+    digits and the kept fraction pass 18 digits."""
+    mat, lens = byte_matrix(col)
+    mat, lens = _trimmed(mat, lens)
+    digits, neg, is_digit = _digit_scan(mat, lens)
+    j = _positions(mat)
+    is_dot = (j[None, :] < lens.to(torch.int64)[:, None]) & (mat == ord("."))
+    ok = (is_digit.any(dim=1) & ~_junk(mat, lens, is_digit | is_dot)
+          & (is_dot.sum(dim=1) <= 1))
+    # a digit's exponent: its integer digits to the right plus the kept
+    # fraction, or the kept fraction less its 1-based place after the dot
+    after_dot = _row_cumsum(is_dot) > 0
+    frac_digit = is_digit & after_dot
+    frac_pos = torch.where(frac_digit, _row_cumsum(frac_digit), 0)
+    int_digit = is_digit & ~after_dot
+    keep = -scale
+    exp = torch.where(int_digit, _suffix_count(int_digit) + keep,
+                      torch.where(is_digit, keep - frac_pos, -1))
+    kept = is_digit & (exp >= 0)
+    ok = ok & (_significant_digits(digits, int_digit) + keep <= 18)
+    weight = torch.where(kept, _pow10(exp.clamp(0, 18)), 0)
+    vals = (torch.where(kept, digits, 0) * weight).sum(dim=1)
+    # exp == -1 marks the first dropped digit under either sign of scale
+    first_drop = is_digit & (exp == -1)
+    roundup = torch.where(first_drop, digits, 0).sum(dim=1) >= 5
+    vals = vals + roundup.to(torch.int64)
+    vals = torch.where(neg, -vals, vals)
+    return Column(T.decimal64(scale), vals, validity=_valid(ok, col))
+
+
+def _days_from_civil(y: torch.Tensor, m: torch.Tensor,
+                     d: torch.Tensor) -> torch.Tensor:
+    """Gregorian (y, m, d) → days since 1970-01-01 (Hinnant), on floor
+    division: torch's ``//`` floors and its ``%`` takes the divisor's
+    sign, as the JAX package's do."""
+    y = y - (m <= 2).to(y.dtype)
+    era = torch.where(y >= 0, y, y - 399) // 400
+    yoe = y - era * 400
+    mp = (m + 9) % 12
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _slice_int(mat: torch.Tensor, start: int, width: int):
+    """(value, every byte a digit) of a fixed byte slice of each row."""
+    sub = mat[:, start:start + width].to(torch.int64) - ord("0")
+    digits_ok = ((sub >= 0) & (sub <= 9)).all(dim=1)
+    w = torch.tensor(_POW10[width - 1::-1], dtype=torch.int64,
+                     device=mat.device)
+    return (sub.clamp(0, 9) * w).sum(dim=1), digits_ok
+
+
+_DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+
+
+def to_date(col: Column, fmt: str = "%Y-%m-%d") -> Column:
+    """Fixed-layout date strings → TIMESTAMP_DAYS, "%Y-%m-%d" or
+    "%m/%d/%Y" (the mortgage files' layout).  A wrong length, separator
+    or digit, or an impossible date (Feb 31), is null (Spark CAST)."""
+    mat, lens = byte_matrix(col, width=10)
+    if fmt == "%Y-%m-%d":
+        y, oy = _slice_int(mat, 0, 4)
+        m, om = _slice_int(mat, 5, 2)
+        d, od = _slice_int(mat, 8, 2)
+        seps = (mat[:, 4] == ord("-")) & (mat[:, 7] == ord("-"))
+    elif fmt == "%m/%d/%Y":
+        m, om = _slice_int(mat, 0, 2)
+        d, od = _slice_int(mat, 3, 2)
+        y, oy = _slice_int(mat, 6, 4)
+        seps = (mat[:, 2] == ord("/")) & (mat[:, 5] == ord("/"))
+    else:
+        raise NotImplementedError(f"unsupported date format {fmt!r}")
+    leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+    msafe = m.clamp(1, 12)
+    dim = (torch.tensor(_DAYS_IN_MONTH, dtype=torch.int64,
+                        device=mat.device)[msafe - 1]
+           + (leap & (msafe == 2)).to(torch.int64))
+    ok = ((lens == 10) & seps & oy & om & od
+          & (m >= 1) & (m <= 12) & (d >= 1) & (d <= dim))
+    days = _days_from_civil(y, msafe, d.clamp(1, 31)).to(torch.int32)
+    return Column(T.timestamp_days, days, validity=_valid(ok, col))
+
+
+_TRUE_WORDS = (b"true", b"t", b"yes", b"y", b"1")
+_FALSE_WORDS = (b"false", b"f", b"no", b"n", b"0")
+
+
+def to_bool(col: Column) -> Column:
+    """Spark CAST(string AS BOOLEAN): true/false/t/f/yes/no/y/n/1/0 in
+    any case, trimmed; anything else is null."""
+    mat, lens = _search_matrix(lower(col), 5)
+    mat, lens = _trimmed(mat, lens)
+
+    def word_eq(word: bytes) -> torch.Tensor:
+        m = lens == len(word)
+        for k, b in enumerate(word):
+            m = m & (mat[:, k] == b)
+        return m
+
+    is_true = torch.zeros(col.num_rows, dtype=torch.bool, device=mat.device)
+    is_false = torch.zeros_like(is_true)
+    for w in _TRUE_WORDS:
+        is_true = is_true | word_eq(w)
+    for w in _FALSE_WORDS:
+        is_false = is_false | word_eq(w)
+    return Column(T.bool8, is_true.to(torch.uint8),
+                  validity=_valid(is_true | is_false, col))
+
+
+# -- numbers and dates → strings (cudf strings::from_integers /
+#    from_fixed_point; Spark CAST(x AS STRING)) ------------------------------
+
+_INT64_MAX = (1 << 63) - 1
+
+
+def _as_int64_bits(v: int) -> int:
+    """A uint64 value as the int64 with the same bits."""
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def _udiv_even(u: torch.Tensor, div: int) -> torch.Tensor:
+    """Unsigned ``u // div`` of int64 tensors holding uint64 bits, for an
+    even ``div``: (u >> 1, logical) // (div / 2)."""
+    return ((u >> 1) & _INT64_MAX) // (div // 2)
+
+
+def _digit_matrix(mag: torch.Tensor, width: int) -> torch.Tensor:
+    """uint8 [n, width]: the ASCII digits of ``mag`` (uint64 bits in
+    int64) mod 10**width, right-aligned: one unsigned divide by 10 a
+    column, from the last, and the remainder by a wrapping subtract."""
+    cols = []
+    x = mag
+    for _ in range(width):
+        q = _udiv_even(x, 10)
+        cols.append((x - 10 * q).to(torch.uint8) + ord("0"))
+        x = q
+    return torch.stack(cols[::-1], dim=1)
+
+
+def _ndigits(mag: torch.Tensor, up_to: int = 18) -> torch.Tensor:
+    """Decimal digits of ``mag`` (uint64 bits in int64; 0 has one), up to
+    1 + ``up_to``: unsigned compares, as signed ones with the top bit
+    flipped."""
+    flipped = mag ^ TOPBIT
+    n = torch.ones_like(mag, dtype=torch.int32)
+    for k in range(1, up_to + 1):
+        bound = _as_int64_bits(_POW10[k]) ^ TOPBIT
+        n = n + (flipped >= bound).to(torch.int32)
+    return n
+
+
+def _uint64_magnitude(v: torch.Tensor):
+    """(|v| as uint64 bits in int64, v < 0): INT64_MIN's magnitude 2^63
+    wraps to its own bits, which is right."""
+    neg = v < 0
+    return torch.where(neg, 0 - v, v), neg
+
+
+def _matrix_to_strings(mat: torch.Tensor, starts: torch.Tensor,
+                       lens: torch.Tensor, validity) -> Column:
+    """A STRING column of each row's bytes [start, start + len) of
+    ``mat``; null rows take no bytes."""
+    if validity is not None:
+        lens = torch.where(validity, lens, 0)
+    new_offs, total = _new_offsets(lens)
+    if total == 0:
+        return Column(T.string, _empty_chars(mat.device), new_offs, validity)
+    row_of, within = _char_rows(new_offs, total)
+    chars = mat[row_of, starts.to(torch.int64)[row_of] + within]
+    return Column(T.string, chars, new_offs, validity)
+
+
+def _put_sign(mat: torch.Tensor, starts: torch.Tensor,
+              neg: torch.Tensor) -> torch.Tensor:
+    """'-' written at each negative row's start (its first digit's left)."""
+    rows = torch.arange(mat.shape[0], device=mat.device)
+    spos = starts.to(torch.int64).clamp(min=0)
+    mat.index_put_((rows, spos),
+                   torch.where(neg, ord("-"), mat[rows, spos]).to(torch.uint8))
+    return mat
+
+
+def _format_unsigned(mag: torch.Tensor, neg: torch.Tensor, validity,
+                     trailing_zeros: int = 0) -> Column:
+    """Magnitudes (uint64 bits in int64) and signs → decimal strings;
+    ``trailing_zeros`` literal zeros follow the digits (positive decimal
+    scales), but for a magnitude of 0, which stays "0"."""
+    n = mag.shape[0]
+    nd = _ndigits(mag, up_to=19)
+    W = 21                                     # '-' and up to 20 digits
+    parts = [torch.full((n, 1), ord("-"), dtype=torch.uint8,
+                        device=mag.device), _digit_matrix(mag, W - 1)]
+    if trailing_zeros:
+        parts.append(torch.full((n, trailing_zeros), ord("0"),
+                                dtype=torch.uint8, device=mag.device))
+    mat = torch.cat(parts, dim=1)
+    tz = torch.where(mag == 0, 0, trailing_zeros).to(torch.int32)
+    lens = nd + tz + neg.to(torch.int32)
+    starts = torch.where(neg, (W - 1) - nd, W - nd)
+    return _matrix_to_strings(_put_sign(mat, starts, neg), starts, lens,
+                              validity)
+
+
+def format_int64(col: Column) -> Column:
+    """An integer column → decimal strings (Spark CAST(x AS STRING)),
+    exact for INT64_MIN and for uint64 values from 2^63 on."""
+    if col.data.dtype == torch.uint64:
+        mag = col.data.view(torch.int64)
+        neg = torch.zeros(col.num_rows, dtype=torch.bool, device=col.device)
+    else:
+        mag, neg = _uint64_magnitude(col.data.to(torch.int64))
+    return _format_unsigned(mag, neg, col.validity)
+
+
+def format_decimal(col: Column) -> Column:
+    """A decimal32/64 column → strings with its scale's fraction digits
+    ("123.45" for 12345 at scale -2); scale 0 formats as an integer, a
+    positive scale appends literal zeros (a multiply would wrap)."""
+    if col.dtype.scale == 0:
+        return format_int64(col)
+    mag, neg = _uint64_magnitude(col.data.to(torch.int64))
+    if col.dtype.scale > 0:
+        return _format_unsigned(mag, neg, col.validity,
+                                trailing_zeros=col.dtype.scale)
+    n = col.num_rows
+    k = -col.dtype.scale
+    int_part = _udiv_even(mag, 10 ** k)
+    frac = mag - int_part * 10 ** k             # wraps to [0, 10**k)
+    nd_int = _ndigits(int_part, up_to=19)
+    WI = 20
+    dev = mag.device
+    mat = torch.cat([
+        torch.full((n, 1), ord("-"), dtype=torch.uint8, device=dev),
+        _digit_matrix(int_part, WI),
+        torch.full((n, 1), ord("."), dtype=torch.uint8, device=dev),
+        _digit_matrix(frac, k)], dim=1)
+    # [0] '-', [1..WI] the integer digits right-aligned, [WI+1] '.', then
+    # the fraction; a row starts at its sign or its first integer digit
+    first_digit = 1 + WI - nd_int
+    starts = torch.where(neg, first_digit - 1, first_digit)
+    lens = nd_int + 1 + k + neg.to(torch.int32)
+    return _matrix_to_strings(_put_sign(mat, starts, neg), starts, lens,
+                              col.validity)
+
+
+def _civil_from_days(days: torch.Tensor):
+    """Days since 1970-01-01 → (y, m, d), Hinnant's civil_from_days on
+    floor division (the inverse of :func:`_days_from_civil`)."""
+    z = days.to(torch.int64) + 719468
+    era = z // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def format_date(col: Column) -> Column:
+    """TIMESTAMP_DAYS → ISO "YYYY-MM-DD" (Spark CAST(date AS STRING));
+    a year outside 0000-9999 is null."""
+    y, m, d = _civil_from_days(col.data)
+    ok = (y >= 0) & (y <= 9999)
+    n = col.num_rows
+    dash = torch.full((n, 1), ord("-"), dtype=torch.uint8, device=col.device)
+    mat = torch.cat([_digit_matrix(y.clamp(0, 9999), 4), dash,
+                     _digit_matrix(m, 2), dash, _digit_matrix(d, 2)], dim=1)
+    starts = torch.zeros(n, dtype=torch.int32, device=col.device)
+    lens = torch.full((n,), 10, dtype=torch.int32, device=col.device)
+    return _matrix_to_strings(mat, starts, lens, _valid(ok, col))
+
+
+def format_bool(col: Column) -> Column:
+    """BOOL8 → "true" / "false" (Spark CAST(boolean AS STRING))."""
+    b = col.data != 0
+    lit = torch.tensor(list(b"falsetrue\x00"), dtype=torch.uint8,
+                       device=col.device)
+    mat5 = torch.where(b[:, None], lit[None, 5:10], lit[None, :5])
+    lens = torch.where(b, 4, 5).to(torch.int32)
+    starts = torch.zeros(col.num_rows, dtype=torch.int32, device=col.device)
+    return _matrix_to_strings(mat5, starts, lens, col.validity)

@@ -1137,3 +1137,135 @@ def test_matchers_on_card_launch_b3_and_match_cpu(cuda):
         _same_columns(got, getattr(strings, fn)(col_c, pat))
     assert ragged.unpack_rows.launches > b3
     torch.cuda.synchronize()
+
+
+def _dict_words(words, device):
+    """A DictColumn of ``words`` (None: null) over its distinct words."""
+    uniq = sorted({w for w in words if w is not None})
+    codes = torch.tensor([0 if w is None else uniq.index(w) for w in words],
+                         dtype=torch.int32, device=device)
+    valid = torch.tensor([w is not None for w in words], device=device)
+    return pt.DictColumn(codes, pt.Column.strings_from_list(uniq,
+                                                            device=device),
+                         valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dictionary", [False, True], ids=["plain", "dict"])
+def test_parsers_on_card_match_cpu(cuda, dictionary):
+    """to_int64, to_decimal, to_date and to_bool read B3's byte matrix on
+    the card (a DictColumn materialized first by B5, B6 and B2) and equal
+    the CPU's."""
+    from spark_rapids_jni_tpu_torch.ops import strings
+    rng = np.random.default_rng(21)
+    n = 20000
+    days = rng.integers(-30000, 40000, n)
+    dates = (np.datetime64("1970-01-01") + days).astype("datetime64[D]")
+    pools = {
+        "int": [str(v) for v in rng.integers(-10**12, 10**12, 300)]
+        + ["", " 7 ", "+3", "9x", "12345678901234567890", "-0"],
+        "dec": [f"{v:.{int(rng.integers(0, 6))}f}"
+                for v in rng.uniform(-1e5, 1e5, 300)] + ["1.2.3", ".5", ""],
+        "iso": [str(d) for d in dates[:300]] + ["2021-02-31", "2020-1-01"],
+        "mdy": [f"{d.astype(object).month:02d}/{d.astype(object).day:02d}/"
+                f"{d.astype(object).year:04d}" for d in dates[:300]]
+        + ["13/01/2020", "02-29-2020"],
+        "bool": ["true", "False", " y ", "0", "n", "yes ", "x", ""],
+    }
+    calls = (("int", strings.to_int64, ()), ("dec", strings.to_decimal, (-2,)),
+             ("dec", strings.to_decimal, (1,)), ("iso", strings.to_date, ()),
+             ("mdy", strings.to_date, ("%m/%d/%Y",)),
+             ("bool", strings.to_bool, ()))
+    before = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    for pool, fn, args in calls:
+        words = [pools[pool][int(k)] for k in
+                 rng.integers(0, len(pools[pool]), n)]
+        words[::17] = [None] * len(words[::17])
+        make = (_dict_words if dictionary else
+                lambda w, d: pt.Column.strings_from_list(w, device=d))
+        got = fn(make(words, cuda), *args)
+        assert got.data.device.type == "cuda"
+        _same_columns(got, fn(make(words, "cpu"), *args))
+    torch.cuda.synchronize()
+    after = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    assert after["unpack_rows"] > before["unpack_rows"]
+    if dictionary:
+        for name in ("extract_rows", "gather_rows", "pack_rows"):
+            assert after[name] > before[name], name
+
+
+@pytest.mark.gpu
+def test_formatters_and_transforms_on_card_match_cpu(cuda):
+    """The formatters (INT64_MIN, uint64 from 2^63, decimals of both scale
+    signs, pre-1970 days), case, substrings, concatenation and cast on
+    the card equal the CPU's."""
+    from spark_rapids_jni_tpu_torch import types as T
+    from spark_rapids_jni_tpu_torch.ops import cast, strings
+    rng = np.random.default_rng(22)
+    n = 30000
+    valid = rng.random(n) >= 0.1
+    i64 = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+    i64[:3] = [-(2**63), 2**63 - 1, 0]
+    u64 = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    u64[:2] = [2**63, 2**64 - 1]
+    days = rng.integers(-800000, 3000000, n).astype(np.int32)
+    cases = [(strings.format_int64, i64, T.int64, ()),
+             (strings.format_int64, u64, T.uint64, ()),
+             (strings.format_decimal, i64, T.decimal64(-2), ()),
+             (strings.format_decimal, i64, T.decimal64(3), ()),
+             (strings.format_date, days, T.timestamp_days, ()),
+             (strings.format_bool, (i64 & 1).astype(np.uint8), T.bool8, ()),
+             (cast, i64 % 1000, T.int64, (T.string,)),
+             (cast, i64 % 10**6, T.decimal64(-3), (T.decimal64(-1),)),
+             (cast, i64 % 10**6, T.decimal64(-3), (T.float64,))]
+    for fn, vals, dt, args in cases:
+        cols = [pt.Column.from_numpy(vals, dt, valid, device=d)
+                for d in (cuda, "cpu")]
+        got = fn(cols[0], *args)
+        assert got.data.device.type == "cuda"
+        _same_columns(got, fn(cols[1], *args))
+    words = [None if k % 9 == 0 else f"Word{int(k)}-x"
+             for k in rng.integers(0, 500, n)]
+    for dictionary in (False, True):
+        make = (_dict_words if dictionary else
+                lambda w, d: pt.Column.strings_from_list(w, device=d))
+        a_g, a_c = make(words, cuda), make(words, "cpu")
+        for fn, args in ((strings.upper, ()), (strings.lower, ()),
+                         (strings.substring, (2, 5)),
+                         (strings.substring, (3,))):
+            _same_columns(fn(a_g, *args), fn(a_c, *args))
+        b_g = pt.Column.strings_from_list(words[::-1], device=cuda)
+        b_c = pt.Column.strings_from_list(words[::-1], device="cpu")
+        _same_columns(strings.concat(a_g, b_g), strings.concat(a_c, b_c))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mortgage_etl_on_card_matches_cpu_and_oracle(cuda):
+    """The Mortgage ETL on the writer's files: the card's feature table
+    equals the CPU's and the numpy oracle's; its scan and parsers launch
+    B2-B7."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "tools"))
+    import torch_mortgage_oracle as MO
+    import torch_mortgage_parquet as MW
+    from spark_rapids_jni_tpu_torch.models import mortgage
+    files, arrays = MW.mortgage_parquet(n_loans=20000, periods_per_loan=12,
+                                        seed=11)
+    before = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    out = mortgage.etl(files, device=cuda)
+    torch.cuda.synchronize()
+    after = {**ragged.launch_counts(), **bytepath.launch_counts()}
+    assert all(c.data.device.type == "cuda" for c in out.columns)
+    MO.check(out, MO.features(arrays))
+    want = mortgage.etl(files, device="cpu")
+    for k, name in enumerate(mortgage.FEATURE_COLS):
+        _same_columns(out[k], want[k], 1e-12 if name == "mean_upb" else None)
+    for name in ("pack_rows", "unpack_rows", "segmented_copy",
+                 "extract_rows", "gather_rows", "u8_to_u32"):
+        assert after[name] > before[name], name
+    ids, mat = mortgage.feature_matrix(files, device=cuda)
+    assert mat.device.type == "cuda" and mat.dtype == torch.float32
+    assert tuple(mat.shape) == (20000, len(mortgage.FEATURE_COLS) - 1)

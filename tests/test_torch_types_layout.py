@@ -251,7 +251,11 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/ops/scan.py",
             "spark_rapids_jni_tpu_torch/ops/window.py",
             "tools/torch_tpcds_parquet.py",
-            "tools/torch_tpcds_oracle.py"} <= rel
+            "tools/torch_tpcds_oracle.py",
+            "spark_rapids_jni_tpu_torch/ops/cast.py",
+            "spark_rapids_jni_tpu_torch/models/mortgage.py",
+            "tools/torch_mortgage_parquet.py",
+            "tools/torch_mortgage_oracle.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

@@ -112,7 +112,8 @@ class ParquetColumn:
     vocab: Optional[list] = None
     validity: Optional[np.ndarray] = None
     # PLAIN strings: (chars uint8, int64 offsets [n+1]); ``values`` then
-    # holds the row numbers
+    # holds the row numbers, or, dictionary-encoded, each row's string's
+    # index
     strings: Optional[tuple] = None
     # DECIMAL: (precision, scale); FIXED_LEN_BYTE_ARRAY: its width
     decimal: Optional[tuple] = None
@@ -272,7 +273,21 @@ def _plain_records(chars: np.ndarray, offsets: np.ndarray,
 
 
 def _first_occurrence(values: np.ndarray):
-    """(distinct values in first-occurrence order, code of every value)."""
+    """(distinct values in first-occurrence order, code of every value).
+    Integers of a span up to 4x their count take a table, not a sort."""
+    n = values.shape[0]
+    if values.ndim == 1 and values.dtype.kind in "iu" and n:
+        lo = int(values.min())
+        span = int(values.max()) - lo + 1
+        if span <= 4 * n:
+            off = (values - lo).astype(np.intp)
+            first = np.full(span, n, np.int64)
+            np.minimum.at(first, off, np.arange(n))
+            seen = np.flatnonzero(first < n)
+            order = seen[np.argsort(first[seen])]
+            rank = np.empty(span, np.int64)
+            rank[order] = np.arange(order.shape[0])
+            return (order + lo).astype(values.dtype), rank[off]
     uniq, first, inverse = np.unique(values, return_index=True,
                                      return_inverse=True,
                                      axis=0 if values.ndim > 1 else None)
@@ -482,6 +497,9 @@ def _encode(col: ParquetColumn, present: np.ndarray, enc: int) -> bytes:
 
 def _entry_bytes(col: ParquetColumn, entries: np.ndarray) -> np.ndarray:
     """Bytes each dictionary entry takes in the PLAIN dictionary page."""
+    if col.phys == "BYTE_ARRAY" and col.strings is not None:
+        offs = col.strings[1]
+        return 4 + (offs[entries + 1] - offs[entries])
     if col.phys == "BYTE_ARRAY":
         _, offs = _string_values(col, entries)
         return 4 + (offs[1:] - offs[:-1])
