@@ -5,9 +5,9 @@
 
 Drives the port's main paths, JCUDF row ↔ column conversion, the
 device Parquet scan and the queries on it (TPC-H Q6 and Q1, the 50
-TPC-DS queries, the Mortgage ETL), through their public entry points on
-the card, and fails (non-zero exit, no result line) if anything is
-wrong:
+TPC-DS queries, eager and compiled to CUDA graphs, the Mortgage ETL),
+through their public entry points on the card, and fails (non-zero
+exit, no result line) if anything is wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
    no CUDA device is a failure;
@@ -134,7 +134,23 @@ wrong:
    a relative 1e-12); each dictionary column's materialization timed;
    B2-B7 on the largest inputs the phase hands them, against their plain
    versions and timed as in phase 3, on a ``[mortgage] summary`` JSON
-   line.
+   line;
+15. compiled TPC-DS (run right after phase 13, on its tables): each of
+   the 50 queries through ``models.compiled.compile_query`` (an eager
+   capture run recording the tape of sizes, then one CUDA graph captured
+   under the tape's replay over private copies of the tables), its
+   checked ``run`` held against the oracle with phase 13's tolerances
+   and against the capture run's result (integers exact, floats within
+   a relative 1e-12), ``run_unchecked`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` with the sync count
+   unchanged, the medians of three walls of the graph, the checked run
+   and the eager tape replay beside phase 13's eager median, the tape's
+   length, the graph's capture ms, pool bytes and the B3, B4 and B7
+   launches inside it (B3 and B4 must be in some graph; B7 runs in the
+   scan only); then q3 compiled on tables of 1,000,000 ``store_sales``
+   rows at seed 7 must raise ``StaleTapeError`` on tables of the same
+   row counts at seed 77, and compiled there equal the oracle; on a
+   ``[compiled] summary`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -2011,20 +2027,16 @@ def q3_indices(tables, params, join_plan, engine) -> list:
         return [li, ri, li2, ri2]
 
 
-def phase_tpcds(kernels, card, launches) -> dict:
-    """Phase 13: the 50 TPC-DS queries on a 10,000,000-row store_sales,
-    each against the numpy oracle; both engines on q3; B3, B4 and B7 on
-    the inputs the queries hand them; four queries profiled; the
-    build-index cache's bytes and evictions."""
+def tpcds_inputs(args: dict) -> tuple:
+    """The TPC-DS files and arrays of ``tools/torch_tpcds_parquet.py`` for
+    ``args``, each query's parameters and the numpy oracle's answers."""
     import torch_tpcds_oracle as O
     import torch_tpcds_parquet as TW
     from spark_rapids_jni_tpu_torch.models import tpcds
-    from spark_rapids_jni_tpu_torch.ops import join_plan
 
-    t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    files, arrays = TW.tpcds_parquet(**TPCDS_ARGS)
-    log(f"[tpcds] {TPCDS_ARGS}: files written in "
+    files, arrays = TW.tpcds_parquet(**args)
+    log(f"[tpcds] {args}: files written in "
         f"{time.perf_counter() - t0:.2f} s, rows "
         f"{ {t: len(next(iter(a.values()))) for t, a in arrays.items()} }, "
         f"bytes { {t: len(b) for t, b in files.items()} }")
@@ -2034,6 +2046,22 @@ def phase_tpcds(kernels, card, launches) -> dict:
             for name in tpcds.QUERIES}
     log(f"[tpcds] the numpy oracle answered in "
         f"{time.perf_counter() - t0:.2f} s; parameters {params}")
+    return files, arrays, params, want
+
+
+def phase_tpcds(kernels, card, launches) -> tuple:
+    """Phase 13: the 50 TPC-DS queries on a 10,000,000-row store_sales,
+    each against the numpy oracle; both engines on q3; B3, B4 and B7 on
+    the inputs the queries hand them; four queries profiled; the
+    build-index cache's bytes and evictions.  Returns the kernel results
+    and what phase 15 reuses: the tables, parameters, oracle answers and
+    each query's eager median."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.ops import join_plan
+
+    t_phase = time.perf_counter()
+    files, arrays, params, want = tpcds_inputs(TPCDS_ARGS)
 
     kernels.reset()
     t0 = time.perf_counter()
@@ -2124,9 +2152,170 @@ def phase_tpcds(kernels, card, launches) -> dict:
     report["launches"] = dict(phase_counts)
     report["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log("[tpcds] summary " + json.dumps(report))
-    del tables, files, arrays, captured
+    eager_ms = {name: q["wall_ms"] for name, q in report["queries"].items()}
+    del files, arrays, captured
     torch.cuda.empty_cache()
-    return results
+    return results, (tables, params, want, eager_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the TPC-DS queries compiled to CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the kernels the compiled queries' graphs must hold: B3 (the string keys'
+# byte matrix) and B4 (STRING gathers).  B7 runs in the scan only, which
+# reads host files and so lies outside every graph; its count is printed.
+COMPILED_KERNELS = ("unpack_rows", "segmented_copy")
+GRAPH_KERNELS = ("unpack_rows", "segmented_copy", "u8_to_u32")
+# the stale-tape check: q3 compiled on seed 7's tables, run on seed 77's
+STALE_ARGS = dict(n_sales=1_000_000, n_items=20_000, n_stores=50)
+STALE_SEEDS = (7, 77)
+
+
+def same_as_expected(O, name: str, got, expected, want) -> None:
+    """A compiled result equals the capture run's: the schema, every
+    integer, key and string exactly, each float within a relative 1e-12
+    of the magnitude the oracle holds it to (``want``'s scale: a lag's
+    difference against its two sums); a float sum's atomics add in any
+    order."""
+    require(got.schema == expected.schema,
+            f"compiled {name}: schema differs from the capture run")
+    try:
+        O.check(name, got, O.as_answer(expected, want))
+    except AssertionError as e:
+        raise SmokeFailure(f"compiled {name} against its capture run: "
+                           f"{e}") from None
+
+
+def stale_tape_check(card) -> dict:
+    """q3 compiled on tables at seed 7, run on tables of the same row
+    counts at seed 77 (two string columns' chars differ in length, so
+    ``run`` captures a graph for them under the old tape first): it must
+    raise StaleTapeError, and compiled again on them it must give the
+    oracle's answer."""
+    import torch_tpcds_oracle as O
+    import torch_tpcds_parquet as TW
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+
+    made = []
+    for seed in STALE_SEEDS:
+        files, arrays = TW.tpcds_parquet(seed=seed, **STALE_ARGS)
+        made.append((tpcds.load_tables(files), arrays))
+    (tables, arrays), (tables2, arrays2) = made
+    params = O.query_params(arrays)["q3"]
+    qfn = functools.partial(tpcds.QUERIES["q3"], **params)
+    cq = compiled.compile_query(qfn, tables)
+    try:
+        cq.run(tables2)
+    except compiled.StaleTapeError as e:
+        message = str(e)
+    else:
+        raise SmokeFailure("compiled q3 ran on seed 77's tables without "
+                           "StaleTapeError")
+    torch.cuda.synchronize()
+    fresh = compiled.compile_query(qfn, tables2)
+    try:
+        O.check("q3", fresh.run(tables2), O.answer("q3", arrays2, params))
+    except AssertionError as e:
+        raise SmokeFailure(f"compiled q3 on seed 77's tables: {e}") from None
+    out = {"args": STALE_ARGS, "seeds": STALE_SEEDS, "error": message[:200],
+           "tape_len": len(cq.tape),
+           "tapes_differ_at": [i for i, (a, b) in
+                               enumerate(zip(cq.tape, fresh.tape))
+                               if a != b][:8]}
+    log(f"[compiled] stale tape: q3 compiled at seed 7 raised on seed 77's "
+        f"tables ({message[:160]}); compiled again there, it equals the "
+        f"oracle [{card}]")
+    return out
+
+
+def phase_compiled(kernels, card, launches, tpcds_ctx) -> None:
+    """Phase 15: each TPC-DS query of phase 13, on its tables, compiled
+    (``models.compiled.compile_query``: an eager capture run, then one
+    CUDA graph under the tape's replay), run checked and unchecked and
+    held against the oracle and the capture run's result; the medians of
+    the graph, the checked run and the eager tape replay beside phase
+    13's eager median; the unchecked run under
+    ``torch.cuda.set_sync_debug_mode("error")``; each graph's tape length,
+    capture ms, pool bytes and kernel launches; then the stale-tape
+    check."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    from spark_rapids_jni_tpu_torch.models.compiled import _materialized
+    from spark_rapids_jni_tpu_torch.utils import syncs
+
+    tables, params, want, eager_ms = tpcds_ctx
+    t_phase = time.perf_counter()
+    report = {"card": card, "queries": {}}
+    in_graphs = collections.Counter()
+    kernels.reset()
+    compiled.reset_counts()
+    for name, fn in tpcds.QUERIES.items():
+        qfn = functools.partial(fn, **params[name])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            cq = compiled.compile_query(qfn, tables)
+        except Exception as e:
+            raise SmokeFailure(f"compiled {name}: capture failed: "
+                               f"{type(e).__name__}: {e}") from e
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        out = cq.run(tables)
+        try:
+            O.check(name, out, want[name])
+        except AssertionError as e:
+            raise SmokeFailure(f"compiled {name}: {e}") from None
+        same_as_expected(O, name, out, cq.expected, want[name])
+        del out
+        torch.cuda.synchronize()
+        syncs_before = syncs.sync_count()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = cq.run_unchecked(tables)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(syncs.sync_count() == syncs_before,
+                f"compiled {name}: run_unchecked counted a host sync")
+        same_as_expected(O, name, again, cq.expected, want[name])
+        del again
+
+        def replay_eager():
+            with syncs.replay(cq.tape):
+                _materialized(qfn(tables))
+
+        walls = {"graph_ms": median_wall(lambda: cq.run_unchecked(tables)),
+                 "checked_ms": median_wall(lambda: cq.run(tables)),
+                 "tape_replay_ms": median_wall(replay_eager)}
+        walls = {k: round(v * 1e3, 3) for k, v in walls.items()}
+        graph = {k: cq.graph_launches[k] for k in GRAPH_KERNELS}
+        in_graphs.update(graph)
+        report["queries"][name] = dict(
+            eager_ms=eager_ms[name], **walls, tape_len=len(cq.tape),
+            capture_ms=round(cq.graph_capture_ms, 3),
+            pool_bytes=cq.graph_pool_bytes, static_bytes=cq.static_bytes,
+            compile_s=round(compile_s, 3),
+            graph_launches=graph)
+        log(f"[compiled] {name}: equal to the oracle and the capture run; "
+            f"graph {walls['graph_ms']:.3f} ms, checked "
+            f"{walls['checked_ms']:.3f} ms, eager tape replay "
+            f"{walls['tape_replay_ms']:.3f} ms, eager (phase 13) "
+            f"{eager_ms[name]:.3f} ms; tape {len(cq.tape)}, capture "
+            f"{cq.graph_capture_ms:.3f} ms, pool {cq.graph_pool_bytes} "
+            f"bytes, in the graph {graph} [{card}]")
+        del cq
+        torch.cuda.empty_cache()
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for name in COMPILED_KERNELS:
+        require(in_graphs[name] > 0,
+                f"compiled: {name} is in no captured graph")
+    report["in_graphs"] = dict(in_graphs)
+    report["launches"] = counts
+    report["counts"] = dict(compiled.COUNTS)
+    report["stale"] = stale_tape_check(card)
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[compiled] summary " + json.dumps(report))
 
 
 
@@ -2335,7 +2524,11 @@ def main(argv=None) -> int:
                             launches))
     results.update(phase_spark(pt, W, device_scan, q6, kernels, card,
                                args.seed, launches, full_scan))
-    results.update(phase_tpcds(kernels, card, launches))
+    tpcds_results, tpcds_ctx = phase_tpcds(kernels, card, launches)
+    results.update(tpcds_results)
+    phase_compiled(kernels, card, launches, tpcds_ctx)
+    del tpcds_ctx
+    torch.cuda.empty_cache()
     results.update(phase_mortgage(kernels, card, launches))
 
     out = []

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import types as T
+from .utils import syncs
 
 
 def resolve_device(device=None) -> torch.device:
@@ -168,23 +169,30 @@ class DictColumn(Column):
         into a padded word matrix [D, Lw], B6 gathers a row per code, and
         B2 packs each row's first length bytes at device offsets into the
         chars stream.  The dictionary offsets stay on the device; the syncs
-        are the longest entry, the codes' bounds (B6's wrapper) and the
-        chars total."""
+        are the longest entry and the chars total (``utils.syncs``), and
+        the codes' bounds (B6's wrapper, not yet through the funnel).
+
+        Under capture or replay a column materialized already resolves
+        its sizes again, as the JAX package's does
+        (``spark_rapids_jni_tpu/column.py:258-268``): a fresh copy of it
+        in the replay materializes, and the tape must hold the same sizes
+        at the same places in both runs."""
         if self._mat is not None:
+            if syncs.mode() != "normal":
+                if self._has_chars(self._longest_entry()):
+                    syncs.scalar(self._mat.offsets[-1])
+                else:
+                    self._check_empty_dictionary()
             return self._mat
         from .rowconv import bytepath, ragged
         from .rowconv.convert import _reinterpret
         dev = self.codes.device
         n = self.num_rows
         doffs = self.dictionary.offsets.to(torch.int64)
-        D = doffs.shape[0] - 1
         offs = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        lmax = int((doffs[1:] - doffs[:-1]).max()) if D > 0 else 0
-        if D == 0 or lmax == 0 or n == 0:
-            # no chars at all; every code must still name an entry
-            if n and D == 0 and bool(self.validity_or_true().any()):
-                raise IndexError("DictColumn has valid rows but an empty "
-                                 "dictionary")
+        lmax = self._longest_entry()
+        if not self._has_chars(lmax):
+            self._check_empty_dictionary()
             chars = torch.zeros(0, dtype=torch.uint8, device=dev)
         else:
             # rows padded to 16 bytes, so that B6 moves 16-byte vectors
@@ -195,15 +203,36 @@ class DictColumn(Column):
             if self.validity is not None:
                 lens = torch.where(self.validity, lens, 0)
             torch.cumsum(lens, 0, out=offs[1:])
-            total = int(offs[-1])
+            total = syncs.size(offs[-1])
             if total >= 2**31:
                 raise ValueError(f"materialized chars ({total} bytes) exceed "
                                  "int32 offsets")
+            # cut at the total, a no-op unless the tape is stale
+            offs.clamp_(max=total)
             chars = ragged.pack_rows(_reinterpret(rows, torch.uint8), offs,
                                      total)
         self._mat = Column(T.string, chars, offs.to(torch.int32),
                            self.validity)
         return self._mat
+
+    def _longest_entry(self) -> int:
+        """The dictionary's longest entry in bytes (one synchronisation;
+        0 for an empty dictionary, which needs none)."""
+        doffs = self.dictionary.offsets
+        if doffs.shape[0] < 2:
+            return 0
+        return syncs.size((doffs[1:] - doffs[:-1]).max())
+
+    def _has_chars(self, lmax: int) -> bool:
+        return self.dictionary.num_rows > 0 and lmax > 0 and self.num_rows > 0
+
+    def _check_empty_dictionary(self) -> None:
+        """Every code must name an entry: valid rows over an empty
+        dictionary raise (one synchronisation)."""
+        if (self.num_rows and self.dictionary.num_rows == 0
+                and syncs.scalar(self.validity_or_true().any())):
+            raise IndexError("DictColumn has valid rows but an empty "
+                             "dictionary")
 
     # touching the bytes is the output boundary
     @property

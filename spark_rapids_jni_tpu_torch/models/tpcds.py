@@ -8,7 +8,9 @@ equi-joins (dense and sorted engines, composite two-column keys, fused
 join→groupby, left, semi, anti and full outer joins), sorted groupbys
 with their grouping sets, windows (``ops.window``), LIKE
 (``ops.strings``) and reductions, with the JAX package's plans and output
-order.  Device scalars stay on the device where the JAX query keeps them.
+order.  Device scalars stay on the device where the JAX query keeps them,
+and no query copies from the host, so that each can be captured as one
+CUDA graph (``models/compiled.py``).
 
 ``load_tables`` scans the Parquet files onto the GPU unless ``device``
 says otherwise; every query runs where its tables are.
@@ -360,9 +362,9 @@ def q23_semi(tables: dict[str, Table], min_sales: int = 30) -> Table:
     total = sum_(hits[_col(SS_COLS, "ss_ext_sales_price")])
     dev = total.device
     return Table([Column(T.float64, total.reshape(1)),
-                  Column(T.int64, torch.tensor([hits.num_rows],
-                                               dtype=torch.int64,
-                                               device=dev))])
+                  Column(T.int64, torch.full((1,), hits.num_rows,
+                                             dtype=torch.int64,
+                                             device=dev))])
 
 
 def q16_anti(tables: dict[str, Table]) -> Table:
@@ -715,9 +717,9 @@ def q96_count(tables: dict[str, Table], year: int = 2000,
                    _col(DATE_COLS, "d_date_sk"))
     cols = SS_COLS + DATE_COLS
     qsum = sum_(j[cols.index("ss_quantity")])
-    return Table([Column(T.int64, torch.tensor([j.num_rows],
-                                               dtype=torch.int64,
-                                               device=ss.device)),
+    return Table([Column(T.int64, torch.full((1,), j.num_rows,
+                                             dtype=torch.int64,
+                                             device=ss.device)),
                   Column(T.int64, qsum.reshape(1).to(torch.int64))])
 
 

@@ -6,8 +6,8 @@ Concatenation defers each column as a :class:`LazyColumn`, as the JAX
 package's does, so that concatenating lazy join outputs forces none of
 the columns the plan never reads; forced, it joins the column's
 buffers and rebases string offsets on the device.  A slice takes host
-bounds, and a STRING slice reads its two char bounds (one
-synchronisation).  A
+bounds, and a STRING slice reads its two char bounds (two
+synchronisations, through ``utils.syncs``).  A
 :class:`DictColumn` concatenates or slices as its materialized chars, as
 in the JAX package.
 """
@@ -19,6 +19,7 @@ from typing import Sequence
 import torch
 
 from ..column import Column, LazyColumn, Table
+from ..utils import syncs
 
 
 def _concat_validity(cols: Sequence[Column]):
@@ -82,8 +83,11 @@ def _slice_column(col: Column, start: int, stop: int) -> Column:
                                   "ported")
     if col.dtype.is_variable_width:
         offs = col.offsets[start:stop + 1]
-        c0, c1 = (int(x) for x in offs[[0, -1]].tolist())
-        return Column(col.dtype, col.data[c0:c1], offs - offs[0], v)
+        c0, c1 = syncs.scalar(offs[0]), syncs.scalar(offs[-1])
+        chars = col.data[c0:c1]
+        # cut into the chars taken, a no-op unless the tape is stale
+        return Column(col.dtype, chars,
+                      (offs - c0).clamp(0, chars.shape[0]), v)
     return Column(col.dtype, col.data[start:stop], validity=v)
 
 

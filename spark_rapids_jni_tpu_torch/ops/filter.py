@@ -1,14 +1,15 @@
 """Row filtering and gathering (libcudf ``apply_boolean_mask``/``gather``).
 
 The port's counterpart of the JAX package's ``ops/filter.py``.  A filter
-is a count and a gather: the count of the mask (its one synchronisation),
-then :func:`sized_nonzero`'s indices of the surviving rows.  ``gather``
-returns :class:`LazyColumn`s, as the JAX package's does: a column is
-gathered when the plan first reads it, and a column it never reads is
-never gathered.  A :class:`DictColumn` gathers its codes only, at once; a
-STRING column's chars move, when forced, as one segmented copy to device
-offsets, kernel B4 (``rowconv.ragged.segmented_copy``), after one
-synchronisation for the chars' total.  ``mask_table`` keeps every row and
+is a count and a gather: the count of the mask (its one synchronisation,
+through ``utils.syncs``), then :func:`sized_nonzero`'s indices of the
+surviving rows.  ``gather`` returns :class:`LazyColumn`s, as the JAX
+package's does: a column is gathered when the plan first reads it, and a
+column it never reads is never gathered.  A :class:`DictColumn` gathers
+its codes only, at once; a STRING column's chars move, when forced, as
+one segmented copy to device offsets, kernel B4
+(``rowconv.ragged.segmented_copy``), after one synchronisation for the
+chars' total.  ``mask_table`` keeps every row and
 nulls the failing ones, deferred likewise.
 """
 
@@ -21,25 +22,28 @@ from .. import types as T
 from ..column import (Column, DictColumn, LazyColumn, Table, as_dict_column,
                       force_column)
 from ..rowconv import ragged
+from ..utils import syncs
 
 _MAX_CHARS = 2**31 - 1
 
 
 def _gather_strings(col: Column, idx: torch.Tensor) -> Column:
     """The rows ``idx`` of a STRING column: new offsets from the gathered
-    lengths, the chars by B4 (one synchronisation for their total)."""
+    lengths, the chars by B4 (one synchronisation for their total).  The
+    offsets are cut at the total, a no-op unless a stale tape sized the
+    chars."""
     offs = col.offsets.to(torch.int64)
     lens = (offs[1:] - offs[:-1])[idx]
     new = torch.zeros(idx.shape[0] + 1, dtype=torch.int64, device=idx.device)
     torch.cumsum(lens, 0, out=new[1:])
-    total = int(new[-1])
+    total = syncs.size(new[-1])
     if total > _MAX_CHARS:
         raise ValueError(f"gathered chars ({total} bytes) exceed int32 "
                          "offsets")
     chars = ragged.segmented_copy(col.data, offs[:-1][idx], new[:-1], lens,
                                   total)
     v = None if col.validity is None else col.validity[idx]
-    return Column(col.dtype, chars, new.to(torch.int32), v)
+    return Column(col.dtype, chars, new.clamp(max=total).to(torch.int32), v)
 
 
 def _gather_column(col: Column, idx: torch.Tensor) -> Column:
@@ -90,10 +94,29 @@ def sized_nonzero(mask: torch.Tensor, n_keep: int) -> torch.Tensor:
     return out[:n_keep]
 
 
+def sized_repeat(counts: torch.Tensor, total: int) -> torch.Tensor:
+    """``torch.repeat_interleave(counts, output_size=total)``, the index of
+    each of ``counts``' rows repeated its count of times, in bounds for any
+    ``total``: the counts' running sum is cut at ``total`` and the last row
+    takes up any rest, so their sum is ``total`` exactly.  Where ``total``
+    is the counts' true sum, as it is but under a stale tape, that
+    changes nothing.  Needs ``counts`` non-empty unless ``total`` is 0."""
+    k = counts.shape[0]
+    if k == 0:
+        if total:
+            raise ValueError("sized_repeat: no rows to repeat")
+        return torch.zeros(0, dtype=torch.int64, device=counts.device)
+    ends = torch.cumsum(counts.to(torch.int64), 0).clamp_(max=total)
+    ends[-1:].fill_(total)
+    reps = ends.clone()
+    reps[1:] -= ends[:-1]
+    return torch.repeat_interleave(reps, output_size=total)
+
+
 def apply_boolean_mask(table: Table, mask: torch.Tensor) -> Table:
     """Keep the rows where ``mask`` is True (compacting): the count (one
     synchronisation), then :func:`sized_nonzero` and a lazy gather."""
-    n_keep = int(mask.sum())
+    n_keep = syncs.size(mask.sum(), mask.shape[0])
     return gather(table, sized_nonzero(mask, n_keep))
 
 
@@ -125,7 +148,7 @@ def fill_null(col: Column, value) -> Column:
         raise TypeError(f"fill_null not supported on {col.dtype.id.name}")
     if col.validity is None:
         return col
-    fill = torch.tensor(value, dtype=col.data.dtype, device=col.device)
+    fill = torch.full((), value, dtype=col.data.dtype, device=col.device)
     return Column(col.dtype, torch.where(col.validity, col.data, fill))
 
 
@@ -137,10 +160,28 @@ def equality_key(values: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(values), 0x7FF8000000000000, bits)
 
 
+def _equality_key_host(fv: np.float64) -> int:
+    """:func:`equality_key` of one host float64."""
+    if np.isnan(fv):
+        return 0x7FF8000000000000
+    return 0 if fv == 0 else int(np.float64(fv).view(np.int64))
+
+
+def _equal_any(data: torch.Tensor, probes: list) -> torch.Tensor:
+    """bool [n]: the row equals one of the host scalars ``probes``, one
+    compare each, so that no probe tensor is copied from the host."""
+    m = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    for p in dict.fromkeys(probes):
+        m |= data == p
+    return m
+
+
 def isin(col: Column, values) -> torch.Tensor:
     """Null-safe SQL ``col IN (v1, v2, …)``: a bool mask, False on null
     rows (Spark).  A probe that does not survive an exact round trip into
-    the column's storage matches nothing; None matches nothing."""
+    the column's storage matches nothing; None matches nothing.  Each
+    probe is a compare with a host scalar: nothing is copied from the
+    host, so that the call can be captured in a CUDA graph."""
     dev = col.device
     if col.dtype.id == T.TypeId.STRING:
         from . import strings
@@ -178,11 +219,8 @@ def isin(col: Column, values) -> torch.Tensor:
                 continue
             if np.isnan(fv) or fv == v or isinstance(v, float):
                 probes.append(fv)
-        if not probes:
-            m = torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
-        else:
-            keys = equality_key(torch.tensor(probes, dtype=torch.float64))
-            m = torch.isin(equality_key(col.data), keys.to(dev))
+        m = _equal_any(equality_key(col.data),
+                       [_equality_key_host(fv) for fv in probes])
     else:
         storage = col.dtype.storage
         kept = []
@@ -195,14 +233,15 @@ def isin(col: Column, values) -> torch.Tensor:
                 continue
             if cast_v == v:
                 kept.append(cast_v)
-        if not kept:
-            return torch.zeros(col.num_rows, dtype=torch.bool, device=dev)
-        probes = torch.from_numpy(np.asarray(kept, storage)).to(dev)
         if storage.kind == "f":
-            m = torch.isin(col.data, probes)
+            m = _equal_any(col.data, [float(v) for v in kept])
         else:
+            # uint64 compares by its bit pattern, as ``_as_int64`` keeps it
             from .decimal128 import _as_int64
-            m = torch.isin(_as_int64(col.data), _as_int64(probes))
+            m = _equal_any(_as_int64(col.data),
+                           [int(np.asarray(v, storage).view(np.int64))
+                            if storage == np.uint64 else int(v)
+                            for v in kept])
     if col.validity is not None:
         m = m & col.validity
     return m

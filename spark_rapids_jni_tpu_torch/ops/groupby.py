@@ -9,13 +9,14 @@ the aggregates are segment reductions: ``index_add_`` for sums and counts
 (int64 sums are exact in any order; float sums are not, and are held to
 a tolerance), by parts of at most 1,024 rows and then by segment, so
 that few rows add onto one address and a float sum stays short;
-``scatter_reduce_`` for min, max, first and last.  The
-group count is the one synchronisation.  String keys become
-order-preserving codes (``ops.strings.dictionary_encode``) and are decoded
-at the end; DECIMAL128 sums are limb sums (``decimal128.segmented_sum``);
-decimal means, variances and deviations are taken in the value domain;
-FLOAT64 keys group under Spark's equality (-0.0 is 0.0, every NaN one
-value), and FLOAT64 min, max, first and last return a row's own value.
+``scatter_reduce_`` for min, max, first and last.  The group count is
+the one synchronisation (``utils.syncs``).  String keys become
+order-preserving codes (``ops.strings.dictionary_encode``) and are
+decoded at the end; DECIMAL128 sums are limb sums
+(``decimal128.segmented_sum``); decimal means, variances and deviations
+are taken in the value domain; FLOAT64 keys group under Spark's equality
+(-0.0 is 0.0, every NaN one value), and FLOAT64 min, max, first and last
+return a row's own value.
 
 Grouping sets, rollup and cube are one groupby a set, concatenated with a
 ``grouping_id``; ``nunique`` is two groupbys.  The mergeable partial
@@ -32,6 +33,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, Table
+from ..utils import syncs
 from .filter import _gather_column, equality_key, gather
 from .int64bits import TOPBIT, identity, widened
 from .sort import f64_sort_key_lanes, order_by
@@ -114,6 +116,15 @@ def _segment_ids(sorted_keys, sorted_valid) -> torch.Tensor:
             neq = neq_with_null_merge(neq, v[1:], v[:-1])
         head[1:] |= neq
     return torch.cumsum(head, 0)
+
+
+def resolve_segments(seg: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The segment count of non-empty sorted segment ids (the one
+    synchronisation), and the ids cut below it: a no-op unless a stale
+    tape gave the count, when it keeps every segment reduction in
+    bounds."""
+    ns = syncs.size(seg[-1], seg.shape[0] - 1) + 1
+    return seg.clamp(max=ns - 1), ns
 
 
 def neq_with_null_merge(neq, v1, v0):
@@ -251,8 +262,7 @@ def groupby_aggregate(table: Table, key_indices: Sequence[int],
         else:
             skeys.append(col.data)
             svalid.append(col.validity)
-    seg = _segment_ids(skeys, svalid)
-    num_segments = int(seg[-1]) + 1          # one synchronisation
+    seg, num_segments = resolve_segments(_segment_ids(skeys, svalid))
     return _aggregate_sorted(sorted_tbl, list(key_indices), str_dicts, seg,
                              num_segments, aggs, n)
 
@@ -262,8 +272,9 @@ def _aggregate_sorted(sorted_tbl: Table, key_indices, str_dicts, seg,
     """The key heads and aggregate columns over a key-sorted table (the
     keyed and the grand-total paths)."""
     dev = seg.device
+    # an empty segment (a stale tape) heads at n: cut it to a row
     head_pos = _segment_reduce(torch.arange(n, dtype=torch.int64, device=dev),
-                               seg, num_segments, "amin", n)
+                               seg, num_segments, "amin", n).clamp_(max=n - 1)
     out_cols = []
     for ki in key_indices:
         head = _gather_column(sorted_tbl[ki], head_pos)

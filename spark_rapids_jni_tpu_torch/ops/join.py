@@ -7,8 +7,8 @@ build side skips the pair expansion, or a key sort probed by
 ``torch.searchsorted``.  Both give the same ``(lo, counts, row_ids)``, so
 the expansion here is shared and the engines give identical indices:
 pairs in probe-row order, each probe row's matches in build-row order.
-The pair count is one synchronisation; the expansion is
-``torch.repeat_interleave`` with that count as its size.
+The pair count is one synchronisation (``utils.syncs``); the expansion
+is ``ops.filter.sized_repeat`` with that count as its size.
 
 Join keys are one fixed-width or STRING column, or a list of them (tuple
 equality; a null in any key never matches).  ``join_plan.plan_keys``
@@ -26,7 +26,8 @@ import torch
 
 from .. import types as T
 from ..column import Column, LazyColumn, Table, force_column
-from .filter import gather, sized_nonzero
+from ..utils import syncs
+from .filter import gather, sized_nonzero, sized_repeat
 from .sort import _ordered
 
 JoinKey = Union[Column, Sequence[Column]]
@@ -85,13 +86,13 @@ def _join_indices(lcols: list, rcols: list, how: str):
 
     if how in ("semi", "anti"):
         m = (counts > 0) if how == "semi" else (counts == 0)
-        return sized_nonzero(m, int(m.sum()))
+        return sized_nonzero(m, syncs.size(m.sum(), n))
 
     if ix.unique and nr > 0:
         # each probe row matches at most one build row: no expansion
         pos = lo.clamp(0, nr - 1)
         if how == "inner":
-            total = int(counts.sum())
+            total = syncs.size(counts.sum(), n)
             left_idx = sized_nonzero(counts > 0, total)
             return left_idx, ix.row_ids[pos[left_idx]]
         left_idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -102,11 +103,9 @@ def _join_indices(lcols: list, rcols: list, how: str):
     # read of the match count here feeds its metrics only: not ported)
     out_counts = (counts.clamp(min=1) if how == "left" else counts) \
         .to(torch.int64)
-    total = int(out_counts.sum())
+    total = syncs.size(out_counts.sum(), n * max(nr, 1))
     starts = torch.cumsum(out_counts, 0) - out_counts
-    left_idx = torch.repeat_interleave(
-        torch.arange(n, dtype=torch.int64, device=dev), out_counts,
-        output_size=total)
+    left_idx = sized_repeat(out_counts, total)
     within = torch.arange(total, dtype=torch.int64, device=dev) \
         - starts[left_idx]
     matched = within < counts[left_idx]
@@ -122,7 +121,7 @@ def _pair_candidates(ix, lo, counts):
     straight off its table, else by the shared expansion."""
     nr = ix.row_ids.shape[0]
     dev = counts.device
-    total = int(counts.sum())
+    total = syncs.size(counts.sum(), counts.shape[0] * nr)
     if nr == 0 or total == 0:
         z = torch.zeros(0, dtype=torch.int64, device=dev)
         return z, z
@@ -132,9 +131,7 @@ def _pair_candidates(ix, lo, counts):
         return left_idx, right_idx
     counts = counts.to(torch.int64)
     starts = torch.cumsum(counts, 0) - counts
-    left_idx = torch.repeat_interleave(
-        torch.arange(counts.shape[0], dtype=torch.int64, device=dev), counts,
-        output_size=total)
+    left_idx = sized_repeat(counts, total)
     within = torch.arange(total, dtype=torch.int64, device=dev) \
         - starts[left_idx]
     r_pos = lo[left_idx].to(torch.int64) + within
@@ -148,20 +145,20 @@ def _verified_join(plan, ix, lo, counts, how: str):
     eq = torch.ones(li.shape[0], dtype=torch.bool, device=li.device)
     for ll, rl in plan.verify:
         eq = eq & (ll[li] == rl[ri])
-    sel = sized_nonzero(eq, int(eq.sum()))
+    sel = sized_nonzero(eq, syncs.size(eq.sum(), eq.shape[0]))
     li, ri = li[sel], ri[sel]
     if how == "inner":
         return li, ri
     n = plan.ldata.shape[0]
     has = torch.zeros(n, dtype=torch.bool, device=li.device)
-    has[li] = True
+    has.index_fill_(0, li, True)
     if how in ("semi", "anti"):
         m = has if how == "semi" else ~has
-        return sized_nonzero(m, int(m.sum()))
+        return sized_nonzero(m, syncs.size(m.sum(), n))
     # left: the verified pairs and one row for each unmatched probe row,
     # back in probe-row order by a stable sort on the left index
     miss = ~has
-    nm = int(miss.sum())
+    nm = syncs.size(miss.sum(), n)
     mi = sized_nonzero(miss, nm)
     left_idx = torch.cat([li, mi])
     right_idx = torch.cat([ri, torch.full((nm,), -1, dtype=torch.int64,

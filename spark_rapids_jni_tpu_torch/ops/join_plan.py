@@ -21,11 +21,15 @@ the two engines give identical indices:
   ``torch.searchsorted`` a probe.
 
 Each host read (the valid count, the window's bounds, the longest run)
-is one ``.item()``, where the JAX package has one ``syncs.scalar``.
+is one ``utils.syncs.scalar``, as in the JAX package, so that the
+engine choice is on a compiled query's tape and its staleness check
+(``models/compiled.py``) sees a change of engine.
 
 Indexes and multi-key plans are cached on the identity of their key
 tensors: a weak reference and the tensor's ``_version``, so that an entry
-dies with its tensor and an in-place write misses it.  The index cache is
+dies with its tensor and an in-place write misses it.  Both caches are
+bypassed under capture and replay, so that the two visit the same sites
+(``utils.syncs``).  The index cache is
 an LRU over its indexes' device bytes, capped at :data:`INDEX_CACHE_CAP`
 (the JAX package's ``SRJT_INDEX_CACHE_CAP`` default, 512 MiB); each
 eviction counts in ``build_index.evictions`` and in
@@ -52,6 +56,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, Table, as_dict_column, force_column
+from ..utils import syncs
 from .filter import _gather_column, sized_nonzero
 
 DENSE_SPAN_FACTOR = 2
@@ -205,15 +210,19 @@ def build_index(data: torch.Tensor, valid, dense_ok: bool) -> BuildIndex:
     forced = forced_engine()
     tensors = (data,) if valid is None else (data, valid)
     key = _key(f"build_index:{forced or 'auto'}", tensors)
-    hit = _INDEX_CACHE.get(key, tensors)
+    cached = syncs.mode() == "normal"
+    hit = _INDEX_CACHE.get(key, tensors) if cached else None
     if hit is not None:
         COUNTS["build_index.cache_hit"] += 1
         COUNTS[f"engine.{hit.kind}"] += 1
         return hit
     ix = _build_index(data, valid, dense_ok and forced != "sorted",
                       forced == "dense")
-    COUNTS["build_index.cache_miss"] += 1
     COUNTS[f"engine.{ix.kind}"] += 1
+    if not cached:
+        COUNTS["build_index.cache_bypass"] += 1
+        return ix
+    COUNTS["build_index.cache_miss"] += 1
     evicted = _INDEX_CACHE.evictions
     _INDEX_CACHE.put(key, tensors, ix, _index_nbytes(ix))
     if _INDEX_CACHE.evictions > evicted:
@@ -238,15 +247,15 @@ def _key_sorted_order(data, valid, n_valid: int):
 def _build_index(data, valid, try_dense: bool, must_dense: bool):
     n = int(data.shape[0])
     dev = data.device
-    n_valid = n if valid is None else int(valid.sum())
+    n_valid = n if valid is None else syncs.size(valid.sum(), n)
     kmin = span = 0
     dense = False
     if try_dense and n_valid > 0:
         info = torch.iinfo(data.dtype)
         dmin = data if valid is None else torch.where(valid, data, info.max)
         dmax = data if valid is None else torch.where(valid, data, info.min)
-        kmin = int(dmin.min())
-        span = int(dmax.max()) - kmin + 1
+        kmin = syncs.scalar(dmin.min())
+        span = max(syncs.scalar(dmax.max()) - kmin + 1, 1)
         limit = DENSE_SPAN_CAP if must_dense else min(
             max(DENSE_SPAN_FACTOR * n_valid, DENSE_SPAN_FLOOR),
             DENSE_SPAN_CAP)
@@ -261,13 +270,14 @@ def _build_index(data, valid, try_dense: bool, must_dense: bool):
     lut_cnt = torch.zeros(span, dtype=torch.int32, device=dev).index_add_(
         0, slot, ok.to(torch.int32))
     lut_lo = torch.cumsum(lut_cnt, 0, dtype=torch.int32) - lut_cnt
-    max_run = int(lut_cnt.max())
+    max_run = syncs.scalar(lut_cnt.max())
     unique = max_run <= 1
     if unique:
         # no sort: each valid row scatters to its slot's start; null rows
         # to a slot past the end, which is cut off (the JAX scatter's
-        # mode="drop")
-        tgt = torch.where(ok, lut_lo[slot].to(torch.int64), n_valid)
+        # mode="drop"), as is a start past it (only under a stale tape)
+        tgt = torch.where(ok, lut_lo[slot].to(torch.int64),
+                          n_valid).clamp_(max=n_valid)
         buf = torch.zeros(n_valid + 1, dtype=torch.int64, device=dev)
         buf.scatter_(0, tgt, torch.arange(n, dtype=torch.int64, device=dev))
         row_ids = buf[:n_valid]
@@ -295,10 +305,10 @@ def extend_build_index(ix: BuildIndex, delta_data, delta_valid,
     ok = (torch.ones(m, dtype=torch.bool, device=dev) if delta_valid is None
           else delta_valid)
     in_win = (d >= 0) & (d < ix.span)
-    if int(((~in_win) & ok).sum()) > 0:
+    if syncs.scalar(((~in_win) & ok).sum()) > 0:
         COUNTS["build_index.extend_window_miss"] += 1
         return None
-    m_valid = m if delta_valid is None else int(ok.sum())
+    m_valid = m if delta_valid is None else syncs.size(ok.sum(), m)
     if m_valid == 0:
         return ix
     slot = d.clamp(0, ix.span - 1)
@@ -323,9 +333,10 @@ def extend_build_index(ix: BuildIndex, delta_data, delta_valid,
                  + (idxs - run_start))
     n_total = ix.n_valid + m_valid
     row_ids = torch.zeros(n_total, dtype=torch.int64, device=dev)
-    row_ids[old_pos] = ix.row_ids
-    row_ids[delta_pos] = base_n + dorder
-    max_run = int(new_cnt.max())
+    # positions past the end only under a stale tape: cut them there
+    row_ids[old_pos.clamp_(0, n_total - 1)] = ix.row_ids
+    row_ids[delta_pos.clamp_(0, n_total - 1)] = base_n + dorder
+    max_run = syncs.scalar(new_cnt.max())
     COUNTS["build_index.extended"] += 1
     return BuildIndex("dense", n_total, row_ids, None, ix.kmin, ix.span,
                       new_lo, new_cnt, max_run <= 1, max_run)
@@ -454,6 +465,8 @@ def plan_keys(left_cols: Sequence[Column],
                        dense_eligible(rc) and dense_eligible(lc))
     enc_l = [force_column(c) for c in enc_l]
     enc_r = [force_column(c) for c in enc_r]
+    if syncs.mode() != "normal":
+        return _pack_keys(enc_l, enc_r)
     tensors = [a for c in enc_l + enc_r
                for a in (c.data, c.validity) if a is not None]
     key = _key("plan", tensors)
@@ -492,8 +505,8 @@ def _pack_keys(lcols, rcols) -> KeyPlan:
             info = torch.iinfo(rl.dtype)
             vmin = rl if rvalid is None else torch.where(rvalid, rl, info.max)
             vmax = rl if rvalid is None else torch.where(rvalid, rl, info.min)
-            kmin = int(vmin.min())
-            span = max(int(vmax.max()) - kmin + 1, 1)
+            kmin = syncs.scalar(vmin.min())
+            span = max(syncs.scalar(vmax.max()) - kmin + 1, 1)
             windows.append((kmin, span))
             prod *= span
         if prod < (1 << COMPOSITE_BITS):
@@ -590,7 +603,7 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
         pos = lo.clamp(0, max(ix.n_valid - 1, 0))
         if how == "inner":
             m = counts > 0
-            li = sized_nonzero(m, int(m.sum()))
+            li = sized_nonzero(m, syncs.size(m.sum(), m.shape[0]))
             ri = ix.row_ids[pos[li]]
             cols = [_gather_column(left[ci], li) if ci < nl
                     else _gather_column(right[ci - nl], ri) for ci in needed]
@@ -612,7 +625,7 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
         lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
         if how == "inner":
             m = counts > 0
-            li = sized_nonzero(m, int(m.sum()))
+            li = sized_nonzero(m, syncs.size(m.sum(), m.shape[0]))
             w = counts.to(torch.int64)[li]
             return _weighted_groupby(
                 [_gather_column(left[ci], li) for ci in group_keys],
@@ -649,7 +662,7 @@ def _weighted_groupby(key_cols, val_aggs, w) -> Table:
     starts."""
     from .groupby import (_agg_out_dtype, _agg_segment, _cast_res,
                           _empty_result, _segment_ids, _sorted_segment_sum,
-                          _take_rows)
+                          _take_rows, resolve_segments)
     from .sort import order_by
 
     nk = len(key_cols)
@@ -660,8 +673,8 @@ def _weighted_groupby(key_cols, val_aggs, w) -> Table:
                               enumerate(val_aggs)])
     order = order_by(Table(key_cols), list(range(nk)))
     skeys = [_take_rows(c, order) for c in key_cols]
-    seg = _segment_ids([c.data for c in skeys], [c.validity for c in skeys])
-    ns = int(seg[-1]) + 1
+    seg, ns = resolve_segments(
+        _segment_ids([c.data for c in skeys], [c.validity for c in skeys]))
     n = order.shape[0]
     head = torch.ones(n, dtype=torch.bool, device=seg.device)
     head[1:] = seg[1:] != seg[:-1]

@@ -24,8 +24,8 @@ def _masked(data: torch.Tensor, col: Column, identity) -> torch.Tensor:
 
 def valid_count(col: Column) -> torch.Tensor:
     if col.validity is None:
-        return torch.tensor(col.num_rows, dtype=torch.int64,
-                            device=col.device)
+        return torch.full((), col.num_rows, dtype=torch.int64,
+                          device=col.device)
     return col.validity.sum(dtype=torch.int64)
 
 
@@ -39,7 +39,8 @@ def _extreme(col: Column, agg: str) -> torch.Tensor:
     ident = identity(np.dtype(col.dtype.storage), agg)
     data = _masked(work, col, ident)
     if data.shape[0] == 0:
-        return back(torch.tensor(ident, dtype=work.dtype, device=col.device))
+        return back(torch.full((), ident, dtype=work.dtype,
+                               device=col.device))
     return back(data.amin() if agg == "min" else data.amax())
 
 

@@ -42,8 +42,8 @@ def _scan(col: Column, op: str) -> Column:
         ident = identity(storage, op)
     if col.validity is not None:
         work = torch.where(col.validity, work,
-                           torch.tensor(ident, dtype=work.dtype,
-                                        device=work.device))
+                           torch.full((), ident, dtype=work.dtype,
+                                      device=work.device))
     if work.shape[0] == 0:
         res = work
     elif op == "sum":

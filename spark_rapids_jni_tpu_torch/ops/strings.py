@@ -41,6 +41,7 @@ import torch
 from .. import types as T
 from ..column import Column, DictColumn, as_dict_column
 from ..rowconv import ragged
+from ..utils import syncs
 from .int64bits import MASK32, TOPBIT
 
 
@@ -53,10 +54,17 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _max_len(col: Column) -> int:
-    """The longest row, in bytes (one synchronisation)."""
+    """The longest row, in bytes: one synchronisation, memoized on the
+    offsets tensor (plans re-touch the same dimension columns), as in the
+    JAX package."""
     if col.num_rows == 0:
         return 0
-    return int(_lengths(col).max())
+    hit = syncs.memo_get("strwidth", (col.offsets,))
+    if hit is not None:
+        return hit
+    width = syncs.size(_lengths(col).max())
+    syncs.memo_put("strwidth", (col.offsets,), width)
+    return width
 
 
 def byte_matrix(col: Column, width: Optional[int] = None):
@@ -130,6 +138,14 @@ def dictionary_encode(col: Column) -> tuple[Column, Column]:
         return (Column(T.int32, torch.zeros(0, dtype=torch.int32, device=dev)),
                 Column(T.string, torch.zeros(0, dtype=torch.uint8, device=dev),
                        torch.zeros(1, dtype=torch.int32, device=dev)))
+    # a pure function of the payload, re-touched by every groupby, window
+    # and join over one dimension column: memoized, as in the JAX package
+    memo_key = (col.data, col.offsets) + (
+        (col.validity,) if col.validity is not None else ())
+    memo_tag = f"dictenc{'v' if col.validity is not None else ''}"
+    hit = syncs.memo_get(memo_tag, memo_key)
+    if hit is not None:
+        return hit
     mat, lens = byte_matrix(col)
     if col.validity is not None:
         mat = torch.where(col.validity[:, None], mat, 0)
@@ -142,9 +158,11 @@ def dictionary_encode(col: Column) -> tuple[Column, Column]:
     head[1:] = ((s_lanes[1:] != s_lanes[:-1]).any(dim=1)
                 | (s_lens[1:] != s_lens[:-1]))
     codes_sorted = torch.cumsum(head, 0, dtype=torch.int32)
+    ndict = syncs.size(codes_sorted[-1], n - 1) + 1   # one synchronisation
+    # codes past the dictionary only under a stale tape: cut them there
+    codes_sorted = codes_sorted.clamp_(max=ndict - 1)
     codes = torch.empty_like(codes_sorted)
     codes[order] = codes_sorted
-    ndict = int(codes_sorted[-1]) + 1            # one synchronisation
     # each code's representative: its first row, or its first valid row
     # where it has one, so that a null row's bytes never name a group
     seg = codes_sorted.to(torch.int64)
@@ -157,8 +175,12 @@ def dictionary_encode(col: Column) -> tuple[Column, Column]:
             0, torch.where(col.validity[order], seg, ndict), order, "amin")
         first_pos = torch.where(first_valid[:ndict] < n, first_valid[:ndict],
                                 first_pos)
-    uniq = _gather_column(Column(col.dtype, col.data, col.offsets), first_pos)
-    return Column(T.int32, codes, validity=col.validity), uniq
+    # a code no row holds (a stale tape) keeps n: cut it to a row
+    uniq = _gather_column(Column(col.dtype, col.data, col.offsets),
+                          first_pos.clamp_(max=n - 1))
+    out = (Column(T.int32, codes, validity=col.validity), uniq)
+    syncs.memo_put(memo_tag, memo_key, out)
+    return out
 
 
 def _as_bool_column(mask: torch.Tensor, validity) -> Column:
@@ -250,11 +272,11 @@ def equal_to_scalar(col: Column, value) -> Column:
     payload = value.encode("utf-8") if isinstance(value, str) else bytes(value)
     lens = _lengths(col)
     mat, _ = byte_matrix(col, max(len(payload), 1))
-    target = torch.zeros(mat.shape[1], dtype=torch.uint8)
-    if payload:
-        target[:len(payload)] = torch.frombuffer(bytearray(payload),
-                                                 dtype=torch.uint8)
-    eq = (lens == len(payload)) & (mat == target.to(mat.device)).all(dim=1)
+    # the rows of the payload's length whose first bytes are its bytes (a
+    # compare a byte with a host scalar: nothing is copied from the host)
+    eq = lens == len(payload)
+    for k, b in enumerate(payload):
+        eq = eq & (mat[:, k] == b)
     return _as_bool_column(eq, col.validity)
 
 
@@ -397,25 +419,36 @@ def lower(col: Column) -> Column:
                   col.offsets, col.validity)
 
 
-def _new_offsets(lens: torch.Tensor) -> tuple[torch.Tensor, int]:
+def _new_offsets(lens: torch.Tensor,
+                 upper: int) -> tuple[torch.Tensor, int]:
     """int32 offsets [n+1] of rows of ``lens`` bytes, and their total (the
-    one synchronisation)."""
+    one synchronisation), at most ``upper``; the offsets are cut at the
+    total, a no-op unless the tape is stale."""
     offs = torch.zeros(lens.shape[0] + 1, dtype=torch.int32,
                        device=lens.device)
     offs[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
-    return offs, int(offs[-1])
+    total = syncs.size(offs[-1], upper)
+    return offs.clamp_(max=total), total
 
 
 def _char_rows(offs: torch.Tensor, total: int):
     """(row of each output char, its position within the row): the JAX
     package's ``_segment_of``, without a synchronisation."""
-    lens = (offs[1:] - offs[:-1]).to(torch.int64)
-    row_of = torch.repeat_interleave(
-        torch.arange(lens.shape[0], device=offs.device), lens,
-        output_size=total)
+    from .filter import sized_repeat
+    row_of = sized_repeat((offs[1:] - offs[:-1]).to(torch.int64), total)
     within = (torch.arange(total, dtype=torch.int64, device=offs.device)
               - offs[:-1].to(torch.int64)[row_of])
     return row_of, within
+
+
+def _take_chars(data: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``data[src]``, each index cut into ``data`` (zeros from an empty
+    one): reads stay in bounds whatever the tape said."""
+    n = data.shape[0]
+    if n == 0:
+        return torch.zeros(src.shape[0], dtype=torch.uint8,
+                           device=data.device)
+    return data[src.clamp(0, n - 1)]
 
 
 def _empty_chars(device) -> torch.Tensor:
@@ -434,13 +467,14 @@ def substring(col: Column, start: int, length: Optional[int] = None) -> Column:
     new_lens = (_lengths(col) - start).clamp(min=0)
     if length is not None:
         new_lens = new_lens.clamp(max=length)
-    new_offs, total = _new_offsets(new_lens)
+    new_offs, total = _new_offsets(new_lens, col.data.shape[0])
     if total == 0:
         return Column(T.string, _empty_chars(col.device), new_offs,
                       col.validity)
     row_of, within = _char_rows(new_offs, total)
     src = col.offsets[:-1].to(torch.int64)[row_of] + start + within
-    return Column(T.string, col.data[src], new_offs, col.validity)
+    return Column(T.string, _take_chars(col.data, src), new_offs,
+                  col.validity)
 
 
 def concat(a: Column, b: Column) -> Column:
@@ -452,20 +486,15 @@ def concat(a: Column, b: Column) -> Column:
         valid = a.validity_or_true() & b.validity_or_true()
         la = torch.where(valid, la, 0)
         lb = torch.where(valid, lb, 0)
-    new_offs, total = _new_offsets(la + lb)
+    new_offs, total = _new_offsets(la + lb,
+                                   a.data.shape[0] + b.data.shape[0])
     if total == 0:
         return Column(T.string, _empty_chars(a.device), new_offs, valid)
     row_of, within = _char_rows(new_offs, total)
     la_row = la.to(torch.int64)[row_of]
-
-    def side(col, src):
-        n = col.data.shape[0]
-        if n == 0:
-            return torch.zeros(total, dtype=torch.uint8, device=a.device)
-        return col.data[src.clamp(0, n - 1)]
-
-    ca = side(a, a.offsets[:-1].to(torch.int64)[row_of] + within)
-    cb = side(b, b.offsets[:-1].to(torch.int64)[row_of] + within - la_row)
+    ca = _take_chars(a.data, a.offsets[:-1].to(torch.int64)[row_of] + within)
+    cb = _take_chars(b.data, b.offsets[:-1].to(torch.int64)[row_of] + within
+                     - la_row)
     return Column(T.string, torch.where(within < la_row, ca, cb), new_offs,
                   valid)
 
@@ -743,11 +772,12 @@ def _matrix_to_strings(mat: torch.Tensor, starts: torch.Tensor,
     ``mat``; null rows take no bytes."""
     if validity is not None:
         lens = torch.where(validity, lens, 0)
-    new_offs, total = _new_offsets(lens)
+    new_offs, total = _new_offsets(lens, mat.shape[0] * mat.shape[1])
     if total == 0:
         return Column(T.string, _empty_chars(mat.device), new_offs, validity)
     row_of, within = _char_rows(new_offs, total)
-    chars = mat[row_of, starts.to(torch.int64)[row_of] + within]
+    chars = mat[row_of, (starts.to(torch.int64)[row_of] + within)
+                .clamp(0, mat.shape[1] - 1)]
     return Column(T.string, chars, new_offs, validity)
 
 

@@ -79,7 +79,7 @@ class WindowSpec:
                                             device=dev)
         head = torch.zeros(n, dtype=torch.bool, device=dev)
         if n:
-            head[0] = True
+            head[:1].fill_(True)
             for ki in partition_by:
                 head[1:] |= _adjacent_neq(table[ki], self.order)
         self.head = head
@@ -220,8 +220,8 @@ def _running_extreme(spec: WindowSpec, value_col: int, is_max: bool):
     sv = None if col.validity is None else col.validity[spec.order]
     if sv is not None:
         ident = identity(np.dtype(col.dtype.storage), agg)
-        data = torch.where(sv, data, torch.tensor(ident, dtype=data.dtype,
-                                                  device=data.device))
+        data = torch.where(sv, data, torch.full((), ident, dtype=data.dtype,
+                                                device=data.device))
     combine = torch.maximum if is_max else torch.minimum
     n = data.shape[0]
     d = 1

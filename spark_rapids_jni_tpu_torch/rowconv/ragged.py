@@ -13,7 +13,13 @@ run on any device, which is how the kernels are held against them.
 
 Offsets are int64 tensors on the data's device; sizes the caller already
 knows on the host (output lengths) are passed as Python ints, so no wrapper
-synchronises with the device.
+synchronises with the device or copies from the host, and a CUDA graph can
+capture each launch.  Offsets that break the contract, as those of a query
+replayed under a stale tape (``models/compiled.py``) do, make no access
+outside the buffers: B3 cuts each row at the end of its source and zeroes a
+row that starts outside it, B4 clamps each CTA's range to the destination
+and each read to the source (``csrc/ragged.cu``), and the plain versions
+clamp likewise.
 """
 
 from __future__ import annotations

@@ -1269,3 +1269,73 @@ def test_mortgage_etl_on_card_matches_cpu_and_oracle(cuda):
     ids, mat = mortgage.feature_matrix(files, device=cuda)
     assert mat.device.type == "cuda" and mat.dtype == torch.float32
     assert tuple(mat.shape) == (20000, len(mortgage.FEATURE_COLS) - 1)
+
+
+def _tpcds_case(cuda, seed=7, n_sales=200_000):
+    """The writer's TPC-DS files on the card and the CPU, with the
+    oracle's parameters and arrays."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "tools"))
+    import torch_tpcds_oracle as O
+    import torch_tpcds_parquet as TW
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    files, arrays = TW.tpcds_parquet(n_sales=n_sales, n_items=2000,
+                                     seed=seed)
+    return (tpcds.load_tables(files, device=cuda),
+            tpcds.load_tables(files, device="cpu"), arrays,
+            O.query_params(arrays))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["q3", "q36_rollup"])
+def test_compiled_query_on_card_matches_cpu(cuda, name):
+    """A query captured as one CUDA graph: its checked and unchecked
+    replays equal the CPU's compiled result and the oracle; the unchecked
+    replay makes no host synchronisation; its graph holds B3 and B4."""
+    import functools
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    from spark_rapids_jni_tpu_torch.utils import syncs
+    tables, cpu_tables, arrays, params = _tpcds_case(cuda)
+    import torch_tpcds_oracle as O
+    qfn = functools.partial(tpcds.QUERIES[name], **params[name])
+    cq = compiled.compile_query(qfn, tables)
+    want = compiled.compile_query(qfn, cpu_tables).run(cpu_tables)
+    assert cq.tape == compiled.compile_query(qfn, cpu_tables).tape
+    assert cq.graph_launches["unpack_rows"] > 0
+    assert cq.graph_launches["segmented_copy"] > 0
+    got = cq.run(tables)
+    # float sums, each within 1e-12 of the exact one (the oracle's bound)
+    for g, w in zip(got.columns, want.columns):
+        _same_columns(g, w, 2e-12)
+    O.check(name, got, O.answer(name, arrays, params[name]))
+    before = syncs.sync_count()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = cq.run_unchecked(tables)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert syncs.sync_count() == before
+    for g, w in zip(again.columns, want.columns):
+        _same_columns(g, w, 2e-12)
+
+
+@pytest.mark.gpu
+def test_compiled_stale_tape_on_card_raises(cuda):
+    """q3 compiled on seed 7's tables, run on seed 77's (the same shapes,
+    other sizes): StaleTapeError, no device fault; compiled again there,
+    it equals the oracle."""
+    import functools
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    tables, _, _, params = _tpcds_case(cuda)
+    import torch_tpcds_oracle as O
+    tables2, _, arrays2, _ = _tpcds_case(cuda, seed=77)
+    qfn = functools.partial(tpcds.QUERIES["q3"], **params["q3"])
+    cq = compiled.compile_query(qfn, tables)
+    with pytest.raises(compiled.StaleTapeError):
+        cq.run(tables2)
+    torch.cuda.synchronize()
+    fresh = compiled.compile_query(qfn, tables2)
+    O.check("q3", fresh.run(tables2), O.answer("q3", arrays2, params["q3"]))

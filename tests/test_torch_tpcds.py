@@ -26,9 +26,10 @@ from spark_rapids_jni_tpu.models import tpcds as jtpcds
 from spark_rapids_jni_tpu_torch.models import tpcds
 
 from torch_tpcds_cases import (TW, _jax_native_library,  # noqa: F401
-                               check_against_jax, check_oracle_against_jax,
-                               check_writer_files, data, jax_results_of,
-                               port_tables, writer_tables)
+                               check_against_jax, check_compiled_against_jax,
+                               check_oracle_against_jax, check_writer_files,
+                               data, jax_results_of, port_tables,
+                               writer_tables)
 
 # this file's queries: the 16 join queries the port ran first
 QUERIES = ["q3", "q42", "q52", "q55", "q_state_rollup", "q7", "q19", "q62",
@@ -53,6 +54,11 @@ def test_queries_equal_the_jax_packages():
 @pytest.mark.parametrize("name", QUERIES)
 def test_query_matches_jax(name, data, jax_results, port_tables):
     check_against_jax(name, data, jax_results, port_tables)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_compiled_query_matches_jax(name, data, jax_results, port_tables):
+    check_compiled_against_jax(name, data, jax_results, port_tables)
 
 
 @pytest.mark.parametrize("name", QUERIES)

@@ -13,9 +13,10 @@ own (``tools/torch_tpcds_oracle.py``).
 import pytest
 
 from torch_tpcds_cases import (_jax_native_library,  # noqa: F401
-                               check_against_jax, check_oracle_against_jax,
-                               check_writer_files, data, jax_results_of,
-                               port_tables, writer_tables)
+                               check_against_jax, check_compiled_against_jax,
+                               check_oracle_against_jax, check_writer_files,
+                               data, jax_results_of, port_tables,
+                               writer_tables)
 
 QUERIES = ["q65", "q_store_counts", "q67_rank", "q_like_brands",
            "q_union_channels", "q_lag_growth", "q_running_share",
@@ -34,6 +35,11 @@ def jax_results(data):
 @pytest.mark.parametrize("name", QUERIES)
 def test_query_matches_jax(name, data, jax_results, port_tables):
     check_against_jax(name, data, jax_results, port_tables)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_compiled_query_matches_jax(name, data, jax_results, port_tables):
+    check_compiled_against_jax(name, data, jax_results, port_tables)
 
 
 @pytest.mark.parametrize("name", QUERIES)

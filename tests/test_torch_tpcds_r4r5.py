@@ -18,9 +18,10 @@ import pytest
 from spark_rapids_jni_tpu_torch.models import tpcds
 
 from torch_tpcds_cases import (CPU, _jax_native_library,  # noqa: F401
-                               check_against_jax, check_oracle_against_jax,
-                               check_writer_files, data, jax_results_of,
-                               port_tables, writer_tables)
+                               check_against_jax, check_compiled_against_jax,
+                               check_oracle_against_jax, check_writer_files,
+                               data, jax_results_of, port_tables,
+                               writer_tables)
 
 QUERIES = ["q36_rollup", "q86_rollup", "q27_cube", "q5_grouping_sets",
            "q88_counts", "q90_ratio", "q29_minmax", "q48_bands",
@@ -42,6 +43,11 @@ def jax_results(data):
 @pytest.mark.parametrize("name", QUERIES)
 def test_query_matches_jax(name, data, jax_results, port_tables):
     check_against_jax(name, data, jax_results, port_tables)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_compiled_query_matches_jax(name, data, jax_results, port_tables):
+    check_compiled_against_jax(name, data, jax_results, port_tables)
 
 
 @pytest.mark.parametrize("name", QUERIES)

@@ -255,7 +255,9 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/ops/cast.py",
             "spark_rapids_jni_tpu_torch/models/mortgage.py",
             "tools/torch_mortgage_parquet.py",
-            "tools/torch_mortgage_oracle.py"} <= rel
+            "tools/torch_mortgage_oracle.py",
+            "spark_rapids_jni_tpu_torch/utils/syncs.py",
+            "spark_rapids_jni_tpu_torch/models/compiled.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

@@ -1,14 +1,16 @@
 """The TPC-DS query tests' shared data, for ``tests/test_torch_tpcds*.py``.
 
-Each test file holds its own queries of ``models.tpcds.QUERIES`` against
-the JAX package's (on pyarrow's ``benchmarks/tpcds_data.generate(
-n_sales=40_000, n_items=500, seed=7)``) and against the numpy oracle
-(``tools/torch_tpcds_oracle.py``, on the arrays of the numpy writer
-``tools/torch_tpcds_parquet.py``), with the parameters the oracle picks
-from the data.  A file imports the fixtures below and computes only its
-own queries' JAX results, once a module (:func:`jax_results_of`).
+Each test file holds its own queries of ``models.tpcds.QUERIES``, eager
+and compiled (``models/compiled.py``), against the JAX package's (on
+pyarrow's ``benchmarks/tpcds_data.generate(n_sales=40_000, n_items=500,
+seed=7)``) and against the numpy oracle (``tools/torch_tpcds_oracle.py``,
+on the arrays of the numpy writer ``tools/torch_tpcds_parquet.py``),
+with the parameters the oracle picks from the data.  A file imports the
+fixtures below and computes only its own queries' JAX results, once a
+module (:func:`jax_results_of`).
 """
 
+import functools
 import pathlib
 import sys
 
@@ -19,7 +21,7 @@ from benchmarks import tpcds_data
 from spark_rapids_jni_tpu.models import tpcds as jtpcds
 
 import spark_rapids_jni_tpu_torch as pt
-from spark_rapids_jni_tpu_torch.models import tpcds
+from spark_rapids_jni_tpu_torch.models import compiled, tpcds
 from spark_rapids_jni_tpu_torch.ops import join_plan
 
 from test_torch_scan import JAX_NATIVE_LOADED
@@ -95,6 +97,21 @@ def check_against_jax(name, data, jax_results, port_tables) -> None:
     assert got.schema == [pt.DType(pt.TypeId(int(c.dtype.id)), c.dtype.scale)
                           for c in want.columns]
     assert_same_table(got, want, rtol=RTOL)
+
+
+def check_compiled_against_jax(name, data, jax_results,
+                               port_tables) -> None:
+    """The port's compiled query (its checked and unchecked runs, eager
+    under the tape on the CPU) equals the JAX package's query as the
+    eager one does."""
+    qfn = functools.partial(tpcds.QUERIES[name], **data[3][name])
+    cq = compiled.compile_query(qfn, port_tables)
+    want = jax_results[name]
+    for got in (cq.run(port_tables), cq.run_unchecked(port_tables)):
+        assert got.schema == [pt.DType(pt.TypeId(int(c.dtype.id)),
+                                       c.dtype.scale)
+                              for c in want.columns]
+        assert_same_table(got, want, rtol=RTOL)
 
 
 def check_oracle_against_jax(name, data, jax_results) -> None:

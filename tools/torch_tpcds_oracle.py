@@ -894,6 +894,15 @@ def _column_values(col):
     return col.data.cpu().numpy(), valid
 
 
+def as_answer(table, like: Result, rtol: float = FLOAT_RTOL) -> Result:
+    """``table`` (a result of the port) as an answer to hold another
+    result against: ``like``'s float columns and the magnitudes their
+    errors are relative to, each within ``rtol``."""
+    cols, valid = zip(*(_column_values(c) for c in table.columns))
+    return Result(cols, valid=list(valid), floats=like.floats,
+                  rtol={ci: rtol for ci in like.floats}, scale=like.scale)
+
+
 def check(name: str, table, want: Result) -> float:
     """Raises AssertionError where ``table`` (the port's result) differs
     from ``want``; returns the float columns' largest relative error."""
