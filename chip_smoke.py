@@ -5,8 +5,8 @@
 
 Drives the port's main paths, JCUDF row ↔ column conversion, the
 device Parquet scan and the queries on it (TPC-H Q6 and Q1, the 50
-TPC-DS queries, eager and compiled to CUDA graphs, the Mortgage ETL),
-through their public entry points on the card, and fails (non-zero
+TPC-DS queries, eager and compiled to CUDA graphs, the Mortgage ETL,
+TPC-DS as SQL text and plan trees through the planner), through their public entry points on the card, and fails (non-zero
 exit, no result line) if anything is wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
@@ -151,6 +151,29 @@ exit, no result line) if anything is wrong:
    rows at seed 7 must raise ``StaleTapeError`` on tables of the same
    row counts at seed 77, and compiled there equal the oracle; on a
    ``[compiled] summary`` JSON line.
+16. SQL and the planner (run last, on phase 13's tables and files): each
+   of the 28 SQL texts of ``models.tpcds_sql`` through
+   ``sql.compile_sql`` (phase 13's parameters where the query takes
+   them, the corpus defaults otherwise), held against its twin: the
+   hand-fused ``tpcds.QUERIES[name]`` for the 8 ``tpcds_plans`` queries,
+   the hand tree run through ``plan.execute`` on a ``TableCatalog`` for
+   the other 20 (their ``QUERIES`` namesakes are other queries): schema,
+   validity, keys, integers and strings exactly, floats within a
+   relative 1e-12 (a float sum's atomics add in any order on the card;
+   the bits are held on the CPU), the same kernel launches as the twin;
+   the 8 against the numpy oracle too; the optimized tree's fingerprint
+   equal to the hand tree's; its median of 3 and its twin's, alternated,
+   beside phase 13's eager median; then compiled to one CUDA graph,
+   ``run`` against the eager result, the graph's median and launches.
+   The 8 plan queries and q62_range (whose BETWEEN reaches the fact
+   table's scan) through ``plan.FileCatalog`` on the files: columns and
+   row groups pruned, rows pruned by the fused row filter, each against
+   its twin on the loaded tables, the rows kept, complete scans, masks
+   skipped and the wall of a call after the first; B3, B4 and B7 on the
+   largest inputs the phase hands them, against their plain versions
+   and timed as in phase 3; q3's and q62_range's FileCatalog calls
+   profiled (the scans' host spans, the device's busy time and idle
+   share); on a ``[sql] summary`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -2101,7 +2124,8 @@ def phase_tpcds(kernels, card, launches) -> tuple:
         wall = median_wall(lambda: fn(tables, **kw))
         report["queries"][name] = dict(
             wall_ms=round(wall * 1e3, 3), first_ms=round(first * 1e3, 3),
-            rows=out.num_rows, max_rel_err=rel, paths=paths)
+            rows=out.num_rows, max_rel_err=rel, paths=paths,
+            launches=counts)
         log(f"[tpcds] {name} {kw}: {out.num_rows} rows equal the oracle "
             f"(floats' largest relative error {rel:.3e}); median of "
             f"{PATH_REPS} {wall * 1e3:.3f} ms, first {first * 1e3:.3f} ms; "
@@ -2153,9 +2177,11 @@ def phase_tpcds(kernels, card, launches) -> tuple:
     report["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log("[tpcds] summary " + json.dumps(report))
     eager_ms = {name: q["wall_ms"] for name, q in report["queries"].items()}
-    del files, arrays, captured
+    query_launches = {name: q["launches"]
+                      for name, q in report["queries"].items()}
+    del arrays, captured
     torch.cuda.empty_cache()
-    return results, (tables, params, want, eager_ms)
+    return results, (tables, params, want, eager_ms, files, query_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2244,7 +2270,7 @@ def phase_compiled(kernels, card, launches, tpcds_ctx) -> None:
     from spark_rapids_jni_tpu_torch.models.compiled import _materialized
     from spark_rapids_jni_tpu_torch.utils import syncs
 
-    tables, params, want, eager_ms = tpcds_ctx
+    tables, params, want, eager_ms = tpcds_ctx[:4]
     t_phase = time.perf_counter()
     report = {"card": card, "queries": {}}
     in_graphs = collections.Counter()
@@ -2317,6 +2343,311 @@ def phase_compiled(kernels, card, launches, tpcds_ctx) -> None:
     report["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log("[compiled] summary " + json.dumps(report))
 
+
+
+# ---------------------------------------------------------------------------
+# phase 16: SQL and the planner
+# ---------------------------------------------------------------------------
+
+# the kernels phase 16 launches: B3 for the string keys' byte matrix and B4
+# for the STRING gathers of the SQL queries on the loaded tables, B7 in the
+# FileCatalog scans
+SQL_KERNELS = ("unpack_rows", "segmented_copy", "u8_to_u32")
+# the FileCatalog queries: the 8 tpcds_plans queries, whose predicates sit
+# on the dimensions, and q62_range, whose BETWEEN on ss_quantity reaches
+# the fact table's scan, where the fused row filter prunes its rows
+FILE_QUERIES = ("q3", "q7", "q19", "q42", "q52", "q55", "q65", "q_having",
+                "q62_range")
+# a float sum's atomics add in any order on the card, so two runs of one
+# op sequence may differ in their last bits: floats are held to this
+# relative error, everything else exactly (the CPU tests hold the bits)
+SQL_FLOAT_RTOL = 1e-12
+# FileCatalog queries profiled: the scan's host spans, device busy, idle
+FILE_PROFILED = ("q3", "q62_range")
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def paired_medians(fa, fb, reps: int = PATH_REPS) -> tuple:
+    """Median seconds of ``fa`` and of ``fb``, their calls alternated so
+    that both see the same host."""
+    ta, tb = [], []
+    for _ in range(reps):
+        ta.append(median_wall(fa, 1))
+        tb.append(median_wall(fb, 1))
+    return statistics.median(ta), statistics.median(tb)
+
+
+def sql_params(TS, name: str, picked: dict) -> dict:
+    """A corpus query's parameters: phase 13's (``query_params``) where it
+    takes them, ``tpcds_sql.PARAMS`` otherwise."""
+    p = dict(TS.PARAMS.get(name, {}))
+    p.update({k: v for k, v in picked.get(name, {}).items() if k in p})
+    return p
+
+
+def table_diff(got, want, what: str) -> tuple:
+    """Holds ``got`` against ``want``: the schema, row count, validity,
+    keys, integers and strings exactly, floats within SQL_FLOAT_RTOL on
+    the valid rows.  Returns (bit-identical, largest relative float
+    error)."""
+    from spark_rapids_jni_tpu_torch.column import force_column
+    require(got.num_columns == want.num_columns
+            and got.num_rows == want.num_rows,
+            f"{what}: {got.num_rows} x {got.num_columns}, expected "
+            f"{want.num_rows} x {want.num_columns}")
+    same, worst = True, 0.0
+    for i, (a, b) in enumerate(zip(got.columns, want.columns)):
+        a, b = force_column(a), force_column(b)
+        require(a.dtype == b.dtype, f"{what}: column {i} is {a.dtype}, "
+                f"expected {b.dtype}")
+        va, vb = a.validity, b.validity
+        require((va is None) == (vb is None)
+                and (va is None or torch.equal(va, vb)),
+                f"{what}: column {i}'s validity differs")
+        if a.dtype.is_variable_width:
+            require(torch.equal(a.offsets, b.offsets)
+                    and torch.equal(a.data, b.data),
+                    f"{what}: column {i}'s strings differ")
+            continue
+        da, db = a.data, b.data
+        if not da.is_floating_point():
+            require(torch.equal(da, db), f"{what}: column {i} differs")
+            continue
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            da.element_size()]
+        if torch.equal(da.view(bits), db.view(bits)):
+            continue
+        same = False
+        ok = a.validity_or_true() & ~(da.isnan() & db.isnan())
+        scale = torch.maximum(da.abs(), db.abs()).clamp_min(1e-300)
+        rel = float(((da - db).abs() / scale)[ok].max()) if ok.any() else 0.0
+        worst = max(worst, rel)
+        require(rel <= SQL_FLOAT_RTOL, f"{what}: column {i} differs by a "
+                f"relative {rel:.3e}")
+    return same, worst
+
+
+def file_split(fn) -> dict:
+    """One profiled call of ``fn``: its wall, the scans' host spans
+    (``parquet.scan.*``: the page walk with the staging, the
+    decompression inside the walk, the row filter, the upload and the
+    decode launches), the device's busy time and idle share, in ms."""
+    from torch_profile_rowconv import _busy_us, profile_call
+    from torch_profile_scan import _span_ms
+    prof, wall = profile_call(fn)
+    busy = _busy_us(prof)
+    out = {k: round(v, 3) for k, v in _span_ms(prof).items()}
+    out.update(wall_ms=round(wall / 1e3, 3),
+               device_busy_ms=round(busy / 1e3, 3),
+               idle_share=round(1 - busy / wall, 3))
+    return out
+
+
+def phase_sql(kernels, card, launches, tpcds_ctx) -> dict:
+    """Phase 16: the 28 SQL queries of ``models.tpcds_sql`` through
+    ``sql.compile_sql`` on phase 13's tables, each against its hand-fused
+    twin (the 8 ``tpcds_plans`` queries) or its hand tree (the other 20,
+    whose ``tpcds.QUERIES`` namesakes are other queries), the oracle where
+    phase 13 checks the query, and the hand tree's fingerprint; the
+    FileCatalog queries on phase 13's files (row groups and rows pruned in
+    the scan); every SQL-born query compiled to a CUDA graph against its
+    eager run; B3, B4 and B7 on the largest inputs the phase hands them."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch import sql
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans
+    from spark_rapids_jni_tpu_torch.models import tpcds_sql as TS
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    from spark_rapids_jni_tpu_torch.plan import lower
+
+    tables, params, want, eager_ms, files, q13_launches = tpcds_ctx
+    schemas = TS.TABLE_SCHEMAS
+    t_phase = time.perf_counter()
+    report = {"card": card, "queries": {}, "file_catalog": {}}
+    phase_counts = collections.Counter()
+    in_graphs = collections.Counter()
+    bit_identical = 0
+    qfns = {}
+
+    def hand_tree(name, p):
+        return P.optimize(TS.HAND[name](**p), schemas).tree
+
+    for name in TS.QUERY_NAMES:
+        p = sql_params(TS, name, params)
+        kernels.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qfn = sql.compile_sql(TS.SQL[name], schemas, p)
+        out = qfn(tables)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = kernels.counts()
+        add_counts(launches, counts)
+        phase_counts.update(counts)
+        qfns[name] = qfn
+        require(P.fingerprint(qfn.plan_tree)
+                == P.fingerprint(hand_tree(name, p)),
+                f"sql {name}: its fingerprint is not the hand tree's")
+        fused = name in tpcds_plans.PLANS
+        if fused:
+            require(p == params[name], f"sql {name}: parameters {p} are not "
+                    f"phase 13's {params[name]}")
+            for k in TPCDS_KERNELS:
+                require((counts[k] > 0) == (q13_launches[name][k] > 0),
+                        f"sql {name}: {k} launched {counts[k]} times, "
+                        f"{q13_launches[name][k]} in phase 13")
+
+            def run_twin():
+                return tpcds.QUERIES[name](tables, **p)
+        else:
+            tree = hand_tree(name, p)
+
+            def run_twin():
+                return P.execute(tree, P.TableCatalog(tables, schemas),
+                                 record_stats=False)
+        kernels.reset()
+        twin = run_twin()
+        torch.cuda.synchronize()
+        twin_counts = kernels.counts()
+        require(counts == twin_counts, f"sql {name}: launches {counts}, its "
+                f"twin's {twin_counts}")
+        same, rel = table_diff(out, twin, f"sql {name}")
+        bit_identical += same
+        oracle = None
+        if fused:
+            try:
+                oracle = O.check(name, out, want[name])
+            except AssertionError as e:
+                raise SmokeFailure(f"sql {name}: {e}") from None
+        del twin
+        wall, twin_wall = paired_medians(lambda: qfn(tables), run_twin)
+        # the same query captured as one CUDA graph, against its eager run
+        cq = compiled.compile_query(qfn, tables)
+        table_diff(cq.run(tables), out, f"compiled sql {name}")
+        graph_ms = median_wall(lambda: cq.run_unchecked(tables))
+        graph = {k: cq.graph_launches[k] for k in GRAPH_KERNELS}
+        in_graphs.update(graph)
+        entry = dict(
+            params=p, rows=out.num_rows, twin="hand-fused" if fused
+            else "hand tree", bit_identical=same, max_rel_err=rel,
+            oracle_rel_err=oracle, wall_ms=round(wall * 1e3, 3),
+            twin_ms=round(twin_wall * 1e3, 3), first_ms=round(first * 1e3, 3),
+            eager_ms=eager_ms.get(name) if fused else None,
+            graph_ms=round(graph_ms * 1e3, 3), tape_len=len(cq.tape),
+            launches=counts, graph_launches=graph)
+        report["queries"][name] = entry
+        log(f"[sql] {name} {p}: {out.num_rows} rows equal the "
+            f"{entry['twin']} (bit-identical {same}, floats' largest "
+            f"relative difference {rel:.3e})"
+            + ("" if oracle is None else
+               f" and the oracle ({oracle:.3e})")
+            + f"; median of {PATH_REPS} {wall * 1e3:.3f} ms, its twin's "
+            f"{twin_wall * 1e3:.3f} (alternated; phase 13's hand-fused "
+            f"{entry['eager_ms']} ms), first "
+            f"{first * 1e3:.3f} ms, graph {graph_ms * 1e3:.3f} ms; launches "
+            f"{nonzero(counts)}, in the graph {nonzero(graph)} [{card}]")
+        del out, cq
+        torch.cuda.empty_cache()
+    for name in ("unpack_rows", "segmented_copy"):
+        require(phase_counts[name] > 0, f"sql: {name} never launched")
+
+    # the FileCatalog: scans of the files with columns, row groups and
+    # rows pruned
+    cat = P.FileCatalog(files)
+    file_trees = {}
+    file_b7 = 0
+    for name in FILE_QUERIES:
+        p = sql_params(TS, name, params) if name == "q62_range" \
+            else params[name]
+        tree = hand_tree(name, p)
+        device_scan.reset_counts()
+        lower.reset_counts()
+        kernels.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = P.execute(tree, cat, record_stats=False)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = kernels.counts()
+        add_counts(launches, counts)
+        phase_counts.update(counts)
+        file_b7 += counts["u8_to_u32"]
+        scan_counts = dict(device_scan.COUNTS)
+        plan_counts = dict(lower.COUNTS)
+        twin = (tpcds.QUERIES[name](tables, **p)
+                if name in tpcds_plans.PLANS
+                else P.execute(tree, P.TableCatalog(tables, schemas),
+                               record_stats=False))
+        same, rel = table_diff(out, twin, f"FileCatalog {name}")
+        del twin, out
+        pred_scans = sum(isinstance(n, P.Scan) and n.predicate is not None
+                         for n in P.ir.walk(tree))
+        require(plan_counts.get("scan.filter_fused", 0) == pred_scans,
+                f"FileCatalog {name}: {plan_counts} for {pred_scans} "
+                "filtered scans")
+        wall = median_wall(lambda: P.execute(tree, cat, record_stats=False),
+                           reps=1)
+        file_trees[name] = tree
+        entry = dict(
+            rows_kept=scan_counts.get("rowfilter.rows_kept", 0),
+            filtered_scans=scan_counts.get("rowfilter.scans", 0),
+            complete_scans=scan_counts.get("rowfilter.complete", 0),
+            rowgroups_pruned=scan_counts.get("rowgroups_pruned", 0),
+            rowgroups_kept=scan_counts.get("rowgroups_kept", 0),
+            columns_pruned=plan_counts.get("scan.columns_pruned", 0),
+            masks_skipped=plan_counts.get("scan.filter_fused", 0),
+            bit_identical=same, max_rel_err=rel,
+            first_ms=round(first * 1e3, 3), wall_ms=round(wall * 1e3, 3),
+            launches=counts)
+        report["file_catalog"][name] = entry
+        log(f"[sql] FileCatalog {name} {p}: equal to the loaded tables' "
+            f"(bit-identical {same}); the row filter kept "
+            f"{entry['rows_kept']} rows in {entry['filtered_scans']} scans "
+            f"({entry['complete_scans']} complete, {entry['masks_skipped']} "
+            f"masks skipped), row groups pruned {entry['rowgroups_pruned']} "
+            f"of {entry['rowgroups_pruned'] + entry['rowgroups_kept']}, "
+            f"columns pruned {entry['columns_pruned']}; one call after the "
+            f"first {wall * 1e3:.3f} ms (first {first * 1e3:.3f} ms); "
+            f"launches {nonzero(counts)} [{card}]")
+    require(file_b7 > 0, "FileCatalog: u8_to_u32 never launched")
+    require(in_graphs["unpack_rows"] > 0 and in_graphs["segmented_copy"] > 0,
+            "sql: B3 or B4 is in no captured graph")
+
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    def run_all():
+        for qfn in qfns.values():
+            qfn(tables)
+        for tree in file_trees.values():
+            P.execute(tree, cat, record_stats=False)
+
+    captured = record_inputs(kernels, SQL_KERNELS, keep, run_all)
+    results = {("SQL", name): measure(kernels, name, args, card, "SQL",
+                                      library_call(name, args))
+               for name, (_, args) in sorted(captured.items())}
+    del captured
+    # profiled last: a long profile can leave the next ones short of rows
+    for name in FILE_PROFILED:
+        split = file_split(lambda: P.execute(file_trees[name], cat,
+                                             record_stats=False))
+        report["file_catalog"][name]["profile"] = split
+        log(f"[sql] FileCatalog {name} profiled: {json.dumps(split)} "
+            f"[{card}]")
+    report["bit_identical"] = bit_identical
+    report["launches"] = dict(phase_counts)
+    report["in_graphs"] = dict(in_graphs)
+    report["sql_counts"] = dict(sql.COUNTS)
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[sql] summary " + json.dumps(report))
+    torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -2527,9 +2858,10 @@ def main(argv=None) -> int:
     tpcds_results, tpcds_ctx = phase_tpcds(kernels, card, launches)
     results.update(tpcds_results)
     phase_compiled(kernels, card, launches, tpcds_ctx)
+    results.update(phase_mortgage(kernels, card, launches))
+    results.update(phase_sql(kernels, card, launches, tpcds_ctx))
     del tpcds_ctx
     torch.cuda.empty_cache()
-    results.update(phase_mortgage(kernels, card, launches))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():

@@ -9,9 +9,11 @@ The hand-written kernels are CUDA C++ sources under ``csrc/``, compiled with
 ``nvcc`` at first use (see ``_native.py``).
 
 Ported so far: JCUDF row ↔ column conversion, the device Parquet scan
-with TPC-H Q6 on it, the op library TPC-H Q1 needs (``ops``) and Q1, the
-join engine with lazy columns, and 16 TPC-DS join queries
-(``models.tpcds``).
+with TPC-H Q6 on it, the op library (``ops``) with TPC-H Q1, the join
+engine with lazy columns, the 50 TPC-DS queries (``models.tpcds``) eager
+and compiled to CUDA graphs (``models.compiled``), the Mortgage ETL, and
+the planner and SQL front end (``plan``, ``sql``) with the fused
+scan→filter.
 """
 
 from . import types  # noqa: F401

@@ -345,10 +345,13 @@ def force_column(col: Column) -> Column:
 class Table:
     """An ordered collection of equal-length columns.  A scanned table
     counts in ``host_decoded_cols`` the columns whose values were decoded
-    on the host (``parquet.device_scan.scan_table``)."""
+    on the host, and ``fused_filter_complete`` says that the scan's row
+    filter evaluated every conjunct of its ``row_predicate``
+    (``parquet.device_scan.scan_table``)."""
 
     columns: list[Column]
     host_decoded_cols: int = 0
+    fused_filter_complete: bool = False
 
     def __post_init__(self):
         if self.columns:

@@ -47,6 +47,7 @@ pairs).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import struct as _struct
 from typing import Optional
@@ -59,14 +60,26 @@ from .. import types as T
 from ..column import Column, DictColumn, Table, resolve_device
 from ..rowconv import bytepath, ragged
 from ..rowconv.convert import _reinterpret
+from ..utils import knobs
 from . import decode as D
 from . import rle_device as RLE
+from . import rowfilter
 from .footer import extract_footer_bytes
 from .staging import Slab
 from .thrift import parse_struct
 
 # char offsets are int32, as in the JAX package
 _MAX_CHARS = 2**31 - 1
+
+#: since :func:`reset_counts`: ``rowgroups_pruned`` / ``rowgroups_kept``
+#: by footer statistics, and of the fused row filter, ``rowfilter.scans``
+#: (scans it pruned), ``rowfilter.rows_kept`` and ``rowfilter.complete``
+#: (scans where it evaluated every conjunct)
+COUNTS: collections.Counter = collections.Counter()
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
 
 
 @dataclasses.dataclass
@@ -782,7 +795,7 @@ def _column_indices(leaves: list[D.Leaf], columns) -> list[int]:
 def scan_table(file_bytes, columns: Optional[list[str]] = None,
                row_groups: Optional[list[int]] = None,
                dict_strings: bool = True, device=None,
-               rowgroup_predicate=None) -> Table:
+               rowgroup_predicate=None, row_predicate=None) -> Table:
     """Decode a Parquet file held in host memory into a device Table.
 
     ``columns`` selects leaf columns by name (None: all), ``row_groups``
@@ -792,7 +805,15 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     row groups whose footer statistics show that no row can match, before
     any page is read; what is left is intersected with ``row_groups``.
     When no group is left, the table has zero rows and each column's
-    dtype.  With
+    dtype.  ``row_predicate`` (the same conjunct shape) goes further
+    under ``SRJT_FUSED_FILTER`` (on by default): every wanted column is
+    walked first, and ``parquet.rowfilter.apply`` evaluates the conjuncts
+    it supports on the walked pages and prunes the rows of every wanted
+    column before anything is staged; the table's
+    ``fused_filter_complete`` is True when it evaluated every conjunct.
+    A column decoded on the host (a DELTA page) aborts the prune, as the
+    JAX package's host fallback does; so does a column of another shape
+    the filter does not rewrite.  With
     ``dict_strings`` (the JAX package's default ``SRJT_DICT_STRINGS=1``)
     a dictionary-encoded string column comes back as a
     :class:`DictColumn`; without it, materialized.  The table lands on
@@ -824,7 +845,9 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     if rowgroup_predicate:
         may_match = set(_prune_row_groups(groups_list, leaves,
                                           rowgroup_predicate))
+        COUNTS["rowgroups_pruned"] += sum(g not in may_match for g in kept)
         kept = [g for g in kept if g in may_match]
+        COUNTS["rowgroups_kept"] += len(kept)
     for i in want:
         if leaves[i].max_rep > 0:
             raise NotImplementedError(
@@ -832,16 +855,26 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
                 "supported by the port's scan")
 
     slab = Slab()
-    specs = []
-    host_decoded = 0
+    complete = False
     # the spans are what tools/torch_profile_scan.py reads (the walk's
-    # decompression is parquet.scan.decompress, in decode.decompress)
+    # decompression is parquet.scan.decompress, in decode.decompress; the
+    # walk's span also covers the staging, after the row filter's)
     with record_function("parquet.scan.walk"):
-        for i in want:
-            walks = [_walk_chunk(mv, groups_list[g].get(D.RG.COLUMNS)
+        walks = {i: [_walk_chunk(mv, groups_list[g].get(D.RG.COLUMNS)
                                  .values[i], leaves[i]) for g in kept]
-            host_decoded += any(w.host_decoded for w in walks)
-            specs.append(_stage_column(walks, leaves[i], slab))
+                 for i in want}
+    host_decoded = sum(any(w.host_decoded for w in walks[i]) for i in want)
+    if row_predicate and knobs.get("SRJT_FUSED_FILTER") and not host_decoded:
+        with record_function("parquet.scan.rowfilter"):
+            pruned = rowfilter.apply(row_predicate, walks, leaves,
+                                     [leaf.name for leaf in leaves], want)
+        if pruned is not None:
+            walks, complete, n_kept = pruned
+            COUNTS["rowfilter.scans"] += 1
+            COUNTS["rowfilter.rows_kept"] += n_kept
+            COUNTS["rowfilter.complete"] += complete
+    with record_function("parquet.scan.walk"):
+        specs = [_stage_column(walks[i], leaves[i], slab) for i in want]
     with record_function("parquet.scan.upload"):
         data, run_tables = slab.upload(dev)
     checks: list[torch.Tensor] = []
@@ -854,7 +887,8 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
                                  "dictionary")
     finally:
         slab.release()
-    return Table(cols, host_decoded_cols=host_decoded)
+    return Table(cols, host_decoded_cols=host_decoded,
+                 fused_filter_complete=complete)
 
 
 # as in the JAX package: callers may name the scan read_table

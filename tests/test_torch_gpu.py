@@ -1339,3 +1339,72 @@ def test_compiled_stale_tape_on_card_raises(cuda):
     torch.cuda.synchronize()
     fresh = compiled.compile_query(qfn, tables2)
     O.check("q3", fresh.run(tables2), O.answer("q3", arrays2, params["q3"]))
+
+
+@pytest.mark.gpu
+def test_sql_query_on_card_bit_equal_to_hand_fused(cuda):
+    """q7 as SQL text through ``sql.compile_sql`` on the card: bit-equal
+    to the hand-fused ``tpcds.q7`` (its means divide exact integer sums,
+    so the card's atomics cannot reorder them), with the same tape and
+    the same kernel launches; equal to the oracle."""
+    from spark_rapids_jni_tpu_torch import sql
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.models import tpcds_sql as TS
+    from spark_rapids_jni_tpu_torch.utils import syncs
+    tables, _, arrays, params = _tpcds_case(cuda)
+    import torch_tpcds_oracle as O
+    qfn = sql.compile_sql(TS.SQL["q7"], TS.TABLE_SCHEMAS, params["q7"])
+    before = ragged.launch_counts()
+    got_tape, want_tape = [], []
+    with syncs.capture(got_tape):
+        got = qfn(tables)
+    mid = ragged.launch_counts()
+    with syncs.capture(want_tape):
+        want = tpcds.q7(tables, **params["q7"])
+    after = ragged.launch_counts()
+    assert sorted(got_tape) == sorted(want_tape)
+    assert ({k: mid[k] - before[k] for k in mid}
+            == {k: after[k] - mid[k] for k in mid})
+    assert got.num_rows == want.num_rows > 0
+    for g, w in zip(got.columns, want.columns):
+        g, w = pt.force_column(g), pt.force_column(w)
+        assert g.data.device.type == "cuda"
+        assert torch.equal(g.validity_or_true(), w.validity_or_true())
+        assert torch.equal(g.data, w.data)
+    O.check("q7", got, O.answer("q7", arrays, params["q7"]))
+
+
+@pytest.mark.gpu
+def test_file_catalog_query_on_card_bit_equal_to_hand_fused(cuda):
+    """q7's plan tree over a ``FileCatalog`` of the files: the scans read
+    only the query's columns, the fused row filter prunes date_dim's rows
+    completely (no mask after it), B7 runs in the scans, and the result is
+    bit-equal to the hand-fused query on the loaded tables."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "tools"))
+    import torch_tpcds_oracle as O
+    import torch_tpcds_parquet as TW
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.models import tpcds, tpcds_plans
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    from spark_rapids_jni_tpu_torch.plan import lower
+    files, arrays = TW.tpcds_parquet(n_sales=200_000, n_items=2000, seed=7)
+    params = O.query_params(arrays)["q7"]
+    tables = tpcds.load_tables(files, device=cuda)
+    tree = tpcds_plans.optimized("q7", **params).tree
+    device_scan.reset_counts()
+    lower.reset_counts()
+    before = bytepath.launch_counts()["u8_to_u32"]
+    got = P.execute(tree, P.FileCatalog(files), record_stats=False)
+    assert bytepath.launch_counts()["u8_to_u32"] > before
+    assert lower.COUNTS["scan.filter_fused"] == 1
+    assert device_scan.COUNTS["rowfilter.complete"] == 1
+    want = tpcds.q7(tables, **params)
+    assert got.num_rows == want.num_rows > 0
+    for g, w in zip(got.columns, want.columns):
+        g, w = pt.force_column(g), pt.force_column(w)
+        assert g.data.device.type == "cuda"
+        assert torch.equal(g.validity_or_true(), w.validity_or_true())
+        assert torch.equal(g.data, w.data)

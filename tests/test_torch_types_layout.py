@@ -257,7 +257,20 @@ def test_port_imports_no_jax():
             "tools/torch_mortgage_parquet.py",
             "tools/torch_mortgage_oracle.py",
             "spark_rapids_jni_tpu_torch/utils/syncs.py",
-            "spark_rapids_jni_tpu_torch/models/compiled.py"} <= rel
+            "spark_rapids_jni_tpu_torch/models/compiled.py",
+            "spark_rapids_jni_tpu_torch/utils/knobs.py",
+            "spark_rapids_jni_tpu_torch/plan/__init__.py",
+            "spark_rapids_jni_tpu_torch/plan/ir.py",
+            "spark_rapids_jni_tpu_torch/plan/stats.py",
+            "spark_rapids_jni_tpu_torch/plan/rules.py",
+            "spark_rapids_jni_tpu_torch/plan/lower.py",
+            "spark_rapids_jni_tpu_torch/sql/__init__.py",
+            "spark_rapids_jni_tpu_torch/sql/tokenizer.py",
+            "spark_rapids_jni_tpu_torch/sql/parser.py",
+            "spark_rapids_jni_tpu_torch/sql/binder.py",
+            "spark_rapids_jni_tpu_torch/parquet/rowfilter.py",
+            "spark_rapids_jni_tpu_torch/models/tpcds_plans.py",
+            "spark_rapids_jni_tpu_torch/models/tpcds_sql.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

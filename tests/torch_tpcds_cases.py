@@ -16,11 +16,13 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from benchmarks import tpcds_data
 from spark_rapids_jni_tpu.models import tpcds as jtpcds
 
 import spark_rapids_jni_tpu_torch as pt
+from spark_rapids_jni_tpu_torch.column import force_column
 from spark_rapids_jni_tpu_torch.models import compiled, tpcds
 from spark_rapids_jni_tpu_torch.ops import join_plan
 
@@ -130,3 +132,22 @@ def check_writer_files(name, data, tables, joins: bool = True) -> None:
                   if k.startswith("engine."))
     assert (engines >= 1) if joins else (engines == 0)
     O.check(name, out, O.answer(name, arrays, params[name]))
+
+
+def assert_identical(got, want):
+    """Two port tables hold the same columns bit for bit: dtype,
+    validity (its presence too), offsets and payload."""
+    assert got.num_columns == want.num_columns
+    assert got.num_rows == want.num_rows
+    for i, (a, b) in enumerate(zip(got.columns, want.columns)):
+        a, b = force_column(a), force_column(b)
+        assert a.dtype == b.dtype, f"column {i} dtype"
+        assert (a.validity is None) == (b.validity is None), f"column {i}"
+        if a.validity is not None:
+            assert torch.equal(a.validity, b.validity), f"column {i}"
+        if a.dtype.is_variable_width:
+            assert torch.equal(a.offsets, b.offsets), f"column {i}"
+        da, db = a.data, b.data
+        if da.dtype == torch.float64:
+            da, db = da.view(torch.int64), db.view(torch.int64)
+        assert torch.equal(da, db), f"column {i} payload"

@@ -35,7 +35,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPANS = ("parquet.scan.walk", "parquet.scan.decompress",
-         "parquet.scan.upload", "parquet.scan.decode")
+         "parquet.scan.rowfilter", "parquet.scan.upload",
+         "parquet.scan.decode")
 
 
 def _span_ms(prof) -> dict:
