@@ -169,8 +169,8 @@ class DictColumn(Column):
         into a padded word matrix [D, Lw], B6 gathers a row per code, and
         B2 packs each row's first length bytes at device offsets into the
         chars stream.  The dictionary offsets stay on the device; the syncs
-        are the longest entry and the chars total (``utils.syncs``), and
-        the codes' bounds (B6's wrapper, not yet through the funnel).
+        are the longest entry, the codes' bounds (B6's wrapper) and the
+        chars total, all through ``utils.syncs``.
 
         Under capture or replay a column materialized already resolves
         its sizes again, as the JAX package's does
@@ -180,6 +180,8 @@ class DictColumn(Column):
         if self._mat is not None:
             if syncs.mode() != "normal":
                 if self._has_chars(self._longest_entry()):
+                    from .rowconv import bytepath
+                    bytepath.check_codes(self.codes, self.dictionary.num_rows)
                     syncs.scalar(self._mat.offsets[-1])
                 else:
                     self._check_empty_dictionary()

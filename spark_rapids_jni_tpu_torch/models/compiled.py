@@ -34,15 +34,30 @@ eagerly under the tape, and ``run`` holds the sizes it saw against the
 tape afterwards.  There is no fallback on the card: a capture that fails
 raises.
 
-Not ported yet: ``run_vmapped`` (batched replay, whose caller is the
-unported ``exec/plan_cache.run_batched``), ``lower_text``, and the
-metrics spans, compile ledger and flight incidents.  Counts go to
-:data:`COUNTS`.
+**Threads.**  A CUDA graph is captured in ``global`` mode, where any
+other thread's launch, allocation or synchronisation breaks the capture.
+:data:`DEVICE` is a readers-writer lock over the process's device work:
+a graph capture holds it exclusively (and reads ``graph_pool_bytes``
+inside it, so no other thread's allocations skew the reading), replays
+and eager runs share it.  Every caller that touches the card beside
+compiled queries (the serving runtime's workers, prefetcher and canary)
+enters :func:`device_work` first.  A compiled query that dies leaves its
+graph to be destroyed at the next such point, never inside a capture.
+
+:meth:`CompiledQuery.run_vmapped`, the batched replay of K same-shape
+table sets, returns None, the JAX package's answer for a plan that
+cannot batch: the serving runtime then replays the one graph for each.
+Counts go to :data:`COUNTS` and, under ``compiled.*`` names, to
+``utils.metrics``; a stale tape files a ``stale_tape`` flight incident,
+and each capture of a plan's graph after its first trips
+``analysis.sanitize``'s recapture wire.  Not ported yet: ``lower_text``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import itertools
 import threading
 import time
 import weakref
@@ -50,16 +65,119 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..analysis import sanitize
 from ..column import Column, DictColumn, LazyColumn, Table, force_column
-from ..utils import syncs
+from ..utils import flight, metrics, syncs
 
-#: captures, rehydrations, graph captures, runs and stale tapes, since
-#: :func:`reset_counts`
+#: captures, rehydrations, graph captures, runs, stale tapes and batches
+#: refused, since :func:`reset_counts`
 COUNTS: collections.Counter = collections.Counter()
+
+_plan_serial = itertools.count()
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+def _count(key: str, n: int = 1) -> None:
+    COUNTS[key] += n
+    if metrics.recording():
+        metrics.count(f"compiled.{key}", n)
+
+
+class DeviceLock:
+    """A readers-writer lock over the process's device work.
+
+    :meth:`exclusive` (a graph capture) waits for every holder to leave
+    and keeps new ones out; :meth:`shared` (a replay, an eager run, a
+    copy) runs beside other shared holders.  A waiting capture is served
+    before new shared holders, so captures do not starve.  Both are
+    reentrant on a thread; a thread that holds :meth:`shared` may not ask
+    for :meth:`exclusive`, which would wait for itself."""
+
+    def __init__(self, name: str):
+        self._cv = threading.Condition(sanitize.tracked_lock(name))
+        self._readers = 0
+        self._writer: Optional[int] = None
+        self._waiting = 0
+        self._tls = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._tls, "depth", 0)
+        if depth or self._writer == threading.get_ident():
+            self._tls.depth = depth + 1
+            try:
+                yield
+            finally:
+                self._tls.depth = depth
+            return
+        with self._cv:
+            while self._writer is not None or self._waiting:
+                self._cv.wait()
+            self._readers += 1
+        self._tls.depth = 1
+        try:
+            yield
+        finally:
+            self._tls.depth = 0
+            with self._cv:
+                self._readers -= 1
+                if not self._readers:
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        if self._writer == me:
+            yield
+            return
+        if getattr(self._tls, "depth", 0):
+            raise RuntimeError("a graph capture asked for while this thread "
+                               "holds shared device work would wait for "
+                               "itself")
+        with self._cv:
+            self._waiting += 1
+            try:
+                while self._writer is not None or self._readers:
+                    self._cv.wait()
+            finally:
+                self._waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writer = None
+                self._cv.notify_all()
+
+
+#: the process's device work: graph captures exclusive, the rest shared
+DEVICE = DeviceLock("models.compiled.device")
+
+# the graphs (with the tensors they own) of compiled queries that died,
+# kept until a point where no capture runs: a query can die at any time,
+# when a cache drops it or the garbage collector finds it in a cycle, even
+# on the thread that is capturing, and destroying a graph there breaks
+# that capture
+_GRAVE: list = []
+
+
+def _bury() -> None:
+    """Destroy the dead queries' graphs.  Called with :data:`DEVICE` held
+    and no capture running."""
+    while _GRAVE:
+        _GRAVE.pop()
+
+
+@contextlib.contextmanager
+def device_work():
+    """Context manager for device work beside compiled queries: shared
+    with other such work, never during a graph capture."""
+    with DEVICE.shared():
+        _bury()
+        yield
 
 
 class StaleTapeError(ValueError):
@@ -162,7 +280,7 @@ class CompiledQuery:
     count of resolved sizes); ``expected`` the capture run's result (None
     for a rehydrated query).  On the card, ``graph_capture_ms``,
     ``graph_pool_bytes`` (``torch.cuda.memory_reserved`` across the
-    capture), ``static_bytes`` (the private input copies) and
+    capture, read while :data:`DEVICE` is held exclusively), ``static_bytes`` (the private input copies) and
     ``graph_launches`` (each kernel wrapper's launches inside the graph)
     describe the graph once it is captured."""
 
@@ -181,20 +299,30 @@ class CompiledQuery:
         self.graph_launches = None
         self.static_bytes = None
         self.rehydrated = tape is not None
+        self._ledger_key = getattr(qfn, "plan_fingerprint", None) \
+            or self.name
+        self._trace_key = f"{self.name}#{next(_plan_serial)}"
         if tape is None:
             rec: list = []
-            COUNTS["capture"] += 1
-            with syncs.capture(rec):
+            _count("capture")
+            t0 = time.perf_counter()
+            with metrics.span(f"compiled.capture:{self.name}"), \
+                    device_work(), syncs.capture(rec):
                 self.expected = _materialized(qfn(tables))
+            metrics.ledger_add(self._ledger_key, captures=1,
+                               capture_ms=(time.perf_counter() - t0) * 1e3)
             self.tape = tuple(rec)
             spec, tensors, on_card = self._inputs(tables)
             if on_card:
                 self._capture_graph(spec, tensors)
         else:
             # a persisted tape: unverified until the first checked run
-            COUNTS["rehydrate"] += 1
+            _count("rehydrate")
+            metrics.ledger_add(self._ledger_key, rehydrates=1)
             self.expected = None
             self.tape = tuple(int(v) for v in tape)
+        if metrics.recording():
+            metrics.observe("compiled.tape_len", len(self.tape))
 
     @staticmethod
     def _inputs(tables):
@@ -212,19 +340,30 @@ class CompiledQuery:
         structure), a warm-up replay on a side stream, then the graph of
         one replay, ending in the size vector.  Raises (no eager fallback)
         if the capture fails; a tape the plan does not consume exactly is
-        a :class:`StaleTapeError`."""
+        a :class:`StaleTapeError`.  Holds :data:`DEVICE` exclusively."""
+        with DEVICE.exclusive(), \
+                metrics.span(f"compiled.graph_capture:{self.name}"):
+            _bury()
+            self._capture_graph_locked(spec, tensors)
+
+    def _capture_graph_locked(self, spec, tensors: list) -> None:
         # an old graph, its outputs and inputs go first
         self._graph, self._out, self._static = None, [], []
         self._spec = spec
         self._static = [t.clone() for t in tensors]
         self._copied = [(weakref.ref(t), t._version) for t in tensors]
-        static_tables = _unflatten(self._spec, iter(self._static))
+
+        def static_tables():
+            # fresh column objects over the static tensors for each run: a
+            # dictionary column the warm-up materialized would otherwise
+            # keep its chars out of the graph
+            return _unflatten(self._spec, iter(self._static))
         try:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 with syncs.replay(self.tape):
-                    _materialized(self._qfn(static_tables))
+                    _materialized(self._qfn(static_tables()))
             torch.cuda.current_stream().wait_stream(side)
             torch.cuda.synchronize()
             graph = torch.cuda.CUDAGraph()
@@ -237,11 +376,11 @@ class CompiledQuery:
             t0 = time.perf_counter()
             with torch.cuda.graph(graph):
                 with syncs.replay(self.tape, collect=seen):
-                    out = _materialized(self._qfn(static_tables))
+                    out = _materialized(self._qfn(static_tables()))
                 sizes = _size_vector(seen, self._static[0].device)
             torch.cuda.synchronize()
         except syncs.TapeDivergence as e:
-            COUNTS["tape_mismatch"] += 1
+            self._stale(error=str(e)[:200])
             raise StaleTapeError(f"compiled plan {self.name} is stale: "
                                  f"{e}") from e
         self.graph_capture_ms = (time.perf_counter() - t0) * 1e3
@@ -255,7 +394,24 @@ class CompiledQuery:
         self._out = out_tensors
         self._sizes = sizes
         self._graph = graph
-        COUNTS["graph_capture"] += 1
+        _count("graph_capture")
+        metrics.ledger_add(self._ledger_key, graph_captures=1,
+                           graph_capture_ms=self.graph_capture_ms)
+        # the first capture of this plan is warm-up; another (tables of
+        # other shapes, a stale plan captured again) is a recapture
+        sanitize.note_trace(self._trace_key)
+
+    def __del__(self):
+        # _GRAVE is None once the interpreter tears the module down
+        if getattr(self, "_graph", None) is not None and _GRAVE is not None:
+            _GRAVE.append((self._graph, self._static, self._out,
+                           self._sizes))
+
+    def _stale(self, **fields) -> None:
+        _count("tape_mismatch")
+        flight.incident("stale_tape", query=self.name,
+                        tape_len=len(self.tape), rehydrated=self.rehydrated,
+                        **fields)
 
     def _replay(self, spec, tensors: list):
         """The graph's outputs for the tables of ``spec`` and ``tensors``,
@@ -267,6 +423,10 @@ class CompiledQuery:
         fits them."""
         if self._graph is None or spec != self._spec:
             self._capture_graph(spec, tensors)
+        with device_work():
+            return self._replay_locked(tensors)
+
+    def _replay_locked(self, tensors: list):
         for i, (t, s) in enumerate(zip(tensors, self._static)):
             ref, version = self._copied[i]
             if ref() is t and t._version == version:
@@ -282,28 +442,34 @@ class CompiledQuery:
         """Checked execution: the plan, then one read of the sizes the
         data resolved; raises :class:`StaleTapeError` where they differ
         from the capture run's."""
-        COUNTS["replay_run"] += 1
+        _count("replay_run")
+        metrics.ledger_add(self._ledger_key, runs=1)
         spec, tensors, on_card = self._inputs(tables)
-        if on_card:
-            with self._lock:
-                out, sizes = self._replay(spec, tensors)
-                syncs.note_sync()           # the size vector's one copy
-                actual = sizes.tolist()
-        else:
-            seen: list = []
-            try:
-                with syncs.replay(self.tape, collect=seen):
-                    out = _materialized(self._qfn(tables))
-            except syncs.TapeDivergence as e:
-                COUNTS["tape_mismatch"] += 1
-                raise StaleTapeError(f"compiled plan {self.name} is stale: "
-                                     f"{e}") from e
-            syncs.note_sync()
-            actual = _size_vector(seen, "cpu").tolist()
+        with metrics.span(f"compiled.run:{self.name}",
+                          tape_len=len(self.tape)):
+            if on_card:
+                with self._lock:
+                    if self._graph is None or spec != self._spec:
+                        self._capture_graph(spec, tensors)
+                    with device_work():
+                        out, sizes = self._replay_locked(tensors)
+                        syncs.note_sync()       # the size vector's one copy
+                        actual = sizes.tolist()
+            else:
+                seen: list = []
+                try:
+                    with syncs.replay(self.tape, collect=seen):
+                        out = _materialized(self._qfn(tables))
+                except syncs.TapeDivergence as e:
+                    self._stale(error=str(e)[:200])
+                    raise StaleTapeError(f"compiled plan {self.name} is "
+                                         f"stale: {e}") from e
+                syncs.note_sync()
+                actual = _size_vector(seen, "cpu").tolist()
         if tuple(actual) != self.tape:
             diffs = [i for i, (a, b) in enumerate(zip(actual, self.tape))
                      if a != b]
-            COUNTS["tape_mismatch"] += 1
+            self._stale(positions=diffs[:8])
             raise StaleTapeError(
                 f"compiled plan {self.name} is stale: resolved sizes differ "
                 f"from the capture run at tape positions {diffs[:8]} (of "
@@ -315,13 +481,24 @@ class CompiledQuery:
         """Steady-loop execution: the plan with no check and no host
         synchronisation (inputs copied where they changed, one graph
         replay, the outputs cloned)."""
-        COUNTS["replay_run"] += 1
+        _count("replay_run")
+        metrics.ledger_add(self._ledger_key, runs=1)
         spec, tensors, on_card = self._inputs(tables)
-        if on_card:
-            with self._lock:
-                return self._replay(spec, tensors)[0]
-        with syncs.replay(self.tape):
-            return _materialized(self._qfn(tables))
+        with metrics.span(f"compiled.run_unchecked:{self.name}"):
+            if on_card:
+                with self._lock:
+                    return self._replay(spec, tensors)[0]
+            with syncs.replay(self.tape):
+                return _materialized(self._qfn(tables))
+
+    def run_vmapped(self, tables_list) -> Optional[list]:
+        """K same-shape table sets as one launch: not yet.  Returns None,
+        the JAX package's answer for a plan that cannot batch, so that the
+        caller replays the graph for each set in turn
+        (``exec/plan_cache.run_batched``).  A one-launch graph of K
+        members is still to come."""
+        _count("batch_unsupported")
+        return None
 
 
 def compile_query(qfn: Callable, tables) -> CompiledQuery:

@@ -37,7 +37,8 @@ eviction counts in ``build_index.evictions`` and in
 
 Which engine, key plan and fused path each call took is counted in
 :data:`COUNTS` (``engine.dense``, ``pack.composite``,
-``fused.unique_gather``, ...), as a kernel wrapper counts its launches.
+``fused.unique_gather``, ...), as a kernel wrapper counts its launches,
+and in ``utils.metrics`` under the JAX package's ``join.*`` names.
 The JAX module's ``SRJT_JOIN_ENGINE`` and ``SRJT_INDEX_CACHE_CAP`` knobs,
 its metrics spans, the spill registration of cached indexes and its lock
 sanitizer are not ported.
@@ -56,7 +57,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, Table, as_dict_column, force_column
-from ..utils import syncs
+from ..utils import metrics, syncs
 from .filter import _gather_column, sized_nonzero
 
 DENSE_SPAN_FACTOR = 2
@@ -71,6 +72,13 @@ COUNTS: collections.Counter = collections.Counter()
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+def _count(key: str, n: int = 1) -> None:
+    """Count ``n`` in :data:`COUNTS` and, as the JAX package's site does,
+    in ``utils.metrics``."""
+    COUNTS[key] += n
+    metrics.count("join." + key, n)
 
 
 # per thread, as the JAX package's: one caller's pin never leaks into
@@ -213,20 +221,20 @@ def build_index(data: torch.Tensor, valid, dense_ok: bool) -> BuildIndex:
     cached = syncs.mode() == "normal"
     hit = _INDEX_CACHE.get(key, tensors) if cached else None
     if hit is not None:
-        COUNTS["build_index.cache_hit"] += 1
-        COUNTS[f"engine.{hit.kind}"] += 1
+        _count("build_index.cache_hit")
+        _count(f"engine.{hit.kind}")
         return hit
     ix = _build_index(data, valid, dense_ok and forced != "sorted",
                       forced == "dense")
-    COUNTS[f"engine.{ix.kind}"] += 1
+    _count(f"engine.{ix.kind}")
     if not cached:
-        COUNTS["build_index.cache_bypass"] += 1
+        _count("build_index.cache_bypass")
         return ix
-    COUNTS["build_index.cache_miss"] += 1
+    _count("build_index.cache_miss")
     evicted = _INDEX_CACHE.evictions
     _INDEX_CACHE.put(key, tensors, ix, _index_nbytes(ix))
     if _INDEX_CACHE.evictions > evicted:
-        COUNTS["build_index.evictions"] += _INDEX_CACHE.evictions - evicted
+        _count("build_index.evictions", _INDEX_CACHE.evictions - evicted)
     return ix
 
 
@@ -306,7 +314,7 @@ def extend_build_index(ix: BuildIndex, delta_data, delta_valid,
           else delta_valid)
     in_win = (d >= 0) & (d < ix.span)
     if syncs.scalar(((~in_win) & ok).sum()) > 0:
-        COUNTS["build_index.extend_window_miss"] += 1
+        _count("build_index.extend_window_miss")
         return None
     m_valid = m if delta_valid is None else syncs.size(ok.sum(), m)
     if m_valid == 0:
@@ -337,7 +345,7 @@ def extend_build_index(ix: BuildIndex, delta_data, delta_valid,
     row_ids[old_pos.clamp_(0, n_total - 1)] = ix.row_ids
     row_ids[delta_pos.clamp_(0, n_total - 1)] = base_n + dorder
     max_run = syncs.scalar(new_cnt.max())
-    COUNTS["build_index.extended"] += 1
+    _count("build_index.extended")
     return BuildIndex("dense", n_total, row_ids, None, ix.kmin, ix.span,
                       new_lo, new_cnt, max_run <= 1, max_run)
 
@@ -448,7 +456,7 @@ def plan_keys(left_cols: Sequence[Column],
         if lc.dtype.is_variable_width or rc.dtype.is_variable_width:
             if (as_dict_column(lc) is not None
                     or as_dict_column(rc) is not None):
-                COUNTS["dict_keys"] += 1
+                _count("dict_keys")
             lc, rc = strings.encode_shared([lc, rc])
         enc_l.append(lc)
         enc_r.append(rc)
@@ -460,7 +468,7 @@ def plan_keys(left_cols: Sequence[Column],
         lc, rc = force_column(enc_l[0]), force_column(enc_r[0])
         ldata, lvalid = _key_with_nulls_last(lc)
         rdata, rvalid = _key_with_nulls_last(rc)
-        COUNTS["pack.single"] += 1
+        _count("pack.single")
         return KeyPlan("single", ldata, lvalid, rdata, rvalid, (),
                        dense_eligible(rc) and dense_eligible(lc))
     enc_l = [force_column(c) for c in enc_l]
@@ -472,7 +480,7 @@ def plan_keys(left_cols: Sequence[Column],
     key = _key("plan", tensors)
     hit = _PLAN_CACHE.get(key, tensors)
     if hit is not None:
-        COUNTS["pack.cache_hit"] += 1
+        _count("pack.cache_hit")
         return hit
     plan = _pack_keys(enc_l, enc_r)
     _PLAN_CACHE.put(key, tensors, plan)
@@ -531,13 +539,13 @@ def _pack_keys(lcols, rcols) -> KeyPlan:
             # a probe tuple outside a window cannot match: fold it into
             # the key's validity
             lvalid = _and_valid(lvalid, in_win)
-            COUNTS["pack.composite"] += 1
+            _count("pack.composite")
             return KeyPlan("composite", comp_l, lvalid, comp_r, rvalid, (),
                            True)
         mode = "fingerprint"
     else:
         mode = "fallback"
-    COUNTS[f"pack.{mode}"] += 1
+    _count(f"pack.{mode}")
     return KeyPlan(mode, hashing.fingerprint64(llanes), lvalid,
                    hashing.fingerprint64(rlanes), rvalid,
                    tuple(zip(llanes, rlanes)), False)
@@ -588,7 +596,7 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
     needed = list(group_keys) + [vi for vi, _ in aggs]
 
     def _unfused():
-        COUNTS["fused.fallback_join"] += 1
+        _count("fused.fallback_join")
         j = (inner_join if how == "inner" else left_join)(
             left, right, left_on, right_on)
         return groupby_aggregate(j, list(group_keys), list(aggs))
@@ -598,7 +606,7 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
 
     ix = build_index(plan.rdata, plan.rvalid, plan.dense_ok)
     if ix.unique:
-        COUNTS["fused.unique_gather"] += 1
+        _count("fused.unique_gather")
         lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
         pos = lo.clamp(0, max(ix.n_valid - 1, 0))
         if how == "inner":
@@ -621,7 +629,7 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
     if (group_keys and all(ci < nl for ci in needed)
             and _weighted_ok([left[ci] for ci in group_keys],
                              [(left[vi], agg) for vi, agg in aggs])):
-        COUNTS["fused.weighted_groupby"] += 1
+        _count("fused.weighted_groupby")
         lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
         if how == "inner":
             m = counts > 0

@@ -34,6 +34,7 @@ total.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -504,11 +505,37 @@ def concat(a: Column, b: Column) -> Column:
 
 _POW10 = [10 ** k for k in range(20)]
 
+# constant tables on each device, made once (outside any graph capture: a
+# capture refuses the pageable host copy torch.tensor makes)
+_CONSTS: dict = {}
+_CONSTS_MU = threading.Lock()
+
+
+def _const(name: str, values, dtype, device) -> torch.Tensor:
+    """The constant table ``name`` (``values`` as ``dtype``) on ``device``,
+    built on its first use there and kept.  Read-only: callers never
+    write into it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (name, dev)
+    t = _CONSTS.get(key)
+    if t is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"constant table {name!r} first needed "
+                               "inside a CUDA-graph capture: run the query "
+                               "eagerly once first")
+        with _CONSTS_MU:
+            t = _CONSTS.get(key)
+            if t is None:
+                t = _CONSTS[key] = torch.tensor(values, dtype=dtype,
+                                                device=dev)
+    return t
+
 
 def _pow10(exp: torch.Tensor) -> torch.Tensor:
     """10 ** exp for int64 exponents in [0, 18], by a table gather."""
-    table = torch.tensor(_POW10[:19], dtype=torch.int64, device=exp.device)
-    return table[exp]
+    return _const("pow10", _POW10[:19], torch.int64, exp.device)[exp]
 
 
 def _positions(mat: torch.Tensor) -> torch.Tensor:
@@ -655,8 +682,8 @@ def _slice_int(mat: torch.Tensor, start: int, width: int):
     """(value, every byte a digit) of a fixed byte slice of each row."""
     sub = mat[:, start:start + width].to(torch.int64) - ord("0")
     digits_ok = ((sub >= 0) & (sub <= 9)).all(dim=1)
-    w = torch.tensor(_POW10[width - 1::-1], dtype=torch.int64,
-                     device=mat.device)
+    w = _const(f"pow10_desc{width}", _POW10[width - 1::-1], torch.int64,
+               mat.device)
     return (sub.clamp(0, 9) * w).sum(dim=1), digits_ok
 
 
@@ -682,8 +709,8 @@ def to_date(col: Column, fmt: str = "%Y-%m-%d") -> Column:
         raise NotImplementedError(f"unsupported date format {fmt!r}")
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     msafe = m.clamp(1, 12)
-    dim = (torch.tensor(_DAYS_IN_MONTH, dtype=torch.int64,
-                        device=mat.device)[msafe - 1]
+    dim = (_const("days_in_month", _DAYS_IN_MONTH, torch.int64,
+                  mat.device)[msafe - 1]
            + (leap & (msafe == 2)).to(torch.int64))
     ok = ((lens == 10) & seps & oy & om & od
           & (m >= 1) & (m <= 12) & (d >= 1) & (d <= dim))
@@ -887,8 +914,8 @@ def format_date(col: Column) -> Column:
 def format_bool(col: Column) -> Column:
     """BOOL8 → "true" / "false" (Spark CAST(boolean AS STRING))."""
     b = col.data != 0
-    lit = torch.tensor(list(b"falsetrue\x00"), dtype=torch.uint8,
-                       device=col.device)
+    lit = _const("false_true", list(b"falsetrue\x00"), torch.uint8,
+                 col.device)
     mat5 = torch.where(b[:, None], lit[None, 5:10], lit[None, :5])
     lens = torch.where(b, 4, 5).to(torch.int32)
     starts = torch.zeros(col.num_rows, dtype=torch.int32, device=col.device)

@@ -60,7 +60,7 @@ from .. import types as T
 from ..column import Column, DictColumn, Table, resolve_device
 from ..rowconv import bytepath, ragged
 from ..rowconv.convert import _reinterpret
-from ..utils import knobs
+from ..utils import knobs, metrics
 from . import decode as D
 from . import rle_device as RLE
 from . import rowfilter
@@ -80,6 +80,19 @@ COUNTS: collections.Counter = collections.Counter()
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+# the JAX package's metric name of each count
+_METRIC = {"rowgroups_pruned": "plan.scan.rowgroups_pruned",
+           "rowgroups_kept": "plan.scan.rowgroups_kept",
+           "rowfilter.scans": "parquet.rowfilter.fused_scans"}
+
+
+def _count(key: str, n: int = 1) -> None:
+    """Count ``n`` in :data:`COUNTS` and, as the JAX package's site does,
+    in ``utils.metrics``."""
+    COUNTS[key] += n
+    metrics.count(_METRIC.get(key, "parquet." + key), n)
 
 
 @dataclasses.dataclass
@@ -845,9 +858,9 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     if rowgroup_predicate:
         may_match = set(_prune_row_groups(groups_list, leaves,
                                           rowgroup_predicate))
-        COUNTS["rowgroups_pruned"] += sum(g not in may_match for g in kept)
+        _count("rowgroups_pruned", sum(g not in may_match for g in kept))
         kept = [g for g in kept if g in may_match]
-        COUNTS["rowgroups_kept"] += len(kept)
+        _count("rowgroups_kept", len(kept))
     for i in want:
         if leaves[i].max_rep > 0:
             raise NotImplementedError(
@@ -870,9 +883,9 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
                                      [leaf.name for leaf in leaves], want)
         if pruned is not None:
             walks, complete, n_kept = pruned
-            COUNTS["rowfilter.scans"] += 1
-            COUNTS["rowfilter.rows_kept"] += n_kept
-            COUNTS["rowfilter.complete"] += complete
+            _count("rowfilter.scans")
+            _count("rowfilter.rows_kept", n_kept)
+            _count("rowfilter.complete", complete)
     with record_function("parquet.scan.walk"):
         specs = [_stage_column(walks[i], leaves[i], slab) for i in want]
     with record_function("parquet.scan.upload"):

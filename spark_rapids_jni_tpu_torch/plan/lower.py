@@ -48,6 +48,7 @@ from ..ops import (anti_join, apply_boolean_mask, concat_tables, distinct,
                    join_aggregate, left_join, mean, semi_join, slice_table,
                    sort_table, sum_)
 from ..ops import strings as S
+from ..utils import metrics
 from ..ops import window as W
 from . import ir
 from . import stats as plan_stats
@@ -60,6 +61,13 @@ COUNTS: collections.Counter = collections.Counter()
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+def _count(key: str, n: int = 1) -> None:
+    """Count ``n`` in :data:`COUNTS` and, as the JAX package's site does,
+    in ``utils.metrics``."""
+    COUNTS[key] += n
+    metrics.count("plan." + key, n)
 
 
 # --- catalogs ---------------------------------------------------------------
@@ -122,7 +130,7 @@ class FileCatalog:
             self.files[node.table], columns=cols, device=self.device,
             rowgroup_predicate=conds, row_predicate=conds)
         if len(cols) < len(full):
-            COUNTS["scan.columns_pruned"] += len(full) - len(cols)
+            _count("scan.columns_pruned", len(full) - len(cols))
         return t, cols
 
 
@@ -346,7 +354,7 @@ def _apply_node(node: ir.Plan, kids: list, catalog, record_stats: bool):
                 # the scan already evaluated every conjunct on the raw
                 # pages and pruned the rows — the mask here would be
                 # all-True, skip the redundant gather
-                COUNTS["scan.filter_fused"] += 1
+                _count("scan.filter_fused")
             else:
                 t = apply_boolean_mask(t, eval_mask(node.predicate, t,
                                                     names))

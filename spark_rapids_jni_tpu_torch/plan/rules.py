@@ -25,8 +25,8 @@ applied in a loop until a full pass changes nothing:
   narrow pre-join table instead of the widened join output.
 
 Counts: :data:`COUNTS` holds ``rule.fired.<name>`` /
-``rule.rejected.<name>`` (the JAX package's ``plan.rule.*`` metrics
-counters), and each :class:`OptimizeResult` carries its own events and
+``rule.rejected.<name>``, counted in ``utils.metrics`` too under the JAX
+package's ``plan.rule.*`` names, and each :class:`OptimizeResult` carries its own events and
 rejections.
 
 Env knobs:
@@ -43,7 +43,7 @@ import collections
 from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
-from ..utils import knobs
+from ..utils import knobs, metrics
 from . import ir
 
 #: rules fired and rejected by name, since :func:`reset_counts`
@@ -52,6 +52,13 @@ COUNTS: collections.Counter = collections.Counter()
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+def _count(key: str, n: int = 1) -> None:
+    """Count ``n`` in :data:`COUNTS` and, as the JAX package's site does,
+    in ``utils.metrics``."""
+    COUNTS[key] += n
+    metrics.count("plan." + key, n)
 
 
 @dataclass(frozen=True)
@@ -476,9 +483,9 @@ def optimize(tree: ir.Plan, schemas: dict, stats=None,
             fired = len(ctx.events) - f0
             rejected = len(ctx.rejections) - r0
             if fired:
-                COUNTS[f"rule.fired.{rule.name}"] += fired
+                _count(f"rule.fired.{rule.name}", fired)
             if rejected:
-                COUNTS[f"rule.rejected.{rule.name}"] += rejected
+                _count(f"rule.rejected.{rule.name}", rejected)
         if len(ctx.events) == before:
             converged = True
             break

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import _native
+from ..utils import syncs
 from .ragged import _check, _route
 
 
@@ -124,12 +125,27 @@ def gather_rows_plain(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return mat.reshape(-1)[flat_idx]
 
 
+def check_codes(idx: torch.Tensor, D: int) -> None:
+    """Raise unless every code of the non-empty ``idx`` lies in [0, D).
+    The least and greatest go through ``utils.syncs.scalar``: two tape
+    entries, in this order."""
+    lo_t, hi_t = torch.aminmax(idx)
+    lo, hi = syncs.scalar(lo_t), syncs.scalar(hi_t)
+    if lo < 0 or hi >= D:
+        raise IndexError(f"gather_rows: codes span [{lo}, {hi}], "
+                         f"outside the {D} rows of the matrix")
+
+
 def gather_rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Dictionary row gather: ``out[i] = mat[idx[i]]`` for int32 word rows
     ``mat`` [D, W] and int32 codes ``idx`` [n]; returns int32 [n, W].
 
-    Every code must lie in [0, D): the wrapper checks that on the device
-    and raises otherwise, which costs one synchronisation."""
+    Every code must lie in [0, D): the wrapper checks that and raises
+    otherwise.  The codes' least and greatest go through the sync funnel
+    (``utils.syncs.scalar``), so that a compiled query reads them from
+    its tape and the check holds them against the data afterwards; under
+    a replay the codes are clamped into [0, D), so that a stale tape
+    never reads outside the matrix."""
     dev = mat.device
     _check(mat, "mat", torch.int32, 2, dev)
     _check(idx, "idx", torch.int32, 1, dev)
@@ -137,11 +153,9 @@ def gather_rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = idx.shape[0]
     route = _route(dev)
     if n > 0:
-        lo, hi = torch.aminmax(idx)
-        lo, hi = torch.stack([lo, hi]).tolist()
-        if lo < 0 or hi >= D:
-            raise IndexError(f"gather_rows: codes span [{lo}, {hi}], "
-                             f"outside the {D} rows of the matrix")
+        check_codes(idx, D)
+        if syncs.mode() == "replay":
+            idx = idx.clamp(0, max(D - 1, 0))
     if route == "plain":
         return gather_rows_plain(mat, idx)
     out = torch.empty((n, W), dtype=torch.int32, device=dev)

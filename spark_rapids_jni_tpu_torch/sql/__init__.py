@@ -19,8 +19,9 @@ Entry points:
 * :func:`to_sql` — AST → SQL text (round-trip stable).
 
 :data:`COUNTS` holds the memo's lifetime ``cache.hit`` / ``cache.miss``
-and ``parse_error`` counts (the JAX package's metrics counters; its
-``sql_parse_error`` flight incident waits for a flight recorder).
+and ``parse_error`` counts, which also go to ``utils.metrics`` as
+``sql.cache.*``; a failed parse or bind files a ``sql_parse_error``
+flight incident.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from threading import Lock
 from typing import Any, Dict, Optional, Sequence
 
 from ..plan import ir, lower, rules
-from ..utils import knobs
+from ..utils import flight, knobs, metrics
 from .binder import bind
 from .parser import parse, to_sql
 from .tokenizer import SqlError
@@ -72,6 +73,17 @@ def cache_stats() -> dict:
             "size": len(_memo)}
 
 
+def _record_parse_error(e: SqlError, surface: str) -> None:
+    COUNTS["parse_error"] += 1
+    flight.incident("sql_parse_error", surface=surface, line=e.line,
+                    col=e.col, message=e.message[:200])
+
+
+def _count(key: str) -> None:
+    COUNTS[key] += 1
+    metrics.count(f"sql.{key}")
+
+
 def sql_to_plan(text: str, schemas: Dict[str, Sequence[str]],
                 params: Optional[Dict[str, Any]] = None, *,
                 stats=None, optimize: bool = True) -> ir.Plan:
@@ -82,11 +94,13 @@ def sql_to_plan(text: str, schemas: Dict[str, Sequence[str]],
     optimized tree with zero parse work, which is what makes
     ``submit_sql`` amortized-free against pre-built plan trees (the
     plan-cache fingerprint dedupes the compile).  Parse/bind failures
-    raise :class:`SqlError` and count in ``COUNTS["parse_error"]``."""
+    raise :class:`SqlError`, count in ``COUNTS["parse_error"]`` and
+    record a ``sql_parse_error`` incident."""
     if len(text) > knobs.get("SRJT_SQL_MAX_LEN"):
-        COUNTS["parse_error"] += 1
-        raise SqlError(f"query text of {len(text)} chars exceeds "
-                       f"SRJT_SQL_MAX_LEN", text[:80], 1, 1)
+        e = SqlError(f"query text of {len(text)} chars exceeds "
+                     f"SRJT_SQL_MAX_LEN", text[:80], 1, 1)
+        _record_parse_error(e, "sql_to_plan")
+        raise e
     use_memo = bool(knobs.get("SRJT_SQL_CACHE")) and stats is None
     key = None
     if use_memo:
@@ -95,13 +109,14 @@ def sql_to_plan(text: str, schemas: Dict[str, Sequence[str]],
             got = _memo.get(key)
             if got is not None:
                 _memo.move_to_end(key)
-                COUNTS["cache.hit"] += 1
+                _count("cache.hit")
                 return got
-        COUNTS["cache.miss"] += 1
+        _count("cache.miss")
     try:
-        tree = bind(parse(text), schemas, params, text)
-    except SqlError:
-        COUNTS["parse_error"] += 1
+        with metrics.span("sql.parse"):
+            tree = bind(parse(text), schemas, params, text)
+    except SqlError as e:
+        _record_parse_error(e, "sql_to_plan")
         raise
     if optimize:
         tree = rules.optimize(tree, schemas, stats=stats).tree

@@ -168,3 +168,101 @@ register("SRJT_FUSED_FILTER", "1", _on_unless_0_off,
          "walked host pages (dictionary entries evaluated once, codes "
          "masked) before anything is staged; `0`/`off` decodes all rows "
          "and filters after", "parquet")
+
+# serving runtime (exec/)
+register("SRJT_EXEC", "0", _on_unless_off,
+         "serving-runtime gate for deployments (`exec.enabled()`)",
+         "exec")
+register("SRJT_EXEC_WORKERS", "4", _int,
+         "worker threads pulling from the request queue", "exec")
+register("SRJT_EXEC_QUEUE_DEPTH", "32", _int,
+         "bounded queue depth; past it `submit` raises `ExecQueueFull`",
+         "exec")
+register("SRJT_EXEC_COALESCE_MS", "4", _float,
+         "cross-request coalesce window (ms); `0` disables batching",
+         "exec")
+register("SRJT_EXEC_COALESCE_MAX", "16", _int,
+         "max requests per coalesced batch", "exec")
+register("SRJT_EXEC_DEADLINE", None, _opt_float,
+         "default end-to-end timeout (s) for requests submitted without "
+         "one", "exec")
+register("SRJT_EXEC_INFLIGHT_BYTES", None, parse_bytes,
+         "per-device in-flight admission cap (`512m` forms; unset = no "
+         "gate)", "exec")
+register("SRJT_EXEC_PREFETCH_DEPTH", "2", _int,
+         "staged working sets held ahead of execution", "exec")
+register("SRJT_EXEC_PLAN_CACHE_CAP", "32", _int,
+         "compiled-plan LRU entry cap", "exec")
+register("SRJT_EXEC_PLAN_SIZE_FP", "1", _on_unless_off,
+         "size-fingerprint plan sharing across refreshed same-shape data",
+         "exec")
+register("SRJT_EXEC_DEVICES", "1", _int,
+         "replicas (one per local device); `>1` enables multi-device "
+         "serving", "exec")
+register("SRJT_EXEC_RECOVERY", "1", _on_unless_off,
+         "quarantine→probe→recovery lifecycle; `0` pins the legacy "
+         "terminal-quarantine contract", "exec")
+register("SRJT_EXEC_PROBE_BASE_S", "0.05", _float,
+         "first recovery-probe delay (doubles per failure, jittered)",
+         "exec")
+register("SRJT_EXEC_PROBE_MAX_S", "2.0", _float,
+         "probe backoff ceiling", "exec")
+register("SRJT_EXEC_EJECT_AFTER", "3", _int,
+         "consecutive failed canaries before permanent ejection", "exec")
+register("SRJT_EXEC_RELOCATE_MAX", None, _opt_int,
+         "max failover hops per request before it errors (default: the "
+         "device count)", "exec")
+
+
+# SLO watchdog (exec/slo.py)
+register("SRJT_SLO_P50_MS", None, _opt_float,
+         "rolling-window p50 latency objective per query class", "slo")
+register("SRJT_SLO_P95_MS", None, _opt_float,
+         "rolling-window p95 latency objective per query class", "slo")
+register("SRJT_SLO_P99_MS", None, _opt_float,
+         "rolling-window p99 latency objective per query class", "slo")
+register("SRJT_SLO_ERROR_RATE", None, _opt_float,
+         "error-rate objective in [0, 1]", "slo")
+register("SRJT_SLO_DEADLINE_RATE", None, _opt_float,
+         "deadline-breach-rate objective in [0, 1]", "slo")
+register("SRJT_SLO_DEFER_RATE", None, _opt_float,
+         "admission-defer-rate objective in [0, 1]", "slo")
+register("SRJT_SLO_DEGRADE_RATE", None, _opt_float,
+         "degraded-admission-rate objective in [0, 1]", "slo")
+register("SRJT_SLO_RELOCATE_RATE", None, _opt_float,
+         "failover-relocation-rate objective in [0, 1]", "slo")
+register("SRJT_SLO_WINDOW_S", "60", _float,
+         "rolling window length (s)", "slo")
+register("SRJT_SLO_MIN_N", "8", _int,
+         "minimum window population before any verdict", "slo")
+register("SRJT_SLO_COOLDOWN_S", "30", _float,
+         "per-(class, objective) re-alarm holdoff (s)", "slo")
+
+# memory budget (memory/)
+register("SRJT_HBM_BUDGET", None, _str,
+         "process/query byte limit (`512m`, `2g`, plain bytes); setting "
+         "it enables the budget ledger (`memory/budget.py`); unset, the "
+         "process limit is the card's memory", "memory")
+
+# observability (utils/)
+register("SRJT_METRICS_WINDOW_N", "1024", _int,
+         "bounded per-histogram sample tail feeding rolling percentiles",
+         "observability")
+register("SRJT_METRICS_PORT", None, _opt_str,
+         "serve `metrics.to_prometheus()` on "
+         "`http://0.0.0.0:<port>/metrics`", "observability")
+register("SRJT_FLIGHT", "1", _on_unless_off,
+         "flight-recorder master gate (leave on: steady-state cost "
+         "budget <2%)", "observability")
+register("SRJT_FLIGHT_N", "512", _int,
+         "flight-recorder ring capacity in events", "observability")
+register("SRJT_INCIDENT_DIR", None, _opt_str,
+         "where incident snapshots land; unset = incidents counted + "
+         "ring-recorded, not written", "observability")
+register("SRJT_INCIDENT_PER_KIND", "5", _int,
+         "per-kind snapshot cap per process (breach storms must not "
+         "fill the disk)", "observability")
+register("SRJT_SANITIZE", "0", _str,
+         "runtime sanitizers: `1` files flight incidents on lock-order "
+         "inversions and hot-path retraces, `strict` raises instead "
+         "(CI smokes run strict)", "observability")

@@ -301,7 +301,8 @@ def test_plan_key_never_forces_a_lazy_column():
 def test_materialized_dict_column_keeps_the_tape_aligned():
     """A DictColumn materialized before the capture resolves its sizes
     again under capture, so that a fresh copy of it replays the tape
-    exactly (the JAX package's rule)."""
+    exactly (the JAX package's rule): its longest entry, its codes'
+    least and greatest (B6's bounds check) and its chars total."""
     words = ["alpha", "b", None, "gamma", "b"] * 4
     dictionary = pt.Column.strings_from_list(["alpha", "b", "gamma"],
                                              device=CPU)
@@ -317,7 +318,7 @@ def test_materialized_dict_column_keeps_the_tape_aligned():
 
     cq = compiled.compile_query(qfn, pt.Table([col]))
     fresh = pt.DictColumn(codes, dictionary, valid)
-    assert len(cq.tape) == 2
+    assert cq.tape == (5, 0, 2, 48)
     assert_bit_equal(cq.run(pt.Table([fresh])), cq.expected)
     assert cq.expected[0].to_pylist() == [w and w.upper() for w in words]
 

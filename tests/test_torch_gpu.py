@@ -1408,3 +1408,208 @@ def test_file_catalog_query_on_card_bit_equal_to_hand_fused(cuda):
         assert g.data.device.type == "cuda"
         assert torch.equal(g.validity_or_true(), w.validity_or_true())
         assert torch.equal(g.data, w.data)
+
+
+def _bit_equal_tables(got, want):
+    assert got.num_columns == want.num_columns
+    assert got.num_rows == want.num_rows
+    for g, w in zip(got.columns, want.columns):
+        g, w = pt.force_column(g), pt.force_column(w)
+        assert g.dtype == w.dtype and g.data.device.type == "cuda"
+        assert torch.equal(g.validity_or_true(), w.validity_or_true())
+        if g.dtype.is_variable_width:
+            assert torch.equal(g.offsets, w.offsets)
+        gd, wd = g.data, w.data
+        if gd.dtype == torch.float64:
+            gd, wd = gd.view(torch.int64), wd.view(torch.int64)
+        assert torch.equal(gd, wd)
+
+
+@pytest.mark.gpu
+def test_mortgage_etl_compiles_to_one_graph_on_card(cuda):
+    """``etl_tables`` on dictionary-string tables captures as one CUDA
+    graph (B6's bounds check reads the tape, the parsers' constant tables
+    are built before the capture), equal to the eager run: every column
+    exact, ``mean_upb`` within a relative 1e-12 (atomics add in any
+    order)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                           / "tools"))
+    import torch_mortgage_parquet as MW
+    from spark_rapids_jni_tpu_torch.models import compiled, mortgage
+    files, _ = MW.mortgage_parquet(n_loans=20000, periods_per_loan=12,
+                                   seed=11)
+    tables = mortgage.load_tables(files, device=cuda)
+    want = mortgage.etl_tables(tables)
+    captures = compiled.COUNTS["graph_capture"]
+    cq = compiled.compile_query(mortgage.etl_tables, tables)
+    assert compiled.COUNTS["graph_capture"] == captures + 1
+    assert cq.graph_launches["gather_rows"] > 0
+    for got in (cq.run(tables), cq.run_unchecked(tables)):
+        assert got.num_rows == want.num_rows
+        for k, name in enumerate(mortgage.FEATURE_COLS):
+            g, w = pt.force_column(got[k]), pt.force_column(want[k])
+            assert g.dtype == w.dtype
+            assert torch.equal(g.validity_or_true(), w.validity_or_true())
+            if name == "mean_upb":
+                torch.testing.assert_close(g.data, w.data, rtol=1e-12,
+                                           atol=0, equal_nan=True)
+            else:
+                assert torch.equal(g.data, w.data), name
+
+
+def _served(sched, qfn, tables, clients=4, per_client=2):
+    import threading
+    tickets, errors = [], []
+
+    def client():
+        try:
+            for _ in range(per_client):
+                tickets.append(sched.submit("q", qfn, tables))
+        except Exception as e:
+            errors.append(e)
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    return [tk.result(timeout=300) for tk in tickets]
+
+
+@pytest.mark.gpu
+def test_scheduler_serves_q7_from_four_clients_on_card(cuda):
+    """q7 from 4 client threads through ``QueryScheduler(workers=4)`` on
+    the card: every result bit-equal to the hand-fused eager run, one
+    graph captured, the repeats served from the plan cache."""
+    import functools
+    from spark_rapids_jni_tpu_torch import exec as xc
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    tables, _, _, params = _tpcds_case(cuda)
+    qfn = functools.partial(tpcds.QUERIES["q7"], **params["q7"])
+    want = qfn(tables)
+    torch.cuda.synchronize()
+    captures = compiled.COUNTS["graph_capture"]
+    with xc.QueryScheduler(workers=4) as sched:
+        assert sched.replicas[0].name == "cuda:0"
+        outs = _served(sched, qfn, tables)
+        stats = sched.plans.stats()
+    with compiled.device_work():
+        for out in outs:
+            _bit_equal_tables(out, want)
+    assert compiled.COUNTS["graph_capture"] == captures + 1
+    assert len(outs) == 8 and stats["entries"] == 1
+
+
+@pytest.mark.gpu
+def test_capture_on_one_worker_beside_replays_on_another(cuda):
+    """One thread replays a warm plan in a loop while another compiles (a
+    capture run, then a graph capture) a second plan: both results are
+    right, and the capture holds the device lock exclusively."""
+    import functools
+    import threading
+    from spark_rapids_jni_tpu_torch import exec as xc
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    tables, _, arrays, params = _tpcds_case(cuda)
+    import torch_tpcds_oracle as O
+    q3 = functools.partial(tpcds.QUERIES["q3"], **params["q3"])
+    q36 = functools.partial(tpcds.QUERIES["q36_rollup"],
+                            **params["q36_rollup"])
+    plans = xc.PlanCache()
+    plans.run("q3", q3, tables)
+    plans.run("q3", q3, tables)                  # warm and verified
+    stop = threading.Event()
+    replays, errors = [], []
+
+    def replayer():
+        try:
+            while not stop.is_set():
+                replays.append(plans.run("q3", q3, tables))
+        except Exception as e:
+            errors.append(e)
+
+    t = threading.Thread(target=replayer)
+    t.start()
+    try:
+        while not replays and not errors:
+            t.join(0.01)
+        cq = compiled.compile_query(q36, tables)
+        got = cq.run(tables)
+    finally:
+        stop.set()
+        t.join()
+    assert not errors, errors
+    assert len(replays) > 1
+    with compiled.device_work():
+        O.check("q36_rollup", got,
+                O.answer("q36_rollup", arrays, params["q36_rollup"]))
+        want = O.answer("q3", arrays, params["q3"])
+        for out in replays:
+            O.check("q3", out, want)
+
+
+@pytest.mark.gpu
+def test_device_error_quarantines_and_recovers_on_card(cuda):
+    """An injected device error at ``exec.dispatch`` quarantines the one
+    replica; the request is relocated, the recovery probe's canary runs
+    on the card and re-admits it, and both the relocated request and the
+    next are right."""
+    import functools
+    from spark_rapids_jni_tpu_torch import exec as xc
+    from spark_rapids_jni_tpu_torch.faultinj import injector as finj
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    tables, _, arrays, params = _tpcds_case(cuda)
+    import torch_tpcds_oracle as O
+    qfn = functools.partial(tpcds.QUERIES["q3"], **params["q3"])
+    want = O.answer("q3", arrays, params["q3"])
+    inj = finj.get_injector()
+    with xc.QueryScheduler(workers=1, probe_base_s=0.02) as sched:
+        try:
+            inj.load_dict({"seed": 1, "sites": {"exec.dispatch": {
+                "percent": 100, "injectionType": "device_error",
+                "maxHits": 1}}})
+            inj.enable()
+            tk = sched.submit("q3", qfn, tables)
+            out = tk.result(timeout=300)
+            nxt = sched.run("q3", qfn, tables)
+        finally:
+            inj.disable()
+        rep = sched.replicas[0]
+        assert tk.relocations == 1
+        assert rep.resilient.fatal_count == 1
+        assert rep.resilient.recovery_count == 1 and rep.serving()
+    with compiled.device_work():
+        O.check("q3", out, want)
+        O.check("q3", nxt, want)
+
+
+@pytest.mark.gpu
+def test_query_dying_inside_a_capture_leaves_the_capture_intact(cuda):
+    """A compiled query freed by the garbage collector while another
+    query's graph is being captured (on the capturing thread itself) has
+    its graph destroyed later, outside the capture: the capture holds and
+    its result equals the oracle."""
+    import functools
+    import gc
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    tables, _, arrays, params = _tpcds_case(cuda)
+    import torch_tpcds_oracle as O
+    q3 = functools.partial(tpcds.QUERIES["q3"], **params["q3"])
+    dead = compiled.compile_query(q3, tables)
+    dead.cycle = dead                  # only the collector can free it
+    holder = [dead]
+    del dead
+    collected = []
+
+    def q3_collecting(t):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            holder.clear()
+            collected.append(gc.collect())
+        return q3(t)
+
+    cq = compiled.compile_query(q3_collecting, tables)
+    assert collected and collected[0] > 0
+    with compiled.device_work():
+        O.check("q3", cq.run(tables), O.answer("q3", arrays, params["q3"]))
+    assert not compiled._GRAVE

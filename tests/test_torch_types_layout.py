@@ -270,7 +270,26 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/sql/binder.py",
             "spark_rapids_jni_tpu_torch/parquet/rowfilter.py",
             "spark_rapids_jni_tpu_torch/models/tpcds_plans.py",
-            "spark_rapids_jni_tpu_torch/models/tpcds_sql.py"} <= rel
+            "spark_rapids_jni_tpu_torch/models/tpcds_sql.py",
+            "spark_rapids_jni_tpu_torch/analysis/__init__.py",
+            "spark_rapids_jni_tpu_torch/analysis/sanitize.py",
+            "spark_rapids_jni_tpu_torch/utils/structured_log.py",
+            "spark_rapids_jni_tpu_torch/utils/metrics.py",
+            "spark_rapids_jni_tpu_torch/utils/flight.py",
+            "spark_rapids_jni_tpu_torch/memory/__init__.py",
+            "spark_rapids_jni_tpu_torch/memory/budget.py",
+            "spark_rapids_jni_tpu_torch/memory/spill.py",
+            "spark_rapids_jni_tpu_torch/faultinj/__init__.py",
+            "spark_rapids_jni_tpu_torch/faultinj/injector.py",
+            "spark_rapids_jni_tpu_torch/faultinj/resilience.py",
+            "spark_rapids_jni_tpu_torch/exec/__init__.py",
+            "spark_rapids_jni_tpu_torch/exec/errors.py",
+            "spark_rapids_jni_tpu_torch/exec/admission.py",
+            "spark_rapids_jni_tpu_torch/exec/placement.py",
+            "spark_rapids_jni_tpu_torch/exec/plan_cache.py",
+            "spark_rapids_jni_tpu_torch/exec/prefetch.py",
+            "spark_rapids_jni_tpu_torch/exec/slo.py",
+            "spark_rapids_jni_tpu_torch/exec/scheduler.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

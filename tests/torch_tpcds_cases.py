@@ -66,10 +66,23 @@ def writer_tables(data):
     return tpcds.load_tables(data[1], device=CPU)
 
 
+_JAX_TABLES: dict = {}
+
+
+def jax_tables_of(data) -> dict:
+    """The JAX package's tables of pyarrow's files, loaded once a
+    process."""
+    files = data[0]
+    key = tuple(sorted((k, len(v)) for k, v in files.items()))
+    if key not in _JAX_TABLES:
+        _JAX_TABLES[key] = jtpcds.load_tables(files)
+    return _JAX_TABLES[key]
+
+
 def jax_results_of(names, data) -> dict:
     """The JAX package's result of each query of ``names``."""
-    files, _, _, params = data
-    tables = jtpcds.load_tables(files)
+    tables = jax_tables_of(data)
+    params = data[3]
     return {name: jtpcds.QUERIES[name](tables, **params[name])
             for name in names}
 
