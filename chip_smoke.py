@@ -7,8 +7,11 @@ Drives the port's main paths, JCUDF row ↔ column conversion, the
 device Parquet scan and the queries on it (TPC-H Q6 and Q1, the 50
 TPC-DS queries, eager and compiled to CUDA graphs, the Mortgage ETL,
 TPC-DS as SQL text and plan trees through the planner, those queries
-and texts served to concurrent clients by the serving runtime), through their public entry points on the card, and fails (non-zero
-exit, no result line) if anything is wrong:
+and texts served to concurrent clients by the serving runtime, the
+Mortgage ETL trained on and served, views refreshed over appended files,
+per-node profiles, persisted tapes), through their public entry points
+on the card, and fails (non-zero exit, no result line) if anything is
+wrong:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
    no CUDA device is a failure;
@@ -201,6 +204,36 @@ exit, no result line) if anything is wrong:
    line (request counts, p50 and p99 of ``exec.e2e_ms`` and of each
    ``exec.stage.*``, plan-cache stats, batches, failover counts, the
    phase's peak ``torch.cuda.max_memory_allocated``, its seconds).
+18. ML, stream, profiles and tapes (last, on phase 13's tables and
+   arrays and phase 14's files): the ETL's output packed by
+   ``mortgage.feature_spec()`` into a 1,000,000 x 8 float32 matrix on
+   the card, bit-identical to the lane rules' numpy oracle
+   (``tools/torch_ml_oracle.py``); logistic regression trained by Adam
+   (step 1e-6) for 3 epochs of 3,906 batches of 256, each epoch one
+   CUDA-graph replay, epochs 2-3 under
+   ``torch.cuda.set_sync_debug_mode("error")``, held against a float64
+   replay of the same batches (losses within a relative 1e-4, parameters
+   within 1e-7 + 1e-3 x the largest); the model as a ``ServableModel``
+   over ``etl_tables`` served by ``QueryScheduler(workers=4)`` (one
+   request, then 16 from four clients twice, each client on loans of its
+   own and one request in flight, one graph replay a warm request),
+   every prediction bit-identical to ``predict_table``; store_sales written as a
+   6,000,000-row base and four 1,000,000-row appends behind a keyed
+   merge-exact view over store_sales ⋈ item (incremental) and a rollup
+   (full), each refreshed through ``submit_refresh`` after every append,
+   bit-identical to a from-scratch recompute and equal to the numpy
+   oracle, the delta scans reading only the new row group, a
+   ``FeatureView`` repacking each time; the 8 plan queries under
+   ``explain_analyze`` (each node's rows equal to
+   ``tools/torch_plan_oracle.py``'s; two unprofiled runs compared; with
+   torch's deterministic algorithms the profiled run bit-identical to
+   the unprofiled one; profiled and unprofiled medians) and the
+   ``@traced`` ranges under ``torch.profiler``; with deterministic
+   algorithms, q3, q65 and the servable served with ``SRJT_AOT_DIR``
+   set, then by a fresh scheduler that warms up from the store with no
+   eager capture run, bit-identical, and a tampered tape recaptured once;
+   B2-B7 on the largest inputs the phase hands them; ``[ml]``,
+   ``[stream]``, ``[profile]``, ``[aot]`` summary lines.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -213,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes as C
 import functools
 import gc
@@ -386,12 +420,41 @@ FLUSH_BYTES = 128 << 20
 # kernel names are C++ signatures; the start is enough to tell them apart
 NAME_CHARS = 60
 # profiled windows a device time is the median of, and windows taken
-# before a measurement fails: the profiler on the card now and then loses
-# some or all of a window's device rows, or gives a whole window short
-# times
+# before a measurement fails: a window that still lacks device rows (see
+# profile_window) is taken again after PROFILE_RETRY_S
 PROFILE_WINDOWS = 3
-PROFILE_TRIES = 6
+PROFILE_TRIES = 12
+PROFILE_RETRY_S = 0.25
 FLUSH_KERNEL = "reduce_kernel"
+# a profiled window opens with PROFILE_PAD_S of host sleep and a prelude
+# of flushes (whose rows are left out), PRELUDE_FLUSHES of them, doubled
+# after each short window of a measurement up to PRELUDE_MAX
+PROFILE_PAD_S = 0.05
+PRELUDE_FLUSHES = 64
+PRELUDE_MAX = 1024
+# profiled windows taken and those short of device rows, over the run
+PROFILE_COUNTS: collections.Counter = collections.Counter()
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_window(buf, work, prelude: int = PRELUDE_FLUSHES):
+    """``torch.profiler``'s profile (CPU and device) of ``work()`` after
+    PROFILE_PAD_S of host sleep and ``prelude`` flushes of ``buf``.  A
+    session on the card may have no device record of its first launches
+    (its raw records lack them; ``tools/torch_profiler_skew.py``): at
+    the start of a process, those within a few ms of its start, whose
+    device timestamps run behind; in one measurement of a whole run of
+    this script, the first 23 of 40 launches of every window, with the
+    sleep or without.  The sleep and the prelude take those."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(prelude):
+            flush(buf)
+        work()
+        torch.cuda.synchronize()
+    return prof
 
 
 @functools.lru_cache(maxsize=1)
@@ -399,14 +462,10 @@ def flush_buffer() -> torch.Tensor:
     """The buffer the flush reads, checked once: a profiled flush must show
     only FLUSH_KERNEL rows on the device (a row-wise maximum needs no
     scratch memset, which the kernels' own memsets would be mistaken for)."""
-    from torch.profiler import ProfilerActivity, profile
     buf = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     flush(buf)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        flush(buf)
-        torch.cuda.synchronize()
+    prof = profile_window(buf, lambda: flush(buf))
     names = {e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA}
     require(names and all(FLUSH_KERNEL in name for name in names),
@@ -416,6 +475,28 @@ def flush_buffer() -> torch.Tensor:
 
 def flush(buf: torch.Tensor) -> None:
     buf.view(-1, 1024).amax(dim=1)
+
+
+def missing_launches(prof) -> list:
+    """The launches of a profiled window (runtime calls in order) that
+    have no device record among the profiler's raw records, as index
+    ranges, and the count of launches."""
+    raw = prof.profiler.kineto_results.events()
+    dev = {e.correlation_id() for e in raw
+           if e.device_type() == torch.autograd.DeviceType.CUDA}
+    launches = sorted((e for e in raw
+                       if e.device_type() == torch.autograd.DeviceType.CPU
+                       and any(n in e.name() for n in LAUNCH_CALLS)),
+                      key=lambda e: e.start_ns())
+    out = []
+    for i, e in enumerate(launches):
+        if e.correlation_id() in dev:
+            continue
+        if out and out[-1][1] == i - 1:
+            out[-1][1] = i
+        else:
+            out.append([i, i])
+    return [out, len(launches)]
 
 
 def device_ms(fn, reps: int, symbols=None, extras=()) -> tuple:
@@ -429,21 +510,22 @@ def device_ms(fn, reps: int, symbols=None, extras=()) -> tuple:
     kernels once.  The profiler on the card may lose rows or give them
     broken times, so a window in which a symbol has no row, or a name fewer
     than half its calls' rows with a time, is taken again, and the result
-    is the median of PROFILE_WINDOWS windows, within PROFILE_TRIES.  Host
-    time between launches does not count, as it does in :func:`time_cuda`.
+    is the median of PROFILE_WINDOWS windows (each as
+    :func:`profile_window` takes it), within PROFILE_TRIES.  Host time
+    between launches does not count, as it does in :func:`time_cuda`.
     Returns the time and the rows of the last window, by name."""
-    from torch.profiler import ProfilerActivity, profile
     buf = flush_buffer()
     fn()
     torch.cuda.synchronize()
-    windows, counts = [], {}
+
+    def calls():
+        for _ in range(reps):
+            flush(buf)
+            fn()
+    windows, counts, prelude = [], {}, PRELUDE_FLUSHES
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush(buf)
-                fn()
-            torch.cuda.synchronize()
+        prof = profile_window(buf, calls, prelude)
+        PROFILE_COUNTS["windows"] += 1
         by_name = collections.defaultdict(list)
         for e in prof.events():
             if (e.device_type == torch.autograd.DeviceType.CUDA
@@ -462,8 +544,13 @@ def device_ms(fn, reps: int, symbols=None, extras=()) -> tuple:
             if len(windows) == PROFILE_WINDOWS:
                 return statistics.median(windows) / 1e3, counts
         else:
+            PROFILE_COUNTS["short"] += 1
             log(f"[kernels] the profiler lost device rows of {symbols} "
-                f"({counts} of {reps} calls): profiling again")
+                f"({counts} of {reps} calls after {prelude} prelude "
+                f"flushes; launches with no device record, of all: "
+                f"{missing_launches(prof)}): profiling again")
+            prelude = min(2 * prelude, PRELUDE_MAX)
+            time.sleep(PROFILE_RETRY_S)
     raise SmokeFailure(f"the profiler gave {len(windows)} whole windows of "
                        f"{symbols} in {PROFILE_TRIES}: {counts}")
 
@@ -2208,9 +2295,10 @@ def phase_tpcds(kernels, card, launches) -> tuple:
     eager_ms = {name: q["wall_ms"] for name, q in report["queries"].items()}
     query_launches = {name: q["launches"]
                       for name, q in report["queries"].items()}
-    del arrays, captured
+    del captured
     torch.cuda.empty_cache()
-    return results, (tables, params, want, eager_ms, files, query_launches)
+    return results, (tables, params, want, eager_ms, files, query_launches,
+                     arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -2493,7 +2581,7 @@ def phase_sql(kernels, card, launches, tpcds_ctx) -> dict:
     from spark_rapids_jni_tpu_torch.parquet import device_scan
     from spark_rapids_jni_tpu_torch.plan import lower
 
-    tables, params, want, eager_ms, files, q13_launches = tpcds_ctx
+    tables, params, want, eager_ms, files, q13_launches = tpcds_ctx[:6]
     schemas = TS.TABLE_SCHEMAS
     t_phase = time.perf_counter()
     report = {"card": card, "queries": {}, "file_catalog": {}}
@@ -2782,7 +2870,7 @@ def phase_exec(kernels, card, launches, tpcds_ctx) -> dict:
     from spark_rapids_jni_tpu_torch.models import tpcds_sql as TS
     from spark_rapids_jni_tpu_torch.utils import flight, metrics
 
-    tables, params, want, _, files, _ = tpcds_ctx
+    tables, params, want, _, files, _ = tpcds_ctx[:6]
     schemas = TS.TABLE_SCHEMAS
     t_phase = time.perf_counter()
     gc.collect()
@@ -3174,6 +3262,713 @@ def pt_table_clone(table):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the Mortgage ETL trained and served, stream views, per-node
+# profiles, persisted tapes
+# ---------------------------------------------------------------------------
+
+# the kernels phase 18 launches: B2, B5, B6 for the ETL's dictionary
+# columns, B3 for its parsers and the plan queries' string keys, B4 for
+# their string gathers and B7 in every scan (the ETL's, the delta scans')
+PHASE18_KERNELS = ("pack_rows", "unpack_rows", "segmented_copy",
+                   "extract_rows", "gather_rows", "u8_to_u32")
+ML_EPOCHS = 3
+# Adam's step size: the features are unnormalized (UPBs near 1e5, dates
+# near 2e4 days), so a larger step drives the logits far past the
+# sigmoid's range and the float32 run leaves the float64 replay
+ML_LR = 1e-6
+ML_SEED = 0
+ML_CLIENTS = 4
+ML_REQUESTS = 16
+# the float32 training run against the float64 replay of its batches:
+# each epoch's mean loss within a relative ML_LOSS_RTOL, each parameter
+# within ML_PARAM_ATOL + ML_PARAM_RTOL x the replay's largest |parameter|
+ML_LOSS_RTOL = 1e-4
+ML_PARAM_ATOL = 1e-7
+ML_PARAM_RTOL = 1e-3
+# store_sales as a base file and appended files (phase 13's rows in order)
+STREAM_BASE = 6_000_000
+STREAM_APPEND = 1_000_000
+STREAM_APPENDS = 4
+# the profiled plan queries' medians
+PROFILE_REPS = 3
+
+
+def stream_plans(ir):
+    """The two views over store_sales ⋈ item: a keyed aggregate of
+    merge-exact aggregates (maintained incrementally) and a rollup
+    (refreshed in full)."""
+    join = ir.Join(ir.Scan("store_sales"), ir.Scan("item"),
+                   ("ss_item_sk",), ("i_item_sk",))
+    keys = ("i_category", "i_brand_id")
+    inc = ir.Sort(ir.Aggregate(join, keys, (
+        ("ss_quantity", "sum", "qty"), ("ss_quantity", "count", "n"),
+        ("ss_sales_price_cents", "max", "top_cents"),
+        ("ss_ext_sales_price", "min", "low_ext"),
+        ("ss_quantity", "mean", "avg_qty"))), keys)
+    rollup = ir.Aggregate(join, ("i_category_id", "i_brand_id"), (
+        ("ss_quantity", "sum", "qty"), ("ss_quantity", "count", "n"),
+        ("ss_sales_price_cents", "max", "top_cents")), grouping="rollup")
+    return inc, rollup
+
+
+def stream_oracle(arrays, rows: int) -> dict:
+    """The incremental view from the first ``rows`` store_sales rows, by
+    numpy: its key columns and aggregates in key order."""
+    ss, item = arrays["store_sales"], arrays["item"]
+    ix = ss["ss_item_sk"][:rows].astype(np.int64) - 1
+    cat = np.asarray(item["i_category"], dtype=str)[ix]
+    brand = item["i_brand_id"][ix]
+    qty = ss["ss_quantity"][:rows].astype(np.int64)
+    cents = ss["ss_sales_price_cents"][:rows]
+    ext = ss["ss_ext_sales_price"][:rows]
+    cats, cat_code = np.unique(cat, return_inverse=True)
+    key = cat_code.astype(np.int64) * 10_000 + brand.astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    g = len(uniq)
+    n = np.bincount(inv, minlength=g)
+    q = np.bincount(inv, weights=qty, minlength=g).astype(np.int64)
+    top = np.full(g, np.iinfo(np.int64).min)
+    np.maximum.at(top, inv, cents)
+    low = np.full(g, np.inf)
+    np.minimum.at(low, inv, ext)
+    return {"i_category": cats[uniq // 10_000], "i_brand_id": uniq % 10_000,
+            "qty": q, "n": n.astype(np.int64), "top_cents": top,
+            "low_ext": low, "avg_qty": q.astype(np.float64) / n}
+
+
+def rollup_rows(arrays, rows: int) -> int:
+    """The rollup view's row count over the first ``rows`` store_sales
+    rows: its (category id, brand) groups, category groups and the grand
+    total."""
+    ix = arrays["store_sales"]["ss_item_sk"][:rows].astype(np.int64) - 1
+    cat = arrays["item"]["i_category_id"][ix].astype(np.int64)
+    brand = arrays["item"]["i_brand_id"][ix].astype(np.int64)
+    return (len(np.unique(cat * 10_000 + brand)) + len(np.unique(cat))
+            + 1)
+
+
+def check_stream_oracle(out, want: dict, what: str) -> None:
+    """The incremental view's result equals the numpy oracle exactly."""
+    from spark_rapids_jni_tpu_torch.column import force_column
+    require(out.num_rows == len(want["n"]),
+            f"{what}: {out.num_rows} groups, expected {len(want['n'])}")
+    cols = [force_column(c) for c in out.columns]
+    cat = cols[0]
+    offs = cat.offsets.cpu().numpy()
+    chars = cat.data.cpu().numpy().tobytes()
+    got_cat = [chars[offs[i]:offs[i + 1]].decode()
+               for i in range(out.num_rows)]
+    require(got_cat == list(want["i_category"]), f"{what}: categories")
+    for i, name in enumerate(("i_brand_id", "qty", "n", "top_cents",
+                              "low_ext", "avg_qty"), start=1):
+        got = cols[i].data.cpu().numpy()
+        w = want[name]
+        equal = (np.array_equal(got.view(np.int64), w.view(np.int64))
+                 if got.dtype == np.float64 else np.array_equal(got, w))
+        require(equal, f"{what}: {name} differs from the oracle")
+
+
+def pack_oracle(MLO, out, spec, feature_cols):
+    """The lane rules of ``ml/features.py`` on the ETL output's host
+    columns (``tools/torch_ml_oracle.py``)."""
+    from spark_rapids_jni_tpu_torch.column import force_column
+
+    def host(f):
+        c = force_column(out[feature_cols.index(f.name)])
+        return (c.dtype.id.name, c.dtype.scale, c.data.cpu().numpy(),
+                None if c.validity is None else c.validity.cpu().numpy(),
+                f.impute)
+    return MLO.pack([host(f) for f in spec.features], host(spec.label),
+                    spec.label_transform)
+
+
+def dealt_acq(tables: dict, seed: int) -> dict:
+    """The Mortgage ETL's tables with every acquisition column but the
+    loan id gathered by a seeded permutation: each loan gets another
+    loan's acquisition record, the geometry stays the same."""
+    from spark_rapids_jni_tpu_torch.column import Table, force_column
+    from spark_rapids_jni_tpu_torch.ops import filter as F
+    acq = tables["acq"]
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        acq.num_rows)).to(force_column(acq.columns[0]).data.device)
+    dealt = F.gather(acq, perm)
+    return {"perf": tables["perf"], "acq": Table(
+        [acq.columns[0]] + [force_column(c) for c in dealt.columns[1:]],
+        acq.host_decoded_cols)}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms, with warnings in place of errors:
+    a float ``index_add_`` on the card then sums in a fixed order (by a
+    sort) instead of by atomics."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def same_bits(a: torch.Tensor, b) -> bool:
+    b = torch.as_tensor(b).to(a.device)
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_ml_stream(kernels, card, launches, tpcds_ctx, mortgage_files):
+    """Phase 18: the Mortgage ETL's output packed into a 1,000,000 x 8
+    feature matrix (bit-identical to the numpy oracle of the lane rules),
+    a logistic model trained by Adam for 3 epochs, each epoch one CUDA
+    graph replay and epochs 2-3 under ``set_sync_debug_mode("error")``,
+    held against a float64 replay of the same batches, then served
+    through ``QueryScheduler(workers=4)`` to four clients, each on loans
+    of its own (16 requests, each bit-identical to ``predict_table``);
+    store_sales as a base file
+    and four appended files behind an incremental view and a rollup,
+    each refreshed through ``submit_refresh`` after every append and
+    equal to a from-scratch recompute and to the numpy oracle, with a
+    FeatureView repacking; the 8 plan queries under ``explain_analyze``
+    (each node's rows against ``tools/torch_plan_oracle.py``, the result
+    bit-identical to the unprofiled run's with deterministic algorithms)
+    and the ``@traced`` ranges under ``torch.profiler``; q3, q65 and the
+    servable compiled with a persisted tape store, then served again by
+    a fresh scheduler that warms up from it with no eager capture run,
+    bit-identical, and a tampered tape recaptured; B2-B7 on the largest
+    inputs the phase hands them."""
+    import tempfile
+
+    import torch_ml_oracle as MLO
+    import torch_plan_oracle as PO
+    import torch_tpcds_parquet as TW
+    import torch_lineitem_parquet as W
+    from spark_rapids_jni_tpu_torch import exec as xc
+    from spark_rapids_jni_tpu_torch import ml
+    from spark_rapids_jni_tpu_torch.exec import artifacts
+    from spark_rapids_jni_tpu_torch.models import (compiled, mortgage, tpcds,
+                                                   tpcds_plans)
+    from spark_rapids_jni_tpu_torch.plan import ir, lower, profile
+    from spark_rapids_jni_tpu_torch.stream import DeltaTable, ViewRegistry
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    tables, params, _, _, files, _, arrays = tpcds_ctx
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    metrics.set_enabled(True)
+    metrics.reset()
+    compiled.reset_counts()
+    phase_counts = collections.Counter()
+    report = {"card": card}
+
+    def main_path(fn):
+        """``fn()`` with the kernel counts reset before and added to the
+        main path's after."""
+        kernels.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        add_counts(launches, counts)
+        phase_counts.update(counts)
+        return out
+
+    # -- ETL -> features ----------------------------------------------------
+    spec = mortgage.feature_spec()
+    t0 = time.perf_counter()
+    mtables = main_path(lambda: mortgage.load_tables(mortgage_files))
+    out = main_path(lambda: mortgage.etl_tables(mtables))
+    fb = main_path(lambda: spec.pack(out, mortgage.FEATURE_COLS))
+    etl_pack_s = time.perf_counter() - t0
+    n_loans = MORTGAGE_ARGS["n_loans"]
+    require(tuple(fb.X.shape) == (n_loans, 8) and fb.X.is_cuda,
+            f"ml: feature matrix {tuple(fb.X.shape)} on {fb.X.device}")
+    X_want, y_want = pack_oracle(MLO, out, spec, mortgage.FEATURE_COLS)
+    require(same_bits(fb.X, X_want) and same_bits(fb.y, y_want),
+            "ml: the feature matrix differs from the lane rules' oracle")
+    pack_ms = median_wall(lambda: spec.pack(out, mortgage.FEATURE_COLS)) * 1e3
+    stack_same = same_bits(spec.pack(out, mortgage.FEATURE_COLS,
+                                     engine="stack").X, X_want)
+    require(stack_same, "ml: the stack engine's matrix differs")
+    log(f"[ml] {n_loans} x 8 feature matrix bit-identical to the oracle "
+        f"(label mean {float(y_want.mean()):.4f}); ETL+pack {etl_pack_s:.3f}"
+        f" s, pack median {pack_ms:.3f} ms [{card}]")
+
+    # -- training: 3 epochs, each one graph replay --------------------------
+    pipe = ml.BatchPipeline(fb, seed=ML_SEED)
+    require(pipe.batch_size == 256 and pipe.num_batches == n_loans // 256,
+            f"ml: {pipe.num_batches} batches of {pipe.batch_size}")
+    trainer = ml.Trainer(ml.logistic_regression(), ml.adam(lr=ML_LR))
+    marks = {}
+
+    def on_epoch(e):
+        if e == 0:
+            torch.cuda.synchronize()
+            marks["first"] = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+        if e == ML_EPOCHS - 1:
+            torch.cuda.set_sync_debug_mode("default")
+
+    t0 = time.perf_counter()
+    try:
+        kernels.reset()
+        res = trainer.fit(pipe, ML_EPOCHS, on_epoch=on_epoch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_end = time.perf_counter()
+    require(trainer.graph_captures == 1,
+            f"ml: {trainer.graph_captures} epoch graphs captured")
+    epoch0_ms = (marks["first"] - t0) * 1e3
+    steady_ms = (t_end - marks["first"]) / (ML_EPOCHS - 1) * 1e3
+    batches = [tuple(a.cpu().numpy() for a in pipe.epoch_arrays(e))
+               for e in range(ML_EPOCHS)]
+    t0 = time.perf_counter()
+    losses64, p64 = MLO.replay(batches, "logreg", "adam",
+                               {"w": np.zeros(8), "b": 0.0}, {"lr": ML_LR})
+    replay_s = time.perf_counter() - t0
+    del batches
+    loss_rel = float(np.max(np.abs(res.losses - losses64)
+                            / np.abs(losses64)))
+    w32 = np.append(res.params["w"].cpu().numpy(),
+                    float(res.params["b"].cpu()))
+    w64 = np.append(p64["w"], p64["b"])
+    param_err = float(np.max(np.abs(w32 - w64)))
+    param_tol = ML_PARAM_ATOL + ML_PARAM_RTOL * float(np.max(np.abs(w64)))
+    require(np.all(np.isfinite(res.losses)) and loss_rel <= ML_LOSS_RTOL,
+            f"ml: losses {res.losses} against the replay's {losses64}")
+    require(param_err <= param_tol,
+            f"ml: parameters {param_err:.3e} from the replay's (limit "
+            f"{param_tol:.3e})")
+    report["train"] = dict(
+        epochs=ML_EPOCHS, steps_per_epoch=pipe.num_batches,
+        losses=[float(v) for v in res.losses],
+        replay_losses=[float(v) for v in losses64],
+        loss_rel_err=loss_rel, param_abs_err=param_err,
+        param_limit=param_tol, epoch0_ms=round(epoch0_ms, 3),
+        epoch_ms=round(steady_ms, 3), replay_s=round(replay_s, 2),
+        rows_per_s=round(pipe.rows_per_epoch / steady_ms * 1e3, 1))
+    log(f"[ml] trained: losses {res.losses} (float64 replay {losses64}, "
+        f"largest relative difference {loss_rel:.3e}; parameters within "
+        f"{param_err:.3e} of the replay's, limit {param_tol:.3e}); epoch 1 "
+        f"with the graph capture {epoch0_ms:.1f} ms, epochs 2-3 "
+        f"{steady_ms:.1f} ms each with no sync [{card}]")
+
+    # -- serving the trained model ------------------------------------------
+    sv = ml.register_servable(ml.ServableModel(
+        "mortgage_logreg", mortgage.etl_tables, mortgage.FEATURE_COLS, spec,
+        trainer.model, res.params))
+    # each client scores loans of its own: client 0 the ETL's tables, each
+    # other client the same files with the acquisition records dealt to
+    # other loans (same geometry, other features), so that no two
+    # requests in flight share buffers and the scheduler coalesces none
+    # of them into one dispatch
+    client_tables = [mtables] + [dealt_acq(mtables, i)
+                                 for i in range(1, ML_CLIENTS)]
+    with compiled.device_work():
+        oracles = [sv.predict_table(t)[0].data for t in client_tables]
+        torch.cuda.synchronize()
+    require(all(not same_bits(oracles[0], o) for o in oracles[1:]),
+            "ml: the clients' loans give the same predictions")
+
+    def serve_round(sched):
+        done, errors = [], []
+
+        def client(i):
+            # one request in flight a client: the next goes when the last
+            # is answered
+            try:
+                for _ in range(ML_REQUESTS // ML_CLIENTS):
+                    tk = sched.submit_predict(sv.name, client_tables[i])
+                    done.append((i, tk.result(timeout=600)))
+            except BaseException as e:
+                errors.append(e)
+        replays = compiled.COUNTS["replay_run"]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(ML_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        require(not errors, f"ml: a client failed: {errors[:1]}")
+        require(len(done) == ML_REQUESTS, f"ml: {len(done)} answers")
+        return done, wall, compiled.COUNTS["replay_run"] - replays
+
+    def serve():
+        sched = xc.QueryScheduler(workers=4)
+        try:
+            t0 = time.perf_counter()
+            first = sched.submit_predict(sv, mtables).result(timeout=600)
+            first_s = time.perf_counter() - t0
+            cold = serve_round(sched)
+            warm = serve_round(sched)
+        finally:
+            sched.shutdown()
+        return first, first_s, cold, warm
+
+    first, first_s, (cold, cold_wall, _), (warm, warm_wall, replays) = \
+        main_path(serve)
+    # every warm request ran the compiled plan on its own: one replay each
+    require(replays == ML_REQUESTS,
+            f"ml: {replays} replays for {ML_REQUESTS} warm requests")
+    with compiled.device_work():
+        for i, t in [(0, first)] + cold + warm:
+            require(same_bits(t[0].data, oracles[i]),
+                    "ml: a served prediction differs from predict_table")
+    report["serve"] = dict(
+        requests=1 + len(cold) + len(warm), distinct_inputs=ML_CLIENTS,
+        warm_replays=replays, first_ms=round(first_s * 1e3, 3),
+        predictions_per_s=round(len(warm) * n_loans / warm_wall, 1),
+        round_s=round(warm_wall, 3), first_round_s=round(cold_wall, 3),
+        graph_captures=compiled.COUNTS["graph_capture"])
+    log(f"[ml] served: {1 + len(cold) + len(warm)} predict requests of "
+        f"{n_loans} rows over {ML_CLIENTS} distinct table sets, each "
+        f"bit-identical to predict_table on its set; the first (capture "
+        f"run and graph) {first_s * 1e3:.1f} ms; {ML_REQUESTS} from "
+        f"{ML_CLIENTS} clients, one in flight each, in {warm_wall:.3f} s "
+        f"with {replays} graph replays "
+        f"({len(warm) * n_loans / warm_wall:.0f} predictions/s) [{card}]")
+    log("[ml] summary " + json.dumps(report))
+
+    # -- stream: a base file, four appends, two views ------------------------
+    ss = arrays["store_sales"]
+
+    def ss_file(lo, hi):
+        cols = TW.table_columns("store_sales",
+                                {k: v[lo:hi] for k, v in ss.items()})
+        return W.write_parquet(cols, TW.ROW_GROUP_ROWS, codec="SNAPPY")
+
+    t0 = time.perf_counter()
+    base = ss_file(0, STREAM_BASE)
+    appends = [ss_file(STREAM_BASE + i * STREAM_APPEND,
+                       STREAM_BASE + (i + 1) * STREAM_APPEND)
+               for i in range(STREAM_APPENDS)]
+    write_s = time.perf_counter() - t0
+    statics = {k: tables[k] for k in ("item", "date_dim", "store")}
+    schemas = {k: tpcds_plans.TABLE_SCHEMAS[k] for k in statics}
+    inc_plan, rollup_plan = stream_plans(ir)
+    delta = DeltaTable("store_sales", files=[base])
+    reg = ViewRegistry(delta, statics, schemas)
+    inc = main_path(lambda: reg.register_view(inc_plan, name="brand_sales"))
+    full = main_path(lambda: reg.register_view(rollup_plan,
+                                               name="category_rollup"))
+    require(inc.kind == "incremental" and inc.exact,
+            f"stream: the keyed view is {inc.kind} ({inc.reason})")
+    require((full.kind, full.reason) == ("full", "grouping:rollup"),
+            f"stream: the rollup view is {full.kind} ({full.reason})")
+    fspec = ml.FeatureSpec.of(["i_brand_id", "qty", "n", "top_cents",
+                               "avg_qty"], label="low_ext")
+    fv = ml.FeatureView(reg, inc_plan, fspec)
+    require(fv.view is inc, "stream: the FeatureView made a second view")
+    refresh = {"incremental_ms": [], "full_ms": [], "recompute_ms": []}
+    sched = xc.QueryScheduler(workers=2)
+    try:
+        for i, blob in enumerate(appends):
+            delta.append_file(blob)
+            rows = STREAM_BASE + (i + 1) * STREAM_APPEND
+            c_groups = metrics.counter_value("stream.delta.rowgroups")
+            c_rows = metrics.counter_value("stream.delta.rows")
+            t0 = time.perf_counter()
+            got_inc = main_path(
+                lambda: sched.submit_refresh(reg, inc).result(timeout=600))
+            refresh["incremental_ms"].append(
+                round((time.perf_counter() - t0) * 1e3, 3))
+            t0 = time.perf_counter()
+            got_full = main_path(
+                lambda: sched.submit_refresh(reg, full).result(timeout=600))
+            refresh["full_ms"].append(
+                round((time.perf_counter() - t0) * 1e3, 3))
+            groups = metrics.counter_value("stream.delta.rowgroups") \
+                - c_groups
+            drows = metrics.counter_value("stream.delta.rows") - c_rows
+            require(groups == 1 and drows == STREAM_APPEND,
+                    f"stream: append {i + 1}'s delta scan read {groups} row "
+                    f"groups, {drows} rows")
+            t0 = time.perf_counter()
+            with compiled.device_work():
+                cat = lower.TableCatalog({**statics,
+                                          "store_sales": delta.scan()},
+                                         reg.schemas)
+                want_inc = lower.execute(inc.tree, cat, record_stats=False)
+                want_full = lower.execute(full.tree, cat,
+                                          record_stats=False)
+                torch.cuda.synchronize()
+            refresh["recompute_ms"].append(
+                round((time.perf_counter() - t0) * 1e3, 3))
+            with compiled.device_work():
+                same_inc, _ = table_diff(got_inc, want_inc,
+                                         f"stream inc {i + 1}")
+                same_full, _ = table_diff(got_full, want_full,
+                                          f"stream rollup {i + 1}")
+                require(same_inc and same_full, f"stream: append {i + 1}'s "
+                        "refresh is not bit-identical to a recompute")
+                check_stream_oracle(got_inc, stream_oracle(arrays, rows),
+                                    f"stream inc {i + 1}")
+                want_rows = rollup_rows(arrays, rows)
+                require(got_full.num_rows == want_rows,
+                        f"stream: the rollup has {got_full.num_rows} rows, "
+                        f"the oracle {want_rows}")
+                packed = fv.current()
+                want_fb = fspec.pack(want_inc, fv.names)
+                require(torch.equal(packed.X, want_fb.X)
+                        and torch.equal(packed.y, want_fb.y),
+                        f"stream: the FeatureView after append {i + 1} "
+                        "differs from a pack of the recompute")
+    finally:
+        sched.shutdown()
+    require(fv.repacks == STREAM_APPENDS,
+            f"stream: the FeatureView repacked {fv.repacks} times")
+    counters = metrics.snapshot()["counters"]
+    stream_report = dict(
+        base_rows=STREAM_BASE, appends=[STREAM_APPEND] * STREAM_APPENDS,
+        write_s=round(write_s, 2), refresh=refresh,
+        incremental=counters.get("stream.refresh.incremental", 0),
+        full=counters.get("stream.refresh.full", 0),
+        delta_rowgroups=counters.get("stream.delta.rowgroups", 0),
+        groups=inc.state.num_rows, repacks=fv.repacks, card=card)
+    log(f"[stream] {STREAM_APPENDS} appends of {STREAM_APPEND} rows onto "
+        f"{STREAM_BASE}: each incremental and rollup refresh bit-identical "
+        f"to a recompute and the oracle; refresh ms incremental "
+        f"{refresh['incremental_ms']}, full {refresh['full_ms']}, "
+        f"recompute {refresh['recompute_ms']} [{card}]")
+    log("[stream] summary " + json.dumps(stream_report))
+    fv.close()
+    reg.close()
+    del delta, reg, inc, full, fv, base, appends
+
+    # -- profiles: the 8 plan queries under explain_analyze ------------------
+    encoded = PO.encode_arrays(arrays)
+    profile.set_enabled(True)
+    profiles = {}
+    bit_identical = repeatable = 0
+    try:
+        for name in tpcds_plans.PLANS:
+            kw = params[name]
+            qfn, tree = tpcds_plans.plan_fn(name, **kw)
+
+            def analyzed():
+                return profile.analyze(tpcds_plans.PLANS[name](**kw),
+                                       tpcds_plans.TABLE_SCHEMAS, tables)
+            # two unprofiled runs: float sums by atomics may differ in
+            # their last bits from run to run
+            profile.set_enabled(False)
+            want = qfn(tables)
+            again = qfn(tables)
+            torch.cuda.synchronize()
+            same_twice, rel_twice = table_diff(again, want,
+                                               f"unprofiled {name}")
+            repeatable += same_twice
+            profile.set_enabled(True)
+            text, got, prof = main_path(analyzed)
+            _, rel = table_diff(got, want, f"profile {name}")
+            # with the sums in a fixed order the profiled run is the
+            # unprofiled run bit for bit
+            with deterministic():
+                profile.set_enabled(False)
+                want_det = qfn(tables)
+                profile.set_enabled(True)
+                _, got_det, _ = main_path(analyzed)
+                same, _ = table_diff(got_det, want_det,
+                                     f"profile {name}, deterministic")
+            require(same, f"profile {name}: the profiled run differs in its "
+                    "bits from the unprofiled run with deterministic sums")
+            bit_identical += same
+            rows = PO.node_rows(tree, None, encoded)
+            for rec in prof.nodes():
+                require(rec.out_rows == rows[rec.node_id],
+                        f"profile {name}: {rec.line} observed "
+                        f"{rec.out_rows} rows, the oracle {rows[rec.node_id]}")
+
+            def profiled():
+                with profile.query(name, qfn.plan_fingerprint):
+                    qfn(tables)
+            profile.set_enabled(False)
+            plain_s = median_wall(lambda: qfn(tables), PROFILE_REPS)
+            profile.set_enabled(True)
+            prof_s = median_wall(profiled, PROFILE_REPS)
+            profiles[name] = dict(
+                nodes=sum(1 for _ in prof.nodes()),
+                device_ms=round(sum(r.fence_ms or 0 for r in prof.roots), 3),
+                plain_ms=round(plain_s * 1e3, 3),
+                profiled_ms=round(prof_s * 1e3, 3),
+                overhead=round(prof_s / plain_s, 3),
+                unprofiled_twice_bit_identical=same_twice,
+                unprofiled_twice_rel_err=rel_twice, profiled_rel_err=rel,
+                deterministic_bit_identical=same)
+            log(f"[profile] {name}: {profiles[name]}\n{text}")
+    finally:
+        profile.set_enabled(None)
+    # the @traced names as torch.profiler ranges
+    fcat = lower.FileCatalog(files)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as tp:
+        lower.execute(tpcds_plans.optimized("q3", **params["q3"]).tree,
+                      fcat, record_stats=False)
+        spec.pack(out, mortgage.FEATURE_COLS)
+        torch.cuda.synchronize()
+    keys = {a.key for a in tp.key_averages()}
+    traced = ["parquet_scan_table_device", "parquet.scan.walk",
+              "parquet.scan.decode", "convert_to_rows"]
+    require(all(k in keys for k in traced),
+            f"profile: ranges {[k for k in traced if k not in keys]} missing")
+    overheads = [p["overhead"] for p in profiles.values()]
+    profile_report = dict(queries=profiles, bit_identical=bit_identical,
+                          unprofiled_repeatable=repeatable,
+                          overhead_median=statistics.median(overheads),
+                          traced_ranges=traced, card=card)
+    log(f"[profile] 8 plan queries under explain_analyze, every node's rows "
+        f"equal to the oracle; {repeatable} of 8 bit-identical between two "
+        f"unprofiled runs (floats within {SQL_FLOAT_RTOL:g}); with "
+        f"deterministic sums {bit_identical} of 8 profiled runs "
+        f"bit-identical to their unprofiled runs; profiled over unprofiled "
+        f"medians {overheads} [{card}]")
+    log("[profile] summary " + json.dumps(profile_report))
+
+    # -- AOT: persisted tapes, a fresh scheduler warmed up from them ---------
+    qfns = {q: functools.partial(tpcds.QUERIES[q], **params[q])
+            for q in ("q3", "q65")}
+
+    def first_serve():
+        sched = xc.QueryScheduler(workers=2)
+        out_, first_ms = {}, {}
+        try:
+            for q, fn in qfns.items():
+                t0 = time.perf_counter()
+                out_[q] = sched.run(q, fn, tables)
+                first_ms[q] = round((time.perf_counter() - t0) * 1e3, 3)
+            t0 = time.perf_counter()
+            out_["predict"] = sched.submit_predict(
+                sv, mtables).result(timeout=600)
+            first_ms["predict"] = round((time.perf_counter() - t0) * 1e3, 3)
+        finally:
+            sched.shutdown()
+        return out_, first_ms
+
+    def store_round(det: bool):
+        """q3, q65 and the servable served by a scheduler with a fresh
+        tape store, then by a new one warmed up from it with no eager
+        capture run; with ``det``, under deterministic sums (as
+        :func:`deterministic`).  Returns the first results, both rounds'
+        first-request times, the warm results' bit-identity and the
+        compile ledger."""
+        os.environ["SRJT_AOT_DIR"] = tempfile.mkdtemp(prefix="srjt-aot-")
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        metrics.reset()
+        compiled.reset_counts()
+        cold_out, cold_ms = main_path(first_serve)
+        require(compiled.COUNTS["capture"] == 3
+                and metrics.counter_value("aot.write") == 3,
+                f"aot: {compiled.COUNTS['capture']} capture runs, "
+                f"{metrics.counter_value('aot.write')} artifacts written")
+        gc.collect()
+        metrics.reset()
+        compiled.reset_counts()
+        artifacts.get_store()._mem.clear()
+        warm_out, warm_ms = main_path(first_serve)
+        require(compiled.COUNTS["capture"] == 0
+                and compiled.COUNTS["rehydrate"] == 3
+                and metrics.counter_value("aot.hit") == 3
+                and metrics.counter_value("aot.preloaded") == 3,
+                f"aot: the warmed scheduler ran {compiled.COUNTS['capture']} "
+                f"capture runs, {compiled.COUNTS['rehydrate']} rehydrates, "
+                f"{metrics.counter_value('aot.hit')} hits, "
+                f"{metrics.counter_value('aot.preloaded')} preloaded")
+        led = metrics.ledger_snapshot()
+        with compiled.device_work():
+            same = {k: table_diff(warm_out[k], cold_out[k], f"aot {k}")[0]
+                    for k in cold_out}
+        return cold_out, cold_ms, warm_ms, same, led
+
+    old_env = os.environ.get("SRJT_AOT_DIR")
+    try:
+        # timed as served, float sums by atomics (floats within
+        # SQL_FLOAT_RTOL); then with deterministic sums, bit for bit
+        _, cold_ms, warm_ms, same_atomic, led = store_round(False)
+        cold_out, det_cold_ms, det_warm_ms, same, _ = store_round(True)
+        require(all(same.values()), f"aot: warmed results not bit-identical "
+                f"to the first run's with deterministic sums: {same}")
+        # a tampered tape: q3's first size off by one
+        store = artifacts.get_store()
+        path = store.path_for("q3", "", artifacts.geometry_key(tables))
+        with open(path) as f:
+            doc = json.load(f)
+        doc["tape"][0] += 1
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        store._mem.clear()
+        metrics.reset()
+        compiled.reset_counts()
+        sched = xc.QueryScheduler(workers=1, plan_cache=xc.PlanCache())
+        try:
+            stale_out = main_path(lambda: sched.run("q3", qfns["q3"],
+                                                    tables))
+        finally:
+            sched.shutdown()
+        require(metrics.counter_value("exec.plan_cache.stale") == 1
+                and compiled.COUNTS["capture"] == 1
+                and compiled.COUNTS["tape_mismatch"] == 1,
+                "aot: the tampered tape was not recaptured once")
+        with compiled.device_work():
+            require(table_diff(stale_out, cold_out["q3"], "aot stale q3")[0],
+                    "aot: the recaptured q3 differs from the first run's")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_env is None:
+            os.environ.pop("SRJT_AOT_DIR", None)
+        else:
+            os.environ["SRJT_AOT_DIR"] = old_env
+    aot = dict(cold_first_ms=cold_ms, warm_first_ms=warm_ms,
+               deterministic_cold_first_ms=det_cold_ms,
+               deterministic_warm_first_ms=det_warm_ms,
+               rehydrates=3, captures_after_warmup=0,
+               bit_identical_atomic_sums=same_atomic,
+               bit_identical_deterministic=same, stale_recaptures=1,
+               ledger={k: v for k, v in led.items() if "rehydrates" in v},
+               card=card)
+    log(f"[aot] first served request, cold {cold_ms} ms, warmed from the "
+        f"store {warm_ms} ms, with no eager capture run (bit-identical "
+        f"{same_atomic}, floats within {SQL_FLOAT_RTOL:g}); with "
+        f"deterministic sums cold {det_cold_ms} ms, warmed {det_warm_ms} "
+        f"ms, bit-identical {same}; a tampered q3 tape recaptured once "
+        f"[{card}]")
+    log("[aot] summary " + json.dumps(aot))
+
+    for name in PHASE18_KERNELS:
+        require(phase_counts[name] > 0, f"phase 18: {name} never launched")
+
+    # -- the kernels on the phase's largest inputs --------------------------
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    def run_all():
+        t = mortgage.load_tables(mortgage_files)
+        spec.pack(mortgage.etl_tables(t), mortgage.FEATURE_COLS)
+        d = DeltaTable("store_sales", files=[ss_file(0, STREAM_APPEND)])
+        d.append_file(ss_file(STREAM_APPEND, 2 * STREAM_APPEND))
+        d.scan(since=(1,))
+        profile.analyze(tpcds_plans.PLANS["q3"](**params["q3"]),
+                        tpcds_plans.TABLE_SCHEMAS, tables)
+
+    captured = record_inputs(kernels, PHASE18_KERNELS, keep, run_all)
+    results = {("ML+stream", name): measure(kernels, name, args, card,
+                                            "ML+stream")
+               for name, (_, args) in sorted(captured.items())}
+    del captured
+    summary = dict(launches=dict(phase_counts),
+                   phase_s=round(time.perf_counter() - t_phase, 1),
+                   card=card)
+    log("[ml+stream] " + json.dumps(summary))
+    del mtables, out, fb, pipe, trainer, sv
+    metrics.set_enabled(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the Mortgage ETL
 # ---------------------------------------------------------------------------
 
@@ -3319,9 +4114,9 @@ def phase_mortgage(kernels, card, launches) -> dict:
               "materialize_ms": materialize, "launches": dict(phase_counts)}
     report["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log("[mortgage] summary " + json.dumps(report))
-    del tables, files, captured
+    del tables, captured
     torch.cuda.empty_cache()
-    return results
+    return results, files
 
 
 def main(argv=None) -> int:
@@ -3381,10 +4176,14 @@ def main(argv=None) -> int:
     tpcds_results, tpcds_ctx = phase_tpcds(kernels, card, launches)
     results.update(tpcds_results)
     phase_compiled(kernels, card, launches, tpcds_ctx)
-    results.update(phase_mortgage(kernels, card, launches))
+    mortgage_results, mortgage_files = phase_mortgage(kernels, card,
+                                                      launches)
+    results.update(mortgage_results)
     results.update(phase_sql(kernels, card, launches, tpcds_ctx))
     results.update(phase_exec(kernels, card, launches, tpcds_ctx))
-    del tpcds_ctx
+    results.update(phase_ml_stream(kernels, card, launches, tpcds_ctx,
+                                   mortgage_files))
+    del tpcds_ctx, mortgage_files
     torch.cuda.empty_cache()
 
     out = []
@@ -3414,6 +4213,9 @@ def main(argv=None) -> int:
         if len(inputs) > 1:
             entry["inputs"] = inputs
         out.append(entry)
+    log(f"[profiler] {PROFILE_COUNTS['short']} of "
+        f"{PROFILE_COUNTS['windows']} profiled windows short of device rows "
+        "and taken again")
     log(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s "
         f"[{card}]")
     log(json.dumps({"card": card, "kernels": out}))

@@ -13,8 +13,12 @@ with TPC-H Q6 on it, the op library (``ops``) with TPC-H Q1, the join
 engine with lazy columns, the 50 TPC-DS queries (``models.tpcds``) eager
 and compiled to CUDA graphs (``models.compiled``), the Mortgage ETL, and
 the planner and SQL front end (``plan``, ``sql``) with the fused
-scan→filter.
+scan→filter, the serving runtime (``exec``) with its persistent tape
+store, per-node profiles (``plan.profile``), streaming views
+(``stream``) and the ETL→ML handoff (``ml``).
 """
+
+from ._version import BASE_VERSION as __version__  # noqa: F401
 
 from . import types  # noqa: F401
 from .types import (  # noqa: F401

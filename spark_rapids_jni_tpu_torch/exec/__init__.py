@@ -28,8 +28,9 @@ its own module:
 * :mod:`.slo` — rolling-window SLO watchdog over resolved requests
   (``SRJT_SLO_P95_MS`` and friends); breaches alarm through the
   flight-recorder black box (``utils/flight.py``).
-
-Not ported yet: ``artifacts`` (the persistent AOT plan store).
+* :mod:`.artifacts` — the persistent AOT store of capture tapes
+  (``SRJT_AOT_DIR``): a fresh process rehydrates a plan without its eager
+  capture run; the scheduler pre-hydrates the costliest at startup.
 
 Correctness contract: concurrency, admission degradation, plan caching,
 and prefetch NEVER change results — only latency

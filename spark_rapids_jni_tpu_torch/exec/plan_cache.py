@@ -1,7 +1,6 @@
 """Capacity-bound LRU of compiled query plans for the serving runtime.
 
-The port's copy of the JAX package's ``exec/plan_cache.py``, without its
-persistent AOT store (``exec/artifacts.py`` is not ported yet).
+The port's copy of the JAX package's ``exec/plan_cache.py``.
 ``models/compiled.py`` makes a query ONE CUDA-graph replay per execution,
 after a capture run and a graph capture that cost far more than the
 replay.  A server amortizes that only if compiled plans are REUSED across
@@ -34,14 +33,24 @@ would stack through
 :meth:`~..models.compiled.CompiledQuery.run_vmapped`, which returns None
 in the port (no K-member graph yet), so each replays the one graph.
 
+**Cold start from a persisted tape** (``SRJT_AOT_DIR``,
+``exec/artifacts.py``): an identity + size miss consults the persistent
+artifact store before capturing.  A hit rehydrates the plan from the
+persisted capture tape — no eager capture run — and the entry starts
+unverified, so the first run is CHECKED (it captures the graph, which
+cannot be persisted) and a stale artifact degrades to a live recapture
+whose write-back overwrites it.  Fresh captures write back with their
+measured compile cost, which ranks the warm-up manifest.
+
 Entries single-flight: two workers missing on the same key compile once
 (the second waits on the first's build event — a duplicate capture would
 waste the most expensive step the cache exists to amortize).
 
 Knobs: ``SRJT_EXEC_PLAN_CACHE_CAP`` (entries, default 32),
-``SRJT_EXEC_PLAN_SIZE_FP`` (size-fingerprint sharing, default on).
-Counters: ``exec.plan_cache.{hit,miss,size_hit,revalidate,evictions,
-stale,expired}``.
+``SRJT_EXEC_PLAN_SIZE_FP`` (size-fingerprint sharing, default on),
+``SRJT_AOT_DIR`` (persistent artifact store; unset disables).
+Counters: ``exec.plan_cache.{hit,miss,size_hit,aot_hit,revalidate,
+evictions,stale,expired}``.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from typing import Callable, Optional
 from ..analysis import sanitize
 from ..models import compiled as C
 from ..utils import knobs, metrics
+from . import artifacts
 
 
 class PlanCache:
@@ -99,8 +109,8 @@ class PlanCache:
                    "cap": self.cap,
                    "share_by_size": self.share_by_size,
                    "building": len(self._building)}
-        for c in ("hit", "miss", "size_hit", "revalidate", "evictions",
-                  "stale", "expired"):
+        for c in ("hit", "miss", "size_hit", "aot_hit", "revalidate",
+                  "evictions", "stale", "expired"):
             occ[c] = metrics.counter_value(f"exec.plan_cache.{c}")
         return occ
 
@@ -134,7 +144,8 @@ class PlanCache:
             return entry
 
     def get_or_compile(self, name: str, qfn: Callable, tables,
-                       variant: str = "") -> dict:
+                       variant: str = "", *,
+                       _skip_aot: bool = False) -> dict:
         """The cache entry for (``name``, ``variant``, fingerprint of
         ``tables``), compiling on miss (single-flight per key).
 
@@ -190,13 +201,34 @@ class PlanCache:
                 if metrics.recording():
                     metrics.count("exec.plan_cache.miss")
                     metrics.ledger_add(lkey, cache_misses=1)
-                plan = C.compile_query(qfn, tables)
-                # the capture run's result IS this request's answer:
-                # hand it out once instead of re-executing, and drop
-                # the plan's own copy — cached entries must not pin
-                # result-sized memory
-                expected = plan.expected
-                plan.expected = None
+                store = artifacts.get_store()
+                geom = artifacts.geometry_key(tables) \
+                    if store is not None else None
+                plan = expected = None
+                if store is not None and geom is not None \
+                        and not _skip_aot:
+                    tape = store.lookup(lkey, variant, geom)
+                    if tape is not None:
+                        # cold start without the eager capture run: the
+                        # entry stays unverified so the first run is
+                        # CHECKED and a stale artifact degrades to a
+                        # recapture
+                        plan = C.rehydrate_query(qfn, tape)
+                        if metrics.recording():
+                            metrics.count("exec.plan_cache.aot_hit")
+                if plan is None:
+                    t0 = time.perf_counter()
+                    plan = C.compile_query(qfn, tables)
+                    cost_ms = (time.perf_counter() - t0) * 1e3
+                    # the capture run's result IS this request's answer:
+                    # hand it out once instead of re-executing, and drop
+                    # the plan's own copy — cached entries must not pin
+                    # result-sized memory
+                    expected = plan.expected
+                    plan.expected = None
+                    if store is not None and geom is not None:
+                        store.put(lkey, variant, geom, plan.tape,
+                                  name=name, cost_ms=cost_ms)
             try:
                 refs = tuple(
                     weakref.ref(a, lambda _, k=key: self._evict(
@@ -262,7 +294,13 @@ class PlanCache:
             if metrics.recording():
                 metrics.count("exec.plan_cache.stale")
             self.invalidate(entry)
-            fresh = self.get_or_compile(name, qfn, tables, variant)
+            # the retry must NOT re-adopt a persisted artifact: the tape
+            # that just failed validation is exactly what the store holds
+            # for this key, so a lookup here would loop stale→rehydrate→
+            # stale forever.  Force a live capture — its write-back
+            # overwrites the stale artifact for the next process.
+            fresh = self.get_or_compile(name, qfn, tables, variant,
+                                        _skip_aot=True)
             return self._run_entry(fresh, name, qfn, tables, variant)
 
     def run(self, name: str, qfn: Callable, tables, variant: str = ""):

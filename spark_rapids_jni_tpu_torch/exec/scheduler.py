@@ -112,9 +112,12 @@ requests submitted without one), ``SRJT_EXEC_DEVICES`` (default 1),
 ``SRJT_EXEC_RECOVERY`` (default 1), ``SRJT_EXEC_PROBE_BASE_S`` /
 ``SRJT_EXEC_PROBE_MAX_S`` (default 0.05 / 2.0),
 ``SRJT_EXEC_EJECT_AFTER`` (default 3), ``SRJT_EXEC_RELOCATE_MAX``
-(default: device count), plus the admission/prefetch/plan-cache knobs of
-the composed parts.  Not ported yet: ``submit_refresh`` (``stream/``),
-``submit_predict`` (``ml/``) and the AOT warm-up (``exec/artifacts.py``).
+(default: device count), ``SRJT_AOT_WARMUP`` (default 8; with
+``SRJT_AOT_DIR`` set, a background thread pre-hydrates that many
+top-cost artifacts from the AOT store at startup — ``exec/artifacts.py``),
+plus the admission/prefetch/plan-cache knobs of the composed parts.
+``submit_refresh`` serves a ``stream/`` view refresh and
+``submit_predict`` an ``ml/`` servable through the same pipeline.
 Histograms: ``exec.queue_wait_ms``, ``exec.admission_wait_ms``,
 ``exec.exec_ms``, ``exec.e2e_ms``, ``exec.batch.size``,
 ``exec.batch.coalesce_wait_ms``, and the ``exec.stage.*`` attribution
@@ -138,6 +141,7 @@ from ..faultinj.resilience import DeviceQuarantined
 from ..memory import budget as mbudget
 from ..models import compiled as C
 from ..utils import flight, knobs, metrics, structured_log
+from . import artifacts
 from .admission import request_bytes
 from .errors import (ExecDeadlineExceeded, ExecError, ExecQueueFull,
                      ExecShutdown)
@@ -306,6 +310,17 @@ class QueryScheduler:
                 target=self._recovery_loop, name="srjt-exec-probe",
                 daemon=True)
             self._probe_thread.start()
+        # AOT warm-up (exec/artifacts.py): pre-hydrate the costliest
+        # persisted plan artifacts on a low-priority background thread so
+        # the first requests' plan-cache lookups are memory hits.  Pure
+        # disk reads — never touches the device, never blocks serving.
+        self._warmup_thread: Optional[threading.Thread] = None
+        warm_n = knobs.get("SRJT_AOT_WARMUP")
+        if artifacts.enabled() and warm_n > 0:
+            self._warmup_thread = threading.Thread(
+                target=self._aot_warmup, args=(int(warm_n),),
+                name="srjt-exec-warmup", daemon=True)
+            self._warmup_thread.start()
 
     def pending(self) -> int:
         """Queued-but-undequeued request count (ops probe)."""
@@ -406,6 +421,53 @@ class QueryScheduler:
         """Synchronous convenience: submit + block on the result."""
         return self.submit(name, qfn, tables, **kw).result()
 
+    def submit_refresh(self, registry, view, *, priority: int = 0,
+                       timeout_s: Optional[float] = None) -> QueryTicket:
+        """Route a materialized-view refresh (``stream.ViewRegistry``)
+        through the serving pipeline: same queue, priorities, deadlines,
+        and quarantine as queries — but admission charges only the
+        NOT-YET-CONSUMED delta bytes (the refresh's actual decode work),
+        not the full table, so refreshes of a trickle of appends don't
+        stall behind table-sized admission holds.  Runs eager
+        (``compiled=False``): the refresh closure consults and mutates
+        registry state, so it is never plan-cached or coalesced."""
+        v = registry.resolve(view)
+        est = registry.delta_bytes(v)
+
+        def _refresh(_tables, _registry=registry, _view=v):
+            return _registry.refresh(_view)
+
+        if metrics.recording():
+            metrics.count("stream.refresh.submitted")
+        flight.record("stream.refresh.submit", view=v.name,
+                      view_kind=v.kind, est_bytes=est)
+        # relocatable=False: the refresh closure mutates registry state,
+        # so a fault mid-refresh must surface, never silently re-run
+        return self.submit(f"refresh:{v.name}", _refresh, tables={},
+                           priority=priority, timeout_s=timeout_s,
+                           nbytes=est, compiled=False, relocatable=False)
+
+    def submit_predict(self, model, tables=None, *,
+                       loader: Optional[Callable[[], Any]] = None,
+                       priority: int = 0,
+                       timeout_s: Optional[float] = None,
+                       nbytes: Optional[int] = None) -> QueryTicket:
+        """Serve an ML servable (``ml/serve.ServableModel`` or its
+        registered name) through the ordinary pipeline: the predict query
+        function runs ``plan → features → predict`` as ONE compiled
+        request (one CUDA graph on the card), so admission, coalescing,
+        capture/replay and device failover apply exactly as they do to
+        queries.  The result is a one-column FLOAT32 prediction Table,
+        bit-identical to ``ServableModel.predict_table``."""
+        from ..ml import serve as mlserve
+        sv = mlserve.resolve(model)
+        if metrics.recording():
+            metrics.count("ml.predict.submitted")
+        flight.record("ml.predict.submit", model=sv.name)
+        return self.submit(f"predict:{sv.name}", sv.qfn, tables,
+                           loader=loader, priority=priority,
+                           timeout_s=timeout_s, nbytes=nbytes)
+
     def submit_sql(self, text: str, tables=None, *, schemas,
                    params: Optional[dict] = None,
                    loader: Optional[Callable[[], Any]] = None,
@@ -476,6 +538,8 @@ class QueryScheduler:
                 t.join(timeout=30)
             if self._probe_thread is not None:
                 self._probe_thread.join(timeout=5)
+            if self._warmup_thread is not None:
+                self._warmup_thread.join(timeout=5)
         for probe in ("scheduler.queue_depth", "scheduler.inflight_bytes",
                       "scheduler.plan_cache", "scheduler.slo",
                       "scheduler.replicas"):
@@ -520,6 +584,21 @@ class QueryScheduler:
                 self._serve(req, rep)
             else:
                 self._serve_batch(batch, rep)
+
+    def _aot_warmup(self, top_n: int) -> None:
+        """Background pre-hydration of the ``top_n`` costliest artifacts
+        in the store's warm-up manifest (``SRJT_AOT_WARMUP``).  Advisory:
+        any failure is swallowed — warm-up must never take serving down."""
+        try:
+            store = artifacts.get_store()
+            if store is None:
+                return
+            n = store.preload(top_n)
+            flight.record("exec.aot.warmup", loaded=n, top_n=top_n)
+            if n and metrics.recording():
+                metrics.count("exec.aot.warmed", n)
+        except Exception:
+            pass
 
     # -- fault lifecycle: relocation + recovery probe ------------------------
 

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import itertools
 import threading
 import time
@@ -216,6 +217,11 @@ def _flatten(obj, tensors: list):
                              for k in sorted(obj, key=repr)))
     if isinstance(obj, (list, tuple)):
         return ("seq", type(obj), tuple(_flatten(v, tensors) for v in obj))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        # a result record (``ml.features.FeatureBatch``): its fields
+        return ("record", type(obj),
+                tuple((f.name, _flatten(getattr(obj, f.name), tensors))
+                      for f in dataclasses.fields(obj)))
     return ("val", obj)
 
 
@@ -239,6 +245,8 @@ def _unflatten(spec, tensors):
         return {k: _unflatten(s, tensors) for k, s in spec[1]}
     if kind == "seq":
         return spec[1](_unflatten(s, tensors) for s in spec[2])
+    if kind == "record":
+        return spec[1](**{k: _unflatten(s, tensors) for k, s in spec[2]})
     return spec[1]
 
 

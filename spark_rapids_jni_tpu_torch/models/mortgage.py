@@ -16,9 +16,9 @@ columns, dictionary-encoded as pyarrow and Spark write them:
    loan, sorted by loan (the XGBoost input).
 
 A dictionary column reaches its parser materialized (B5 → B6 → B2, then
-B3 cuts its byte matrix), the JAX package's route.  ``feature_spec``,
-the handoff to the ML layer, is not ported: it builds an
-``ml.features.FeatureSpec``, and ``ml/`` is not ported yet.
+B3 cuts its byte matrix), the JAX package's route.  :func:`feature_spec`
+is the handoff to the ML layer (``ml/``): the feature table packed into
+a float32 matrix with a label on the card.
 """
 
 from __future__ import annotations
@@ -102,6 +102,21 @@ def etl_tables(tables: dict[str, Table]) -> Table:
     joined = inner_join(acq, agg, 0, 0)
     feats = [joined[i] for i in range(6)] + [joined[i] for i in range(7, 11)]
     return sort_table(Table(feats), [0])
+
+
+def feature_spec():
+    """The demo's ETL→ML handoff: every numeric ETL output except the loan
+    id feeds the model; the label is "severely delinquent"
+    (max_delinquency > 2 — the generator emits delinquency grades 2/3, so
+    >2 is the class split that actually separates).  The returned spec
+    packs ``etl_tables`` output straight into the feature matrix on the
+    card."""
+    from ..ml.features import Feature, FeatureSpec
+    feats = [c for c in FEATURE_COLS
+             if c not in ("loan_id", "max_delinquency")]
+    return FeatureSpec.of([Feature(c, impute="mean") for c in feats],
+                          label="max_delinquency",
+                          label_transform=("gt", 2.0))
 
 
 def feature_matrix(files: dict, device=None):

@@ -22,7 +22,7 @@ from .. import types as T
 from ..column import (Column, DictColumn, LazyColumn, Table, as_dict_column,
                       force_column)
 from ..rowconv import ragged
-from ..utils import syncs
+from ..utils import metrics, syncs
 
 _MAX_CHARS = 2**31 - 1
 
@@ -117,6 +117,7 @@ def apply_boolean_mask(table: Table, mask: torch.Tensor) -> Table:
     """Keep the rows where ``mask`` is True (compacting): the count (one
     synchronisation), then :func:`sized_nonzero` and a lazy gather."""
     n_keep = syncs.size(mask.sum(), mask.shape[0])
+    metrics.profile_op("filter", rows_in=table.num_rows, rows_kept=n_keep)
     return gather(table, sized_nonzero(mask, n_keep))
 
 

@@ -20,26 +20,29 @@ return a row's own value.
 
 Grouping sets, rollup and cube are one groupby a set, concatenated with a
 ``grouping_id``; ``nunique`` is two groupbys.  The mergeable partial
-states are not ported yet.
+states (:func:`partial_aggregate_states`, :func:`merge_aggregate_states`,
+:func:`finalize_aggregate_states`) carry ``stream/``'s incremental views.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .. import types as T
 from ..column import Column, Table
-from ..utils import syncs
+from ..utils import metrics, syncs
 from .filter import _gather_column, equality_key, gather
 from .int64bits import TOPBIT, identity, widened
 from .sort import f64_sort_key_lanes, order_by
 
 _AGGS = ("sum", "count", "min", "max", "mean", "var", "std",
          "first", "last")
+#: the aggregates with a mergeable partial-state form
+MERGEABLE_AGGS = ("sum", "count", "min", "max", "mean", "var", "std")
 
 
 # -- segment reductions ------------------------------------------------------
@@ -263,6 +266,10 @@ def groupby_aggregate(table: Table, key_indices: Sequence[int],
             skeys.append(col.data)
             svalid.append(col.validity)
     seg, num_segments = resolve_segments(_segment_ids(skeys, svalid))
+    if metrics.recording():
+        metrics.observe("groupby.groups", num_segments)
+        metrics.annotate(groups=num_segments)
+    metrics.profile_op("groupby", rows_in=n, groups=num_segments)
     return _aggregate_sorted(sorted_tbl, list(key_indices), str_dicts, seg,
                              num_segments, aggs, n)
 
@@ -472,3 +479,347 @@ def distinct(table: Table) -> Table:
     """Distinct rows (Spark dropDuplicates over every column), in key
     order: a groupby on every column with no aggregates."""
     return groupby_aggregate(table, list(range(table.num_columns)), [])
+
+
+# ---------------------------------------------------------------------------
+# Mergeable partial-aggregate states (incremental view maintenance)
+# ---------------------------------------------------------------------------
+# Every MERGEABLE_AGGS aggregate decomposes into a small set of state
+# columns closed under a segment-merge:
+#
+#   count      -> [count]                   merge: int64 add
+#   sum        -> [sum]                     merge: dtype-native segment sum
+#   min / max  -> [min] / [max]             merge: selection over states
+#   mean       -> [sum, count]   (int)      finalize: sum / count
+#              -> [fsum, count]  (f/dec)    fsum = value-domain f64 sum
+#   var / std  -> [count, fsum, m2]         merge: Chan's parallel M2 update
+#
+# so refresh = merge(old_state, partial(delta)).  Exactness contract
+# (``merge_exact``): count always; sum over integer-kind storage and
+# decimals (associative int/limb adds); min/max over any fixed width
+# (selection — FLOAT64 keeps a row's own value, ties resolve to the
+# earliest state row, which is the earliest input row because states are
+# merged in input order); mean over plain integers (int sum + count, one
+# final division).  Float sums/means and merged M2 variance are
+# numerically stable but NOT bit-identical to a full recompute (float
+# addition is not associative); callers gate on ``merge_exact`` when they
+# need bit-parity.  An UNMERGED state finalizes bit-identical for every
+# aggregate — the state pass mirrors ``_aggregate_sorted``'s formulas
+# operation for operation.  FLOAT64 states are native float64, where the
+# JAX package keeps uint32 bit pairs.
+
+class StateCol(NamedTuple):
+    kind: str    # "sum" | "count" | "min" | "max" | "fsum" | "m2"
+    src: int     # value-column index in the input relation
+
+
+class OutSpec(NamedTuple):
+    agg: str
+    mode: str                  # "passthrough" | "mean_int" | "mean_f" | "var" | "std"
+    states: tuple[int, ...]    # positions into AggStateSpec.states
+    exact: bool                # merge is bit-identical to full recompute
+
+
+class AggStateSpec(NamedTuple):
+    nkeys: int
+    states: tuple[StateCol, ...]
+    outs: tuple[OutSpec, ...]
+
+    @property
+    def exact(self) -> bool:
+        return all(o.exact for o in self.outs)
+
+
+def merge_exact(agg: str, dtype) -> bool:
+    """True when merging partial states of ``agg`` over a ``dtype`` column
+    reproduces the full recompute bit for bit (see the comment above)."""
+    if agg == "count":
+        return True
+    if dtype.is_variable_width or dtype.is_nested:
+        return False
+    if agg in ("min", "max"):
+        return True
+    if agg == "sum":
+        return (dtype.id == T.TypeId.DECIMAL128
+                or dtype.storage.kind in ("i", "u"))
+    if agg == "mean":
+        return not dtype.is_decimal and dtype.storage.kind in ("i", "u")
+    return False     # var/std: merged M2 is stable, not bit-exact
+
+
+def plan_aggregate_states(aggs: Sequence[tuple[int, str]], dtypes,
+                          nkeys: int) -> AggStateSpec:
+    """Plan the state layout for ``aggs`` over a relation whose column
+    ``i`` has dtype ``dtypes[i]``.  States are deduplicated: mean/var over
+    the same column share their sum/count columns."""
+    states: list[StateCol] = []
+
+    def pos(kind: str, src: int) -> int:
+        sc = StateCol(kind, src)
+        if sc in states:
+            return states.index(sc)
+        states.append(sc)
+        return len(states) - 1
+
+    outs: list[OutSpec] = []
+    for vi, agg in aggs:
+        if agg not in MERGEABLE_AGGS:
+            raise ValueError(
+                f"aggregate {agg!r} has no mergeable state form "
+                f"(supported: {MERGEABLE_AGGS})")
+        dt = dtypes[vi]
+        if agg != "count" and (dt.is_variable_width or dt.is_nested):
+            raise NotImplementedError(
+                f"{agg!r} state on {dt.id.name} columns")
+        exact = merge_exact(agg, dt)
+        if agg in ("sum", "count", "min", "max"):
+            outs.append(OutSpec(agg, "passthrough", (pos(agg, vi),), exact))
+        elif agg == "mean":
+            if dt.is_decimal or dt.storage.kind == "f":
+                outs.append(OutSpec(agg, "mean_f",
+                                    (pos("fsum", vi), pos("count", vi)),
+                                    exact))
+            else:
+                outs.append(OutSpec(agg, "mean_int",
+                                    (pos("sum", vi), pos("count", vi)),
+                                    exact))
+        else:    # var / std
+            outs.append(OutSpec(agg, agg,
+                                (pos("count", vi), pos("fsum", vi),
+                                 pos("m2", vi)), False))
+    return AggStateSpec(nkeys, tuple(states), tuple(outs))
+
+
+def _state_dtype(src_dt, kind: str):
+    if kind == "count":
+        return T.int64
+    if kind == "sum":
+        return _agg_out_dtype(src_dt, "sum")
+    if kind in ("min", "max"):
+        return src_dt
+    return T.float64     # fsum / m2
+
+
+def _value_f64(col: Column) -> torch.Tensor:
+    """Value-domain float64 payload (decimal scale applied) — the
+    accumulator basis shared by the mean/var paths of
+    ``_aggregate_sorted``."""
+    if col.dtype.is_decimal:
+        return col.data.to(torch.float64) * (10.0 ** col.dtype.scale)
+    return col.data.to(torch.float64)
+
+
+def _encode_str_keys(table: Table, key_indices):
+    """Swap variable-width key columns for order-preserving dictionary
+    codes (the move ``groupby_aggregate`` makes)."""
+    str_dicts: dict[int, Column] = {}
+    work = list(table.columns)
+    for ki in key_indices:
+        if table[ki].dtype.is_nested:
+            raise NotImplementedError(
+                f"{table[ki].dtype.id.name} columns cannot be state keys")
+        if table[ki].dtype.is_variable_width:
+            from . import strings
+            codes, uniq = strings.dictionary_encode(table[ki])
+            work[ki] = codes
+            str_dicts[ki] = uniq
+    return Table(work), str_dicts
+
+
+def _sorted_segments(table: Table, key_indices):
+    """Key-sort + segment ids + group count (one synchronisation);
+    ``table`` must already be string-encoded."""
+    st = gather(table, order_by(table, list(key_indices)))
+    skeys, svalid = [], []
+    for ki in key_indices:
+        col = st[ki]
+        if col.dtype.id == T.TypeId.FLOAT64:
+            skeys.append(equality_key(col.data))
+            svalid.append(col.validity)
+        elif col.dtype.id == T.TypeId.DECIMAL128:
+            skeys += [col.data[:, 0], col.data[:, 1]]
+            svalid += [col.validity, col.validity]
+        else:
+            skeys.append(col.data)
+            svalid.append(col.validity)
+    seg, num_segments = resolve_segments(_segment_ids(skeys, svalid))
+    return st, seg, num_segments
+
+
+def _head_key_cols(st: Table, key_indices, str_dicts, seg,
+                   num_segments: int, n: int) -> list[Column]:
+    head_pos = _segment_reduce(
+        torch.arange(n, dtype=torch.int64, device=seg.device), seg,
+        num_segments, "amin", n).clamp_(max=n - 1)
+    cols = []
+    for ki in key_indices:
+        head = _gather_column(st[ki], head_pos)
+        if ki in str_dicts:
+            dec = _gather_column(str_dicts[ki], head.data)
+            cols.append(Column(dec.dtype, dec.data, dec.offsets,
+                               head.validity))
+        else:
+            cols.append(head)
+    return cols
+
+
+def _state_column(col: Column, kind: str, seg, num_segments: int,
+                  n: int) -> Column:
+    """One state column over a key-sorted relation — each branch mirrors
+    the corresponding ``_aggregate_sorted`` formula exactly so an
+    unmerged state finalizes bit-identical to ``groupby_aggregate``."""
+    if kind == "count":
+        return Column(T.int64, _count(col.validity, seg, n, num_segments))
+    if col.dtype.is_variable_width or col.dtype.is_nested:
+        raise NotImplementedError(
+            f"{kind!r} state on {col.dtype.id.name} columns")
+    if kind == "sum":
+        if col.dtype.id == T.TypeId.DECIMAL128:
+            return _sorted_d128_sum(col, seg, num_segments)
+        res = _agg_segment(col.data, col.validity, seg, "sum", num_segments,
+                           col.dtype.storage)
+        dt = _agg_out_dtype(col.dtype, "sum")
+        return Column(dt, res.to(dt.torch_storage))
+    if kind in ("min", "max"):
+        if col.dtype.id == T.TypeId.DECIMAL128:
+            raise NotImplementedError("decimal128 min/max states")
+        v = (None if col.validity is None else
+             _count(col.validity, seg, n, num_segments) > 0)
+        if col.dtype.id == T.TypeId.FLOAT64:
+            p = _f64_select_pos(col, seg, num_segments, kind)
+            return Column(col.dtype, col.data[p.clamp(0, max(n - 1, 0))],
+                          validity=v)
+        res = _agg_segment(col.data, col.validity, seg, kind, num_segments,
+                           col.dtype.storage)
+        return Column(col.dtype, res.to(col.dtype.torch_storage),
+                      validity=v)
+    if kind == "fsum":
+        x = _value_f64(col)
+        if col.validity is not None:
+            x = torch.where(col.validity, x, 0.0)
+        return Column(T.float64, _sorted_segment_sum(x, seg, num_segments))
+    if kind == "m2":
+        # _var_segment's two-pass M2 (ddof applied at finalize)
+        cnt = _count(col.validity, seg, n, num_segments)
+        x = _value_f64(col)
+        if col.validity is not None:
+            x = torch.where(col.validity, x, 0.0)
+        cntf = cnt.to(torch.float64)
+        mean = _sorted_segment_sum(x, seg, num_segments) / cntf.clamp(min=1.0)
+        dev = x - mean[seg]
+        if col.validity is not None:
+            dev = torch.where(col.validity, dev, 0.0)
+        return Column(T.float64,
+                      _sorted_segment_sum(dev * dev, seg, num_segments))
+    raise ValueError(f"unknown state kind {kind!r}")
+
+
+def _empty_states(table: Table, key_indices, spec: AggStateSpec) -> Table:
+    dev = table.device
+    cols = [_empty_column_of(table[ki].dtype, dev) for ki in key_indices]
+    for sc in spec.states:
+        cols.append(_empty_column_of(
+            _state_dtype(table[sc.src].dtype, sc.kind), dev))
+    return Table(cols)
+
+
+def partial_aggregate_states(table: Table, key_indices: Sequence[int],
+                             aggs: Sequence[tuple[int, str]],
+                             spec: AggStateSpec | None = None) -> Table:
+    """Partial-aggregate state table for ``aggs`` GROUP BY ``key_indices``:
+    [key columns..., state columns in spec order], one row per distinct
+    key tuple, sorted by key.  Keys must be non-empty (grand-total views
+    fall back to full recompute — the empty-input grand-total row has
+    different null semantics than a merged empty state)."""
+    key_indices = list(key_indices)
+    if not key_indices:
+        raise ValueError("partial aggregate states require group keys")
+    if spec is None:
+        spec = plan_aggregate_states(aggs, [c.dtype for c in table.columns],
+                                     len(key_indices))
+    n = table.num_rows
+    with metrics.span("groupby.partial_states", keys=len(key_indices),
+                      states=len(spec.states), rows=n):
+        if n == 0:
+            return _empty_states(table, key_indices, spec)
+        enc, str_dicts = _encode_str_keys(table, key_indices)
+        st, seg, ns = _sorted_segments(enc, key_indices)
+        cols = _head_key_cols(st, key_indices, str_dicts, seg, ns, n)
+        for sc in spec.states:
+            cols.append(_state_column(st[sc.src], sc.kind, seg, ns, n))
+        return Table(cols)
+
+
+def merge_aggregate_states(spec: AggStateSpec, a: Table | None,
+                           b: Table | None) -> Table:
+    """Merge two state tables (layout per ``partial_aggregate_states``).
+    ``a`` rows come first, so for groups present in both the earlier
+    partition's representative key row and selection ties win — matching
+    a stable full recompute over ``a``-then-``b`` input order."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    from .copying import concat_tables
+    t = concat_tables([a, b])
+    n = t.num_rows
+    if n == 0:
+        return a
+    nk = spec.nkeys
+    key_indices = list(range(nk))
+    with metrics.span("groupby.merge_states", states=len(spec.states),
+                      rows=n):
+        enc, str_dicts = _encode_str_keys(t, key_indices)
+        st, seg, ns = _sorted_segments(enc, key_indices)
+        cols = _head_key_cols(st, key_indices, str_dicts, seg, ns, n)
+        for p, sc in enumerate(spec.states):
+            col = st[nk + p]
+            if sc.kind in ("sum", "count"):
+                # counts merge by summing; the int64 state column keeps
+                # its dtype through the sum branch
+                merged = _state_column(col, "sum", seg, ns, n)
+                if sc.kind == "count":
+                    merged = Column(T.int64, merged.data)
+                cols.append(merged)
+            elif sc.kind in ("min", "max", "fsum"):
+                cols.append(_state_column(col, sc.kind, seg, ns, n))
+            else:    # m2 — Chan's parallel update, generalized to segments:
+                # M2 = sum(m2_i) + sum(n_i * (mean_i - mean_comb)^2)
+                ci = spec.states.index(StateCol("count", sc.src))
+                si = spec.states.index(StateCol("fsum", sc.src))
+                n_i = st[nk + ci].data.to(torch.float64)
+                s_i = st[nk + si].data
+                m_i = col.data
+                big_n = _sorted_segment_sum(n_i, seg, ns)
+                big_s = _sorted_segment_sum(s_i, seg, ns)
+                mean_comb = big_s / big_n.clamp(min=1.0)
+                mean_i = s_i / n_i.clamp(min=1.0)
+                dev = mean_i - mean_comb[seg]
+                m2 = (_sorted_segment_sum(m_i, seg, ns)
+                      + _sorted_segment_sum(n_i * dev * dev, seg, ns))
+                cols.append(Column(T.float64, m2))
+        return Table(cols)
+
+
+def finalize_aggregate_states(spec: AggStateSpec, state: Table) -> Table:
+    """State table → the ``groupby_aggregate`` result it stands for:
+    [key columns..., one column per requested aggregate], formulas
+    mirroring ``_aggregate_sorted`` bit for bit."""
+    nk = spec.nkeys
+    cols = [state[i] for i in range(nk)]
+    for o in spec.outs:
+        if o.mode == "passthrough":
+            cols.append(state[nk + o.states[0]])
+        elif o.mode in ("mean_int", "mean_f"):
+            s = state[nk + o.states[0]].data
+            cnt = state[nk + o.states[1]].data
+            res = s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
+            cols.append(Column(T.float64, res))
+        else:    # var / std
+            cnt = state[nk + o.states[0]].data
+            m2 = state[nk + o.states[2]].data
+            cntf = cnt.to(torch.float64)
+            var = m2 / (cntf - 1.0).clamp(min=1.0)
+            res = torch.sqrt(var) if o.mode == "std" else var
+            cols.append(Column(T.float64, res, validity=cnt >= 2))
+    return Table(cols)

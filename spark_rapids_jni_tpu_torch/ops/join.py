@@ -8,7 +8,13 @@ build side skips the pair expansion, or a key sort probed by
 the expansion here is shared and the engines give identical indices:
 pairs in probe-row order, each probe row's matches in build-row order.
 The pair count is one synchronisation (``utils.syncs``); the expansion
-is ``ops.filter.sized_repeat`` with that count as its size.
+is ``ops.filter.sized_repeat`` with that count as its size.  A left join
+reads its match count too, unconditionally (the tape never depends on
+the metrics state), and with metrics on each join observes
+``join.match_rows``, ``join.expand.calls`` and
+``join.expand.pair_elements`` where the JAX package's does; every join
+reports its engine and match rows to an active plan-node profile
+(``metrics.profile_op``).
 
 Join keys are one fixed-width or STRING column, or a list of them (tuple
 equality; a null in any key never matches).  ``join_plan.plan_keys``
@@ -26,7 +32,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, LazyColumn, Table, force_column
-from ..utils import syncs
+from ..utils import metrics, syncs
 from .filter import gather, sized_nonzero, sized_repeat
 from .sort import _ordered
 
@@ -93,17 +99,34 @@ def _join_indices(lcols: list, rcols: list, how: str):
         pos = lo.clamp(0, nr - 1)
         if how == "inner":
             total = syncs.size(counts.sum(), n)
+            if metrics.recording():
+                metrics.observe("join.match_rows", total)
+            metrics.profile_op("join", engine=ix.kind, how=how,
+                               match_rows=total, unique_build=True)
             left_idx = sized_nonzero(counts > 0, total)
             return left_idx, ix.row_ids[pos[left_idx]]
         left_idx = torch.arange(n, dtype=torch.int64, device=dev)
         right_idx = torch.where(counts > 0, ix.row_ids[pos], -1)
         return left_idx, right_idx
 
-    # an unmatched row of a left join keeps one row (the JAX package's
-    # read of the match count here feeds its metrics only: not ported)
-    out_counts = (counts.clamp(min=1) if how == "left" else counts) \
-        .to(torch.int64)
+    if how == "left":
+        # the match count needs its own read here (the total below holds
+        # the unmatched rows' one row each); unconditional, so that a
+        # tape never depends on the metrics state
+        matched_rows = syncs.size(counts.sum(), n * max(nr, 1))
+        out_counts = counts.clamp(min=1).to(torch.int64)
+    else:
+        matched_rows = None
+        out_counts = counts.to(torch.int64)
     total = syncs.size(out_counts.sum(), n * max(nr, 1))
+    match_rows = total if matched_rows is None else matched_rows
+    if metrics.recording():
+        metrics.count("join.expand.calls")
+        metrics.observe("join.expand.pair_elements", total)
+        metrics.observe("join.match_rows", match_rows)
+        metrics.annotate(expand_pairs=total)
+    metrics.profile_op("join", engine=ix.kind, how=how, expand_pairs=total,
+                       match_rows=match_rows)
     starts = torch.cumsum(out_counts, 0) - out_counts
     left_idx = sized_repeat(out_counts, total)
     within = torch.arange(total, dtype=torch.int64, device=dev) \
@@ -129,6 +152,9 @@ def _pair_candidates(ix, lo, counts):
         left_idx = sized_nonzero(counts > 0, total)
         right_idx = ix.row_ids[lo.clamp(0, nr - 1)[left_idx]]
         return left_idx, right_idx
+    if metrics.recording():
+        metrics.count("join.expand.calls")
+        metrics.observe("join.expand.pair_elements", total)
     counts = counts.to(torch.int64)
     starts = torch.cumsum(counts, 0) - counts
     left_idx = sized_repeat(counts, total)
@@ -145,7 +171,15 @@ def _verified_join(plan, ix, lo, counts, how: str):
     eq = torch.ones(li.shape[0], dtype=torch.bool, device=li.device)
     for ll, rl in plan.verify:
         eq = eq & (ll[li] == rl[ri])
-    sel = sized_nonzero(eq, syncs.size(eq.sum(), eq.shape[0]))
+    kept = syncs.size(eq.sum(), eq.shape[0])
+    if metrics.recording():
+        metrics.count("join.verify.candidates", int(li.shape[0]))
+        metrics.count("join.verify.collisions", int(li.shape[0]) - kept)
+        if how in ("inner", "left"):
+            metrics.observe("join.match_rows", kept)
+    metrics.profile_op("join", engine=ix.kind, how=how,
+                       candidates=int(li.shape[0]), match_rows=kept)
+    sel = sized_nonzero(eq, kept)
     li, ri = li[sel], ri[sel]
     if how == "inner":
         return li, ri

@@ -27,10 +27,10 @@ import struct as _struct
 import zlib
 
 import numpy as np
-from torch.profiler import record_function
 
 from .. import _native
 from .. import types as T
+from ..utils.tracing import func_range
 from .footer import CC, FMD, RG, SE  # noqa: F401  (re-exported field ids)
 from .thrift import CompactReader, Struct
 
@@ -138,7 +138,7 @@ def decompress(data, codec: int, uncompressed_size: int, column: str = "?"):
             f"parquet codec {enum_name(CODEC_NAMES, codec)} is not supported "
             "by the port's scan (UNCOMPRESSED, SNAPPY and GZIP are)")
     # what tools/torch_profile_scan.py reads as the walk's decompression
-    with record_function("parquet.scan.decompress"):
+    with func_range("parquet.scan.decompress"):
         if codec == CODEC_GZIP:
             try:
                 out = zlib.decompress(data, wbits=31)

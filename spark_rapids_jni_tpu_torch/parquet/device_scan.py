@@ -54,13 +54,13 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import types as T
 from ..column import Column, DictColumn, Table, resolve_device
 from ..rowconv import bytepath, ragged
 from ..rowconv.convert import _reinterpret
 from ..utils import knobs, metrics
+from ..utils.tracing import func_range, traced
 from . import decode as D
 from . import rle_device as RLE
 from . import rowfilter
@@ -805,6 +805,7 @@ def _column_indices(leaves: list[D.Leaf], columns) -> list[int]:
     return [names.index(c) for c in columns]
 
 
+@traced("parquet_scan_table_device")
 def scan_table(file_bytes, columns: Optional[list[str]] = None,
                row_groups: Optional[list[int]] = None,
                dict_strings: bool = True, device=None,
@@ -858,9 +859,12 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     if rowgroup_predicate:
         may_match = set(_prune_row_groups(groups_list, leaves,
                                           rowgroup_predicate))
-        _count("rowgroups_pruned", sum(g not in may_match for g in kept))
+        pruned = sum(g not in may_match for g in kept)
+        _count("rowgroups_pruned", pruned)
         kept = [g for g in kept if g in may_match]
         _count("rowgroups_kept", len(kept))
+        metrics.profile_op("scan.prune", rowgroups_pruned=pruned,
+                           rowgroups_kept=len(kept))
     for i in want:
         if leaves[i].max_rep > 0:
             raise NotImplementedError(
@@ -872,13 +876,13 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     # the spans are what tools/torch_profile_scan.py reads (the walk's
     # decompression is parquet.scan.decompress, in decode.decompress; the
     # walk's span also covers the staging, after the row filter's)
-    with record_function("parquet.scan.walk"):
+    with func_range("parquet.scan.walk"):
         walks = {i: [_walk_chunk(mv, groups_list[g].get(D.RG.COLUMNS)
                                  .values[i], leaves[i]) for g in kept]
                  for i in want}
     host_decoded = sum(any(w.host_decoded for w in walks[i]) for i in want)
     if row_predicate and knobs.get("SRJT_FUSED_FILTER") and not host_decoded:
-        with record_function("parquet.scan.rowfilter"):
+        with func_range("parquet.scan.rowfilter"):
             pruned = rowfilter.apply(row_predicate, walks, leaves,
                                      [leaf.name for leaf in leaves], want)
         if pruned is not None:
@@ -886,13 +890,13 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
             _count("rowfilter.scans")
             _count("rowfilter.rows_kept", n_kept)
             _count("rowfilter.complete", complete)
-    with record_function("parquet.scan.walk"):
+    with func_range("parquet.scan.walk"):
         specs = [_stage_column(walks[i], leaves[i], slab) for i in want]
-    with record_function("parquet.scan.upload"):
+    with func_range("parquet.scan.upload"):
         data, run_tables = slab.upload(dev)
     checks: list[torch.Tensor] = []
     try:
-        with record_function("parquet.scan.decode"):
+        with func_range("parquet.scan.decode"):
             cols = [_decode(s, data, run_tables, dict_strings, checks)
                     for s in specs]
             if checks and bool(torch.stack(checks).any()):
@@ -900,8 +904,11 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
                                  "dictionary")
     finally:
         slab.release()
-    return Table(cols, host_decoded_cols=host_decoded,
-                 fused_filter_complete=complete)
+    out = Table(cols, host_decoded_cols=host_decoded,
+                fused_filter_complete=complete)
+    metrics.profile_op("scan", rows_out=out.num_rows, cols=len(want),
+                       rowgroups=len(kept), fallback_cols=host_decoded)
+    return out
 
 
 # as in the JAX package: callers may name the scan read_table

@@ -26,10 +26,11 @@ Catalogs:
 the shape ``models/compiled.compile_query`` consumes;
 ``ir.fingerprint(tree)`` is the natural request name.
 
-The JAX package's per-node profiling (``plan/profile.py``) and adaptive
-execution (``plan/adaptive.py``, ``SRJT_AQE``) are not ported yet: both
-are no-ops there under the default knobs, and this lowering is the static
-path.
+Per-node profiling (``plan/profile.py``) wraps every node in
+:func:`_execute` and reads each node's output at the one funnel,
+``_apply_node``, as the JAX package does.  Adaptive execution
+(``plan/adaptive.py``, ``SRJT_AQE``) is not ported yet: it is off under
+the default knobs there, and this lowering is the static path.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from ..ops import strings as S
 from ..utils import metrics
 from ..ops import window as W
 from . import ir
+from . import profile
 from . import stats as plan_stats
 
 #: ``scan.columns_pruned`` (columns a FileCatalog scan did not read) and
@@ -456,12 +458,26 @@ def _apply_node(node: ir.Plan, kids: list, catalog, record_stats: bool):
         # optimize of this shape; num_rows is a host int (a lazy column's
         # count was resolved when it was made), so this reads no device
         plan_stats.GLOBAL.observe(ir.fingerprint(node), t.num_rows)
+    # the validity-density sync (SRJT_PROFILE_VALIDITY) lives at this
+    # single funnel so capture and replay resolve the identical tape
+    profile.at_node_output(t)
     return t, names
 
 
 def _execute(node: ir.Plan, catalog, record_stats: bool):
-    kids = [_execute(k, catalog, record_stats) for k in ir.children(node)]
-    return _apply_node(node, kids, catalog, record_stats)
+    ctx = profile.node_enter(node)
+    if ctx is None:
+        kids = [_execute(k, catalog, record_stats)
+                for k in ir.children(node)]
+        return _apply_node(node, kids, catalog, record_stats)
+    t = kids = None
+    try:
+        kids = [_execute(k, catalog, record_stats)
+                for k in ir.children(node)]
+        t, names = _apply_node(node, kids, catalog, record_stats)
+    finally:
+        profile.node_exit(ctx, t, kids)
+    return t, names
 
 
 def execute(tree: ir.Plan, catalog, record_stats: bool = True) -> Table:

@@ -6,12 +6,11 @@ Two sources, in priority order:
    plan node's output row count (static shapes make this free) keyed by
    the node's structural fingerprint.  Recurring queries — the serving
    workload — reorder from exact cardinalities on the second sighting.
-2. **Metrics priors**: in the JAX package, join-shaped nodes never seen
-   before fall back to the process-wide ``join.match_rows`` histogram of
-   its ``utils/metrics.py``.  That histogram exists only with metrics on,
-   which is not the default there; the port has no metrics module yet, so
-   :meth:`CardinalityStats._join_prior` returns None, the JAX package's
-   default answer.
+2. **Metrics priors**: for join-shaped nodes never seen before, fall back
+   to the process-wide ``join.match_rows`` histogram that
+   ``utils/metrics.py`` collects on every join while metrics are on — a
+   coarse prior, but enough to rank a filtered dimension against an
+   unfiltered one.
 
 When neither source knows a subtree, ``rows_for`` returns ``None`` and
 the reorder rule rejects (a deliberate no-op: never reorder blind).
@@ -33,7 +32,7 @@ import threading
 from collections import OrderedDict
 from typing import Optional
 
-from ..utils import knobs
+from ..utils import knobs, metrics
 from . import ir
 
 _MAX_ENTRIES = 4096
@@ -112,12 +111,12 @@ class CardinalityStats:
 
     @staticmethod
     def _join_prior():
-        """The coarse process-wide prior for "how big do joins come out
-        around here": in the JAX package, the mean of its
-        ``join.match_rows`` metrics histogram, which only exists with
-        metrics on (off by default there).  The port has no metrics
-        module yet, so there is no prior: None, the JAX package's default
-        answer."""
+        # mean of the join.match_rows histogram — the coarse process-wide
+        # prior for "how big do joins come out around here"
+        snap = metrics.snapshot()
+        hist = snap.get("histograms", {}).get("join.match_rows")
+        if hist and hist.get("count"):
+            return float(hist["total"]) / float(hist["count"])
         return None
 
     def clear(self) -> None:

@@ -42,7 +42,8 @@ import torch
 
 from .. import types as T
 from ..column import Column, DictColumn, Table, force_column
-from ..utils import bitmask
+from ..utils import bitmask, metrics
+from ..utils.tracing import traced
 from . import ragged, xpack
 from .layout import (BATCH_ROW_MULTIPLE, JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES,
                      MAX_ROW_SIZE, RowLayout, build_batches,
@@ -324,6 +325,7 @@ def _eager(col):
     return col.materialize() if isinstance(col, DictColumn) else col
 
 
+@traced("convert_to_rows")
 def convert_to_rows(table: Table,
                     max_batch_bytes: Optional[int] = None) -> list[RowBatch]:
     """Table → JCUDF row batches (``convert_to_rows``,
@@ -335,8 +337,45 @@ def convert_to_rows(table: Table,
     table = Table([_eager(c) for c in table.columns])
     layout = compute_row_layout(table.schema)
     if layout.fixed_width_only:
-        return _to_rows_fixed(layout, table, max_batch_bytes)
-    return _to_rows_strings(layout, table, max_batch_bytes)
+        out = _to_rows_fixed(layout, table, max_batch_bytes)
+    else:
+        out = _to_rows_strings(layout, table, max_batch_bytes)
+    _record_transcode("rowconv.to_rows", table.num_rows, out)
+    return out
+
+
+def _record_transcode(prefix: str, rows: int, batches) -> None:
+    """rows/bytes transcoded counters (shared by both directions), and the
+    active plan-node profile's op event."""
+    if metrics.recording():
+        nbytes = sum(b.num_bytes for b in batches)
+        metrics.count(f"{prefix}.rows", rows)
+        metrics.count(f"{prefix}.bytes", nbytes)
+        metrics.count(f"{prefix}.batches", len(batches))
+        metrics.annotate(rows=rows, row_bytes=nbytes)
+    if metrics._profile_op_hook is not None:
+        metrics.profile_op(prefix, rows=rows,
+                           bytes=sum(b.num_bytes for b in batches),
+                           batches=len(batches))
+
+
+def fixed_rows_to_matrix(batch: RowBatch, layout: RowLayout) -> torch.Tensor:
+    """JCUDF fixed-width rows of an all-FLOAT32 schema → dense float32
+    ``[n, k]`` (the ml/ handoff).
+
+    For an all-FLOAT32 schema the k data slots sit at consecutive 4-byte
+    offsets 0, 4, …, 4(k-1), so the matrix is a reinterpretation of the
+    row bytes: a ``[n, row_size]`` view, its first ``4k`` bytes, viewed
+    as float32.  No gather, no arithmetic, no host sync; the values are
+    the source columns' bits."""
+    if not layout.fixed_width_only:
+        raise ValueError("fixed_rows_to_matrix requires a fixed-width layout")
+    if any(dt.id != T.TypeId.FLOAT32 for dt in layout.schema):
+        raise ValueError("fixed_rows_to_matrix requires an all-FLOAT32 schema")
+    k = len(layout.schema)
+    n = batch.num_rows
+    rows = batch.data.view(n, layout.fixed_row_size)[:, :4 * k]
+    return _reinterpret(rows, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +430,7 @@ def _from_rows_strings(layout: RowLayout, batch: RowBatch):
     return datas, valid, chars, out_offs
 
 
+@traced("convert_from_rows")
 def convert_from_rows(batch: RowBatch, schema: Sequence[T.DType]) -> Table:
     """JCUDF rows → Table (``convert_from_rows``,
     ``row_conversion.cu:2032-2250``).  Takes exactly one batch."""
@@ -406,8 +446,11 @@ def convert_from_rows(batch: RowBatch, schema: Sequence[T.DType]) -> Table:
                 f"describe {n} rows of {layout.fixed_row_size} bytes")
         rows = batch.data.view(n, layout.fixed_row_size)
         datas, valid, _ = _fixed_extract(layout, rows)
-        return _assemble(schema, datas, valid, [], [])
-    return _assemble(schema, *_from_rows_strings(layout, batch))
+        out = _assemble(schema, datas, valid, [], [])
+    else:
+        out = _assemble(schema, *_from_rows_strings(layout, batch))
+    _record_transcode("rowconv.from_rows", n, [batch])
+    return out
 
 
 # The reference keeps a second CUDA path for narrow fixed-width tables and

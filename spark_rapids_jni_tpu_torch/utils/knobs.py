@@ -266,3 +266,56 @@ register("SRJT_SANITIZE", "0", _str,
          "runtime sanitizers: `1` files flight incidents on lock-order "
          "inversions and hot-path retraces, `strict` raises instead "
          "(CI smokes run strict)", "observability")
+register("SRJT_PROFILE", "0", _on_unless_off,
+         "per-plan-node runtime profiling (`plan/profile.py`): rows/"
+         "bytes/time per executed node, `explain_analyze()` rendering; "
+         "off = one bool check on the executor path", "observability")
+register("SRJT_PROFILE_DEVICE_TIME", "1", _on_unless_0_off,
+         "time each profiled node on the card by CUDA events recorded at "
+         "its enter and exit, read once when the profile closes; `0`/"
+         "`off` records host wall only", "observability")
+register("SRJT_PROFILE_VALIDITY", "0", _opt_in,
+         "per-node validity density in profiles (adds one scalar sync "
+         "per nullable column per node, recorded on the capture/replay "
+         "tape — keep the knob stable across a compiled plan's "
+         "lifetime)", "observability")
+register("SRJT_PROFILE_DIR", None, _opt_str,
+         "directory where per-query profile JSON artifacts land on "
+         "profile close; unset = profiles kept in memory only",
+         "observability")
+
+# AOT plan-artifact store (exec/artifacts.py)
+register("SRJT_AOT_DIR", None, _opt_str,
+         "root of the persistent plan-artifact store (capture tapes + "
+         "warm-up manifest); unset disables AOT persistence", "aot")
+register("SRJT_AOT_GEOM_BUCKETS", "1", _on_unless_off,
+         "pow2-bucket input geometry in artifact keys so nearby dataset "
+         "sizes share one artifact; `0` keys on exact shapes", "aot")
+register("SRJT_AOT_WARMUP", "8", _int,
+         "manifest entries (ranked by compile-ledger cost) the scheduler "
+         "pre-hydrates in the background at startup; `0` disables the "
+         "warm-up thread", "aot")
+
+# ml handoff (ml/)
+register("SRJT_ML_PACK", "rowconv", _str,
+         "feature-pack engine: `rowconv` reinterprets the JCUDF "
+         "fixed-width row stream as the feature matrix, `stack` is the "
+         "reference lane-stack A/B", "ml")
+register("SRJT_ML_BATCH", "256", _int,
+         "default minibatch size for `ml.pipeline.BatchPipeline`", "ml")
+register("SRJT_ML_SEED", "0", _int,
+         "default PRNG seed for the epoch shuffle", "ml")
+register("SRJT_ML_SHUFFLE", "feistel", _str,
+         "epoch-shuffle engine: `feistel` is the sort-free O(n) Feistel "
+         "bijection on the card, `sort` is the JAX package's "
+         "`jax.random.permutation` (sorting rounds on the host) kept as "
+         "the cross-check", "ml")
+register("SRJT_ML_EPOCH_FUSE", "1", _on_unless_0_off,
+         "each training epoch one CUDA-graph replay of its whole step "
+         "loop (on the CPU one loop); `0`/`off` launches step by step",
+         "ml")
+
+# streaming (stream/)
+register("SRJT_STREAM_ALLOW_APPROX", "0", _opt_in,
+         "allow approximate incremental states (`1`/`true`/`on` only)",
+         "stream")

@@ -74,6 +74,12 @@ _roots: list["Span"] = []           # completed root spans (all threads)
 # (``models/compiled.py`` and ``exec/plan_cache.py`` feed it)
 _ledger: dict[str, dict[str, float]] = {}
 
+# installed by ``plan/profile.py`` when that module loads; ops-layer
+# sites report into the active node profile through :func:`profile_op`
+# without importing plan/ (no cycle, no cost when profiling never loads)
+_profile_op_hook = None
+
+
 def enabled() -> bool:
     return _enabled
 
@@ -109,6 +115,31 @@ def reset() -> None:
         _samples.clear()
         _roots.clear()
         _ledger.clear()
+
+
+def profile_op(name: str, **fields) -> None:
+    """Report one op-level event (host-visible fields only — already
+    resolved ints/strings, never device values) into the active plan-node
+    profile.  A no-op until ``plan/profile.py`` is loaded AND a profile is
+    active; ops-layer sites call this instead of importing plan/."""
+    hook = _profile_op_hook
+    if hook is not None:
+        hook(name, **fields)
+
+
+_profile_stage_hook = None      # plan/profile.stage once that module loads
+
+
+def profile_stage(name: str, **fields):
+    """Context manager opening a synthetic stage record (ml/ feature pack,
+    train, predict) under the active plan-node profile — the non-plan-node
+    twin of :func:`profile_op`, same no-import-cycle indirection.  Yields
+    the open record (or None when no profile is active) so the stage can
+    set output facts like ``out_rows``."""
+    hook = _profile_stage_hook
+    if hook is None:
+        return contextlib.nullcontext()
+    return hook(name, **fields)
 
 
 # --- compile-cost ledger -----------------------------------------------------

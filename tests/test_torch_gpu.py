@@ -1613,3 +1613,102 @@ def test_query_dying_inside_a_capture_leaves_the_capture_intact(cuda):
     with compiled.device_work():
         O.check("q3", cq.run(tables), O.answer("q3", arrays, params["q3"]))
     assert not compiled._GRAVE
+
+
+def _ml_pipe(cuda, shuffle, n=20_000, k=6, seed=3, batch=256):
+    from spark_rapids_jni_tpu_torch import ml
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, k)).astype(np.float32)
+    y = (X @ rng.normal(size=k).astype(np.float32) > 0).astype(np.float32)
+    fb = ml.FeatureBatch(torch.from_numpy(X).to(cuda),
+                         torch.from_numpy(y).to(cuda))
+    return ml.BatchPipeline(fb, batch_size=batch, seed=seed,
+                            shuffle=shuffle), X, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shuffle", ["feistel", "sort"])
+def test_epoch_graph_replays_without_sync(cuda, shuffle):
+    """A fused epoch is one CUDA-graph replay: the first epoch captures,
+    the later ones make no host synchronisation, and the result equals
+    the eager step loop on the same batches (the plain version) and the
+    pipeline's permutation the host's."""
+    from spark_rapids_jni_tpu_torch import ml
+    from spark_rapids_jni_tpu_torch.ml import prng
+    from spark_rapids_jni_tpu_torch.ml.pipeline import feistel_permutation
+    pipe, X, y = _ml_pipe(cuda, shuffle)
+    tr = ml.Trainer(ml.logistic_regression(), ml.adam(lr=0.01))
+    res = tr.fit(pipe, 1)                      # captures the graph
+    assert tr.graph_captures == 1
+    params, ostate = tr.init(pipe.k, cuda)
+    g = tr._graph
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [g.run(*pipe.epoch_arrays(e), params, ostate, e == 0)
+                  for e in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = torch.stack(losses).cpu().numpy()
+    eager = ml.Trainer(ml.logistic_regression(), ml.adam(lr=0.01),
+                       fuse=False)
+    ep, eo = eager.init(pipe.k, cuda)
+    want = []
+    for e in range(3):
+        Xb, yb = pipe.epoch_arrays(e)
+        want.append(float(torch.stack([eager.train_step(ep, eo, Xb[i], yb[i])
+                                       for i in range(pipe.num_batches)]
+                                      ).mean()))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(g.params["w"].cpu().numpy(),
+                               ep["w"].cpu().numpy(), rtol=1e-4, atol=1e-6)
+    assert tr.graph_captures == 1
+    assert np.isfinite(res.losses).all()
+    if shuffle == "feistel":
+        key = prng.fold_in(pipe._key, 2)
+        host = feistel_permutation(prng.bits(key, 4), pipe.n, pipe._m,
+                                   "cpu")
+        assert torch.equal(pipe.permutation(2).cpu(), host)
+
+
+@pytest.mark.gpu
+def test_feature_view_repacks_on_the_card(cuda):
+    """A FeatureView over an incremental view on the card repacks after
+    each refresh, equal to a from-scratch pack of a full recompute."""
+    from spark_rapids_jni_tpu_torch import ml
+    from spark_rapids_jni_tpu_torch.plan import ir, lower
+    from spark_rapids_jni_tpu_torch.stream import DeltaTable, ViewRegistry
+
+    W = _lineitem_writer()
+
+    def blob(n, start=0):
+        rows = np.arange(start, start + n)
+        return W.write_parquet(
+            [W.ParquetColumn("k", "INT32", (rows % 97).astype(np.int32),
+                             "plain"),
+             W.ParquetColumn("v", "INT64", (rows * 3).astype(np.int64),
+                             "plain")], 1000, codec="SNAPPY")
+
+    delta = DeltaTable("f", files=[blob(5000)])
+    reg = ViewRegistry(delta, {}, {})
+    plan = ir.Aggregate(ir.Scan("f"), ("k",),
+                        (("v", "sum", "sv"), ("v", "count", "nv")))
+    spec = ml.FeatureSpec.of([ml.Feature("k"), ml.Feature("sv")],
+                             label="nv")
+    fv = ml.FeatureView(reg, plan, spec)
+    try:
+        assert fv.view.kind == "incremental"
+        fv.current()
+        for start in (10_000, 20_000):
+            delta.append_file(blob(3000, start))
+            fb = fv.refresh()
+            assert fb.X.device.type == "cuda"
+            full = lower.execute(
+                fv.view.tree,
+                lower.TableCatalog({"f": delta.scan()}, reg.schemas),
+                record_stats=False)
+            want = spec.pack(full, fv.names)
+            assert torch.equal(fb.X, want.X) and torch.equal(fb.y, want.y)
+        assert fv.repacks == 3
+    finally:
+        fv.close()

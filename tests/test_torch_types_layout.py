@@ -289,7 +289,22 @@ def test_port_imports_no_jax():
             "spark_rapids_jni_tpu_torch/exec/plan_cache.py",
             "spark_rapids_jni_tpu_torch/exec/prefetch.py",
             "spark_rapids_jni_tpu_torch/exec/slo.py",
-            "spark_rapids_jni_tpu_torch/exec/scheduler.py"} <= rel
+            "spark_rapids_jni_tpu_torch/exec/scheduler.py",
+            "spark_rapids_jni_tpu_torch/_version.py",
+            "spark_rapids_jni_tpu_torch/utils/tracing.py",
+            "spark_rapids_jni_tpu_torch/plan/profile.py",
+            "spark_rapids_jni_tpu_torch/exec/artifacts.py",
+            "spark_rapids_jni_tpu_torch/stream/__init__.py",
+            "spark_rapids_jni_tpu_torch/stream/delta.py",
+            "spark_rapids_jni_tpu_torch/stream/view.py",
+            "spark_rapids_jni_tpu_torch/ml/__init__.py",
+            "spark_rapids_jni_tpu_torch/ml/prng.py",
+            "spark_rapids_jni_tpu_torch/ml/features.py",
+            "spark_rapids_jni_tpu_torch/ml/pipeline.py",
+            "spark_rapids_jni_tpu_torch/ml/train.py",
+            "spark_rapids_jni_tpu_torch/ml/serve.py",
+            "tools/torch_plan_oracle.py",
+            "tools/torch_ml_oracle.py"} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
