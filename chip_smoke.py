@@ -9,7 +9,8 @@ TPC-DS queries, eager and compiled to CUDA graphs, the Mortgage ETL,
 TPC-DS as SQL text and plan trees through the planner, those queries
 and texts served to concurrent clients by the serving runtime, the
 Mortgage ETL trained on and served, views refreshed over appended files,
-per-node profiles, persisted tapes), through their public entry points
+per-node profiles, persisted tapes, adaptive execution, the repartition
+join, the arena, the fault shim, Arrow), through their public entry points
 on the card, and fails (non-zero exit, no result line) if anything is
 wrong:
 
@@ -216,8 +217,8 @@ wrong:
    within 1e-7 + 1e-3 x the largest); the model as a ``ServableModel``
    over ``etl_tables`` served by ``QueryScheduler(workers=4)`` (one
    request, then 16 from four clients twice, each client on loans of its
-   own and one request in flight, one graph replay a warm request),
-   every prediction bit-identical to ``predict_table``; store_sales written as a
+   own and one request in flight; a warm request one graph replay or
+   one member of a batch graph's launch), every prediction bit-identical to ``predict_table``; store_sales written as a
    6,000,000-row base and four 1,000,000-row appends behind a keyed
    merge-exact view over store_sales ⋈ item (incremental) and a rollup
    (full), each refreshed through ``submit_refresh`` after every append,
@@ -234,6 +235,30 @@ wrong:
    eager capture run, bit-identical, and a tampered tape recaptured once;
    B2-B7 on the largest inputs the phase hands them; ``[ml]``,
    ``[stream]``, ``[profile]``, ``[aot]`` summary lines.
+19. adaptive execution and the rest of slice 17 (last, on phase 13's
+   tables, files and arrays and phase 11's file): the 8 plan trees and the 28 SQL texts with ``SRJT_AQE``
+   on and off, the adaptive result bit-identical to the static one under
+   torch's deterministic algorithms and equal to the oracle, each
+   query's decisions and both medians, the adaptive qfn compiled to a
+   graph against its eager run; phase 17's mix served with ``SRJT_AQE=1``
+   after the SQL texts served static, the plan cache holding both
+   variants of every SQL plan; ``tools/aqe_bench.py``'s
+   ``mispredicted_order`` (1,500,000 fact rows) and ``skewed_join``
+   (2,097,152 rows, 90% on one key, 8 shards on the card), static
+   against adaptive, bit-identical; store_sales ⋈ item by category on 4
+   shards of the card through ``parallel.repartition_join_agg_auto``
+   against numpy, 0 dropped, the bytes exchanged (a copy on one card:
+   no interconnect is measured); ``load_tables`` and the 50 queries with
+   ``SRJT_HBM_ARENA=1`` against the oracle, the reservations' peak and
+   ``torch.cuda.memory_reserved`` with the arena off and on; 18 served
+   requests under the torch fault shim with injected ``torch.launch``
+   OOMs, every answer equal to the oracle after retries, the
+   interceptions by site; q3 over 4 permuted copies of store_sales as
+   one launch of a 4-member graph against 4 replays; SF1 lineitem
+   (phase 11's file) through its Arrow buffers and back, byte-equal;
+   ``spark_12_2str`` at 32,000,000 rows (rows past 2.5 GB) through
+   ``convert_to_rows``' batch split and back, byte-equal, GB/s; every
+   kernel B1-B7 launched in the phase; an ``[aqe] summary`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -1579,8 +1604,15 @@ def scan_split(device_scan, raw) -> dict:
     return out
 
 
+def spark_file(W, seed) -> tuple:
+    """SF1 lineitem as Spark's defaults write it (phase 11's file)."""
+    return W.lineitem_parquet(W.SF1_ROWS, seed,
+                              row_group_rows=SPARK_ROW_GROUP_ROWS,
+                              **W.SPARK_DEFAULTS)
+
+
 def phase_spark(pt, W, device_scan, q6, kernels, card, seed, launches,
-                full_scan) -> dict:
+                full_scan, keep: dict) -> dict:
     """Phase 11: SF1 lineitem, all 16 columns, as Spark's defaults write
     it (``W.SPARK_DEFAULTS``: SNAPPY, every column dictionary-encoded with
     the fallback to PLAIN at a 1 MiB dictionary, 1 MiB pages of at most
@@ -1590,11 +1622,11 @@ def phase_spark(pt, W, device_scan, q6, kernels, card, seed, launches,
     pruning on the sorted ``l_orderkey`` against the generator's own
     per-group bounds, and a predicate that prunes every group; then 11b
     (:func:`phase_spark_v2`).  Returns B4's and B7's results on the
-    largest inputs this scan hands them."""
+    largest inputs this scan hands them; keeps the file in ``keep["raw"]``
+    for phase 19."""
     t0 = time.perf_counter()
-    raw, data, _ = W.lineitem_parquet(W.SF1_ROWS, seed,
-                                      row_group_rows=SPARK_ROW_GROUP_ROWS,
-                                      **W.SPARK_DEFAULTS)
+    raw, data, _ = spark_file(W, seed)
+    keep["raw"] = raw
     log(f"[spark] SF1 lineitem as Spark writes it ({W.SPARK_DEFAULTS}): "
         f"{W.SF1_ROWS} rows, {len(raw)} file bytes, written in "
         f"{time.perf_counter() - t0:.2f} s; row groups of "
@@ -3581,7 +3613,14 @@ def phase_ml_stream(kernels, card, launches, tpcds_ctx, mortgage_files):
                     done.append((i, tk.result(timeout=600)))
             except BaseException as e:
                 errors.append(e)
-        replays = compiled.COUNTS["replay_run"]
+        def runs():
+            # a plan's executions on the card: single replays and members
+            # of K-member graph launches (run_vmapped), less the one
+            # replay a plan's first batch makes to check its parity
+            c = compiled.COUNTS
+            return (c["replay_run"] + c["batch_member"]
+                    - c["batch_parity_check"])
+        replays = runs()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(ML_CLIENTS)]
@@ -3592,7 +3631,7 @@ def phase_ml_stream(kernels, card, launches, tpcds_ctx, mortgage_files):
         wall = time.perf_counter() - t0
         require(not errors, f"ml: a client failed: {errors[:1]}")
         require(len(done) == ML_REQUESTS, f"ml: {len(done)} answers")
-        return done, wall, compiled.COUNTS["replay_run"] - replays
+        return done, wall, runs() - replays
 
     def serve():
         sched = xc.QueryScheduler(workers=4)
@@ -3601,33 +3640,47 @@ def phase_ml_stream(kernels, card, launches, tpcds_ctx, mortgage_files):
             first = sched.submit_predict(sv, mtables).result(timeout=600)
             first_s = time.perf_counter() - t0
             cold = serve_round(sched)
+            # the batch graphs the first round left to capture on threads
+            # of their own: warm means they are in place
+            pending = compiled.wait_batch_captures()
             warm = serve_round(sched)
         finally:
             sched.shutdown()
-        return first, first_s, cold, warm
+        return first, first_s, cold, warm, pending
 
-    first, first_s, (cold, cold_wall, _), (warm, warm_wall, replays) = \
-        main_path(serve)
-    # every warm request ran the compiled plan on its own: one replay each
+    first, first_s, (cold, cold_wall, _), (warm, warm_wall, replays), \
+        pending = main_path(serve)
+    require(compiled.COUNTS["batch_capture_failed"] == 0,
+            "ml: a batch graph's background capture failed")
+    # every warm request ran the compiled plan on its own: one replay, or
+    # one member of a batch graph's launch, each
     require(replays == ML_REQUESTS,
-            f"ml: {replays} replays for {ML_REQUESTS} warm requests")
+            f"ml: {replays} runs for {ML_REQUESTS} warm requests")
     with compiled.device_work():
         for i, t in [(0, first)] + cold + warm:
             require(same_bits(t[0].data, oracles[i]),
                     "ml: a served prediction differs from predict_table")
     report["serve"] = dict(
         requests=1 + len(cold) + len(warm), distinct_inputs=ML_CLIENTS,
-        warm_replays=replays, first_ms=round(first_s * 1e3, 3),
+        warm_runs=replays, warm_batches=compiled.COUNTS["batch_replay"],
+        first_ms=round(first_s * 1e3, 3),
         predictions_per_s=round(len(warm) * n_loans / warm_wall, 1),
         round_s=round(warm_wall, 3), first_round_s=round(cold_wall, 3),
-        graph_captures=compiled.COUNTS["graph_capture"])
+        graph_captures=compiled.COUNTS["graph_capture"],
+        batch_captures=compiled.COUNTS["batch_capture"],
+        batch_deferred=compiled.COUNTS["batch_deferred"],
+        captures_waited=pending)
     log(f"[ml] served: {1 + len(cold) + len(warm)} predict requests of "
         f"{n_loans} rows over {ML_CLIENTS} distinct table sets, each "
         f"bit-identical to predict_table on its set; the first (capture "
         f"run and graph) {first_s * 1e3:.1f} ms; {ML_REQUESTS} from "
         f"{ML_CLIENTS} clients, one in flight each, in {warm_wall:.3f} s "
-        f"with {replays} graph replays "
-        f"({len(warm) * n_loans / warm_wall:.0f} predictions/s) [{card}]")
+        f"with {replays} runs of the graph (graph replays and members of "
+        f"{compiled.COUNTS['batch_replay']} batch launches) "
+        f"({len(warm) * n_loans / warm_wall:.0f} predictions/s); the first "
+        f"round {cold_wall:.3f} s, {compiled.COUNTS['batch_deferred']} "
+        f"batches replayed in turn while {compiled.COUNTS['batch_capture']} "
+        f"batch graphs were captured in background [{card}]")
     log("[ml] summary " + json.dumps(report))
 
     # -- stream: a base file, four appends, two views ------------------------
@@ -4119,6 +4172,739 @@ def phase_mortgage(kernels, card, launches) -> dict:
     return results, files
 
 
+# ---------------------------------------------------------------------------
+# phase 19: adaptive execution, the repartition join, the arena, the fault
+# shim, one-launch batches, Arrow, rows above 2 GB
+# ---------------------------------------------------------------------------
+
+# the JAX package's two AQE shapes (tools/aqe_bench.py)
+AQE_MISPREDICTED = dict(n=1_500_000, n_big=300_000, n_small_space=6400,
+                        n_small=64, seed=13)
+AQE_SKEWED = dict(n=8 * 262_144, nb=4096, groups=32, hot=0.9, seed=7,
+                  shards=8)
+# store_sales ⋈ item on a mesh of this many shards of the one card
+REPARTITION_SHARDS = 4
+# the served run under the fault shim: torch.launch faults at this percent
+SHIM_PERCENT = 5
+SHIM_SEED = 7
+SHIM_QUERIES = ("q3", "q7", "q19", "q42", "q52", "q55")
+VMAPPED_K = 4
+# spark_12_2str rows whose JCUDF rows pass 2.5 GB
+BIG_ROWS = 32_000_000
+BIG_MIN_BYTES = 2_500_000_000
+# the AQE phase's kernels: B3 and B4 (string ops), B5-B7 (scan and
+# dictionary materialization), B1-B4 (rows above 2 GB)
+AQE_KERNELS = ("pack_windows", "pack_rows", "unpack_rows", "segmented_copy",
+               "extract_rows", "gather_rows", "u8_to_u32")
+# the card phase 19 runs on
+CARD = torch.device("cuda", 0)
+
+
+def release() -> None:
+    """Dead objects collected, dead compiled queries' graphs destroyed
+    (``compiled.device_work`` buries them) and the allocator's free
+    blocks returned, so that a reading of reserved memory sees the live
+    tensors only."""
+    from spark_rapids_jni_tpu_torch.models import compiled
+    gc.collect()
+    with compiled.device_work():
+        pass
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment knobs set for the block only."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def aqe_queries(card, tpcds_ctx, report) -> None:
+    """The 8 plan trees and the 28 SQL texts, static and adaptive: eager
+    under deterministic algorithms bit-identical, the oracle, decisions,
+    medians; each adaptive qfn compiled to a graph against its eager
+    run."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch import sql
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds_plans
+    from spark_rapids_jni_tpu_torch.models import tpcds_sql as TS
+
+    tables, params, want = tpcds_ctx[:3]
+    schemas = TS.TABLE_SCHEMAS
+    qs = {}
+    for name in tpcds_plans.PLANS:
+        tree = tpcds_plans.optimized(name, **params[name]).tree
+        qs[f"plan:{name}"] = (name, lambda t=tree: P.compile_plan(
+            t, schemas), True)
+    for name in TS.QUERY_NAMES:
+        p = sql_params(TS, name, params)
+        qs[f"sql:{name}"] = (name, lambda n=name, p=p: sql.compile_sql(
+            TS.SQL[n], schemas, p), name in tpcds_plans.PLANS)
+    out_q = {}
+    decided = collections.Counter()
+    for key, (name, build, oracle) in qs.items():
+        with env(SRJT_AQE="0"):
+            static = build()
+        with env(SRJT_AQE="1"):
+            adaptive = build()
+        require(getattr(adaptive, "aqe_variant", "") == "aqe"
+                and not hasattr(static, "aqe_variant"),
+                f"aqe {key}: the variants are not tagged")
+        with deterministic():
+            s_out = static(tables)
+            a_out = adaptive(tables)
+            torch.cuda.synchronize()
+        same, rel = table_diff(a_out, s_out, f"aqe {key}")
+        require(same and rel == 0.0,
+                f"aqe {key}: not bit-identical to its static twin")
+        orel = None
+        if oracle:
+            try:
+                orel = O.check(name, a_out, want[name])
+            except AssertionError as e:
+                raise SmokeFailure(f"aqe {key}: {e}") from None
+        decisions = [f"{d.kind}: {d.detail}"
+                     for d in adaptive.last_report.decisions()]
+        decided.update(d.split(":")[0] for d in decisions)
+        a_ms, s_ms = paired_medians(lambda: adaptive(tables),
+                                    lambda: static(tables))
+        cq = compiled.compile_query(adaptive, tables)
+        table_diff(cq.run(tables), a_out, f"aqe compiled {key}")
+        g_ms = median_wall(lambda: cq.run_unchecked(tables))
+        out_q[key] = dict(decisions=decisions,
+                          adaptive_ms=round(a_ms * 1e3, 3),
+                          static_ms=round(s_ms * 1e3, 3),
+                          graph_ms=round(g_ms * 1e3, 3),
+                          tape_len=len(cq.tape), oracle_rel_err=orel)
+        log(f"[aqe] {key}: adaptive = static bit for bit (deterministic"
+            f"){'' if orel is None else f', the oracle ({orel:.3e})'}; "
+            f"decisions {decisions}; median of {PATH_REPS} adaptive "
+            f"{a_ms * 1e3:.3f} ms, static {s_ms * 1e3:.3f} (alternated), "
+            f"the adaptive graph {g_ms * 1e3:.3f} ms, tape "
+            f"{len(cq.tape)} [{card}]")
+        del s_out, a_out, cq
+    report["queries"] = out_q
+    report["decisions"] = dict(decided)
+    torch.cuda.empty_cache()
+
+
+# SQL texts whose plans the adaptive executor changes (engine flips on
+# the card): served static and adaptive into one small plan cache
+AQE_APART = ("q3", "q42", "q55")
+
+
+def aqe_served(card, tpcds_ctx, report) -> None:
+    """Phase 17's mix served once with SRJT_AQE on (a plan cache of 32,
+    as phase 17's), every answer equal to the oracle or the static eager
+    twin; then AQE_APART's texts served static and adaptive into one
+    plan cache, which holds the two variants of each apart."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch import exec as xc
+    from spark_rapids_jni_tpu_torch import sql
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+    from spark_rapids_jni_tpu_torch.models import tpcds_sql as TS
+
+    tables, params, want = tpcds_ctx[:3]
+    schemas = TS.TABLE_SCHEMAS
+    qfns = {name: functools.partial(fn, **params[name])
+            for name, fn in tpcds.QUERIES.items()}
+    sql_p = {name: sql_params(TS, name, params) for name in TS.QUERY_NAMES}
+    with env(SRJT_AQE="0"):
+        twins = {name: sql.compile_sql(TS.SQL[name], schemas,
+                                       sql_p[name])(tables)
+                 for name in TS.QUERY_NAMES}
+    items = [("tpcds", name, qfns[name], 2) for name in tpcds.QUERIES]
+    items += [("sql", name, (TS.SQL[name], sql_p[name]), 1)
+              for name in TS.QUERY_NAMES]
+
+    def check(tickets, what):
+        n = 0
+        with compiled.device_work():
+            for (kind, name), tks in tickets.items():
+                for tk in tks:
+                    out = tk.result()
+                    n += 1
+                    if kind == "sql":
+                        table_diff(out, twins[name], f"{what} sql {name}")
+                        continue
+                    try:
+                        O.check(name, out, want[name])
+                    except AssertionError as e:
+                        raise SmokeFailure(f"{what} {name}: {e}") from None
+        return n
+
+    plans = xc.PlanCache()
+    with env(SRJT_AQE="1"):
+        sched = xc.QueryScheduler(workers=4, plan_cache=plans, device=CARD)
+        try:
+            tickets, wall = serve_clients(sched, items, tables, schemas)
+        finally:
+            sched.shutdown()
+    n = check(tickets, "aqe served")
+    stats = plans.stats()
+    del plans, tickets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    apart = xc.PlanCache(cap=2 * len(AQE_APART))
+    sub = [("sql", name, (TS.SQL[name], sql_p[name]), 1)
+           for name in AQE_APART]
+    served = 0
+    for flag in ("0", "1"):
+        with env(SRJT_AQE=flag):
+            sched = xc.QueryScheduler(workers=1, plan_cache=apart,
+                                      device=CARD)
+            try:
+                tk, _ = serve_clients(sched, sub, tables, schemas)
+            finally:
+                sched.shutdown()
+        served += check(tk, f"aqe apart {flag}")
+    variants = collections.defaultdict(set)
+    for key in apart._d:
+        variants[key[0]].add(key[1])
+    require(len(variants) == len(AQE_APART)
+            and all(v == {"", "aqe"} for v in variants.values()),
+            f"aqe served: the plan cache's variants {dict(variants)}")
+    report["served"] = dict(requests=n, wall_s=round(wall, 3), cache=stats,
+                            apart=len(apart._d))
+    log(f"[aqe] served with SRJT_AQE=1: {n} requests (phase 17's mix), "
+        f"every answer equal to the oracle or the static twin, in "
+        f"{wall:.3f} s; plan cache {stats}; {', '.join(AQE_APART)} served "
+        f"static then adaptive ({served} requests): one cache holds "
+        f"{len(apart._d)} plans, the static and the +aqe variant of each "
+        f"[{card}]")
+    del apart, twins
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def aqe_shapes(card, report) -> None:
+    """tools/aqe_bench.py's mispredicted_order and skewed_join on the
+    card, static against adaptive, bit-identical first."""
+    import spark_rapids_jni_tpu_torch as pt
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.parallel import Mesh
+    from spark_rapids_jni_tpu_torch.parallel import repartition_join as rj
+    from spark_rapids_jni_tpu_torch.plan import adaptive, ir, lower
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    a = AQE_MISPREDICTED
+    rng = np.random.default_rng(a["seed"])
+    n, nb = a["n"], a["n_big"]
+    tables = {
+        "fact": Table([Column.from_numpy(rng.integers(0, nb, n)),
+                       Column.from_numpy(rng.integers(
+                           0, a["n_small_space"], n)),
+                       Column.from_numpy(rng.integers(1, 50, n))]),
+        "dim_big": Table([Column.from_numpy(np.arange(nb, dtype=np.int64)),
+                          Column.from_numpy((np.arange(nb) % 23).astype(
+                              np.int32))]),
+        "dim_small": Table([Column.from_numpy(np.arange(a["n_small"],
+                                                        dtype=np.int64)),
+                            Column.from_numpy((np.arange(a["n_small"])
+                                               % 5).astype(np.int32))])}
+    schemas = {"fact": ["f_big_sk", "f_small_sk", "f_qty"],
+               "dim_big": ["big_sk", "b_tag"],
+               "dim_small": ["small_sk", "s_tag"]}
+    tree = ir.FusedJoinAggregate(
+        ir.Join(ir.Scan("fact"), ir.Scan("dim_big"),
+                ("f_big_sk",), ("big_sk",)),
+        ir.Scan("dim_small"), ("f_small_sk",), ("small_sk",),
+        ("b_tag",), (("f_qty", "sum", "total"), ("f_qty", "count", "cnt")))
+
+    def static():
+        t, _ = lower._execute(tree, lower.TableCatalog(tables, schemas),
+                              record_stats=False)
+        return t
+
+    def adapt(rep=None):
+        return adaptive.execute_adaptive(
+            tree, lower.TableCatalog(tables, schemas), record_stats=False,
+            report=rep)
+
+    def match_rows(fn):
+        metrics.set_enabled(True)
+        metrics.reset()
+        fn()
+        torch.cuda.synchronize()
+        h = metrics.snapshot()["histograms"].get("join.match_rows")
+        metrics.set_enabled(None)
+        return int(h["total"]) if h else 0
+
+    rep = adaptive.AdaptiveReport()
+    same, _ = table_diff(adapt(rep), static(), "aqe mispredicted_order")
+    require(same, "aqe mispredicted_order: adaptive differs from static")
+    decisions = [f"{d.kind}: {d.detail}" for d in rep.decisions()]
+    require(any(d.startswith("replan") for d in decisions),
+            "aqe mispredicted_order: no replan fired")
+    rows_s, rows_a = match_rows(static), match_rows(adapt)
+    s_ms, a_ms = paired_medians(static, adapt)
+    report["mispredicted_order"] = dict(
+        static_ms=round(s_ms * 1e3, 3), adaptive_ms=round(a_ms * 1e3, 3),
+        match_rows_static=rows_s, match_rows_adaptive=rows_a,
+        decisions=decisions)
+    log(f"[aqe] mispredicted_order ({n} fact rows, {nb}- and "
+        f"{a['n_small']}-row dimensions): bit-identical; decisions "
+        f"{decisions}; static {s_ms * 1e3:.3f} ms, adaptive "
+        f"{a_ms * 1e3:.3f} ms (median of {PATH_REPS}, alternated); "
+        f"join.match_rows {rows_s} static, {rows_a} adaptive [{card}]")
+    del tables
+
+    k = AQE_SKEWED
+    rng = np.random.default_rng(k["seed"])
+    n, nb, groups = k["n"], k["nb"], k["groups"]
+    fk = rng.integers(0, nb, n).astype(np.int64)
+    fk[rng.random(n) < k["hot"]] = 11
+    fv = rng.integers(-100, 100, n).astype(np.int64)
+    bk = np.arange(nb, dtype=np.int64)
+    bg = rng.integers(0, groups, nb).astype(np.int32)
+    dev = CARD
+    fd = (torch.from_numpy(fk).to(dev), torch.from_numpy(fv).to(dev))
+    bd = (torch.from_numpy(bk).to(dev), torch.from_numpy(bg).to(dev))
+    fvld = torch.ones((n, 2), dtype=torch.bool, device=dev)
+    bvld = torch.ones((nb, 2), dtype=torch.bool, device=dev)
+    mesh = Mesh([dev] * k["shards"])
+
+    def run(**kw):
+        s, c, d = rj.repartition_join_agg_auto(
+            mesh, (pt.int64, pt.int64), (pt.int64, pt.int32), 0, 0, 1, 1,
+            groups, fd, fvld, bd, bvld, **kw)
+        torch.cuda.synchronize()
+        return s, c, int(d)
+
+    def padded(**kw):
+        metrics.set_enabled(True)
+        metrics.reset()
+        run(**kw)
+        slots = int(metrics.counter_value("shuffle.padded_slots.fact")
+                    + metrics.counter_value("shuffle.padded_slots.build"))
+        fired = int(metrics.counter_value("plan.aqe.skew_split.fired"))
+        metrics.set_enabled(None)
+        return slots, fired, dict(rj.COUNTS)
+
+    with env(SRJT_AQE="0"):
+        s1, c1, d1 = run(salt=1)
+        slots_s, _, counts_s = padded(salt=1)
+        t_s = median_wall(lambda: run(salt=1))
+    with env(SRJT_AQE="1"):
+        s2, c2, d2 = run()
+        slots_a, fired, counts_a = padded()
+        t_a = median_wall(run)
+    require(d1 == d2 == 0, "aqe skewed_join: rows dropped")
+    require(torch.equal(s1, s2) and torch.equal(c1, c2),
+            "aqe skewed_join: the salted join differs from static")
+    require(fired >= 1, "aqe skewed_join: the skew split did not fire")
+    ok = fk[:] >= 0
+    want_s = np.zeros(groups, np.int64)
+    np.add.at(want_s, bg[fk[ok]], fv[ok])
+    require(np.array_equal(s1.cpu().numpy(), want_s),
+            "aqe skewed_join: sums differ from numpy")
+    report["skewed_join"] = dict(
+        rows=n, shards=k["shards"], static_ms=round(t_s * 1e3, 3),
+        adaptive_ms=round(t_a * 1e3, 3), salt=counts_a["salt"],
+        padded_slots_static=slots_s, padded_slots_adaptive=slots_a,
+        exchange_static=counts_s, exchange_adaptive=counts_a)
+    log(f"[aqe] skewed_join ({n} rows, {k['hot']:.0%} on one key, a mesh "
+        f"of {k['shards']} shards on the one card): bit-identical and equal "
+        f"to numpy, 0 dropped; static (salt 1) {t_s * 1e3:.3f} ms, adaptive "
+        f"(salt {counts_a['salt']}) {t_a * 1e3:.3f} ms (medians of "
+        f"{PATH_REPS}); padded slots {slots_s} → {slots_a}; exchanges "
+        f"{counts_s} → {counts_a} [{card}]")
+
+
+def repartition_tpcds(card, tpcds_ctx, report) -> None:
+    """store_sales ⋈ item → SUM(ss_sales_price_cents), COUNT(*) by
+    i_category_id on a mesh of REPARTITION_SHARDS shards of the one card
+    (the exchange is a copy on the card: no interconnect is measured),
+    against numpy."""
+    import spark_rapids_jni_tpu_torch as pt
+    from spark_rapids_jni_tpu_torch.column import force_column
+    from spark_rapids_jni_tpu_torch.parallel import Mesh
+    from spark_rapids_jni_tpu_torch.parallel import repartition_join as rj
+
+    tables, arrays = tpcds_ctx[0], tpcds_ctx[6]
+    ss, item = tables["store_sales"], tables["item"]
+    fcols = [force_column(ss[i]) for i in (1, 4)]
+    bcols = [force_column(item[i]) for i in (0, 5)]
+    fvalid = torch.stack([c.validity_or_true() for c in fcols], 1)
+    bvalid = torch.stack([c.validity_or_true() for c in bcols], 1)
+    groups = int(arrays["item"]["i_category_id"].max()) + 1
+    mesh = Mesh([CARD] * REPARTITION_SHARDS)
+
+    def run():
+        s, c, d = rj.repartition_join_agg_auto(
+            mesh, tuple(c.dtype for c in fcols),
+            tuple(c.dtype for c in bcols), 0, 0, 1, 1, groups,
+            tuple(c.data for c in fcols), fvalid,
+            tuple(c.data for c in bcols), bvalid)
+        torch.cuda.synchronize()
+        return s, c, int(d)
+
+    s, c, d = run()
+    counts = dict(rj.COUNTS)
+    cat = np.zeros(int(arrays["item"]["i_item_sk"].max()) + 1, np.int64)
+    cat[arrays["item"]["i_item_sk"]] = arrays["item"]["i_category_id"]
+    g = cat[arrays["store_sales"]["ss_item_sk"]]
+    want_s = np.zeros(groups, np.int64)
+    np.add.at(want_s, g, arrays["store_sales"]["ss_sales_price_cents"])
+    want_c = np.bincount(g, minlength=groups)
+    require(d == 0, f"repartition: {d} rows dropped")
+    require(np.array_equal(s.cpu().numpy(), want_s)
+            and np.array_equal(c.cpu().numpy(), want_c),
+            "repartition: store_sales ⋈ item differs from numpy")
+    wall = median_wall(run)
+    report["repartition"] = dict(
+        shards=REPARTITION_SHARDS, fact_rows=ss.num_rows,
+        build_rows=item.num_rows, dropped=d, wall_ms=round(wall * 1e3, 3),
+        **counts)
+    log(f"[repartition] store_sales ⋈ item ({ss.num_rows} × "
+        f"{item.num_rows} rows) by i_category_id on {REPARTITION_SHARDS} "
+        f"shards of the one card (the exchange copies on the card: no "
+        f"interconnect measured): equal to numpy, {d} dropped; "
+        f"{counts['rows_exchanged']} rows, {counts['bytes_exchanged']} bytes "
+        f"exchanged ({counts['padded_bytes']} padded bytes copied), "
+        f"capacities {counts['fact_capacity']}/{counts['build_capacity']}, "
+        f"key span {counts['key_span']}; median of {PATH_REPS} "
+        f"{wall * 1e3:.3f} ms [{card}]")
+
+
+def arena_queries(card, tpcds_ctx, report) -> None:
+    """load_tables and the 50 queries with the arena on (SRJT_HBM_ARENA=1)
+    against the oracle, and torch.cuda.memory_reserved with the arena off
+    and on."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch.memory import arena, budget
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    _, params, want, _, files = tpcds_ctx[:5]
+
+    def run_all(check: bool) -> dict:
+        torch.cuda.synchronize()
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tables = tpcds.load_tables(files, device=CARD)
+        for name, fn in tpcds.QUERIES.items():
+            out = fn(tables, **params[name])
+            if check:
+                try:
+                    O.check(name, out, want[name])
+                except AssertionError as e:
+                    raise SmokeFailure(f"arena {name}: {e}") from None
+            del out
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(wall_s=round(wall, 3),
+                   memory_reserved=torch.cuda.memory_reserved(),
+                   max_memory_reserved=torch.cuda.max_memory_reserved(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        del tables
+        return got
+
+    with env(SRJT_HBM_ARENA="0"):
+        budget.set_enabled(None)
+        off = run_all(False)
+    with env(SRJT_HBM_ARENA="1"):
+        budget.set_enabled(None)
+        arena.reset()
+        budget.reset()
+        metrics.set_enabled(True)
+        metrics.reset()
+        try:
+            on = run_all(True)
+            counters = metrics.snapshot()["counters"]
+            st = arena.stats()
+        finally:
+            metrics.set_enabled(None)
+    budget.set_enabled(None)
+    reserves = {k: v for k, v in counters.items()
+                if k.startswith("arena.reserve.")}
+    on.update(peak_bytes=st["budget_peak"], zeros_bytes=st["zeros_bytes"],
+              reservations=reserves, spills=counters.get(
+                  "arena.spill.events", 0))
+    report["arena"] = dict(on=on, off=off)
+    log(f"[arena] load_tables and the 50 queries with SRJT_HBM_ARENA=1: "
+        f"every result equal to the oracle; arena.peak_bytes "
+        f"{st['budget_peak']}, reservations {reserves}, pooled zeros "
+        f"{st['zeros_bytes']} bytes, spills {on['spills']}; "
+        f"memory_reserved off/on {off['memory_reserved']}/"
+        f"{on['memory_reserved']} (peaks {off['max_memory_reserved']}/"
+        f"{on['max_memory_reserved']}); walls {off['wall_s']}/"
+        f"{on['wall_s']} s [{card}]")
+
+
+def shim_served(card, tpcds_ctx, report) -> None:
+    """A short served run under the torch-level fault shim: torch.launch
+    faults (injected OOMs) at SHIM_PERCENT percent, seed SHIM_SEED; every
+    answer equals the oracle after the replicas' retries."""
+    import torch_tpcds_oracle as O
+    from spark_rapids_jni_tpu_torch import exec as xc
+    from spark_rapids_jni_tpu_torch.faultinj import injector as finj
+    from spark_rapids_jni_tpu_torch.faultinj import torch_shim
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+
+    tables, params, want = tpcds_ctx[:3]
+    inj = finj.get_injector()
+    torch_shim.install()
+    try:
+        inj.load_dict({"seed": SHIM_SEED, "sites": {"torch.launch": {
+            "percent": SHIM_PERCENT, "injectionType": "oom"}}})
+        inj.enable()
+        sched = xc.QueryScheduler(workers=2, max_retries=16,
+                                  plan_cache=xc.PlanCache(), device=CARD)
+        try:
+            tickets = [(name, sched.submit(name, functools.partial(
+                tpcds.QUERIES[name], **params[name]), tables))
+                for _ in range(3) for name in SHIM_QUERIES]
+            outs = [(name, tk.result()) for name, tk in tickets]
+            retries = sum(r.resilient.retry_count for r in sched.replicas)
+        finally:
+            sched.shutdown()
+    finally:
+        inj.disable()
+        counts = dict(torch_shim.COUNTS)
+        torch_shim.uninstall()
+    with compiled.device_work():
+        for name, out in outs:
+            try:
+                O.check(name, out, want[name])
+            except AssertionError as e:
+                raise SmokeFailure(f"shim {name}: {e}") from None
+    require(counts.get("torch.launch.injected", 0) > 0,
+            "shim: no fault was injected")
+    report["shim"] = dict(requests=len(outs), retries=retries,
+                          interceptions=counts)
+    log(f"[shim] {len(outs)} served requests under the torch shim "
+        f"(torch.launch OOMs at {SHIM_PERCENT}%, seed {SHIM_SEED}): every "
+        f"answer equal to the oracle after {retries} retries; interceptions "
+        f"{counts} [{card}]")
+
+
+def vmapped_batch(card, tpcds_ctx, report) -> None:
+    """q3 over VMAPPED_K copies of the tables, store_sales rows permuted
+    (the same sizes, so one tape fits all), as one launch of a K-member
+    graph against K replays."""
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.models import compiled, tpcds
+
+    tables, params = tpcds_ctx[:2]
+    gen = torch.Generator(device=CARD).manual_seed(19)
+    sets = []
+    for _ in range(VMAPPED_K):
+        ss = tables["store_sales"]
+        perm = torch.randperm(ss.num_rows, generator=gen, device=CARD)
+        cols = [Column(c.dtype, c.data[perm], None,
+                       None if c.validity is None else c.validity[perm])
+                for c in ss.columns]
+        sets.append(dict(tables, store_sales=Table(cols)))
+    qfn = functools.partial(tpcds.QUERIES["q3"], **params["q3"])
+    cq = compiled.compile_query(qfn, sets[0])
+    serial = [cq.run(t) for t in sets]
+    outs = cq.run_vmapped(sets)
+    require(outs is not None and len(outs) == VMAPPED_K,
+            "vmapped: the batch was refused")
+    # float sums add by atomics on the card: floats within SQL_FLOAT_RTOL
+    bits = sum(table_diff(a, b, f"vmapped member {k}")[0]
+               for k, (a, b) in enumerate(zip(outs, serial)))
+    in_graph = cq._batches.get(VMAPPED_K, {}).get("launches", {})
+    # one set fewer runs in the same graph, its spare member repeating
+    # the last set: no other capture
+    captures = compiled.COUNTS["batch_capture"]
+    short = cq.run_vmapped(sets[:-1])
+    require(short is not None and len(short) == VMAPPED_K - 1
+            and compiled.COUNTS["batch_capture"] == captures
+            and sorted(cq._batches) == [VMAPPED_K],
+            f"vmapped: {VMAPPED_K - 1} sets took another graph: "
+            f"{sorted(cq._batches)}")
+    for k, (a, b) in enumerate(zip(short, serial)):
+        table_diff(a, b, f"vmapped short member {k}")
+    one = median_wall(lambda: cq.run_vmapped(sets))
+    each = median_wall(lambda: [cq.run_unchecked(t) for t in sets])
+    report["vmapped"] = dict(k=VMAPPED_K, batch_ms=round(one * 1e3, 3),
+                             replays_ms=round(each * 1e3, 3),
+                             bit_identical=bits, launches=nonzero(in_graph),
+                             batch_bytes=cq.batch_bytes,
+                             graph_bytes=cq.device_bytes() - cq.batch_bytes)
+    log(f"[vmapped] q3 over {VMAPPED_K} permuted copies of store_sales: one "
+        f"launch of a {VMAPPED_K}-member graph equal to {VMAPPED_K} checked "
+        f"replays ({bits} of {VMAPPED_K} bit for bit, floats within "
+        f"{SQL_FLOAT_RTOL:g}); median of {PATH_REPS} {one * 1e3:.3f} ms "
+        f"against {each * 1e3:.3f} ms for the {VMAPPED_K} replays; kernels "
+        f"in the batch graph {nonzero(in_graph)}; {VMAPPED_K - 1} sets ran "
+        f"in the same graph; batch graph {cq.batch_bytes} bytes beside "
+        f"{cq.device_bytes() - cq.batch_bytes} of the one-set graph "
+        f"[{card}]")
+    del cq, sets, outs, serial, short
+
+
+def arrow_lineitem(card, spark_raw, report) -> None:
+    """SF1 lineitem as Spark writes it (phase 11's file), scanned, through
+    to_arrow_buffers → from_arrow_buffers on the card, byte-equal (the
+    dictionary strings materialized by B5 → B6 → B2 on the way)."""
+    from spark_rapids_jni_tpu_torch.column import force_column
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    from spark_rapids_jni_tpu_torch.utils import arrow
+
+    table = device_scan.scan_table(spark_raw, device=CARD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bufs = [arrow.to_arrow_buffers(c) for c in table.columns]
+    t_to = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = [arrow.from_arrow_buffers(a, device=CARD) for a in bufs]
+    torch.cuda.synchronize()
+    t_from = time.perf_counter() - t0
+    nbytes = sum(a.data.nbytes + (0 if a.offsets is None else a.offsets.nbytes)
+                 + (0 if a.validity is None else a.validity.nbytes)
+                 for a in bufs)
+    for i, (c, b) in enumerate(zip(table.columns, back)):
+        c = force_column(c)
+        require(b.dtype == c.dtype, f"arrow column {i}: type {b.dtype}")
+        require(torch.equal(b.data.contiguous().view(torch.uint8),
+                            c.data.contiguous().view(torch.uint8)),
+                f"arrow column {i}: data differs")
+        require((b.validity is None) == (c.validity is None)
+                and (b.validity is None
+                     or torch.equal(b.validity, c.validity)),
+                f"arrow column {i}: validity differs")
+        if c.offsets is not None:
+            require(torch.equal(b.offsets, c.offsets),
+                    f"arrow column {i}: offsets differ")
+    report["arrow"] = dict(rows=table.num_rows, columns=table.num_columns,
+                           bytes=nbytes, to_ms=round(t_to * 1e3, 3),
+                           from_ms=round(t_from * 1e3, 3))
+    log(f"[arrow] SF1 lineitem ({table.num_rows} rows, "
+        f"{table.num_columns} columns, Spark's file) through its Arrow "
+        f"buffers and back: byte-equal; {nbytes} buffer bytes, to "
+        f"{t_to * 1e3:.3f} ms ({nbytes / t_to / 1e9:.2f} GB/s), from "
+        f"{t_from * 1e3:.3f} ms ({nbytes / t_from / 1e9:.2f} GB/s) "
+        f"(first calls) [{card}]")
+    del table, bufs, back
+
+
+def big_rows(pt, T, convert, card, seed, report) -> None:
+    """spark_12_2str at BIG_ROWS rows, made on the card from a seeded
+    generator: JCUDF rows past 2.5 GB, split into batches below 2 GB
+    (``convert._to_rows_strings``), every batch back through
+    ``convert_from_rows`` equal to its rows of the table, byte for
+    byte."""
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+
+    n_cols, every, max_len = CASES["spark_12_2str"]
+    n = BIG_ROWS
+    gen = torch.Generator(device=CARD).manual_seed(seed + 1)
+    dev = CARD
+    cols = []
+    for i in range(n_cols):
+        valid = torch.rand(n, generator=gen, device=dev) >= NULL_FRACTION
+        if every and i % every == 0:
+            lens = torch.randint(0, max_len, (n,), generator=gen,
+                                 device=dev) * valid
+            offs = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+            offs[1:] = torch.cumsum(lens, 0)
+            total = int(offs[-1])
+            chars = torch.randint(32, 127, (total,), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+            cols.append(Column(T.string, chars, offs.to(torch.int32), valid))
+            continue
+        dt = T.DType(T.TypeId[FIXED_CYCLE[i % len(FIXED_CYCLE)]])
+        st = dt.torch_storage
+        if dt.id == T.TypeId.FLOAT32:
+            data = torch.randn(n, generator=gen, device=dev)
+        elif dt.id == T.TypeId.BOOL8:
+            data = torch.randint(0, 2, (n,), generator=gen, device=dev,
+                                 dtype=st)
+        else:
+            info = torch.iinfo(st)
+            data = torch.randint(info.min // 2, info.max // 2, (n,),
+                                 generator=gen, device=dev, dtype=st)
+        cols.append(Column(dt, data, validity=valid))
+    table = Table(cols)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = pt.convert_to_rows(table)
+    torch.cuda.synchronize()
+    t_to = time.perf_counter() - t0
+    nbytes = sum(b.num_bytes for b in batches)
+    require(nbytes > BIG_MIN_BYTES,
+            f"big rows: {nbytes} row bytes, not past {BIG_MIN_BYTES}")
+    require(len(batches) >= 2, "big rows: one batch past 2 GB")
+    lo = 0
+    t_from = 0.0
+    for bi, b in enumerate(batches):
+        require(b.num_bytes < 2 ** 31, f"big rows: batch {bi} past 2 GB")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = pt.convert_from_rows(b, table.schema)
+        torch.cuda.synchronize()
+        t_from += time.perf_counter() - t0
+        check_round_trip(convert.slice_table(table, lo, lo + b.num_rows),
+                         back)
+        lo += b.num_rows
+        del back
+    require(lo == n, f"big rows: the batches hold {lo} of {n} rows")
+    counts = [b.num_rows for b in batches]
+    del batches
+    t_med = median_wall(lambda: pt.convert_to_rows(table))
+    report["big_rows"] = dict(rows=n, row_bytes=nbytes, batches=counts,
+                              to_first_ms=round(t_to * 1e3, 3),
+                              to_ms=round(t_med * 1e3, 3),
+                              from_first_ms=round(t_from * 1e3, 3))
+    log(f"[bigrows] spark_12_2str x {n} rows: {nbytes} JCUDF row bytes in "
+        f"{len(counts)} batches ({counts} rows), back byte-equal; to_rows "
+        f"median of {PATH_REPS} {t_med * 1e3:.3f} ms = "
+        f"{nbytes / t_med / 1e9:.2f} GB/s (first {t_to * 1e3:.3f} ms), "
+        f"from_rows of the batches {t_from * 1e3:.3f} ms = "
+        f"{nbytes / t_from / 1e9:.2f} GB/s (first calls) [{card}]")
+    del table, cols
+    torch.cuda.empty_cache()
+
+
+def phase_aqe(pt, T, convert, kernels, card, seed, launches, tpcds_ctx,
+              spark_raw) -> None:
+    """Phase 19: adaptive execution over the plan trees and SQL texts
+    (eager, compiled and served), the JAX package's two AQE shapes, the
+    repartition join on a mesh of the card's shards, the 50 queries with
+    the arena on, a served run under the fault shim, a K-member graph,
+    Arrow interchange of SF1 lineitem and rows past 2.5 GB.  The kernel
+    counts are set to 0 before and read after; every kernel must launch
+    in it."""
+    t_phase = time.perf_counter()
+    report = {"card": card}
+    kernels.reset()
+    for part in (lambda: aqe_queries(card, tpcds_ctx, report),
+                 lambda: aqe_served(card, tpcds_ctx, report),
+                 lambda: aqe_shapes(card, report),
+                 lambda: repartition_tpcds(card, tpcds_ctx, report),
+                 lambda: arena_queries(card, tpcds_ctx, report),
+                 lambda: shim_served(card, tpcds_ctx, report),
+                 lambda: vmapped_batch(card, tpcds_ctx, report),
+                 lambda: arrow_lineitem(card, spark_raw, report),
+                 lambda: big_rows(pt, T, convert, card, seed, report)):
+        part()
+        release()
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for name in AQE_KERNELS:
+        require(counts[name] > 0, f"phase 19: {name} never launched")
+    report["launches"] = counts
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[aqe] summary " + json.dumps(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4171,8 +4957,9 @@ def main(argv=None) -> int:
     del raw
     results.update(phase_q1(T, W, tpch_q1, kernels, card, args.seed,
                             launches))
+    spark = {}
     results.update(phase_spark(pt, W, device_scan, q6, kernels, card,
-                               args.seed, launches, full_scan))
+                               args.seed, launches, full_scan, spark))
     tpcds_results, tpcds_ctx = phase_tpcds(kernels, card, launches)
     results.update(tpcds_results)
     phase_compiled(kernels, card, launches, tpcds_ctx)
@@ -4183,6 +4970,8 @@ def main(argv=None) -> int:
     results.update(phase_exec(kernels, card, launches, tpcds_ctx))
     results.update(phase_ml_stream(kernels, card, launches, tpcds_ctx,
                                    mortgage_files))
+    phase_aqe(pt, T, convert, kernels, card, args.seed, launches, tpcds_ctx,
+              spark.pop("raw"))
     del tpcds_ctx, mortgage_files
     torch.cuda.empty_cache()
 

@@ -10,6 +10,10 @@ layout the JAX package uses (``spark_rapids_jni_tpu/column.py``):
 
 Constructors place data on the GPU unless the caller passes
 ``device="cpu"``; with no CUDA device they raise rather than run on the CPU.
+Their host → device copies go through one funnel, :func:`upload` (the
+fault shim's ``torch.h2d`` site, ``faultinj/torch_shim.py``), and a
+STRING column born on the host seeds its offsets' host mirror
+(``utils/hostcache.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from . import types as T
-from .utils import syncs
+from .utils import hostcache, syncs
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,10 +37,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of the host array ``host`` on ``device``: the constructors'
+    one host → device funnel."""
+    return torch.from_numpy(np.array(host, copy=True)).to(device)
+
+
 def _validity_tensor(validity, device) -> Optional[torch.Tensor]:
     if validity is None:
         return None
-    return torch.as_tensor(np.asarray(validity, dtype=bool), device=device)
+    return upload(np.asarray(validity, dtype=bool), device)
 
 
 @dataclasses.dataclass
@@ -81,7 +91,7 @@ class Column:
             storage = np.ascontiguousarray(arr, dtype=np.int64).reshape(-1, 2)
         else:
             storage = np.ascontiguousarray(arr, dtype=dtype.storage).reshape(-1)
-        return Column(dtype, torch.from_numpy(storage.copy()).to(dev),
+        return Column(dtype, upload(storage, dev),
                       validity=_validity_tensor(validity, dev))
 
     @staticmethod
@@ -93,8 +103,9 @@ class Column:
         dev = resolve_device(device)
         chars = np.ascontiguousarray(chars, dtype=np.uint8).reshape(-1)
         offsets = np.ascontiguousarray(offsets, dtype=np.int32).reshape(-1)
-        return Column(T.string, torch.from_numpy(chars.copy()).to(dev),
-                      torch.from_numpy(offsets.copy()).to(dev),
+        doffs = upload(offsets, dev)
+        hostcache.seed(doffs, offsets.astype(np.int64))
+        return Column(T.string, upload(chars, dev), doffs,
                       _validity_tensor(validity, dev))
 
     @staticmethod
@@ -118,7 +129,7 @@ class Column:
         """Host list with ``None`` for nulls (tests and debugging)."""
         valid = self.validity_or_true().cpu().numpy()
         if self.dtype.id == T.TypeId.STRING:
-            offsets = self.offsets.cpu().numpy()
+            offsets = hostcache.host_i64(self.offsets)
             chars = self.data.cpu().numpy().tobytes()
             return [chars[offsets[i]:offsets[i + 1]].decode("utf-8")
                     if valid[i] else None for i in range(self.num_rows)]

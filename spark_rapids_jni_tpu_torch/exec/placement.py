@@ -47,17 +47,10 @@ from .admission import AdmissionController
 def local_devices(n_devices: int, device=None) -> list:
     """The first ``n_devices`` devices: cards (``torch.cuda.device_count()``
     of them; raises when asked for more, or without one), or with
-    ``device="cpu"`` that many CPU replicas, which share the host."""
-    n = max(int(n_devices), 1)
-    if device is not None and torch.device(device).type == "cpu":
-        return [torch.device("cpu")] * n
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to serve on the CPU")
-    have = torch.cuda.device_count()
-    if have < n:
-        raise ValueError(f"need {n} devices, have {have}")
-    return [torch.device("cuda", i) for i in range(n)]
+    ``device="cpu"`` that many CPU replicas, which share the host.  The
+    mesh builders' one source of handles (``parallel/mesh.py``)."""
+    from ..parallel.mesh import local_devices as mesh_devices
+    return mesh_devices(max(int(n_devices), 1), device)
 
 
 def device_name(device, index: int = 0) -> str:

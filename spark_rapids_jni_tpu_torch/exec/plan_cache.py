@@ -29,9 +29,11 @@ recompiles, never returns wrong rows.
 **Cross-request batching** (:meth:`PlanCache.run_batched`): K requests
 that resolved to the same plan — requests over identical tensors share a
 single replay and its result; requests over distinct same-shape tensors
-would stack through
-:meth:`~..models.compiled.CompiledQuery.run_vmapped`, which returns None
-in the port (no K-member graph yet), so each replays the one graph.
+stack through :meth:`~..models.compiled.CompiledQuery.run_vmapped`:
+on the card one replay of a graph of K members rounded up to a power of
+two (at most ``compiled.BATCH_MAX``; a width with no graph yet is
+captured on a thread of its own while the requests replay in turn), on
+the CPU K runs under the tape.
 
 **Cold start from a persisted tape** (``SRJT_AOT_DIR``,
 ``exec/artifacts.py``): an identity + size miss consults the persistent
@@ -104,8 +106,14 @@ class PlanCache:
         """Live occupancy + lifetime hit/miss counters (flight-recorder
         probe and ops-report surface)."""
         with self._mu:
+            plans = {id(e["plan"]): e["plan"] for e in self._d.values()}
+            plans.update((id(p), p) for p in self._by_size.values())
             occ = {"entries": len(self._d),
                    "size_index": len(self._by_size),
+                   # the graphs' private inputs and pools, batch graphs
+                   # included (``CompiledQuery.device_bytes``)
+                   "device_bytes": sum(p.device_bytes()
+                                       for p in plans.values()),
                    "cap": self.cap,
                    "share_by_size": self.share_by_size,
                    "building": len(self._building)}
@@ -160,7 +168,13 @@ class PlanCache:
         admission requests running under ``force_engine``: a tape
         recorded on the dense join path would misalign when replayed
         with the engine forced, so the two variants must never share an
-        entry."""
+        entry.  An adaptive qfn (``plan/adaptive.compile_adaptive_plan``)
+        carries its mode in ``qfn.aqe_variant``, folded into the variant
+        here: static and adaptive compiles of one tree never share (or
+        thrash) an entry."""
+        aqe = getattr(qfn, "aqe_variant", "")
+        if aqe:
+            variant = f"{variant}+{aqe}" if variant else aqe
         fp, arrays = C.plan_key(tables)
         key = (name, variant, fp)
         skey = None
@@ -325,12 +339,18 @@ class PlanCache:
         a single execution and its result — the common serving case,
         where every request reads the same resident tables.  Requests
         over distinct same-shape buffers are offered to the plan's
-        ``run_vmapped`` (which returns None in the port: each then
+        ``run_vmapped`` with ``background=True`` (one launch of a batch
+        graph; where it returns None, because its graph is still being
+        captured on a thread of its own or the plan does not batch, each
         replays the one graph), provided their entries are warm and
         verified; cold or unverified members run individually (their
-        first run is the capture / tape revalidation).  Every fallback is
-        per-request dispatch through the same plans — results are always
-        exactly what serial execution would have produced."""
+        first run is the capture / tape revalidation).
+
+        The contract: integers, keys and validity are what serial
+        execution gives, byte for byte; floats may differ from it within
+        a relative ``compiled.PARITY_RTOL`` (float sums add by atomics on
+        the card).  Parity is checked once a plan, on member 0 of its
+        first batch, against a serial replay."""
         K = len(tables_list)
         results: list = [None] * K
         groups: "OrderedDict[tuple, list[int]]" = OrderedDict()
@@ -365,7 +385,8 @@ class PlanCache:
             outs = None
             if len(items) >= 2:
                 outs = plan.run_vmapped(
-                    [tables_list[idxs[0]] for _, idxs in items])
+                    [tables_list[idxs[0]] for _, idxs in items],
+                    background=True)
             if outs is not None:
                 for (entry, idxs), res in zip(items, outs):
                     _fan(idxs, res)

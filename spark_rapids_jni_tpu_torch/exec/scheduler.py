@@ -540,6 +540,8 @@ class QueryScheduler:
                 self._probe_thread.join(timeout=5)
             if self._warmup_thread is not None:
                 self._warmup_thread.join(timeout=5)
+            # the batch graphs the workers left to capture in background
+            C.wait_batch_captures()
         for probe in ("scheduler.queue_depth", "scheduler.inflight_bytes",
                       "scheduler.plan_cache", "scheduler.slo",
                       "scheduler.replicas"):

@@ -5,8 +5,10 @@ reference ships ``libcufaultinj.so``: a CUPTI interceptor that matches
 CUDA API callbacks against a JSON config and injects faults so the
 framework above can prove its retry/quarantine logic.  Here the
 interception points are the framework's own dispatch sites (the serving
-runtime checks ``exec.dispatch``); a shim at the torch level waits for a
-later slice.  Parity, feature for feature:
+runtime checks ``exec.dispatch``) and, with ``faultinj/torch_shim.py``
+installed, the port's host → device copies, kernel builds and launches
+(``torch.h2d``, ``torch.build``, ``torch.launch``).  Parity, feature for
+feature:
 
 * config matched by site name or ``"*"``
 * per-rule ``percent`` dice and decrementing ``interceptionCount`` budget

@@ -22,10 +22,9 @@ first asks ``memory.spill`` to reclaim LRU residents; if still over:
   pressure instead of failing the query).
 
 ``SRJT_HBM_BUDGET`` accepts ``512m`` / ``2g`` / plain bytes; empty /
-``none`` / ``unlimited`` means no limit.  Setting it switches the ledger
-on (the JAX package's other switch, ``SRJT_HBM_ARENA``, arrives with
-``memory/arena.py``).  Nothing here syncs a device value: all byte
-counts arrive as host ints.
+``none`` / ``unlimited`` means no limit.  Setting it, or
+``SRJT_HBM_ARENA``, switches the ledger on (``memory/arena.py``).
+Nothing here syncs a device value: all byte counts arrive as host ints.
 """
 
 from __future__ import annotations
@@ -41,7 +40,18 @@ from ..utils import flight, knobs, metrics
 _LOCK = sanitize.tracked_rlock("memory.budget")      # shared with memory.spill (lock order:
 #                                budget → spill registry, never reversed)
 
-_enabled: bool = bool(knobs.get("SRJT_HBM_BUDGET"))
+#: pair-expansion working set per output pair in ``ops/join.py``: the
+#: int64 lanes of the repeat, the positions and the build rows, and the
+#: matched mask (the JAX package's figure)
+PAIR_EXPANSION_BYTES = 40
+
+
+def _from_env() -> bool:
+    return (knobs.get("SRJT_HBM_ARENA")
+            or bool(knobs.get("SRJT_HBM_BUDGET")))
+
+
+_enabled: bool = _from_env()
 
 
 class HbmBudgetExceeded(RuntimeError):
@@ -66,10 +76,10 @@ def enabled() -> bool:
 
 
 def set_enabled(on: Optional[bool] = None) -> None:
-    """Toggle the ledger; ``None`` re-reads the env knob."""
+    """Toggle the ledger; ``None`` re-reads the env knobs."""
     global _enabled
     if on is None:
-        _enabled = bool(knobs.get("SRJT_HBM_BUDGET"))
+        _enabled = _from_env()
     else:
         _enabled = bool(on)
 

@@ -131,6 +131,24 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return t.clone()
 
 
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """:func:`_to_host`, but a tensor with a host mirror
+    (``utils/hostcache.py``) of its shape spills with no device → host
+    copy: the mirror IS the host copy.  An integer mirror of another width
+    (the int64 mirrors of int32 offsets that ``Column.strings_from_arrays``
+    and ``hostcache.host_i64`` seed) holds the same values, since it was
+    made from them, and is cast on the host."""
+    from ..utils import hostcache
+    h = hostcache.peek(t)
+    want = torch.empty(0, dtype=t.dtype).numpy().dtype
+    if h is not None and h.shape == tuple(t.shape) and (
+            h.dtype == want or (h.dtype.kind in "iu" and want.kind in "iu")):
+        if metrics.recording():
+            metrics.count("arena.spill.mirror_reuse")
+        return torch.from_numpy(h if h.dtype == want else h.astype(want))
+    return _to_host(t)
+
+
 class SpillableArrays:
     """A named bundle of device tensors that can round-trip through host
     memory bit-exactly (the generic resident payload).
@@ -154,6 +172,11 @@ class SpillableArrays:
     @property
     def spilled(self) -> bool:
         return self._dev is None
+
+    @property
+    def names(self) -> tuple:
+        """The bundle's tensor names."""
+        return tuple(self._where)
 
     def spill(self) -> int:
         """Device → host; returns bytes released (0 when already host)."""
@@ -198,7 +221,8 @@ class SpillableTable:
     :class:`SpillableArrays` works for payloads whose OWNER re-fetches
     them through ``get()``; a staged table is held directly by its
     caller, so eviction works in place: :meth:`spill` replaces every
-    column's card tensors with pinned host copies, and
+    column's card tensors with pinned host copies (or their host
+    mirrors, ``utils/hostcache.py``, where those match), and
     :meth:`faultback` moves them back to the card they came from,
     bit-exact.  Holds only a weakref to the table: residency must not
     keep a dead request's working set alive."""
@@ -224,7 +248,7 @@ class SpillableTable:
                     if a is None or a.device.type != "cuda":
                         continue
                     self._where[(id(col), field)] = a.device
-                    setattr(col, field, _to_host(a))
+                    setattr(col, field, _host_copy(a))
                     freed += a.numel() * a.element_size()
         if freed and metrics.recording():
             metrics.count("arena.spill.table_cols")

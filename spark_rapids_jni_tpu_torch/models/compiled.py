@@ -44,13 +44,21 @@ compiled queries (the serving runtime's workers, prefetcher and canary)
 enters :func:`device_work` first.  A compiled query that dies leaves its
 graph to be destroyed at the next such point, never inside a capture.
 
-:meth:`CompiledQuery.run_vmapped`, the batched replay of K same-shape
-table sets, returns None, the JAX package's answer for a plan that
-cannot batch: the serving runtime then replays the one graph for each.
+:meth:`CompiledQuery.run_vmapped` runs K same-shape table sets as one
+launch: one graph that holds the plan W times over W private input sets,
+W the power of two at or above K (at most :data:`BATCH_MAX`; the spare
+members repeat the last set, and more sets go in chunks), so a plan
+holds at most three batch graphs (on the CPU, K runs under the tape);
+the serving runtime's batches take it (``exec/plan_cache.run_batched``),
+and capture a missing width on a thread of its own while they replay
+each set.  A batch graph's private inputs and pool count in
+``CompiledQuery.batch_bytes`` and, with the budget on, are a
+``memory.spill`` resident that budget pressure drops.  :meth:`CompiledQuery.lower_text`
+lists what a compiled query runs: its tape, its kernels and graph nodes.
 Counts go to :data:`COUNTS` and, under ``compiled.*`` names, to
 ``utils.metrics``; a stale tape files a ``stale_tape`` flight incident,
 and each capture of a plan's graph after its first trips
-``analysis.sanitize``'s recapture wire.  Not ported yet: ``lower_text``.
+``analysis.sanitize``'s recapture wire.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ import torch
 
 from ..analysis import sanitize
 from ..column import Column, DictColumn, LazyColumn, Table, force_column
+from ..memory import spill as mspill
 from ..utils import flight, metrics, syncs
 
 #: captures, rehydrations, graph captures, runs, stale tapes and batches
@@ -163,6 +172,9 @@ DEVICE = DeviceLock("models.compiled.device")
 # on the thread that is capturing, and destroying a graph there breaks
 # that capture
 _GRAVE: list = []
+# the spill-registry keys of dead queries' batch graphs, unregistered at
+# the same points (a finalizer may not take the budget's lock)
+_DEAD_RESIDENTS: list = []
 
 
 def _bury() -> None:
@@ -170,6 +182,41 @@ def _bury() -> None:
     and no capture running."""
     while _GRAVE:
         _GRAVE.pop()
+    while _DEAD_RESIDENTS:
+        mspill.unregister(_DEAD_RESIDENTS.pop())
+
+
+#: the most members a batch graph holds; a batch of more sets runs in
+#: chunks of this many
+BATCH_MAX = 8
+
+# the background batch captures in flight (``run_vmapped(background=True)``)
+_CAPTURES: set = set()
+_CAPTURES_MU = threading.Lock()
+
+
+def batch_chunks(k: int) -> list[tuple[int, int, int]]:
+    """How ``k`` sets run: (start, stop, width) per launch, in chunks of
+    :data:`BATCH_MAX`, each chunk's width the power of two at or above
+    its size (a chunk of one set is a plain replay, width 1)."""
+    out = []
+    for lo in range(0, k, BATCH_MAX):
+        hi = min(lo + BATCH_MAX, k)
+        w = 1
+        while w < hi - lo:
+            w *= 2
+        out.append((lo, hi, w))
+    return out
+
+
+def wait_batch_captures(timeout: Optional[float] = None) -> int:
+    """Wait for the background batch captures in flight; returns how many
+    there were.  The serving runtime's shutdown calls it."""
+    with _CAPTURES_MU:
+        threads = list(_CAPTURES)
+    for t in threads:
+        t.join(timeout)
+    return len(threads)
 
 
 @contextlib.contextmanager
@@ -280,6 +327,13 @@ def _kernel_launches() -> dict:
 
 # -- the compiled query ------------------------------------------------------
 
+def graph_replay(graph) -> None:
+    """Replay a captured graph: every compiled query's one launch on the
+    card, and the fault shim's ``torch.launch`` seam
+    (``faultinj/torch_shim.py``)."""
+    graph.replay()
+
+
 class CompiledQuery:
     """A query function compiled to one CUDA graph over its tables (on the
     CPU: an eager run under the tape).
@@ -307,6 +361,10 @@ class CompiledQuery:
         self.graph_launches = None
         self.static_bytes = None
         self.rehydrated = tape is not None
+        self._batches: dict = {}          # width → the batch graph
+        self._batchable: Optional[bool] = None
+        self._capturing: set = set()      # widths captured in background
+        self._dropped: list = []          # (width, graph) the spiller marked
         self._ledger_key = getattr(qfn, "plan_fingerprint", None) \
             or self.name
         self._trace_key = f"{self.name}#{next(_plan_serial)}"
@@ -411,9 +469,16 @@ class CompiledQuery:
 
     def __del__(self):
         # _GRAVE is None once the interpreter tears the module down
-        if getattr(self, "_graph", None) is not None and _GRAVE is not None:
+        if _GRAVE is None:
+            return
+        if getattr(self, "_graph", None) is not None:
             _GRAVE.append((self._graph, self._static, self._out,
                            self._sizes))
+        if getattr(self, "_batches", None):
+            _GRAVE.append(self._batches)
+            _DEAD_RESIDENTS.extend(b["resident"] for b in
+                                   self._batches.values()
+                                   if b.get("resident"))
 
     def _stale(self, **fields) -> None:
         _count("tape_mismatch")
@@ -441,7 +506,7 @@ class CompiledQuery:
                 continue
             s.copy_(t)
             self._copied[i] = (weakref.ref(t), t._version)
-        self._graph.replay()
+        graph_replay(self._graph)
         out = _unflatten(self._out_spec, (t.clone() for t in self._out))
         return out, self._sizes
 
@@ -499,13 +564,307 @@ class CompiledQuery:
             with syncs.replay(self.tape):
                 return _materialized(self._qfn(tables))
 
-    def run_vmapped(self, tables_list) -> Optional[list]:
-        """K same-shape table sets as one launch: not yet.  Returns None,
-        the JAX package's answer for a plan that cannot batch, so that the
-        caller replays the graph for each set in turn
-        (``exec/plan_cache.run_batched``).  A one-launch graph of K
-        members is still to come."""
-        _count("batch_unsupported")
+    @property
+    def batch_bytes(self) -> int:
+        """The device bytes of the batch graphs: their private inputs and
+        their graph pools."""
+        return sum(b["bytes"] for b in list(self._batches.values()))
+
+    def device_bytes(self) -> int:
+        """The device bytes the compiled query holds: its graph's private
+        inputs and pool, and :attr:`batch_bytes`."""
+        return ((self.static_bytes or 0) + (self.graph_pool_bytes or 0)
+                + self.batch_bytes)
+
+    def run_vmapped(self, tables_list, *,
+                    background: bool = False) -> Optional[list]:
+        """K same-shape table sets as one launch a chunk: on the card, a
+        replay of a graph that holds the plan W times over W private input
+        sets (:func:`batch_chunks`: W the power of two at or above K, at
+        most :data:`BATCH_MAX`, the spare members repeating the last set;
+        captured once for each W, under the same tape: every member's
+        sizes are the tape's, as under ``jax.vmap`` in the JAX package);
+        on the CPU, K runs under the tape.  The results are clones, in
+        order.  No sizes are read back: the callers batch only plans
+        verified on each member's tables (``exec/plan_cache``).
+
+        ``background``: a width with no graph yet is captured on a thread
+        of its own (:func:`wait_batch_captures`), and this call returns
+        None, so that the caller replays each set meanwhile
+        (``compiled.batch_deferred``).  Otherwise it is captured here.
+
+        Returns None where the caller must dispatch each set itself: sets
+        of differing structure or shape, a deferred capture, a failed
+        background capture (``compiled.batch_capture_failed``, a flight
+        incident; batching stays off for the plan), or a plan whose first
+        batch differed from its serial run (element 0 is held against
+        :meth:`run_unchecked` once: integers, keys and validity byte for
+        byte, floats within a relative :data:`PARITY_RTOL`, since float
+        sums add by atomics on the card and two runs of one graph may
+        differ in their last bits; a difference rejects batching for the
+        plan, ``compiled.batch_parity_reject``, and files a flight
+        incident)."""
+        if self._batchable is False:
+            return None
+        specs = [self._inputs(t) for t in tables_list]
+        spec0, _, on_card = specs[0]
+        if any(sp != spec0 or oc != on_card for sp, _, oc in specs[1:]):
+            _count("batch_unsupported")
+            return None
+        members = [t for _, t, _ in specs]
+        chunks = batch_chunks(len(members))
+        with metrics.span(f"compiled.batch:{self.name}",
+                          size=len(tables_list)):
+            if on_card:
+                with self._lock:
+                    self._drop_marked()
+                    missing = [(lo, hi, w) for lo, hi, w in chunks
+                               if w > 1 and not self._has_batch(spec0, w)]
+                    if missing and background:
+                        for lo, hi, w in missing:
+                            self._capture_later(spec0, members[lo:hi], w)
+                        _count("batch_deferred")
+                        return None
+                    outs = []
+                    for lo, hi, w in chunks:
+                        if w == 1:
+                            outs.append(self._replay(spec0, members[lo])[0])
+                        else:
+                            outs += self._batch_replay(spec0,
+                                                       members[lo:hi], w)
+            else:
+                outs = []
+                for t in tables_list:
+                    with syncs.replay(self.tape):
+                        outs.append(_materialized(self._qfn(t)))
+        _count("batch_replay", sum(1 for _, _, w in chunks if w > 1)
+               if on_card else 1)
+        _count("batch_member", len(tables_list))
+        if self._batchable is None:
+            _count("batch_parity_check")
+            ref: list = []
+            got: list = []
+            same = (_flatten(self.run_unchecked(tables_list[0]), ref)
+                    == _flatten(outs[0], got))
+            same = same and all(_parity(a, b) for a, b in zip(ref, got))
+            if not same:
+                _count("batch_parity_reject")
+                flight.incident("vmap_parity_reject", query=self.name,
+                                batch_size=len(tables_list))
+                self._batchable = False
+                return None
+            self._batchable = True
+        return outs
+
+    def _has_batch(self, spec, w: int) -> bool:
+        b = self._batches.get(w)
+        return b is not None and b["spec"] == spec
+
+    def _drop_marked(self) -> None:
+        """Drop the batch graphs the spiller marked while the query was
+        busy.  The caller holds ``_lock``."""
+        while self._dropped:
+            w, b = self._dropped.pop()
+            if self._batches.get(w) is b:
+                _GRAVE.append(self._batches.pop(w))
+
+    def _capture_later(self, spec, members: list, w: int) -> None:
+        """Capture the width-``w`` graph over ``members`` on a thread of
+        its own, unless one is on its way.  The caller holds ``_lock``."""
+        if w in self._capturing:
+            return
+        self._capturing.add(w)
+
+        def job():
+            try:
+                with self._lock:
+                    if not self._has_batch(spec, w):
+                        self._install_batch(spec, members, w)
+            except BaseException as e:
+                _count("batch_capture_failed")
+                flight.incident("batch_capture_failed", query=self.name,
+                                width=w, error=repr(e)[:200])
+                self._batchable = False
+            finally:
+                with self._lock:
+                    self._capturing.discard(w)
+                with _CAPTURES_MU:
+                    _CAPTURES.discard(threading.current_thread())
+
+        t = threading.Thread(target=job, name=f"batch-capture:{self.name}:{w}")
+        with _CAPTURES_MU:
+            _CAPTURES.add(t)
+        t.start()
+
+    def _batch_replay(self, spec, members: list, w: int) -> list:
+        """The width-``w`` graph for ``members`` (captured first where
+        there is none; the spare members repeat the last set), replayed
+        once; the members' results."""
+        if not self._has_batch(spec, w):
+            self._install_batch(spec, members, w)
+        b = self._batches[w]
+        padded = members + [members[-1]] * (w - len(members))
+        with device_work():
+            for k, tensors in enumerate(padded):
+                for i, (t, s) in enumerate(zip(tensors, b["static"][k])):
+                    ref, version = b["copied"][k][i]
+                    if ref() is t and t._version == version:
+                        continue
+                    s.copy_(t)
+                    b["copied"][k][i] = (weakref.ref(t), t._version)
+            graph_replay(b["graph"])
+            return [_unflatten(b["out_spec"][k],
+                               (t.clone() for t in b["out"][k]))
+                    for k in range(len(members))]
+
+    def _install_batch(self, spec, members: list, w: int) -> None:
+        """Capture the width-``w`` graph (replacing one of another spec)
+        and account its bytes.  The caller holds ``_lock``."""
+        padded = members + [members[-1]] * (w - len(members))
+        with DEVICE.exclusive(), \
+                metrics.span(f"compiled.batch_capture:{self.name}", size=w), \
+                torch.cuda.device(padded[0][0].device):
+            _bury()
+            old = self._batches.pop(w, None)
+            if old is not None:
+                _GRAVE.append(old)
+                if old.get("resident"):
+                    mspill.unregister(old["resident"])
+            b = self._capture_batch(spec, padded)
+        self._batches[w] = b
+        self._register_batch(w, b)
+
+    def _register_batch(self, w: int, b: dict) -> None:
+        """With the budget on, the graph is a ``memory.spill`` resident:
+        budget pressure drops it (at once, or at the query's next batch
+        where a replay or capture holds it) and a later batch captures it
+        again."""
+        b["resident"] = None
+        from ..memory import budget as mbudget
+        if not mbudget.active():
+            return
+        me = weakref.ref(self)
+        key = ("compiled.batch_graph", self._trace_key, w)
+
+        def spiller():
+            cq = me()
+            if cq is None or cq._batches.get(w) is not b:
+                return 0
+            if cq._lock.acquire(blocking=False):
+                try:
+                    if cq._batches.get(w) is b:
+                        del cq._batches[w]
+                        _GRAVE.append(b)
+                finally:
+                    cq._lock.release()
+            else:
+                cq._dropped.append((w, b))
+            return b["bytes"]
+        b["resident"] = key
+        mspill.register(key, b["bytes"], "compiled.batch_graph", spiller)
+
+    def _capture_batch(self, spec, members: list) -> dict:
+        statics = [[t.clone() for t in tensors] for tensors in members]
+
+        def member(k):
+            return _unflatten(spec, iter(statics[k]))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for k in range(len(members)):
+                with syncs.replay(self.tape):
+                    _materialized(self._qfn(member(k)))
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        # as for the one-set graph: the pool is what the capture reserves
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        launches = _kernel_launches()
+        t0 = time.perf_counter()
+        outs, out_specs = [], []
+        with torch.cuda.graph(graph):
+            for k in range(len(members)):
+                with syncs.replay(self.tape):
+                    out = _materialized(self._qfn(member(k)))
+                tensors: list = []
+                out_specs.append(_flatten(out, tensors))
+                outs.append(tensors)
+        torch.cuda.synchronize()
+        pool = torch.cuda.memory_reserved() - reserved
+        after = _kernel_launches()
+        _count("batch_capture")
+        metrics.ledger_add(self._ledger_key, batch_captures=1,
+                           batch_capture_ms=(time.perf_counter() - t0) * 1e3)
+        static_bytes = sum(t.numel() * t.element_size()
+                           for tensors in statics for t in tensors)
+        return {"spec": spec, "static": statics, "graph": graph,
+                "out": outs, "out_spec": out_specs,
+                "bytes": static_bytes + pool, "pool_bytes": pool,
+                "launches": {k: after[k] - launches[k] for k in after},
+                "copied": [[(weakref.ref(t), t._version) for t in tensors]
+                           for tensors in members]}
+
+    def lower_text(self, tables=None) -> str:
+        """What the compiled query runs, as text (diagnostics; the JAX
+        package dumps its StableHLO here): the tape, and on the card the
+        graph's hand-written kernel launches and its CUDA graph nodes
+        (``CUDAGraph.debug_dump``'s DOT text, where the graph was
+        captured with debug mode on), else the graph's node count.
+        ``tables`` captures the graph first where there is none."""
+        if tables is not None and self._graph is None:
+            spec, tensors, on_card = self._inputs(tables)
+            if on_card:
+                with self._lock:
+                    self._capture_graph(spec, tensors)
+        lines = [f"compiled query {self.name}",
+                 f"tape ({len(self.tape)} sizes): {list(self.tape)}"]
+        if self._graph is None:
+            lines.append("graph: none (eager under the tape on the CPU)")
+            return "\n".join(lines)
+        launches = {k: v for k, v in (self.graph_launches or {}).items()
+                    if v}
+        lines.append(f"kernels launched in the graph: {launches}")
+        lines.append(f"graph pool bytes: {self.graph_pool_bytes}, "
+                     f"static input bytes: {self.static_bytes}, "
+                     f"batch graphs {sorted(self._batches)}: "
+                     f"{self.batch_bytes} bytes")
+        dot = _graph_dot(self._graph)
+        if dot is not None:
+            nodes = [ln for ln in dot.splitlines() if "label=" in ln]
+            lines.append(f"graph nodes ({len(nodes)}):")
+            lines += ["  " + ln.strip() for ln in nodes]
+        return "\n".join(lines)
+
+
+#: the relative difference a batched float result may show against its
+#: serial run in the first batch's parity check
+PARITY_RTOL = 1e-12
+
+
+def _parity(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` equal: bit for bit, or floats within
+    :data:`PARITY_RTOL` (NaN where the other is NaN)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    if torch.equal(a, b):
+        return True
+    return bool(torch.allclose(a, b, rtol=PARITY_RTOL, atol=0.0,
+                               equal_nan=True))
+
+
+def _graph_dot(graph) -> Optional[str]:
+    """The DOT text of a captured graph (``debug_dump``), or None where
+    the graph was not captured in debug mode."""
+    import os
+    import tempfile
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "graph.dot")
+            graph.debug_dump(path)
+            with open(path) as f:
+                return f.read()
+    except Exception:
         return None
 
 

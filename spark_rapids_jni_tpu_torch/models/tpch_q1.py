@@ -6,10 +6,13 @@ groupby on the two flags.
            sum(l_extendedprice*(1-l_discount))            AS sum_disc_price,
            sum(l_extendedprice*(1-l_discount)*(1+l_tax))  AS sum_charge,
            avg(l_quantity), avg(l_extendedprice), avg(l_discount),
-           count(*)
+           count(l_quantity)
     FROM lineitem WHERE l_shipdate <= ? GROUP BY 1,2 ORDER BY 1,2
 
 The port's counterpart of the JAX package's ``models/tpch_q1.py:32-68``.
+The last column counts the rows whose ``l_quantity`` is not null, as the
+JAX package's Q1 does (TPC-H's ``count(*)`` where the column has no
+nulls, as in TPC-H's own data).
 The money columns are decimals (FLBA in the file); the products are
 128-bit limb products (``ops.decimal128``) at scales -4 and -6, and their
 sums limb sums, exact.  The groupby's output is already in key order.

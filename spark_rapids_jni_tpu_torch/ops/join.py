@@ -21,7 +21,10 @@ equality; a null in any key never matches).  ``join_plan.plan_keys``
 packs tuples into one int64 where the windows allow, else probes on a
 64-bit fingerprint and this module verifies every key lane on the
 candidate pairs.  The table joins return :class:`LazyColumn`s through
-``ops.filter.gather``.
+``ops.filter.gather``.  With the arena on (``memory/arena.py``) the pair
+expansion is admitted against the budget first
+(``arena.reserve(pairs * PAIR_EXPANSION_BYTES)``), and a left join's
+null fill takes the arena's pooled zeros.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 
 from .. import types as T
 from ..column import Column, LazyColumn, Table, force_column
+from ..memory import arena
+from ..memory.budget import PAIR_EXPANSION_BYTES
 from ..utils import metrics, syncs
 from .filter import gather, sized_nonzero, sized_repeat
 from .sort import _ordered
@@ -127,16 +132,22 @@ def _join_indices(lcols: list, rcols: list, how: str):
         metrics.annotate(expand_pairs=total)
     metrics.profile_op("join", engine=ix.kind, how=how, expand_pairs=total,
                        match_rows=match_rows)
-    starts = torch.cumsum(out_counts, 0) - out_counts
-    left_idx = sized_repeat(out_counts, total)
-    within = torch.arange(total, dtype=torch.int64, device=dev) \
-        - starts[left_idx]
-    matched = within < counts[left_idx]
-    if nr == 0:
-        return left_idx, torch.full_like(left_idx, -1)
-    r_pos = lo[left_idx].to(torch.int64) + torch.where(matched, within, 0)
-    right_idx = torch.where(matched, ix.row_ids[r_pos.clamp(0, nr - 1)], -1)
-    return left_idx, right_idx
+    # admission for the expansion's working set before it is made: under
+    # pressure the arena spills LRU residents first (soft: an admitted
+    # query completes)
+    with arena.reserve(total * PAIR_EXPANSION_BYTES, tag="join.expand"):
+        starts = torch.cumsum(out_counts, 0) - out_counts
+        left_idx = sized_repeat(out_counts, total)
+        within = torch.arange(total, dtype=torch.int64, device=dev) \
+            - starts[left_idx]
+        matched = within < counts[left_idx]
+        if nr == 0:
+            return left_idx, torch.full_like(left_idx, -1)
+        r_pos = lo[left_idx].to(torch.int64) \
+            + torch.where(matched, within, 0)
+        right_idx = torch.where(matched,
+                                ix.row_ids[r_pos.clamp(0, nr - 1)], -1)
+        return left_idx, right_idx
 
 
 def _pair_candidates(ix, lo, counts):
@@ -155,13 +166,14 @@ def _pair_candidates(ix, lo, counts):
     if metrics.recording():
         metrics.count("join.expand.calls")
         metrics.observe("join.expand.pair_elements", total)
-    counts = counts.to(torch.int64)
-    starts = torch.cumsum(counts, 0) - counts
-    left_idx = sized_repeat(counts, total)
-    within = torch.arange(total, dtype=torch.int64, device=dev) \
-        - starts[left_idx]
-    r_pos = lo[left_idx].to(torch.int64) + within
-    return left_idx, ix.row_ids[r_pos.clamp(0, nr - 1)]
+    with arena.reserve(total * PAIR_EXPANSION_BYTES, tag="join.expand"):
+        counts = counts.to(torch.int64)
+        starts = torch.cumsum(counts, 0) - counts
+        left_idx = sized_repeat(counts, total)
+        within = torch.arange(total, dtype=torch.int64, device=dev) \
+            - starts[left_idx]
+        r_pos = lo[left_idx].to(torch.int64) + within
+        return left_idx, ix.row_ids[r_pos.clamp(0, nr - 1)]
 
 
 def _verified_join(plan, ix, lo, counts, how: str):
@@ -216,18 +228,20 @@ def inner_join(left: Table, right: Table, left_on: OnKey,
 
 
 def _null_column(dt: T.DType, n: int, device) -> Column:
-    nulls = torch.zeros(n, dtype=torch.bool, device=device)
+    """An all-null column of ``n`` rows.  Its tensors are the arena's
+    pooled zeros while the arena is on (``memory/arena.py``): shared, so
+    nothing may write them in place."""
+    nulls = arena.zeros(n, torch.bool, device)
     if dt.is_nested:
         raise NotImplementedError(f"null {dt.id.name} columns are not "
                                   "ported")
     if dt.is_variable_width:
-        return Column(dt, torch.zeros(0, dtype=torch.uint8, device=device),
-                      torch.zeros(n + 1, dtype=torch.int32, device=device),
-                      nulls)
+        return Column(dt, arena.zeros(0, torch.uint8, device),
+                      arena.zeros(n + 1, torch.int32, device), nulls)
     if dt.id == T.TypeId.DECIMAL128:
-        return Column(dt, torch.zeros((n, 2), dtype=torch.int64,
-                                      device=device), validity=nulls)
-    return Column(dt, torch.zeros(n, dtype=dt.torch_storage, device=device),
+        return Column(dt, arena.zeros((n, 2), torch.int64, device),
+                      validity=nulls)
+    return Column(dt, arena.zeros(n, dt.torch_storage, device),
                   validity=nulls)
 
 

@@ -29,25 +29,32 @@ Indexes and multi-key plans are cached on the identity of their key
 tensors: a weak reference and the tensor's ``_version``, so that an entry
 dies with its tensor and an in-place write misses it.  Both caches are
 bypassed under capture and replay, so that the two visit the same sites
-(``utils.syncs``).  The index cache is
-an LRU over its indexes' device bytes, capped at :data:`INDEX_CACHE_CAP`
-(the JAX package's ``SRJT_INDEX_CACHE_CAP`` default, 512 MiB); each
-eviction counts in ``build_index.evictions`` and in
-:func:`index_cache_stats`.
+(``utils.syncs``).  The index cache is an LRU over its indexes' device
+bytes, capped at ``SRJT_INDEX_CACHE_CAP`` (where that is unset,
+:data:`INDEX_CACHE_CAP`, the knob's default of 512 MiB); each eviction
+counts in ``build_index.evictions`` and in :func:`index_cache_stats`.
+With the arena on (``SRJT_HBM_ARENA``, ``memory/``) each cached index
+registers as a ``memory.spill`` resident: budget pressure moves its
+tensors to host memory, and the next hit faults them back bit-exactly
+(``build_index.faultback``).  Each cache takes a lock of its own that
+``analysis.sanitize`` tracks (``ops.join_plan.index_cache``,
+``ops.join_plan.plan_memo``); where a spillable index may be touched,
+the budget's lock comes first (the spiller runs under it).
 
-Which engine, key plan and fused path each call took is counted in
-:data:`COUNTS` (``engine.dense``, ``pack.composite``,
-``fused.unique_gather``, ...), as a kernel wrapper counts its launches,
-and in ``utils.metrics`` under the JAX package's ``join.*`` names.
-The JAX module's ``SRJT_JOIN_ENGINE`` and ``SRJT_INDEX_CACHE_CAP`` knobs,
-its metrics spans, the spill registration of cached indexes and its lock
-sanitizer are not ported.
+``SRJT_JOIN_ENGINE`` (``dense`` or ``sorted``) pins the engine of every
+join where no :func:`force_engine` is active.  Which engine, key plan
+and fused path each call took is counted in :data:`COUNTS`
+(``engine.dense``, ``pack.composite``, ``fused.unique_gather``, ...), as
+a kernel wrapper counts its launches, and in ``utils.metrics`` under the
+JAX package's ``join.*`` names, with its spans (``join.build_index``,
+``join.pack``, ``join.aggregate``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import threading
 import weakref
 from typing import NamedTuple, Optional, Sequence
@@ -56,14 +63,18 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..analysis import sanitize
 from ..column import Column, Table, as_dict_column, force_column
-from ..utils import metrics, syncs
+from ..memory import budget as mbudget
+from ..memory import spill as mspill
+from ..utils import knobs, metrics, syncs
 from .filter import _gather_column, sized_nonzero
 
 DENSE_SPAN_FACTOR = 2
 DENSE_SPAN_FLOOR = 4096
 DENSE_SPAN_CAP = 1 << 23
-#: the build-index cache's cap on its indexes' device bytes
+#: the build-index cache's cap on its indexes' device bytes where
+#: ``SRJT_INDEX_CACHE_CAP`` is unset (that knob's default)
 INDEX_CACHE_CAP = 512 << 20
 
 #: calls by engine, key plan and fused path, since :func:`reset_counts`
@@ -87,7 +98,9 @@ _forced_tls = threading.local()
 
 
 def forced_engine() -> Optional[str]:
-    f = getattr(_forced_tls, "kind", None)
+    """The pinned engine: this thread's :func:`force_engine`, else
+    ``SRJT_JOIN_ENGINE``, else None."""
+    f = getattr(_forced_tls, "kind", None) or knobs.get("SRJT_JOIN_ENGINE")
     return f if f in ("dense", "sorted") else None
 
 
@@ -124,28 +137,69 @@ class _IdentityCache:
     in-place write makes it a different key).  Bounded by ``cap`` entries
     and by ``byte_cap()`` bytes (the ``nbytes`` each ``put`` declares):
     past either, the least recently used entries go, the newest always
-    stays, and each one gone counts in ``evictions``."""
+    stays, and each one gone counts in ``evictions``.
 
-    def __init__(self, cap: Optional[int] = None, byte_cap=None):
+    ``spillable`` entries (build indexes, with the arena on) register as
+    ``memory.spill`` residents: the spiller moves their tensors to the
+    host and takes their bytes off ``nbytes``; the next :meth:`get`
+    faults them back and registers them again.
+
+    Locks: the cache's own (``name``, tracked by ``analysis.sanitize``).
+    The spiller runs inside ``spill.reclaim``, which ``budget.charge``
+    calls with the budget's lock held, and takes this cache's lock; so
+    wherever a spillable entry may be touched (the budget is on, or one
+    is held), the budget's lock is taken FIRST, keeping the order budget
+    → cache.  With the budget off and no spillable entry, only the
+    cache's lock is taken."""
+
+    def __init__(self, cap: Optional[int] = None, byte_cap=None,
+                 name: str = "ops.join_plan.memo"):
         self._d: "collections.OrderedDict[tuple, dict]" = \
             collections.OrderedDict()
         self._cap = cap
         self._byte_cap = byte_cap
-        self._mu = threading.RLock()
+        # reentrant: a weak reference's callback can fire at a collection
+        # point inside put, on the thread that holds the lock
+        self._mu = sanitize.tracked_rlock(name)
+        self._spillables = 0              # entries with a spill payload
         self.nbytes = 0
         self.evictions = 0
 
     def __len__(self) -> int:
         return len(self._d)
 
+    @contextlib.contextmanager
+    def _locked(self, spill: bool = False):
+        """The cache's lock, with the budget's before it where a
+        spillable entry may be touched (``spill``, the budget on, or one
+        held).  ``_spillables`` is read again under the lock: an entry
+        that turned up meanwhile sends the caller round again with both."""
+        while True:
+            both = spill or mbudget.enabled() or self._spillables > 0
+            with contextlib.ExitStack() as stack:
+                if both:
+                    stack.enter_context(mbudget._LOCK)
+                stack.enter_context(self._mu)
+                if not both and self._spillables > 0:
+                    continue
+                yield
+                return
+
     def _drop(self, key) -> None:
-        with self._mu:
+        with self._locked():
             e = self._d.pop(key, None)
-            if e is not None:
+            if e is None:
+                return
+            payload = e.get("payload")
+            if payload is None or not payload.spilled:
                 self.nbytes -= e["nbytes"]
+            if payload is not None:
+                self._spillables -= 1
+                if not payload.spilled:
+                    mspill.unregister(("join_index",) + key)
 
     def get(self, key, tensors):
-        with self._mu:
+        with self._locked():
             e = self._d.get(key)
             if e is None:
                 return None
@@ -153,6 +207,18 @@ class _IdentityCache:
                 if r() is not t or t._version != v:
                     return None
             self._d.move_to_end(key)
+            payload = e.get("payload")
+            if payload is None:
+                return e["value"]
+            if not payload.spilled:
+                mspill.touch(("join_index",) + key)
+                return e["value"]
+            lanes = payload.get()               # fault back, bit-exact
+            e["value"] = e["value"]._replace(**lanes)
+            self.nbytes += e["nbytes"]
+            self._register(key, e)
+            _count("build_index.faultback")
+            self._trim(keep=key)
             return e["value"]
 
     def _over(self) -> bool:
@@ -161,25 +227,67 @@ class _IdentityCache:
         byte_cap = None if self._byte_cap is None else self._byte_cap()
         return byte_cap is not None and self.nbytes > byte_cap
 
-    def put(self, key, tensors, value, nbytes: int = 0) -> None:
+    def _trim(self, keep) -> None:
+        # the caller holds the lock
+        while len(self._d) > 1 and self._over():
+            lru = next(k for k in self._d if k != keep)
+            self._drop(lru)
+            self.evictions += 1
+
+    def _register(self, key, e) -> None:
+        def spiller(e=e):
+            with self._locked(spill=True):    # reentrant under reclaim
+                freed = e["payload"].spill()
+                if freed:
+                    # the index keeps only host-independent fields
+                    e["value"] = e["value"]._replace(
+                        **{k: None for k in e["payload"].names})
+                    self.nbytes -= e["nbytes"]
+                return freed
+        mspill.register(("join_index",) + key, e["nbytes"],
+                        "join.build_index", spiller)
+
+    def put(self, key, tensors, value, nbytes: int = 0,
+            spillable: bool = False) -> None:
         refs = tuple(weakref.ref(t, lambda _, k=key: self._drop(k))
                      for t in tensors)
-        with self._mu:
+        e = {"refs": refs, "value": value, "nbytes": nbytes,
+             "versions": tuple(t._version for t in tensors)}
+        if spillable:
+            e["payload"] = mspill.SpillableArrays(
+                "join.build_index", {k: getattr(value, k) for k in
+                                     ("row_ids", "sorted_keys", "lut_lo",
+                                      "lut_cnt")})
+        with self._locked(spill=spillable):
+            # two threads can miss and build one key together: drop the
+            # first one's entry, so that the byte ledger stays exact
             self._drop(key)
-            self._d[key] = {"refs": refs, "value": value, "nbytes": nbytes,
-                            "versions": tuple(t._version for t in tensors)}
+            self._d[key] = e
             self.nbytes += nbytes
-            while len(self._d) > 1 and self._over():
-                self._drop(next(iter(self._d)))
-                self.evictions += 1
+            if spillable:
+                self._spillables += 1
+                self._register(key, e)
+            self._trim(keep=key)
 
     def clear(self) -> None:
-        with self._mu:
+        with self._locked():
+            for key in list(self._d):
+                self._drop(key)
             self._d.clear()
             self.nbytes = 0
+            self._spillables = 0
 
 
-_INDEX_CACHE = _IdentityCache(byte_cap=lambda: INDEX_CACHE_CAP)
+def _index_cache_cap() -> Optional[int]:
+    """``SRJT_INDEX_CACHE_CAP`` where it is set, else
+    :data:`INDEX_CACHE_CAP`."""
+    if knobs.REGISTRY["SRJT_INDEX_CACHE_CAP"].name in os.environ:
+        return knobs.parse_bytes(knobs.get("SRJT_INDEX_CACHE_CAP"))
+    return INDEX_CACHE_CAP
+
+
+_INDEX_CACHE = _IdentityCache(byte_cap=_index_cache_cap,
+                              name="ops.join_plan.index_cache")
 
 
 def _index_nbytes(ix: BuildIndex) -> int:
@@ -224,15 +332,20 @@ def build_index(data: torch.Tensor, valid, dense_ok: bool) -> BuildIndex:
         _count("build_index.cache_hit")
         _count(f"engine.{hit.kind}")
         return hit
-    ix = _build_index(data, valid, dense_ok and forced != "sorted",
-                      forced == "dense")
+    with metrics.span("join.build_index"):
+        ix = _build_index(data, valid, dense_ok and forced != "sorted",
+                          forced == "dense")
+        if metrics.recording():
+            metrics.annotate(engine=ix.kind, n_valid=ix.n_valid,
+                             key_span=ix.span)
     _count(f"engine.{ix.kind}")
     if not cached:
         _count("build_index.cache_bypass")
         return ix
     _count("build_index.cache_miss")
     evicted = _INDEX_CACHE.evictions
-    _INDEX_CACHE.put(key, tensors, ix, _index_nbytes(ix))
+    _INDEX_CACHE.put(key, tensors, ix, _index_nbytes(ix),
+                     spillable=mbudget.enabled())
     if _INDEX_CACHE.evictions > evicted:
         _count("build_index.evictions", _INDEX_CACHE.evictions - evicted)
     return ix
@@ -425,7 +538,7 @@ def _key_lanes(col: Column):
     return [data], valid
 
 
-_PLAN_CACHE = _IdentityCache(cap=8)
+_PLAN_CACHE = _IdentityCache(cap=8, name="ops.join_plan.plan_memo")
 
 
 def plan_keys(left_cols: Sequence[Column],
@@ -474,7 +587,8 @@ def plan_keys(left_cols: Sequence[Column],
     enc_l = [force_column(c) for c in enc_l]
     enc_r = [force_column(c) for c in enc_r]
     if syncs.mode() != "normal":
-        return _pack_keys(enc_l, enc_r)
+        with metrics.span("join.pack", n_keys=k):
+            return _pack_keys(enc_l, enc_r)
     tensors = [a for c in enc_l + enc_r
                for a in (c.data, c.validity) if a is not None]
     key = _key("plan", tensors)
@@ -482,7 +596,8 @@ def plan_keys(left_cols: Sequence[Column],
     if hit is not None:
         _count("pack.cache_hit")
         return hit
-    plan = _pack_keys(enc_l, enc_r)
+    with metrics.span("join.pack", n_keys=k):
+        plan = _pack_keys(enc_l, enc_r)
     _PLAN_CACHE.put(key, tensors, plan)
     return plan
 
@@ -597,9 +712,10 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
 
     def _unfused():
         _count("fused.fallback_join")
-        j = (inner_join if how == "inner" else left_join)(
-            left, right, left_on, right_on)
-        return groupby_aggregate(j, list(group_keys), list(aggs))
+        with metrics.span("join.aggregate", path="fallback_join"):
+            j = (inner_join if how == "inner" else left_join)(
+                left, right, left_on, right_on)
+            return groupby_aggregate(j, list(group_keys), list(aggs))
 
     if plan.verify:
         return _unfused()
@@ -607,43 +723,58 @@ def join_aggregate(left: Table, right: Table, left_on, right_on,
     ix = build_index(plan.rdata, plan.rvalid, plan.dense_ok)
     if ix.unique:
         _count("fused.unique_gather")
-        lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
-        pos = lo.clamp(0, max(ix.n_valid - 1, 0))
-        if how == "inner":
-            m = counts > 0
-            li = sized_nonzero(m, syncs.size(m.sum(), m.shape[0]))
-            ri = ix.row_ids[pos[li]]
-            cols = [_gather_column(left[ci], li) if ci < nl
-                    else _gather_column(right[ci - nl], ri) for ci in needed]
-        else:
-            matched = counts > 0
-            ri = torch.where(matched, ix.row_ids[pos], 0)
-            cols = [force_column(left[ci]) if ci < nl
-                    else _null_where(_gather_column(right[ci - nl], ri), matched)
-                    for ci in needed]
-        nk = len(group_keys)
-        return groupby_aggregate(
-            Table(cols), list(range(nk)),
-            [(nk + i, agg) for i, (_, agg) in enumerate(aggs)])
+        with metrics.span("join.aggregate", path="unique_gather"):
+            return _unique_gather(left, right, plan, ix, how, nl, needed,
+                                  group_keys, aggs)
 
     if (group_keys and all(ci < nl for ci in needed)
             and _weighted_ok([left[ci] for ci in group_keys],
                              [(left[vi], agg) for vi, agg in aggs])):
         _count("fused.weighted_groupby")
-        lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
-        if how == "inner":
-            m = counts > 0
-            li = sized_nonzero(m, syncs.size(m.sum(), m.shape[0]))
-            w = counts.to(torch.int64)[li]
-            return _weighted_groupby(
-                [_gather_column(left[ci], li) for ci in group_keys],
-                [(_gather_column(left[vi], li), agg) for vi, agg in aggs], w)
-        w = counts.clamp(min=1).to(torch.int64)
-        return _weighted_groupby(
-            [force_column(left[ci]) for ci in group_keys],
-            [(force_column(left[vi]), agg) for vi, agg in aggs], w)
+        with metrics.span("join.aggregate", path="weighted_groupby"):
+            return _weighted_path(left, plan, ix, how, group_keys, aggs)
 
     return _unfused()
+
+
+def _unique_gather(left, right, plan, ix, how, nl, needed, group_keys,
+                   aggs) -> Table:
+    """:func:`join_aggregate`'s unique_gather path."""
+    from .groupby import groupby_aggregate
+    lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
+    pos = lo.clamp(0, max(ix.n_valid - 1, 0))
+    if how == "inner":
+        m = counts > 0
+        li = sized_nonzero(m, syncs.size(m.sum(), m.shape[0]))
+        ri = ix.row_ids[pos[li]]
+        cols = [_gather_column(left[ci], li) if ci < nl
+                else _gather_column(right[ci - nl], ri) for ci in needed]
+    else:
+        matched = counts > 0
+        ri = torch.where(matched, ix.row_ids[pos], 0)
+        cols = [force_column(left[ci]) if ci < nl
+                else _null_where(_gather_column(right[ci - nl], ri), matched)
+                for ci in needed]
+    nk = len(group_keys)
+    return groupby_aggregate(
+        Table(cols), list(range(nk)),
+        [(nk + i, agg) for i, (_, agg) in enumerate(aggs)])
+
+
+def _weighted_path(left, plan, ix, how, group_keys, aggs) -> Table:
+    """:func:`join_aggregate`'s weighted_groupby path."""
+    lo, counts = probe_counts(ix, plan.ldata, plan.lvalid)
+    if how == "inner":
+        m = counts > 0
+        li = sized_nonzero(m, syncs.size(m.sum(), m.shape[0]))
+        w = counts.to(torch.int64)[li]
+        return _weighted_groupby(
+            [_gather_column(left[ci], li) for ci in group_keys],
+            [(_gather_column(left[vi], li), agg) for vi, agg in aggs], w)
+    w = counts.clamp(min=1).to(torch.int64)
+    return _weighted_groupby(
+        [force_column(left[ci]) for ci in group_keys],
+        [(force_column(left[vi]), agg) for vi, agg in aggs], w)
 
 
 def _weighted_ok(key_cols, val_aggs) -> bool:

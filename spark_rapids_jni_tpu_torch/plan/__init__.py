@@ -5,11 +5,14 @@ engine pushes projections/filters into the parquet scan, reorders joins
 from observed cardinalities, and detects join→aggregate fusion
 (``plan.rules``), and the lowering (``plan.lower``) emits the exact
 hand-fused op sequence — bit-identical results, composing unchanged with
-``models/compiled.py``.  The JAX package's exports, less its adaptive
-execution and per-node profiles, which are not ported yet.
+``models/compiled.py``.  The JAX package's exports: adaptive execution
+(``plan.adaptive``, behind ``SRJT_AQE``) and per-node profiles
+(``plan.profile``) included.
 """
 
-from . import ir, lower, rules, stats
+from . import adaptive, ir, lower, profile, rules, stats
+from .adaptive import (AdaptiveReport, compile_adaptive_plan,
+                       execute_adaptive, explain_adaptive)
 from .ir import (GROUPING_ID, Aggregate, And, Between, Cmp, Col, Distinct,
                  Filter, FusedJoinAggregate, IsIn, Join, Limit, Lit, Mul, Or,
                  Plan, PlanError, Project, ScalarAgg, Scan, Sort, Union,
@@ -21,7 +24,9 @@ from .stats import GLOBAL as GLOBAL_STATS
 from .stats import CardinalityStats
 
 __all__ = [
-    "ir", "lower", "rules", "stats",
+    "ir", "lower", "rules", "stats", "adaptive", "profile",
+    "AdaptiveReport", "compile_adaptive_plan", "execute_adaptive",
+    "explain_adaptive",
     "Plan", "PlanError", "Scan", "Filter", "Project", "Join", "Aggregate",
     "FusedJoinAggregate", "Window", "Sort", "Limit", "Union", "Distinct",
     "GROUPING_ID",

@@ -28,9 +28,11 @@ the shape ``models/compiled.compile_query`` consumes;
 
 Per-node profiling (``plan/profile.py``) wraps every node in
 :func:`_execute` and reads each node's output at the one funnel,
-``_apply_node``, as the JAX package does.  Adaptive execution
-(``plan/adaptive.py``, ``SRJT_AQE``) is not ported yet: it is off under
-the default knobs there, and this lowering is the static path.
+``_apply_node``, as the JAX package does.  With ``SRJT_AQE`` on,
+:func:`execute` and :func:`compile_plan` route through the stage-wise
+adaptive executor (``plan/adaptive.py``), which applies each node
+through the same ``_apply_node``; off (the default), this lowering is
+the static path, byte for byte.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ..ops import (anti_join, apply_boolean_mask, concat_tables, distinct,
                    join_aggregate, left_join, mean, semi_join, slice_table,
                    sort_table, sum_)
 from ..ops import strings as S
-from ..utils import metrics
+from ..utils import knobs, metrics
 from ..ops import window as W
 from . import ir
 from . import profile
@@ -345,7 +347,11 @@ def _apply_node(node: ir.Plan, kids: list, catalog, record_stats: bool):
     """Apply ONE plan node to its already-computed child results.
 
     ``kids`` holds one ``(table, names)`` pair per ``ir.children(node)``
-    entry.  This is the single place a node becomes op calls."""
+    entry.  This is the single place a node becomes op calls:
+    :func:`_execute` (the static executor) and ``plan/adaptive.py`` (the
+    stage-wise adaptive executor) both route through it, so an
+    adaptively re-ordered plan runs the op sequence the static lowering
+    of the same tree would."""
     t: Table
     names: list[str]
     if isinstance(node, ir.Scan):
@@ -481,7 +487,14 @@ def _execute(node: ir.Plan, catalog, record_stats: bool):
 
 
 def execute(tree: ir.Plan, catalog, record_stats: bool = True) -> Table:
-    """Run a (typically optimized) plan tree against a catalog."""
+    """Run a (typically optimized) plan tree against a catalog.  With
+    ``SRJT_AQE`` on, through the stage-wise adaptive executor
+    (``plan/adaptive.py``); off (the default), the static path, byte for
+    byte."""
+    if knobs.get("SRJT_AQE"):
+        from . import adaptive
+        return adaptive.execute_adaptive(tree, catalog,
+                                         record_stats=record_stats)
     t, _names = _execute(tree, catalog, record_stats)
     return t
 
@@ -494,7 +507,16 @@ def compile_plan(tree: ir.Plan, schemas: dict):
     """Wrap a plan tree as ``qfn(tables: dict[str, Table]) -> Table`` —
     the callable shape ``models/compiled.compile_query`` consumes.  Use
     ``ir.fingerprint(tree)`` as the request/cache name.  The qfn runs
-    where its tables are."""
+    where its tables are.
+
+    With ``SRJT_AQE`` on at build time, returns the adaptive twin
+    (``plan/adaptive.compile_adaptive_plan``), tagged ``aqe_variant`` so
+    that the plan cache keys it apart.  Either way the qfn is pinned to
+    the mode it was built under: a compiled (and perhaps cached) query
+    must not change strategy when the environment flips later."""
+    if knobs.get("SRJT_AQE"):
+        from . import adaptive
+        return adaptive.compile_adaptive_plan(tree, schemas)
     ir.schema_of(tree, schemas)       # validate once at build time
 
     def qfn(tables: dict[str, Table]) -> Table:

@@ -9,8 +9,9 @@ engine decision taken, and wall/device time.  :func:`explain_analyze`
 renders the annotated tree (estimated vs observed rows, >2×
 mispredictions flagged); artifacts export as JSON under
 ``SRJT_PROFILE_DIR``; the flight recorder embeds in-flight partial
-profiles in incident snapshots.  The adaptive executor's hooks
-(``plan/adaptive.py``) wait for that module.
+profiles in incident snapshots.  The adaptive executor
+(``plan/adaptive.py``) wraps its stages the same way and records its
+engine pins and decisions on them (:func:`annotate_node`).
 
 Discipline (the same three rules as ``utils/metrics.py``):
 
@@ -378,8 +379,8 @@ def node_exit(rec: NodeProfile, t, kids=None) -> None:
 def annotate_node(engine: Optional[str] = None,
                   decision: Optional[str] = None, **fields) -> None:
     """Attach an engine choice / AQE decision / extra fields to the
-    innermost open node record (``plan/adaptive.py`` will call this at
-    its decision sites)."""
+    innermost open node record (``plan/adaptive.py`` calls this at its
+    decision sites)."""
     if not _enabled:
         return
     prof = getattr(_tls, "prof", None)
@@ -535,15 +536,17 @@ def explain_analyze(tree: ir.Plan, schemas: Optional[dict] = None,
     """Optimize ``tree``, execute it under an active profile, and render
     the annotated plan tree: estimated vs observed rows per node (>2×
     mispredictions flagged), output bytes, wall/device time, and the
-    engine decision taken at each join.  Executes with
+    engine or AQE decision taken at each join.  Executes with
     ``record_stats=True``, so every observed cardinality feeds
     ``plan/stats.py`` — the misprediction IS corrected for the next
     optimize of the same shape.
 
     Pass ``tables`` + ``schemas`` (a ``TableCatalog`` is built) or an
-    explicit ``catalog``.  Profiling is force-enabled for the duration
-    (this call IS the opt-in).  :func:`analyze` returns the executed
-    result and the profile beside the text."""
+    explicit ``catalog``.  Routes through the adaptive executor when
+    ``SRJT_AQE`` is on (``mode: adaptive``), as ``lower.execute`` does.
+    Profiling is force-enabled for the duration (this call IS the
+    opt-in).  :func:`analyze` returns the executed result and the
+    profile beside the text."""
     return analyze(tree, schemas, tables, catalog=catalog, stats=stats)[0]
 
 
@@ -574,7 +577,7 @@ def analyze(tree: ir.Plan, schemas: Optional[dict] = None,
                 out = lower.execute(opt, catalog, record_stats=True)
     finally:
         set_enabled(prev)
-    mode = "static"
+    mode = "adaptive" if knobs.get("SRJT_AQE") else "static"
     lines = ["== EXPLAIN ANALYZE ==", f"plan: {fp}", f"mode: {mode}"]
     lines += opt_lines
     lines.append(prof.render())

@@ -495,8 +495,14 @@ def optimize(tree: ir.Plan, schemas: dict, stats=None,
 
 
 def explain(tree: ir.Plan, schemas: dict, stats=None,
-            rules: Optional[Sequence[Rule]] = None) -> str:
-    """Render the pre-/post-rewrite tree with per-rule annotations."""
+            rules: Optional[Sequence[Rule]] = None,
+            adaptive_report=None) -> str:
+    """Render the pre-/post-rewrite tree with per-rule annotations.
+
+    ``adaptive_report`` (a ``plan.adaptive.AdaptiveReport``) appends the
+    stage-wise decisions of an adaptive execution: the static EXPLAIN
+    shows what the optimizer planned, the adaptive section what the
+    runtime changed."""
     res = optimize(tree, schemas, stats=stats, rules=rules)
     lines = ["== Logical plan ==", ir.render(tree), "",
              f"== Optimized plan ({res.passes} pass(es)"
@@ -508,4 +514,6 @@ def explain(tree: ir.Plan, schemas: dict, stats=None,
         lines.append(f"fired    {ev.rule}: {ev.detail}")
     for ev in res.rejections:
         lines.append(f"rejected {ev.rule}: {ev.detail}")
+    if adaptive_report is not None:
+        lines += ["", adaptive_report.render()]
     return "\n".join(lines)

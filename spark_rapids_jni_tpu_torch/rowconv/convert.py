@@ -42,7 +42,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, DictColumn, Table, force_column
-from ..utils import bitmask, metrics
+from ..utils import bitmask, hostcache, metrics
 from ..utils.tracing import traced
 from . import ragged, xpack
 from .layout import (BATCH_ROW_MULTIPLE, JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES,
@@ -175,7 +175,10 @@ def _slice_column(col: Column, lo: int, hi: int) -> Column:
         return col
     v = None if col.validity is None else col.validity[lo:hi]
     if col.dtype.is_variable_width:
-        clo, chi = col.offsets[[lo, hi]].tolist()
+        # a host-born column's offsets have a host mirror: no copy back
+        h = hostcache.peek(col.offsets)
+        clo, chi = ((int(h[lo]), int(h[hi])) if h is not None
+                    else col.offsets[[lo, hi]].tolist())
         return Column(col.dtype, col.data[clo:chi],
                       col.offsets[lo:hi + 1] - clo, v)
     return Column(col.dtype, col.data[lo:hi], validity=v)

@@ -151,6 +151,22 @@ register("SRJT_PLAN_STATS_PATH", None, _opt_str,
          "JSON sidecar for cardinality stats: loaded at first use for "
          "warm priors, saved atomically at exit", "plan")
 
+register("SRJT_AQE", "0", _opt_in,
+         "adaptive query execution: stage-wise replanning on observed "
+         "cardinalities (join reorder, engine flips, skew salting)",
+         "plan")
+register("SRJT_AQE_SKEW_FACTOR", "4.0", _float,
+         "hot-key skew ratio (hottest/mean) at or above which AQE salts "
+         "the repartition join", "plan")
+register("SRJT_AQE_REPLAN_MIN_ROWS", "64", _int,
+         "AQE skips join reorder when every pending input is smaller "
+         "than this (replan overhead not worth it)", "plan")
+
+# join engine (ops/join_plan.py)
+register("SRJT_JOIN_ENGINE", None, _str,
+         "force the join engine: `dense` or `sorted` (default: planner "
+         "choice)", "ops")
+
 # SQL front end (sql/)
 register("SRJT_SQL_CACHE", "1", _on_unless_0_off,
          "memoize SQL text → optimized plan tree per (text, params, "
@@ -238,11 +254,21 @@ register("SRJT_SLO_MIN_N", "8", _int,
 register("SRJT_SLO_COOLDOWN_S", "30", _float,
          "per-(class, objective) re-alarm holdoff (s)", "slo")
 
-# memory budget (memory/)
+# memory arena and budget (memory/)
+register("SRJT_HBM_ARENA", "0", _on_unless_off,
+         "master gate for the arena subsystem", "memory")
 register("SRJT_HBM_BUDGET", None, _str,
          "process/query byte limit (`512m`, `2g`, plain bytes); setting "
-         "it enables the budget ledger (`memory/budget.py`); unset, the "
-         "process limit is the card's memory", "memory")
+         "it also enables the arena; unset, the process limit is the "
+         "card's memory", "memory")
+register("SRJT_INDEX_CACHE_CAP", "512m", _str,
+         "build-index cache LRU byte cap "
+         "(`join.build_index.evictions` counts)", "memory")
+register("SRJT_ARENA_ZEROS_CAP", "16m", _str,
+         "pooled-zeros cache cap (`0` disables pooling)", "memory")
+register("SRJT_HOSTCACHE_CAP", "256m", _str,
+         "host-mirror cache LRU byte cap "
+         "(`arena.hostcache.evictions` counts)", "memory")
 
 # observability (utils/)
 register("SRJT_METRICS_WINDOW_N", "1024", _int,

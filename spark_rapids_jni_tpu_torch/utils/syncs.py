@@ -33,8 +33,9 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import weakref
 from typing import Any, Optional
+
+from .hostcache import WeakIdMemo
 
 _count = 0
 _count_mu = threading.Lock()
@@ -140,45 +141,8 @@ def reset_sync_count() -> int:
 
 
 # -- weak memos keyed on tensor identity --------------------------------------
-
-class WeakIdMemo:
-    """A cache keyed on the identity of one or more tensors: an entry holds
-    a weak reference to each, drops when one dies, and misses when one was
-    written in place since (its ``_version``), or its id was recycled.
-    The port's copy of the JAX package's ``utils/hostcache.WeakIdMemo``,
-    without the byte cap, which the JAX package's memos here do not set
-    either."""
-
-    def __init__(self) -> None:
-        self._d: dict = {}
-        self._mu = threading.RLock()
-
-    def _drop(self, key) -> None:
-        with self._mu:
-            self._d.pop(key, None)
-
-    def get(self, tensors) -> Any:
-        key = tuple(id(t) for t in tensors)
-        with self._mu:
-            entry = self._d.get(key)
-        if entry is None:
-            return None
-        refs, versions, value = entry
-        for r, v, t in zip(refs, versions, tensors):
-            if r() is not t or t._version != v:
-                return None
-        return value
-
-    def put(self, tensors, value) -> None:
-        key = tuple(id(t) for t in tensors)
-        try:
-            refs = tuple(weakref.ref(t, lambda _, k=key: self._drop(k))
-                         for t in tensors)
-        except TypeError:
-            return                      # not weak-referenceable: no entry
-        with self._mu:
-            self._d[key] = (refs, tuple(t._version for t in tensors), value)
-
+# (the mechanism is the host-mirror cache's, utils/hostcache.py, with no byte
+# cap, as in the JAX package)
 
 _MEMOS: dict[str, WeakIdMemo] = {}
 _MEMOS_MU = threading.Lock()

@@ -21,6 +21,7 @@ files, version skew and stale tapes are misses, never errors:
   ``SRJT_AOT_XLA_CACHE`` is not registered.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import json
 import os
 

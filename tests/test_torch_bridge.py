@@ -13,6 +13,7 @@ bridge's reason: the port's JNI has no host fallback.  Tables come from
 numpy with a seed; tolerance is 0.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import ctypes as C
 import json
 import os

@@ -9,6 +9,7 @@ kernels themselves are held against these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

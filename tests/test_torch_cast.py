@@ -5,6 +5,7 @@ and out of DECIMAL128), each on the same column through both packages
 and against the values those tests expect.  The STRING branches are
 held in ``tests/test_torch_strings.py``; here each is reached once."""
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ nothing else, the CPU's stand-in for memory safety on the card (an index
 out of bounds raises here where it would fault there).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import functools
 import sys
 import threading
@@ -355,3 +356,106 @@ def test_sync_count_is_thread_safe():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert syncs.sync_count() - before == 16 * 2000
+
+
+# --- batches of K table sets (run_vmapped) and lower_text -------------------
+
+
+def _gb_tables(k):
+    """K table sets of different data but the same sizes (every row
+    passes the filter, every set holds the 7 groups: the tape fits each,
+    as the sets a plan cache batches are verified to), port and JAX
+    twins."""
+    from spark_rapids_jni_tpu.column import Column as JColumn, Table as JTable
+    out, jout = [], []
+    for i in range(k):
+        rng = np.random.default_rng(40 + i)
+        keys = rng.permutation(np.arange(3000) % 7).astype(np.int32)
+        vals = rng.integers(-49, 99, 3000).astype(np.int64)
+        valid = rng.random(3000) < 0.9
+        out.append({"t": pt.Table([
+            pt.Column.from_numpy(vals, validity=valid, device=CPU),
+            pt.Column.from_numpy(keys, device=CPU)])})
+        jout.append({"t": JTable([JColumn.from_numpy(vals, validity=valid),
+                                  JColumn.from_numpy(keys)])})
+    return out, jout
+
+
+def _q_gb(tables):
+    from spark_rapids_jni_tpu_torch.ops import groupby_aggregate
+    f = pt.ops.filter.apply_boolean_mask(
+        tables["t"], tables["t"][0].data > -50)
+    return groupby_aggregate(f, [1], [(0, "sum"), (0, "count"),
+                                      (0, "max")])
+
+
+def _jq_gb(tables):
+    from spark_rapids_jni_tpu.ops import apply_boolean_mask, groupby_aggregate
+    f = apply_boolean_mask(tables["t"], tables["t"][0].data > -50)
+    return groupby_aggregate(f, [1], [(0, "sum"), (0, "count"),
+                                      (0, "max")])
+
+
+def test_run_vmapped_runs_k_sets_as_one_batch_equal_to_jax():
+    """K same-shape table sets through ``run_vmapped``: each result equals
+    its own run bit for bit and the JAX package's ``run_vmapped`` element
+    exactly; the first batch checks parity once; sets of another shape
+    make it return None (the caller then runs each)."""
+    from spark_rapids_jni_tpu.models import compiled as jcompiled
+    from torch_jax_columns import assert_same_table
+    tabs, jtabs = _gb_tables(4)
+    compiled.reset_counts()
+    cq = compiled.compile_query(_q_gb, tabs[0])
+    outs = cq.run_vmapped(tabs)
+    assert len(outs) == 4
+    for t, o in zip(tabs, outs):
+        assert_bit_equal(o, cq.run_unchecked(t))
+        assert_bit_equal(o, _q_gb(t))
+    assert compiled.COUNTS["batch_replay"] == 1
+    assert compiled.COUNTS["batch_parity_check"] == 1
+    assert cq.run_vmapped(tabs[:2]) is not None      # parity checked once
+    assert compiled.COUNTS["batch_parity_check"] == 1
+    other = {"t": pt.Table([c for c in tabs[0]["t"].columns][::-1])}
+    assert cq.run_vmapped([tabs[0], other]) is None
+    assert compiled.COUNTS["batch_unsupported"] == 1
+    jcq = jcompiled.compile_query(_jq_gb, jtabs[0])
+    jouts = jcq.run_vmapped(jtabs)
+    if jouts is None:                     # the JAX package refused to batch
+        jouts = [_jq_gb(t) for t in jtabs]
+    for o, j in zip(outs, jouts):
+        assert_same_table(o, j)
+
+
+def test_batch_chunks_bound_the_batch_graphs():
+    """K sets run in chunks of at most ``BATCH_MAX``, each on a graph of
+    the power of two at or above its size, so a plan holds at most three
+    batch graphs (widths 2, 4 and 8) whatever K the server sends; on the
+    CPU, nine sets in the background mode each equal their own run."""
+    widths = set()
+    for k in range(1, 40):
+        chunks = compiled.batch_chunks(k)
+        assert chunks[0][0] == 0 and chunks[-1][1] == k
+        for (lo, hi, w), nxt in zip(chunks, chunks[1:] + [(k, k, 0)]):
+            assert hi == nxt[0] and 0 < hi - lo <= w <= compiled.BATCH_MAX
+            assert w & (w - 1) == 0 and w < 2 * (hi - lo)
+            widths.add(w)
+    assert widths == {1, 2, 4, 8}
+    assert compiled.batch_chunks(3) == [(0, 3, 4)]
+    assert compiled.batch_chunks(9) == [(0, 8, 8), (8, 9, 1)]
+    tabs, _ = _gb_tables(9)
+    cq = compiled.compile_query(_q_gb, tabs[0])
+    outs = cq.run_vmapped(tabs, background=True)
+    assert len(outs) == 9
+    for t, o in zip(tabs, outs):
+        assert_bit_equal(o, cq.run_unchecked(t))
+    assert cq.batch_bytes == 0 and cq.device_bytes() == 0
+    assert compiled.wait_batch_captures() == 0
+
+
+def test_lower_text_lists_the_tape():
+    tabs, _ = _gb_tables(1)
+    cq = compiled.compile_query(_q_gb, tabs[0])
+    text = cq.lower_text(tabs[0])
+    assert text.splitlines()[0] == f"compiled query {cq.name}"
+    assert f"tape ({len(cq.tape)} sizes): {list(cq.tape)}" in text
+    assert "graph: none" in text

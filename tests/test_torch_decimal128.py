@@ -8,6 +8,7 @@ A limb product can pass 2^63 in int64: these cases show that torch wraps
 it as JAX does.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

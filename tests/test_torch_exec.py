@@ -13,11 +13,12 @@ CPU replicas (``device="cpu"``); TPC-DS runs on the 40,000-row data of
 * typed backpressure, deadlines and shutdown; the plan cache's hit, miss,
   eviction, expiry, size-fingerprint hit, stale-tape recompile and
   single flight; coalesced bursts, batch splits over the cap and
-  ``run_vmapped`` returning None; prefetch hit, miss and the
+  ``run_vmapped`` batches; prefetch hit, miss and the
   take-before-stage race; admission defer and degrade parity; lifecycle
   tracing and linked batch rids; SLO breach incidents; ``ops_state``.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import functools
 import gc
 import json
@@ -653,8 +654,10 @@ def test_batch_admission_split_over_cap():
 
 def test_batched_distinct_buffers_replay_in_turn():
     """Distinct same-shape working sets with warm verified plans are
-    offered to ``run_vmapped``, which returns None in the port: each then
-    replays the plan, equal to its own run."""
+    offered to ``run_vmapped``, which runs them in turn under the tape as
+    one batch on the CPU (one launch of a K-member graph on the card):
+    each result equals its own run, and the first batch's parity check
+    passes."""
     tabs = [{"t": _mktab(1500, 20 + i)} for i in range(3)]   # same shape
     plans = xc.PlanCache(cap=8)
     oracles = []
@@ -668,7 +671,9 @@ def test_batched_distinct_buffers_replay_in_turn():
         for o, tk in zip(oracles, tks):
             assert _same(tk.result(timeout=60), o)
     c = _counters()
-    assert c.get("compiled.batch_unsupported", 0) >= 1
+    assert c.get("compiled.batch_replay", 0) >= 1
+    assert c.get("compiled.batch_parity_check", 0) == 1
+    assert c.get("compiled.batch_unsupported", 0) == 0
     assert metrics.snapshot()["histograms"]["exec.batch.size"]["max"] >= 2
 
 

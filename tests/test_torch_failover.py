@@ -14,6 +14,7 @@ Which replica serves first is thread-wakeup order, so device-targeted
 schedules first DISCOVER the serving device and then arm the rule at it.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import time
 
 import numpy as np

@@ -7,6 +7,7 @@ port's ``parquet/footer.py`` and the JAX package's native engine give, on
 every scenario.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import io
 
 import pyarrow.parquet as pq

@@ -9,6 +9,7 @@ machine without JAX:
 (``--noconftest``: the suite's conftest sets up JAX for the other tests.)
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch
@@ -1712,3 +1713,254 @@ def test_feature_view_repacks_on_the_card(cuda):
         assert fv.repacks == 3
     finally:
         fv.close()
+
+
+# --- slice 17: AQE, parallel/, the arena, the shim, batches, Arrow -----------
+
+
+def _same_result(a, b):
+    """Two port tables hold the same columns, byte for byte."""
+    ca, cb = interop.table_to_numpy(a), interop.table_to_numpy(b)
+    assert len(ca) == len(cb)
+    for x, y in zip(ca, cb):
+        assert x[:2] == y[:2]
+        for u, v in zip(x[2:], y[2:]):
+            assert (u is None) == (v is None)
+            if u is not None:
+                assert u.tobytes() == v.tobytes()
+
+
+def _star(cuda):
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    rng = np.random.default_rng(21)
+    n = 6000
+
+    def col(a):
+        return Column.from_numpy(np.asarray(a), device=cuda)
+    tables = {
+        "fact": Table([col(rng.integers(0, 900, n)),
+                       col(rng.integers(0, 400, n)),
+                       col(rng.integers(1, 9, n))]),
+        "dim_big": Table([col(np.arange(900)),
+                          col((np.arange(900) % 11).astype(np.int32))]),
+        "dim_small": Table([col(np.arange(24)),
+                            col((np.arange(24) % 3).astype(np.int32))])}
+    schemas = {"fact": ["f_big_sk", "f_small_sk", "f_qty"],
+               "dim_big": ["big_sk", "b_tag"],
+               "dim_small": ["small_sk", "s_tag"]}
+    return tables, schemas
+
+
+@pytest.mark.gpu
+def test_adaptive_plan_compiles_to_one_graph_on_card(cuda, monkeypatch):
+    """The replanned star chain: adaptive equals static, and its compiled
+    graph replays with the capture's decisions, without a sync."""
+    from spark_rapids_jni_tpu_torch.models import compiled
+    from spark_rapids_jni_tpu_torch.plan import ir, lower
+    tables, schemas = _star(cuda)
+    tree = ir.FusedJoinAggregate(
+        ir.Join(ir.Scan("fact"), ir.Scan("dim_big"), ("f_big_sk",),
+                ("big_sk",)),
+        ir.Scan("dim_small"), ("f_small_sk",), ("small_sk",), ("b_tag",),
+        (("f_qty", "sum", "total"), ("f_qty", "count", "cnt")))
+    monkeypatch.setenv("SRJT_AQE", "0")
+    static = lower.compile_plan(tree, schemas)(tables)
+    monkeypatch.setenv("SRJT_AQE", "1")
+    qfn = lower.compile_plan(tree, schemas)
+    cq = compiled.compile_query(qfn, tables)
+    assert [d.kind for d in qfn.last_report.decisions()] == ["replan"]
+    got = cq.run(tables)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = cq.run_unchecked(tables)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for t in (got, again):
+        _same_result(t, static)
+
+
+@pytest.mark.gpu
+def test_repartition_join_on_shards_of_one_card(cuda):
+    from spark_rapids_jni_tpu_torch.parallel import Mesh
+    from spark_rapids_jni_tpu_torch.parallel import repartition_join as rj
+    rng = np.random.default_rng(3)
+    n, nb, G = 1 << 16, 512, 9
+    fk = rng.integers(0, nb + 50, n)
+    fv = rng.integers(-50, 50, n)
+    bk = rng.permutation(nb)
+    bg = rng.integers(0, G, nb).astype(np.int32)
+    on = (lambda a: torch.from_numpy(np.asarray(a)).to(cuda))
+    s, c, d = rj.repartition_join_agg_auto(
+        Mesh([cuda] * 4), (pt.int64, pt.int64), (pt.int64, pt.int32),
+        0, 0, 1, 1, G, (on(fk), on(fv)), torch.ones((n, 2), dtype=torch.bool,
+                                                    device=cuda),
+        (on(bk), on(bg)), torch.ones((nb, 2), dtype=torch.bool, device=cuda))
+    ok = fk < nb
+    grp = np.zeros(nb, np.int64)
+    grp[bk] = bg
+    want = np.zeros(G, np.int64)
+    np.add.at(want, grp[fk[ok]], fv[ok])
+    assert int(d) == 0
+    assert np.array_equal(s.cpu().numpy(), want)
+    assert int(c.sum()) == int(ok.sum())
+
+
+@pytest.mark.gpu
+def test_run_vmapped_is_one_launch_of_k_members(cuda):
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.models import compiled
+    from spark_rapids_jni_tpu_torch.ops import groupby_aggregate
+
+    def q(t):
+        return groupby_aggregate(t["t"], [1], [(0, "sum"), (0, "count")])
+    sets = []
+    for i in range(4):
+        rng = np.random.default_rng(i)
+        sets.append({"t": Table([
+            Column.from_numpy(rng.integers(-9, 9, 5000), device=cuda),
+            Column.from_numpy(rng.permutation(np.arange(5000) % 7).astype(
+                np.int32), device=cuda)])})
+    cq = compiled.compile_query(q, sets[0])
+    want = [cq.run(t) for t in sets]
+    outs = cq.run_vmapped(sets)
+    assert len(outs) == 4 and 4 in cq._batches
+    for o, w in zip(outs, want):
+        _same_result(o, w)
+
+
+@pytest.mark.gpu
+def test_torch_shim_faults_kernel_launches_on_card(cuda):
+    """An injected ``torch.launch`` fault raises before the kernel runs;
+    the retry then launches it, and the result is right."""
+    from spark_rapids_jni_tpu_torch.faultinj import injector, torch_shim
+    from spark_rapids_jni_tpu_torch.faultinj.resilience import (
+        ResilientExecutor)
+    rng = np.random.default_rng(5)
+    dense, offs = (t.to(cuda) for t in _ragged_inputs(rng, 300, 64, True))
+    total = int(offs[-1])
+    torch_shim.install()
+    try:
+        injector.get_injector().load_dict({"seed": 1, "sites": {
+            "torch.launch": {"percent": 100, "interceptionCount": 2,
+                             "injectionType": "oom"}}})
+        injector.enable()
+        ex = ResilientExecutor(max_retries=3)
+        got = ex.submit(lambda: ragged.pack_rows(dense, offs, total))
+    finally:
+        injector.disable()
+        torch_shim.uninstall()
+    assert ex.retry_count == 2
+    assert torch.equal(got, ragged.pack_rows_plain(dense, offs, total))
+
+
+@pytest.mark.gpu
+def test_arena_zeros_and_arrow_buffers_on_card(cuda, monkeypatch):
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.memory import arena, budget
+    from spark_rapids_jni_tpu_torch.ops.join import left_join
+    from spark_rapids_jni_tpu_torch.utils import arrow
+    monkeypatch.setenv("SRJT_HBM_ARENA", "1")
+    budget.set_enabled(None)
+    try:
+        left = Table([Column.from_numpy(np.arange(100), device=cuda)])
+        right = Table([Column.from_numpy(np.zeros(0, np.int64), device=cuda),
+                       Column.from_numpy(np.zeros(0, np.int32), device=cuda)])
+        out = left_join(left, right, 0, 0)
+        pooled = arena.pooled_zeros()
+        versions = [p._version for p in pooled]
+        assert pooled and all(p.device.type == "cuda" for p in pooled)
+        back = arrow.from_arrow_buffers(arrow.to_arrow_buffers(out[2]),
+                                        device=cuda)
+        assert back.validity is not None and not bool(back.validity.any())
+        assert [p._version for p in pooled] == versions
+    finally:
+        arena.reset()
+        budget.set_enabled(None)
+
+
+@pytest.mark.gpu
+def test_batch_graph_widths_background_capture_and_spill(cuda, monkeypatch):
+    """Three sets run on the width-4 graph (the spare member repeats the
+    last set); in the background mode the first call returns None while a
+    thread captures it; with the budget on the graph is a spill resident
+    whose bytes the budget holds, and reclaiming drops it."""
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.memory import budget, spill
+    from spark_rapids_jni_tpu_torch.models import compiled
+    from spark_rapids_jni_tpu_torch.ops import groupby_aggregate
+
+    def q(t):
+        return groupby_aggregate(t["t"], [1], [(0, "sum"), (0, "count")])
+    sets = []
+    for i in range(3):
+        rng = np.random.default_rng(30 + i)
+        sets.append({"t": Table([
+            Column.from_numpy(rng.integers(-9, 9, 5000), device=cuda),
+            Column.from_numpy(rng.permutation(np.arange(5000) % 7).astype(
+                np.int32), device=cuda)])})
+    monkeypatch.setenv("SRJT_HBM_ARENA", "1")
+    budget.set_enabled(None)
+    spill.reset()
+    budget.reset()
+    try:
+        cq = compiled.compile_query(q, sets[0])
+        want = [cq.run(t) for t in sets]
+        compiled.reset_counts()
+        assert cq.run_vmapped(sets, background=True) is None
+        assert compiled.COUNTS["batch_deferred"] == 1
+        assert compiled.wait_batch_captures() <= 1
+        outs = cq.run_vmapped(sets, background=True)
+        assert len(outs) == 3 and sorted(cq._batches) == [4]
+        assert compiled.COUNTS["batch_capture"] == 1
+        for o, w in zip(outs, want):
+            _same_result(o, w)
+        assert cq.batch_bytes > 0
+        assert spill.registered_bytes() == cq.batch_bytes
+        assert budget.in_use() >= cq.batch_bytes
+        nbytes = cq.batch_bytes
+        assert spill.reclaim(1) == nbytes
+        assert not cq._batches and cq.batch_bytes == 0
+        assert spill.registered_bytes() == 0
+        outs = cq.run_vmapped(sets)                  # captured again
+        assert sorted(cq._batches) == [4]
+        for o, w in zip(outs, want):
+            _same_result(o, w)
+    finally:
+        spill.reset()
+        budget.reset()
+        budget.set_enabled(None)
+
+
+@pytest.mark.gpu
+def test_table_spill_reuses_strings_mirror_on_card(cuda, monkeypatch):
+    """A STRING column born on the host keeps an int64 host mirror of its
+    int32 offsets: spilling its table copies them from that mirror, not
+    from the card, and fault-back restores every byte."""
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.memory import budget, spill
+    from spark_rapids_jni_tpu_torch.utils import metrics
+    rng = np.random.default_rng(3)
+    lens = rng.integers(0, 12, 2000)
+    offsets = np.zeros(2001, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    chars = rng.integers(97, 123, int(offsets[-1])).astype(np.uint8)
+    col = Column.strings_from_arrays(chars, offsets, device=cuda)
+    table = Table([col])
+    want = col.to_pylist()
+    monkeypatch.setenv("SRJT_HBM_ARENA", "1")
+    budget.set_enabled(None)
+    metrics.set_enabled(True)
+    try:
+        st = spill.SpillableTable(table, "test.strings")
+        before = metrics.counter_value("arena.spill.mirror_reuse")
+        assert st.spill() > 0
+        assert metrics.counter_value("arena.spill.mirror_reuse") > before
+        assert table[0].offsets.device.type == "cpu"
+        assert st.faultback() > 0
+        assert table[0].offsets.device.type == "cuda"
+        assert table[0].offsets.dtype == torch.int32
+        assert np.array_equal(table[0].offsets.cpu().numpy(), offsets)
+        assert table[0].to_pylist() == want
+    finally:
+        metrics.set_enabled(None)
+        budget.set_enabled(None)

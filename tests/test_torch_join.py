@@ -13,6 +13,7 @@ The build-index cache evicts past a lowered byte cap with unchanged
 joins.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import threading
 
 import numpy as np

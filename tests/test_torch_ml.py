@@ -22,6 +22,7 @@ package on the same seeded numpy inputs:
   port; the FeatureView online store against a from-scratch pack.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import functools
 import io
 import pathlib

@@ -13,6 +13,7 @@ the JAX package's result and the port's on the writer's files (the check
 ``chip_smoke.py`` makes on the card).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import pathlib
 import sys
 

@@ -12,6 +12,7 @@ on the port's library.  Tables come from numpy with a seed; tolerance is 0
 (FLOAT64 compares as bits).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import ctypes as C
 
 import numpy as np

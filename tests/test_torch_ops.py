@@ -13,6 +13,7 @@ and dictionary columns, patterns longer than every row, empty, all-%
 and with ``_``) are held against the JAX package the same way.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ writer that ``chip_smoke.py`` uses is read back by pyarrow, which checks it
 apart from both scanners.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import datetime
 import io
 import pathlib

@@ -13,6 +13,7 @@ the JAX package's result.  Knobs are set with ``monkeypatch``; the stats
 sidecar goes to a temporary path.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import io
 
 import numpy as np

@@ -26,6 +26,7 @@ intra-op thread):
   span and a structured-log event, and vanish with tracing off.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import functools
 import json
 import pathlib

@@ -9,6 +9,7 @@ counts and the unscaled decimal sums must be equal, the means within a
 relative 1e-12; ``chip_smoke.py``'s integer oracle must agree with both.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import pathlib
 import sys
 

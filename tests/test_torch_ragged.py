@@ -9,6 +9,7 @@ The CUDA kernels themselves are held against the same plain versions on
 the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ packs its rows through kernel B1, the xpack contract, either way;
 engine itself.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ literal or an ordered string compare leaves the filter incomplete,
 aborts it, and the planner skips its mask only after a complete prune.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import io
 
 import numpy as np

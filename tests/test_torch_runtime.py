@@ -14,6 +14,7 @@ eagerly as compiled, and its compiled run makes no call that would
 synchronise on the card).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import json
 import pathlib
 import sys
@@ -307,16 +308,17 @@ def test_runtime_knob_registered_as_in_jax(name, monkeypatch):
 
 
 def test_aot_and_arena_knobs_wait_for_their_modules():
-    # the AOT store has its module now (exec/artifacts.py): its knobs are
-    # the JAX package's, defaults included, but for SRJT_AOT_XLA_CACHE
-    # (XLA's executable cache has no torch counterpart); the arena's
-    # still wait for memory/arena.py
+    # the AOT store has its module (exec/artifacts.py): its knobs are the
+    # JAX package's, defaults included, but for SRJT_AOT_XLA_CACHE (XLA's
+    # executable cache has no torch counterpart); the arena has its module
+    # too now (memory/arena.py), and its knobs are the JAX package's
     aot = {k for k in knobs.REGISTRY if k.startswith("SRJT_AOT_")}
     assert aot == {k for k in jknobs.REGISTRY if k.startswith("SRJT_AOT_")
                    and k != "SRJT_AOT_XLA_CACHE"}
+    arena = {"SRJT_HBM_ARENA", "SRJT_ARENA_ZEROS_CAP", "SRJT_HOSTCACHE_CAP",
+             "SRJT_INDEX_CACHE_CAP"}
     assert all(knobs.REGISTRY[k].default == jknobs.REGISTRY[k].default
-               for k in aot)
-    assert "SRJT_HBM_ARENA" not in knobs.REGISTRY
+               for k in aot | arena)
 
 
 @pytest.mark.parametrize("raw", ["512m", "2g", "1.5k", "65536", " 3T ",

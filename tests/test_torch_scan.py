@@ -12,6 +12,7 @@ runs.  FLOAT64 compares as values: the JAX package stores it as uint32
 bit pairs, the port as native float64.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import decimal
 import io
 import pathlib

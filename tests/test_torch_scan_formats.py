@@ -14,6 +14,7 @@ raise ``ValueError``.  The lineitem writer's new options
 (``tools/torch_lineitem_parquet.py``) are read back by pyarrow.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import decimal
 import io
 import pathlib

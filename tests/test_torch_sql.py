@@ -16,6 +16,7 @@ together reach every node kind, ``Between``, ``IsIn``, ``Limit`` and
 FLOAT64 sums to a relative 1e-12, as in ``torch_tpcds_cases``).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import pytest
 
 from spark_rapids_jni_tpu import sql as jsql

@@ -18,6 +18,7 @@ package on the same pyarrow files and seeded numpy inputs:
 * ``QueryScheduler.submit_refresh`` on CPU replicas.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import io
 import threading
 

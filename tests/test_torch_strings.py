@@ -13,6 +13,7 @@ those tests expect, and seeded ones: negative and pre-1970 days,
 INT64_MIN, uint64 values from 2^63 on.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch

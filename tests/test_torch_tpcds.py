@@ -15,6 +15,7 @@ card).  The other 34 queries are held the same way in
 (``tests/torch_tpcds_cases.py`` holds the shared data).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import io
 
 import pyarrow.parquet as pq

@@ -10,6 +10,7 @@ relative 1e-12 of the JAX package's; the oracle's tolerances are its
 own (``tools/torch_tpcds_oracle.py``).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import pytest
 
 from torch_tpcds_cases import (_jax_native_library,  # noqa: F401

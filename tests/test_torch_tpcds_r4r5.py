@@ -13,6 +13,7 @@ own (``tools/torch_tpcds_oracle.py``).  ``run_all`` skips the
 ``web_sales`` queries without that file.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import pytest
 
 from spark_rapids_jni_tpu_torch.models import tpcds

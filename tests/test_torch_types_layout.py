@@ -5,6 +5,7 @@ Every case builds the same input from numpy for both packages and requires
 the same answer: equal layouts, equal batch geometry, equal bytes.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import ast
 import pathlib
 import re

@@ -13,6 +13,7 @@ where the JAX package has NaN (the two sum in other orders, and torch's
 ``maximum`` keeps the first of -0.0 and 0.0 where XLA's keeps 0.0).
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pandas as pd
 import pytest

@@ -12,6 +12,7 @@ The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
+import torch_one_thread  # noqa: F401  (first: one intra-op thread)
 import numpy as np
 import pytest
 import torch
