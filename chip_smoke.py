@@ -2160,20 +2160,36 @@ TPCDS_PROFILED = ("q3", "q_channel_day", "q36_rollup", "q27_cube")
 TPCDS_TOP = 8
 
 
-def profile_summary(fn, card) -> dict:
+def profile_summary(fn, card, warm: bool = True, need: tuple = (),
+                    tries: int = 1) -> dict:
     """Device busy ms, idle share and the largest device ops of one call
-    of ``fn`` after a warm-up, by ``torch.profiler``."""
+    of ``fn`` after a warm-up (unless the caller warmed it), by
+    ``torch.profiler``.  A window that lacks a device row whose name
+    holds each string of ``need`` (the profiler drops a window's first
+    device records at times) is taken again, up to ``tries`` windows;
+    ``windows`` and ``rows_complete`` say how many were taken and whether
+    the last one had them."""
     from torch_profile_rowconv import (NAME_CHARS, _busy_us, _device_total,
                                        profile_call)
-    fn()
-    prof, wall_us = profile_call(fn)
+    if warm:
+        fn()
+    for window in range(1, tries + 1):
+        prof, wall_us = profile_call(fn)
+        rows = {e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        complete = all(any(s in r for r in rows) for s in need)
+        if complete:
+            break
     busy = _busy_us(prof)
     avgs = sorted(prof.key_averages(), key=_device_total, reverse=True)
     top = [(a.key[:NAME_CHARS], round(_device_total(a) / 1e3, 3), a.count)
            for a in avgs[:TPCDS_TOP] if _device_total(a) > 0]
-    return dict(wall_ms=round(wall_us / 1e3, 3),
-                device_busy_ms=round(busy / 1e3, 3),
-                idle_share=round(1 - busy / wall_us, 3), top=top, card=card)
+    out = dict(wall_ms=round(wall_us / 1e3, 3),
+               device_busy_ms=round(busy / 1e3, 3),
+               idle_share=round(1 - busy / wall_us, 3), top=top, card=card)
+    if need:
+        out.update(windows=window, rows_complete=complete)
+    return out
 
 
 def q3_indices(tables, params, join_plan, engine) -> list:
@@ -3131,7 +3147,8 @@ def phase_exec(kernels, card, launches, tpcds_ctx) -> dict:
     # -- faults on the card ----------------------------------------------
     inj = finj.get_injector()
     incident_dir = tempfile.mkdtemp(prefix="srjt-incidents-")
-    saved_dir = os.environ.get("SRJT_INCIDENT_DIR")
+    # the raw value, to be put back after the phase
+    saved_dir = os.environ.get("SRJT_INCIDENT_DIR")  # srjt-lint: disable=knob-env
     os.environ["SRJT_INCIDENT_DIR"] = incident_dir
     faults = {}
     try:
@@ -3933,7 +3950,8 @@ def phase_ml_stream(kernels, card, launches, tpcds_ctx, mortgage_files):
                     for k in cold_out}
         return cold_out, cold_ms, warm_ms, same, led
 
-    old_env = os.environ.get("SRJT_AOT_DIR")
+    # the raw value, to be put back after the phase
+    old_env = os.environ.get("SRJT_AOT_DIR")  # srjt-lint: disable=knob-env
     try:
         # timed as served, float sums by atomics (floats within
         # SQL_FLOAT_RTOL); then with deterministic sums, bit for bit
@@ -4905,6 +4923,349 @@ def phase_aqe(pt, T, convert, kernels, card, seed, launches, tpcds_ctx,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 20: nested columns
+# ---------------------------------------------------------------------------
+
+# an event table as Spark's collect_list leaves it (tools/
+# torch_nested_parquet.py): 8 row groups of 1,048,576 rows, about 1 GB on
+# the card, as an executor holds there
+NESTED_ROWS = 8 << 20
+NESTED_SEED = 18
+# the kernels phase 20 launches: B7 for the fixed-width element and flat
+# pages, B4 for the PLAIN list strings' prefixes and their gather, B5 ->
+# B6 -> B2 for the dictionary list strings' chars
+NESTED_KERNELS = ("pack_rows", "segmented_copy", "extract_rows",
+                  "gather_rows", "u8_to_u32")
+NESTED_PREDICATE_MOD = 7          # the mask keeps the rows with id % 7 == 3
+# profiled scans at most, until one window holds the slab's upload row
+NESTED_PROFILE_TRIES = 4
+
+
+def nested_reference(arrays) -> dict:
+    """The generator's arrays on the card, which the checks hold the
+    port's columns against."""
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(CARD)
+
+    ref = {"id": up(arrays["id"]), "flag": up(arrays["flag"]),
+           "uuid": up(arrays["uuid"].reshape(-1))}
+    for name in ("items", "tags", "notes"):
+        lst = arrays[name]
+        n = lst.offsets.shape[0] - 1
+        ref[name] = dict(
+            offsets=up(lst.offsets),
+            valid=up(np.ones(n, bool) if lst.valid is None else lst.valid))
+    items = arrays["items"]
+    ref["items"].update(values=up(items.values),
+                        elem_valid=up(items.elem_valid))
+    vocab = arrays["tags"].vocab
+    voffs = np.zeros(len(vocab) + 1, np.int64)
+    np.cumsum([len(v) for v in vocab], out=voffs[1:])
+    ref["tags"].update(codes=up(arrays["tags"].codes),
+                       chars=up(np.frombuffer(b"".join(vocab), np.uint8)),
+                       char_offsets=up(voffs))
+    ref["notes"].update(chars=up(arrays["notes"].chars),
+                        char_offsets=up(arrays["notes"].char_offsets))
+    lat, lon, gvalid = arrays["geo"]
+    ref.update(lat=up(lat), lon=up(lon), geo_valid=up(gvalid))
+    return ref
+
+
+def segments(starts, lens):
+    """(the source index of every element of segments ``starts`` of
+    ``lens`` laid back to back, their int64 offsets), on the card."""
+    new = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
+                      device=lens.device)
+    torch.cumsum(lens, 0, out=new[1:])
+    total = int(new[-1])
+    idx = (torch.repeat_interleave(starts - new[:-1], lens,
+                                   output_size=total)
+           + torch.arange(total, device=lens.device))
+    return idx, new
+
+
+def check_string(col, chars, offs, what) -> None:
+    """A STRING column's bytes and offsets (rebased) equal (chars, offs)."""
+    from spark_rapids_jni_tpu_torch.column import force_column
+    col = force_column(col)
+    got = col.offsets.to(torch.int64)
+    got = got - got[0]
+    require(torch.equal(got, offs), f"{what}: offsets differ")
+    c0 = int(col.offsets[0])
+    require(torch.equal(col.data[c0:c0 + int(got[-1])], chars),
+            f"{what}: chars differ")
+
+
+def check_nested(table, ref, rows, what, only=None) -> None:
+    """Every column of a scanned (and maybe gathered) event table, or the
+    columns named in ``only``, against the generator's arrays (on the
+    card, :func:`nested_reference`) at the int64 row indices ``rows``
+    (None: all): offsets, validity, elements and bytes."""
+    from spark_rapids_jni_tpu_torch.column import force_column
+
+    def pick(a):
+        return a if rows is None else a[rows]
+
+    def valid_of(col):
+        return force_column(col).validity_or_true()
+
+    require(table.num_columns == 8, f"{what}: {table.num_columns} columns")
+    cols = dict(zip(("id", "items", "tags", "notes", "lat", "lon", "flag",
+                     "uuid"), table.columns))
+    if only is not None:
+        cols = {k: v for k, v in cols.items() if k in only}
+    for c in cols.values():
+        require(force_column(c).device.type == "cuda",
+                f"{what}: a column is off the card")
+    if "id" in cols:
+        require(torch.equal(cols["id"].data, pick(ref["id"])),
+                f"{what}: id differs")
+    for name in ("items", "tags", "notes"):
+        if name not in cols:
+            continue
+        r, col = ref[name], force_column(cols[name])
+        all_offs = r["offsets"]
+        lens = pick(all_offs[1:] - all_offs[:-1])
+        elem, offs = segments(pick(all_offs[:-1]), lens)
+        got = col.offsets.to(torch.int64)
+        require(col.children[0].device.type == "cuda",
+                f"{what}: {name}'s elements are off the card")
+        require(torch.equal(got - got[0], offs),
+                f"{what}: {name} offsets differ")
+        require(torch.equal(valid_of(col), pick(r["valid"])),
+                f"{what}: {name} validity differs")
+        child = force_column(col.children[0])
+        if name == "items":
+            ev = r["elem_valid"][elem]
+            require(torch.equal(valid_of(child), ev),
+                    f"{what}: items element validity differs")
+            want = torch.where(ev, r["values"][elem], 0)
+            c0 = int(got[0])
+            require(torch.equal(child.data[c0:c0 + want.shape[0]], want),
+                    f"{what}: items elements differ")
+            continue
+        which = r["codes"][elem] if name == "tags" else elem
+        co = r["char_offsets"]
+        src, coffs = segments(co[:-1][which], co[1:][which] - co[:-1][which])
+        check_string(child, r["chars"][src], coffs,
+                     f"{what}: {name} elements")
+    for name in ("lat", "lon"):
+        if name not in cols:
+            continue
+        v = pick(ref["geo_valid"])
+        require(torch.equal(valid_of(cols[name]), v),
+                f"{what}: geo.{name} validity differs")
+        require(torch.equal(cols[name].data[v].view(torch.int64),
+                            pick(ref[name])[v].view(torch.int64)),
+                f"{what}: geo.{name} differs")
+    if "flag" in cols:
+        require(torch.equal(cols["flag"].data, pick(ref["flag"])),
+                f"{what}: flag differs")
+    if "uuid" in cols:
+        n = cols["uuid"].num_rows
+        r16 = (torch.arange(16, device=CARD) if rows is None
+               else rows[:, None] * 16 + torch.arange(16, device=CARD))
+        want = (ref["uuid"] if rows is None
+                else ref["uuid"][r16.reshape(-1)])
+        check_string(cols["uuid"], want,
+                     16 * torch.arange(n + 1, device=CARD), f"{what}: uuid")
+
+
+def column_bytes(col) -> int:
+    """Bytes a column holds on its device: payload, offsets, validity,
+    a dictionary column's codes and entries, children."""
+    from spark_rapids_jni_tpu_torch.column import as_dict_column, force_column
+    d = as_dict_column(col)
+    if d is not None:
+        return (d.codes.numel() * 4 + column_bytes(d.dictionary)
+                + (0 if d.validity is None else d.validity.numel()))
+    col = force_column(col)
+    out = col.data.numel() * col.data.element_size()
+    for t in (col.offsets, col.validity):
+        if t is not None:
+            out += t.numel() * t.element_size()
+    return out + sum(column_bytes(c) for c in col.children or ())
+
+
+def dict_passthrough(T, convert, card, seed) -> dict:
+    """``spark_12_2str`` at ROWS rows with its two string columns as
+    dictionary strings (entries of 0-39 chars): through
+    ``dict_encode_for_rows`` -> rows -> ``restore_dict_columns``, every
+    column equal to the input."""
+    from spark_rapids_jni_tpu_torch.column import Column, DictColumn, Table
+    rng = np.random.default_rng(seed + 20)
+    n_cols, every, max_len = CASES["spark_12_2str"]
+    cols = []
+    for ty, scale, data, offs, valid in make_columns(T, n_cols, every,
+                                                     max_len, ROWS, rng):
+        if ty == int(T.TypeId.STRING):
+            entries = [bytes(rng.integers(32, 127, int(k)).astype(np.uint8))
+                       .decode() for k in rng.integers(0, max_len, 4096)]
+            codes = torch.from_numpy(rng.integers(0, len(entries), ROWS)
+                                     .astype(np.int32)).to(CARD)
+            cols.append(DictColumn(codes, Column.strings_from_list(entries),
+                                   torch.from_numpy(valid).to(CARD)))
+        else:
+            cols.append(Column.from_numpy(data, T.DType(T.TypeId(ty), scale),
+                                          valid))
+    table = Table(cols)
+    t0 = time.perf_counter()
+    codes, dicts = convert.dict_encode_for_rows(table)
+    batches = convert.convert_to_rows(codes)
+    back = convert.restore_dict_columns(
+        convert.convert_from_rows(batches[0], codes.schema), dicts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(len(batches) == 1 and sorted(dicts) == [0, 6],
+            f"dict passthrough: {len(batches)} batches, dictionaries "
+            f"{sorted(dicts)}")
+    for i, (a, b) in enumerate(zip(table.columns, back.columns)):
+        require(torch.equal(a.validity_or_true(), b.validity_or_true()),
+                f"dict passthrough column {i}: validity differs")
+        if isinstance(a, DictColumn):
+            require(isinstance(b, DictColumn)
+                    and b.dictionary is a.dictionary
+                    and torch.equal(torch.where(a.validity, a.codes, 0),
+                                    torch.where(a.validity, b.codes, 0)),
+                    f"dict passthrough column {i}: codes differ")
+        else:
+            require(torch.equal(torch.where(a.validity, a.data, 0),
+                                torch.where(a.validity, b.data, 0)),
+                    f"dict passthrough column {i}: data differs")
+    log(f"[nested] spark_12_2str ({ROWS} rows) with dictionary strings "
+        f"through dict_encode_for_rows -> {batches[0].num_bytes} row bytes "
+        f"-> restore_dict_columns: equal, {wall * 1e3:.3f} ms [{card}]")
+    return dict(rows=ROWS, row_bytes=batches[0].num_bytes,
+                ms=round(wall * 1e3, 3))
+
+
+def phase_nested(T, convert, kernels, card, seed, launches) -> dict:
+    """Phase 20: the event table of ``tools/torch_nested_parquet.py`` at
+    NESTED_ROWS rows: the scan of every column exact against the
+    generator; a mask over ``id``, a seeded permutation's gather, two row
+    groups' scans concatenated and sliced, each exact; ``items`` and
+    ``tags`` through their Arrow buffers and back; the dictionary-codes
+    row passthrough; the scan's wall, GB/s and profile; B2, B4, B5, B6
+    and B7 on the largest inputs the phase hands them."""
+    import torch_nested_parquet as NW
+    from spark_rapids_jni_tpu_torch.column import (Table, as_dict_column,
+                                                   force_column)
+    from spark_rapids_jni_tpu_torch.ops import copying, filter as F
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    from spark_rapids_jni_tpu_torch.utils import arrow
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    raw, arrays = NW.nested_parquet(NESTED_ROWS, seed + NESTED_SEED,
+                                    NW.ROW_GROUP_ROWS)
+    write_s = time.perf_counter() - t0
+    groups = -(-NESTED_ROWS // NW.ROW_GROUP_ROWS)
+    log(f"[nested] {NESTED_ROWS} rows in {groups} row groups, {len(raw)} "
+        f"bytes, written in {write_s:.2f} s")
+
+    # the main path: scan, the tags' chars, mask, gather, concat, slice,
+    # Arrow and the passthrough, the counts read after
+    kernels.reset()
+    steps = {}
+    t0 = time.perf_counter()
+    table = device_scan.scan_table(raw)
+    torch.cuda.synchronize()
+    steps["scan_first_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    on_card = sum(column_bytes(c) for c in table.columns)
+    require(as_dict_column(force_column(table[2]).children[0]) is not None,
+            "nested: the tags elements are not dictionary codes")
+    ref = nested_reference(arrays)
+    check_nested(table, ref, None, "scan")
+
+    ids = table[0].data
+    mask = ids % NESTED_PREDICATE_MOD == 3
+    t0 = time.perf_counter()
+    masked = F.apply_boolean_mask(table, mask)
+    check_nested(masked, ref, torch.nonzero(
+        ref["id"] % NESTED_PREDICATE_MOD == 3)[:, 0], "mask")
+    steps["mask_check_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    del masked, mask
+
+    perm = torch.from_numpy(np.random.default_rng(
+        seed + NESTED_SEED).permutation(NESTED_ROWS)).to(CARD)
+    t0 = time.perf_counter()
+    gathered = F.gather(table, perm)
+    check_nested(gathered, ref, perm, "gather")
+    steps["gather_check_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    del gathered
+
+    parts = [device_scan.scan_table(raw, row_groups=[g]) for g in (0, 1)]
+    both = copying.concat_tables(parts)
+    check_nested(both, ref, torch.arange(2 * NW.ROW_GROUP_ROWS, device=CARD),
+                 "concat")
+    # a slice across the two row groups' seam
+    start, length = NW.ROW_GROUP_ROWS // 8 + 1, NW.ROW_GROUP_ROWS + 3
+    sliced = copying.slice_table(both, start, length)
+    check_nested(sliced, ref, torch.arange(start, start + length,
+                                           device=CARD), "slice")
+    del parts, both, sliced
+
+    arrow_bytes = 0
+    for i, name in ((1, "items"), (2, "tags")):
+        bufs = arrow.to_arrow_buffers(force_column(table[i]))
+        back = arrow.from_arrow_buffers(bufs)
+        require(back.children[0].device.type == "cuda",
+                "nested: Arrow's elements came back off the card")
+        arrow_bytes += bufs.offsets.nbytes + bufs.children[0].data.nbytes
+        cols = list(table.columns)
+        cols[i] = back
+        check_nested(Table(cols), ref, None, f"arrow {name}", (name,))
+    passthrough = dict_passthrough(T, convert, card, seed)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for name in NESTED_KERNELS:
+        require(counts[name] > 0, f"nested: {name} never launched")
+    log(f"[nested] scan, mask, gather, concat, slice, Arrow and the "
+        f"passthrough exact; launches {nonzero(counts)}")
+
+    file_bytes = len(raw)
+    # a warm call timed, then one profiled (profile_summary's own warm-up
+    # is the timed call) whose window holds the slab's upload
+    wall = median_wall(lambda: device_scan.scan_table(raw), reps=1)
+    prof = profile_summary(lambda: device_scan.scan_table(raw), card,
+                           warm=False, need=("Memcpy HtoD",),
+                           tries=NESTED_PROFILE_TRIES)
+    log(f"[nested] scan_table: first {steps['scan_first_ms']:.3f} ms, "
+        f"second {wall * 1e3:.3f} ms for {file_bytes} file bytes "
+        f"({file_bytes / wall / 1e9:.3f} GB/s), {on_card} bytes on the card; "
+        f"profile " + json.dumps(prof))
+
+    def keep(captured, name, args):
+        nb = bytes_moved(name, args)
+        if name not in captured or nb > captured[name][0]:
+            captured[name] = (nb, args)
+
+    def drive():
+        t = device_scan.scan_table(raw)
+        force_column(t[2]).children[0].materialize()
+        force_column(F.gather(t, perm[:NW.ROW_GROUP_ROWS])[3])
+
+    captured = record_inputs(kernels, NESTED_KERNELS, keep, drive)
+    results = {("nested", name): measure(kernels, name, args, card, "nested",
+                                         library_call(name, args))
+               for name, (_, args) in sorted(captured.items())}
+    report = {"card": card, "rows": NESTED_ROWS, "row_groups": groups,
+              "file_bytes": file_bytes, "bytes_on_card": on_card,
+              "write_s": round(write_s, 2),
+              "scan_ms": round(wall * 1e3, 3),
+              "scan_gb_s": round(file_bytes / wall / 1e9, 3),
+              "profile": prof, "arrow_bytes": arrow_bytes,
+              "passthrough": passthrough, "launches": counts, **steps}
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[nested] summary " + json.dumps(report))
+    del table, captured, raw, arrays, ref, perm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4974,6 +5335,8 @@ def main(argv=None) -> int:
               spark.pop("raw"))
     del tpcds_ctx, mortgage_files
     torch.cuda.empty_cache()
+    results.update(phase_nested(T, convert, kernels, card, args.seed,
+                                launches))
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():

@@ -15,7 +15,12 @@ and compiled to CUDA graphs (``models.compiled``), the Mortgage ETL, and
 the planner and SQL front end (``plan``, ``sql``) with the fused
 scan→filter, the serving runtime (``exec``) with its persistent tape
 store, per-node profiles (``plan.profile``), streaming views
-(``stream``) and the ETL→ML handoff (``ml``).
+(``stream``) and the ETL→ML handoff (``ml``), adaptive execution,
+``parallel``, the arena, Arrow and the fault shim, nested columns (LIST
+and STRUCT through the column, the ops, Arrow and the scan), and the
+static analysis (``analysis``, run by ``tools/torch_lint.py``): every
+module of the JAX package has its port or is left out by design
+(``ROADMAP.md``).
 """
 
 from ._version import BASE_VERSION as __version__  # noqa: F401

@@ -6,7 +6,15 @@ layout the JAX package uses (``spark_rapids_jni_tpu/column.py``):
 * fixed-width: ``data`` is [n] of ``dtype.torch_storage`` (DECIMAL128:
   int64 [n, 2]; FLOAT64: native float64; BOOL8: uint8 0/1);
 * STRING: ``data`` is the uint8 chars buffer, ``offsets`` int32 [n+1];
+* LIST: ``offsets`` int32 [n+1] into ``children[0]``, the element column
+  (any type, lists too); ``data`` an empty uint8 tensor on the device;
+* STRUCT: ``children`` one column a field, all of ``num_rows`` rows (the
+  first field's); ``data`` empty, ``offsets`` None;
 * ``validity``: bool [n], True = valid, or None when every row is valid.
+
+Nested columns are the JAX package's column hierarchy
+(``spark_rapids_jni_tpu/column.py:58-75``): a null LIST row may still
+cover elements (a gather keeps them), as there.
 
 Constructors place data on the GPU unless the caller passes
 ``device="cpu"``; with no CUDA device they raise rather than run on the CPU.
@@ -43,6 +51,11 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(host, copy=True)).to(device)
 
 
+def _empty(device) -> torch.Tensor:
+    """The ``data`` of a nested column: no bytes, on its device."""
+    return torch.zeros(0, dtype=torch.uint8, device=device)
+
+
 def _validity_tensor(validity, device) -> Optional[torch.Tensor]:
     if validity is None:
         return None
@@ -57,9 +70,13 @@ class Column:
     data: torch.Tensor
     offsets: Optional[torch.Tensor] = None
     validity: Optional[torch.Tensor] = None
+    # nested types: LIST → [element column]; STRUCT → one per field
+    children: Optional[list] = None
 
     @property
     def num_rows(self) -> int:
+        if self.dtype.id == T.TypeId.STRUCT:
+            return self.children[0].num_rows
         if self.dtype.is_variable_width:
             return self.offsets.shape[0] - 1
         return self.data.shape[0]
@@ -121,18 +138,90 @@ class Column:
         return Column.strings_from_arrays(
             chars, offsets, None if valid.all() else valid, device)
 
+    @staticmethod
+    def list_from_pylist(values, element_dtype: T.DType | None = None,
+                         device=None) -> "Column":
+        """A LIST column from nested host lists (None ⇒ a null row).  The
+        element column is built recursively (:meth:`from_pylist`), its
+        type inferred unless ``element_dtype`` gives it."""
+        dev = resolve_device(device)
+        valid = np.asarray([v is not None for v in values], dtype=bool)
+        flat = []
+        lengths = np.zeros(len(values), dtype=np.int32)
+        for i, v in enumerate(values):
+            if v is not None:
+                flat.extend(v)
+                lengths[i] = len(v)
+        offsets = np.zeros(len(values) + 1, dtype=np.int32)
+        np.cumsum(lengths, out=offsets[1:])
+        child = Column.from_pylist(flat, element_dtype, dev)
+        doffs = upload(offsets, dev)
+        hostcache.seed(doffs, offsets.astype(np.int64))
+        return Column(T.list_(child.dtype), _empty(dev), doffs,
+                      None if valid.all() else upload(valid, dev), [child])
+
+    @staticmethod
+    def struct_from_columns(fields: Sequence["Column"],
+                            validity: np.ndarray | None = None,
+                            device=None) -> "Column":
+        """A STRUCT column of equal-length field columns, on ``device``
+        (None: the fields' device)."""
+        fields = list(fields)
+        n = fields[0].num_rows
+        for f in fields:
+            if f.num_rows != n:
+                raise ValueError("struct fields must have equal length")
+        dev = fields[0].device if device is None else resolve_device(device)
+        return Column(T.struct_(*[f.dtype for f in fields]), _empty(dev),
+                      None, _validity_tensor(validity, dev), fields)
+
+    @staticmethod
+    def from_pylist(values, dtype: T.DType | None = None,
+                    device=None) -> "Column":
+        """A column from a flat host list (None ⇒ null), its type inferred
+        unless ``dtype`` gives it: strings, lists (LIST, recursively) or
+        numbers (the JAX package's ``_column_from_pylist``)."""
+        if dtype is not None and dtype.id == T.TypeId.LIST:
+            return Column.list_from_pylist(values, dtype.children[0], device)
+        if dtype is not None and dtype.id == T.TypeId.STRING:
+            return Column.strings_from_list(values, device)
+        sample = next((v for v in values if v is not None), None)
+        if dtype is None:
+            if isinstance(sample, str):
+                return Column.strings_from_list(values, device)
+            if isinstance(sample, (list, tuple)):
+                return Column.list_from_pylist(values, None, device)
+        arr = np.asarray([0 if v is None else v for v in values])
+        validity = (np.asarray([v is not None for v in values])
+                    if any(v is None for v in values) else None)
+        if dtype is not None:
+            arr = arr.astype(dtype.storage)
+        elif not values:
+            arr = arr.astype(np.int32)
+        return Column.from_numpy(arr, dtype, validity, device)
+
     def to_numpy(self) -> np.ndarray:
         """Host copy of a fixed-width payload (FLOAT64 as float64 values)."""
         return self.data.cpu().numpy()
 
     def to_pylist(self):
-        """Host list with ``None`` for nulls (tests and debugging)."""
+        """Host list with ``None`` for nulls (tests and debugging); a LIST
+        row is a list, a STRUCT row a tuple of its fields."""
         valid = self.validity_or_true().cpu().numpy()
         if self.dtype.id == T.TypeId.STRING:
             offsets = hostcache.host_i64(self.offsets)
             chars = self.data.cpu().numpy().tobytes()
             return [chars[offsets[i]:offsets[i + 1]].decode("utf-8")
                     if valid[i] else None for i in range(self.num_rows)]
+        if self.dtype.id == T.TypeId.LIST:
+            offsets = hostcache.host_i64(self.offsets)
+            elems = self.children[0].to_pylist()
+            return [elems[offsets[i]:offsets[i + 1]] if valid[i] else None
+                    for i in range(self.num_rows)]
+        if self.dtype.id == T.TypeId.STRUCT:
+            fields = [f.to_pylist() for f in self.children]
+            return [tuple(f[i] for f in fields) if valid[i] else None
+                    for i in range(self.num_rows)]
         if self.dtype.id == T.TypeId.DECIMAL128:
             lanes = self.to_numpy()
             lo = lanes[:, 0].astype(np.uint64)
@@ -331,6 +420,10 @@ class LazyColumn(Column):
     @property
     def validity(self) -> Optional[torch.Tensor]:
         return self._force().validity
+
+    @property
+    def children(self) -> Optional[list]:
+        return self._force().children
 
     @property
     def num_rows(self) -> int:

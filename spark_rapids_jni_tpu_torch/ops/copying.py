@@ -5,9 +5,11 @@ The port's counterpart of the JAX package's ``ops/copying.py``.
 Concatenation defers each column as a :class:`LazyColumn`, as the JAX
 package's does, so that concatenating lazy join outputs forces none of
 the columns the plan never reads; forced, it joins the column's
-buffers and rebases string offsets on the device.  A slice takes host
-bounds, and a STRING slice reads its two char bounds (two
-synchronisations, through ``utils.syncs``).  A
+buffers and rebases string and list offsets on the device (a LIST
+concatenates its element columns, a STRUCT each field).  A slice takes
+host bounds; a STRING slice reads its two char bounds and a LIST its two
+element bounds, which slice its element column (two synchronisations
+each, through ``utils.syncs``).  A
 :class:`DictColumn` concatenates or slices as its materialized chars, as
 in the JAX package.
 """
@@ -18,7 +20,8 @@ from typing import Sequence
 
 import torch
 
-from ..column import Column, LazyColumn, Table
+from .. import types as T
+from ..column import Column, LazyColumn, Table, force_column
 from ..utils import syncs
 
 
@@ -42,9 +45,15 @@ def _concat_columns(cols: Sequence[Column]) -> Column:
     for c in cols:
         if c.dtype != dt:
             raise TypeError(f"concat dtype mismatch: {c.dtype} vs {dt}")
-    if dt.is_nested:
-        raise NotImplementedError(f"concat of {dt.id.name} is not ported")
+    cols = [force_column(c) for c in cols]
     v = _concat_validity(cols)
+    if dt.id == T.TypeId.STRUCT:
+        return Column(dt, cols[0].data, None, v,
+                      [_concat_columns([c.children[i] for c in cols])
+                       for i in range(len(dt.children))])
+    if dt.id == T.TypeId.LIST:
+        return Column(dt, cols[0].data, _rebase_offsets(cols), v,
+                      [_concat_columns([c.children[0] for c in cols])])
     if dt.is_variable_width:
         return Column(dt, torch.cat([c.data for c in cols]),
                       _rebase_offsets(cols), v)
@@ -77,10 +86,18 @@ def concat_tables(tables: Sequence[Table]) -> Table:
 
 
 def _slice_column(col: Column, start: int, stop: int) -> Column:
+    col = force_column(col)
     v = None if col.validity is None else col.validity[start:stop]
-    if col.dtype.is_nested:
-        raise NotImplementedError(f"slice of {col.dtype.id.name} is not "
-                                  "ported")
+    if col.dtype.id == T.TypeId.STRUCT:
+        return Column(col.dtype, col.data, None, v,
+                      [_slice_column(f, start, stop) for f in col.children])
+    if col.dtype.id == T.TypeId.LIST:
+        offs = col.offsets[start:stop + 1]
+        c0, c1 = syncs.scalar(offs[0]), syncs.scalar(offs[-1])
+        child = _slice_column(col.children[0], c0, c1)
+        # cut into the elements taken, a no-op unless the tape is stale
+        return Column(col.dtype, col.data,
+                      (offs - c0).clamp(0, child.num_rows), v, [child])
     if col.dtype.is_variable_width:
         offs = col.offsets[start:stop + 1]
         c0, c1 = syncs.scalar(offs[0]), syncs.scalar(offs[-1])

@@ -9,8 +9,12 @@ column it never reads is never gathered.  A :class:`DictColumn` gathers
 its codes only, at once; a STRING column's chars move, when forced, as
 one segmented copy to device offsets, kernel B4
 (``rowconv.ragged.segmented_copy``), after one synchronisation for the
-chars' total.  ``mask_table`` keeps every row and
-nulls the failing ones, deferred likewise.
+chars' total.  A LIST column gathers its lengths, builds new offsets
+by a running sum (one synchronisation for the elements' total) and
+gathers its element column, recursively, by the element rows
+``repeat_interleave`` expands; a STRUCT gathers each field.  So a
+LIST<STRING>'s chars still move by B4.  ``mask_table`` keeps every row
+and nulls the failing ones, deferred likewise, children kept.
 """
 
 from __future__ import annotations
@@ -46,8 +50,36 @@ def _gather_strings(col: Column, idx: torch.Tensor) -> Column:
     return Column(col.dtype, chars, new.clamp(max=total).to(torch.int32), v)
 
 
+def _gather_list(col: Column, idx: torch.Tensor) -> Column:
+    """The rows ``idx`` of a LIST column (the JAX package's
+    ``_segment_gather``, ``ops/filter.py:24-60``): the gathered lengths'
+    running sum is the new offsets (one synchronisation for the total),
+    and element ``k`` of the output is element ``starts[r] + k - new[r]``
+    of the input, ``r`` its row, which :func:`sized_repeat` expands.  The
+    element rows are cut into the child, a no-op unless a stale tape
+    sized them."""
+    offs = col.offsets.to(torch.int64)
+    lens = (offs[1:] - offs[:-1])[idx]
+    new = torch.zeros(idx.shape[0] + 1, dtype=torch.int64, device=idx.device)
+    torch.cumsum(lens, 0, out=new[1:])
+    total = syncs.size(new[-1])
+    if total > _MAX_CHARS:
+        raise ValueError(f"gathered list elements ({total}) exceed int32 "
+                         "offsets")
+    row = sized_repeat(lens, total)
+    src = (offs[:-1][idx][row] - new[:-1][row]
+           + torch.arange(total, dtype=torch.int64, device=idx.device))
+    child = col.children[0]
+    if child.num_rows:
+        src = src.clamp_(0, child.num_rows - 1)
+    v = None if col.validity is None else col.validity[idx]
+    return Column(col.dtype, col.data, new.clamp(max=total).to(torch.int32),
+                  v, [_gather_column(child, src)])
+
+
 def _gather_column(col: Column, idx: torch.Tensor) -> Column:
-    """The rows ``idx`` of ``col``, eager (a lazy input is forced)."""
+    """The rows ``idx`` of ``col``, eager (a lazy input is forced), through
+    any nesting."""
     idx = idx.to(torch.int64)
     d = as_dict_column(col)
     if d is not None:
@@ -55,9 +87,12 @@ def _gather_column(col: Column, idx: torch.Tensor) -> Column:
         v = None if d.validity is None else d.validity[idx]
         return DictColumn(d.codes[idx], d.dictionary, v)
     col = force_column(col)
-    if col.dtype.is_nested:
-        raise NotImplementedError(
-            f"gather of {col.dtype.id.name} columns is not ported")
+    if col.dtype.id == T.TypeId.STRUCT:
+        v = None if col.validity is None else col.validity[idx]
+        return Column(col.dtype, col.data, None, v,
+                      [_gather_column(f, idx) for f in col.children])
+    if col.dtype.id == T.TypeId.LIST:
+        return _gather_list(col, idx)
     if col.dtype.is_variable_width:
         return _gather_strings(col, idx)
     v = None if col.validity is None else col.validity[idx]
@@ -125,7 +160,7 @@ def _masked(c: Column, mask: torch.Tensor) -> Column:
     v = mask if c.validity is None else (c.validity & mask)
     if isinstance(c, DictColumn):
         return DictColumn(c.codes, c.dictionary, v)
-    return Column(c.dtype, c.data, c.offsets, v)
+    return Column(c.dtype, c.data, c.offsets, v, c.children)
 
 
 def mask_table(table: Table, mask: torch.Tensor) -> Table:

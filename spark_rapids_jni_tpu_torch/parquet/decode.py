@@ -13,11 +13,16 @@ The DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY
 pages are the only values decoded on the host (:func:`delta_page`, as the
 JAX package decodes them); they reach the device as PLAIN values.  INT96
 is a TIMESTAMP_NANOSECONDS column, its days and nanoseconds combined on
-the device.  Outside the port so far, and raised as
+the device.  A FIXED_LEN_BYTE_ARRAY that is not a DECIMAL (a UUID) is a
+STRING of ``type_len`` bytes a value, as in the JAX package.  A
+single-level LIST leaf carries ``d_list``, the definition level at its
+repeated node, from which the scan builds the list offsets and validity
+(``device_scan.py``).  Outside the port so far, and raised as
 :class:`NotImplementedError` naming the encoding, codec or type (no
-silent host decode): BOOLEAN other than PLAIN, FIXED_LEN_BYTE_ARRAY other
-than a DECIMAL of at most 16 bytes, codecs other than UNCOMPRESSED,
-SNAPPY and GZIP, and nested (repeated) columns.
+silent host decode): BOOLEAN other than PLAIN or dictionary-encoded, a
+DECIMAL over FIXED_LEN_BYTE_ARRAY of more than 16 bytes, codecs other
+than UNCOMPRESSED, SNAPPY and GZIP, lists of lists and MAP
+(:class:`NestedDecodeUnsupported`).
 """
 
 from __future__ import annotations
@@ -106,7 +111,8 @@ class ST:          # Statistics (row-group pruning fields)
 
 _PHYS_DT = {PT_BOOLEAN: T.bool8, PT_INT32: T.int32, PT_INT64: T.int64,
             PT_INT96: T.timestamp_ns, PT_FLOAT: T.float32,
-            PT_DOUBLE: T.float64, PT_BYTE_ARRAY: T.string}
+            PT_DOUBLE: T.float64, PT_BYTE_ARRAY: T.string,
+            PT_FIXED_LEN_BYTE_ARRAY: T.string}
 # bytes of a PLAIN value of each fixed-width physical type
 PHYS_WIDTH = {PT_INT32: 4, PT_INT64: 8, PT_INT96: 12, PT_FLOAT: 4,
               PT_DOUBLE: 8}
@@ -499,11 +505,14 @@ class PageStream:
 class Leaf:
     """One leaf column's schema facts, gathered by the depth-first walk."""
 
-    def __init__(self, elem, max_def, max_rep, path):
+    def __init__(self, elem, max_def, max_rep, path, d_list=0):
         self.elem = elem
         self.max_def = max_def          # def level meaning "value present"
-        self.max_rep = max_rep          # 0 = flat
+        self.max_rep = max_rep          # 0 = flat, 1 = single-level list
+        self.d_list = d_list            # def level at the repeated node
         self.path = path
+        # struct leaves keep their dotted path; a LIST leaf takes its outer
+        # field's name (the chunk path is "name.list.element")
         self.name = path.split(".")[0] if max_rep > 0 else path
 
     @property
@@ -516,10 +525,11 @@ class Leaf:
         return self.elem.get(SE.TYPE_LENGTH, 0) or 0
 
     def logical_dtype(self) -> T.DType:
-        """Logical dtype from the physical and converted types, for the
-        types the port's scan decodes.  A DECIMAL over BYTE_ARRAY or
-        FIXED_LEN_BYTE_ARRAY is decimal32, decimal64 or decimal128 by its
-        precision (at most 9, at most 18, more), as in the JAX package."""
+        """Element-level logical dtype from the physical and converted
+        types, for the types the port's scan decodes.  A DECIMAL over
+        BYTE_ARRAY or FIXED_LEN_BYTE_ARRAY is decimal32, decimal64 or
+        decimal128 by its precision (at most 9, at most 18, more), and
+        other FIXED_LEN_BYTE_ARRAY is STRING, as in the JAX package."""
         phys = self.phys
         ct = self.elem.get(SE.CONVERTED_TYPE)
         if ct == CT_DECIMAL:
@@ -556,21 +566,24 @@ class Leaf:
 
 
 class NestedDecodeUnsupported(NotImplementedError):
-    """The file's schema needs nested decode (lists or maps)."""
+    """The file's schema needs nested decode the scan does not do (lists
+    of lists, MAP), raised by the schema walk before any page is read."""
 
 
 def leaf_schema_elements(meta: Struct) -> list[Leaf]:
-    """Depth-first walk: the leaves with their Dremel levels.
+    """Depth-first walk: the leaves with their Dremel levels and, under a
+    repeated node, ``d_list`` (the JAX package's ``_leaf_schema_elements``,
+    ``spark_rapids_jni_tpu/parquet/decode.py:622-665``).
 
     Raises :class:`NestedDecodeUnsupported` for lists of lists and MAP
-    groups, as the JAX package does.  A single-level list leaf is
-    returned with ``max_rep`` 1; the scan refuses it only if it is
-    selected."""
+    groups, naming their paths, as the JAX package does.  A single-level
+    list leaf is returned with ``max_rep`` 1."""
     schema = meta.get(FMD.SCHEMA).values
     out: list[Leaf] = []
     bad: list[str] = []
 
-    def walk(idx: int, depth_def: int, depth_rep: int, prefix: str):
+    def walk(idx: int, depth_def: int, depth_rep: int, d_list: int,
+             prefix: str):
         elem = schema[idx]
         n = elem.get(SE.NUM_CHILDREN, 0) or 0
         name = elem.get(SE.NAME, b"").decode("utf-8")
@@ -579,6 +592,7 @@ def leaf_schema_elements(meta: Struct) -> list[Leaf]:
         # definition and a repetition level
         my_def = depth_def + (1 if rep in (1, 2) else 0)
         my_rep = depth_rep + (1 if rep == 2 else 0)
+        my_dlist = my_def if rep == 2 else d_list
         path = f"{prefix}.{name}" if prefix else name
         ct = elem.get(SE.CONVERTED_TYPE)
         if my_rep > 1:
@@ -587,16 +601,16 @@ def leaf_schema_elements(meta: Struct) -> list[Leaf]:
             bad.append(f"{path} (MAP)")
         idx += 1
         if n == 0:
-            out.append(Leaf(elem, my_def, my_rep, path))
+            out.append(Leaf(elem, my_def, my_rep, path, my_dlist))
             return idx
         for _ in range(n):
-            idx = walk(idx, my_def, my_rep, path)
+            idx = walk(idx, my_def, my_rep, my_dlist, path)
         return idx
 
     idx = 1
     root_children = schema[0].get(SE.NUM_CHILDREN, 0) or 0
     for _ in range(root_children):
-        idx = walk(idx, 0, 0, "")
+        idx = walk(idx, 0, 0, 0, "")
     if bad:
         raise NestedDecodeUnsupported(
             "nested decode is not supported by the port's scan: "

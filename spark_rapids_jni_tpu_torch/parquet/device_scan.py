@@ -27,8 +27,10 @@ between host and device is the same:
 Column kinds, as in the JAX package: ``plain`` (INT32, INT64, INT96,
 FLOAT, DOUBLE and their DATE / TIMESTAMP / DECIMAL annotations, and
 FIXED_LEN_BYTE_ARRAY decimals), ``dict`` (dictionary-encoded numerics and
-FLBA decimals), ``bool`` (PLAIN BOOLEAN), ``plain_str`` (PLAIN strings)
-and ``dict_str`` (dictionary-encoded strings); ``mixed`` and
+FLBA decimals), ``bool`` (BOOLEAN: PLAIN pages' bits, dictionary
+pages' codes through the dictionary's bits), ``plain_str`` (PLAIN strings,
+and FIXED_LEN_BYTE_ARRAY that is not a decimal, a STRING of ``type_len``
+bytes a value) and ``dict_str`` (dictionary-encoded strings); ``mixed`` and
 ``mixed_str`` are chunks whose dictionary fell back to PLAIN or DELTA
 pages part way, as parquet-mr writes them: each run of pages decodes by
 its own route, the present values join in page order, and a mixed string
@@ -40,9 +42,18 @@ precisions up to 18; booleans unpack as a bit-packed run of width 1
 (``rle_device.expand``).  Row groups whose dictionaries differ are
 merged: their dictionaries concatenate and their codes are rebased.
 Anything else raises ``NotImplementedError`` naming what it met; there is
-no fallback (the JAX package decodes BOOLEAN dictionaries on the host).
-FLOAT64 is native ``torch.float64`` (the JAX package stores uint32 bit
-pairs).
+no fallback.  FLOAT64 is native ``torch.float64`` (the JAX package stores
+uint32 bit pairs).
+
+A single-level LIST leaf (the JAX package reads these on its host path,
+``parquet/decode.py:776-811``) walks like a flat column, its repetition
+levels parsed beside its definition levels; the host counts its rows,
+elements and nulls from the run headers, its element slots decode as one
+flat OPTIONAL column by the routes above (so PLAIN strings go through B4,
+dictionary strings stay :class:`DictColumn` codes, fixed-width values
+through B7), and its offsets and validity come from the levels on the
+device (``parquet.list_cols`` counts these columns).  A leaf of a struct
+keeps its dotted name and decodes as a flat column.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, DictColumn, Table, resolve_device
+from ..ops.filter import sized_nonzero
 from ..rowconv import bytepath, ragged
 from ..rowconv.convert import _reinterpret
 from ..utils import knobs, metrics
@@ -113,6 +125,14 @@ class _ChunkWalk:
     # null, and its value count)
     def_plans: list = dataclasses.field(default_factory=list)
     host_decoded: bool = False        # a DELTA page was decoded on the host
+    # BOOLEAN: the kind ("plain" or "dict") of each of ``idx_plans``, in
+    # step with it (the row filter rewrites both)
+    plan_kinds: list = dataclasses.field(default_factory=list)
+    # LIST leaves: per data page the RunPlan of its repetition levels, and
+    # the column's rows and definition-level counts (index: level)
+    rep_plans: list = dataclasses.field(default_factory=list)
+    n_rows: int = 0
+    def_hist: Optional[np.ndarray] = None
 
 
 def _add_run(runs: list, kind: str, k: int) -> None:
@@ -122,6 +142,40 @@ def _add_run(runs: list, kind: str, k: int) -> None:
         runs[-1][1] += k
     else:
         runs.append([kind, k])
+
+
+def _dict_codes(walk: _ChunkWalk, leaf: D.Leaf, page_vals,
+                n_present: int) -> str:
+    """A dictionary-encoded page's codes, as a run plan of the walk."""
+    if walk.dictionary is None:
+        raise ValueError(f"column {leaf.path}: dictionary-encoded "
+                         "page before its dictionary page")
+    if n_present:
+        if len(page_vals) == 0:
+            raise ValueError(f"column {leaf.path}: empty "
+                             "dictionary-encoded page")
+        walk.idx_plans.append(
+            RLE.parse_runs(page_vals[1:], page_vals[0], n_present))
+    return "dict"
+
+
+def _walk_levels(walk: _ChunkWalk, leaf: D.Leaf, reps, plan,
+                 n: int) -> int:
+    """A LIST leaf's page: its repetition levels' run plan, the rows it
+    starts (repetition level 0) and its definition levels' counts, kept
+    in the walk; returns its present values (level ``max_def``)."""
+    if reps is None:
+        raise ValueError(f"column {leaf.path}: a repeated column's page "
+                         "has no repetition levels")
+    rplan = RLE.parse_runs(reps, D.bit_width(leaf.max_rep), n)
+    walk.rep_plans.append(rplan)
+    walk.n_rows += int(RLE.level_counts(rplan, 1)[0])
+    hist = RLE.level_counts(plan, leaf.max_def + 1)
+    if int(hist.sum()) != n:
+        raise ValueError(f"column {leaf.path}: a definition level passes "
+                         f"{leaf.max_def}")
+    walk.def_hist = hist if walk.def_hist is None else walk.def_hist + hist
+    return int(hist[leaf.max_def])
 
 
 def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
@@ -153,10 +207,13 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
             m = header.get(D.PH.DICT_PAGE).get(D.DPH.NUM_VALUES)
             data = D.decompress(raw, codec, usize, leaf.path)
             if is_bool:
-                raise NotImplementedError(
-                    f"column {leaf.path}: a BOOLEAN dictionary is not "
-                    "supported by the port's scan")
-            if is_str:
+                # PLAIN BOOLEAN entries: one bit each, LSB first
+                need = (m + 7) // 8
+                if len(data) < need:
+                    raise ValueError(f"column {leaf.path}: dictionary page "
+                                     "is shorter than its values")
+                walk.dictionary = bytes(data[:need])
+            elif is_str:
                 walk.dictionary = D.decode_plain_strings(data, m, leaf.path)
             else:
                 if len(data) < m * width:
@@ -171,7 +228,11 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
             enc = dph.get(D.DPH.ENCODING)
             data = D.decompress(raw, codec, usize, leaf.path)
             pos = 0
-            levels = None
+            levels = reps = None
+            if leaf.max_rep > 0:     # repetition levels come first
+                (ln,) = _struct.unpack_from("<I", data, pos)
+                reps = data[pos + 4:pos + 4 + ln]
+                pos += 4 + ln
             if leaf.max_def > 0:
                 (ln,) = _struct.unpack_from("<I", data, pos)
                 levels = data[pos + 4:pos + 4 + ln]
@@ -188,6 +249,7 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
                 body = D.decompress(body, codec, usize - dl_len - rl_len,
                                     leaf.path)
             levels = raw[rl_len:rl_len + dl_len] if leaf.max_def > 0 else None
+            reps = raw[:rl_len] if leaf.max_rep > 0 else None
             page_vals = body
         else:
             continue                    # index pages
@@ -196,23 +258,32 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
         plan = None
         if levels is not None:
             plan = RLE.parse_runs(levels, def_bw, n)
-            n_present = RLE.present_count(plan, leaf.max_def)
+            if leaf.max_rep > 0:
+                n_present = _walk_levels(walk, leaf, reps, plan, n)
+            else:
+                n_present = RLE.present_count(plan, leaf.max_def)
         walk.def_plans.append((None if n_present == n else plan, n))
 
         page_kind = "plain"
-        if is_bool:
+        if is_bool and enc in (D.ENC_PLAIN_DICTIONARY, D.ENC_RLE_DICTIONARY):
+            page_kind = _dict_codes(walk, leaf, page_vals, n_present)
+            if n_present:           # a page of nulls adds no plan
+                walk.plan_kinds.append(page_kind)
+        elif is_bool:
             # a PLAIN page's bits are one bit-packed run of width 1
             if enc != D.ENC_PLAIN:
                 raise NotImplementedError(
                     f"column {leaf.path}: encoding "
                     f"{D.enum_name(D.ENCODING_NAMES, enc)} of BOOLEAN is not "
-                    "supported by the port's scan (PLAIN is)")
+                    "supported by the port's scan (PLAIN and dictionary "
+                    "encodings are)")
             need = (n_present + 7) // 8
             if len(page_vals) < need:
                 raise ValueError(f"column {leaf.path}: PLAIN BOOLEAN page "
                                  f"holds {len(page_vals)} bytes, needs {need}")
             walk.idx_plans.append(RLE.bit_packed_plan(page_vals[:need],
                                                       n_present))
+            walk.plan_kinds.append("plain")
         elif enc == D.ENC_PLAIN and is_str:
             offs = D.byte_array_offsets(page_vals, n_present, leaf.path)
             # the page's records, length prefixes and chars, and no more
@@ -225,16 +296,7 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
                                  f"{len(page_vals)} bytes, needs {need}")
             walk.values.append(page_vals[:need])
         elif enc in (D.ENC_PLAIN_DICTIONARY, D.ENC_RLE_DICTIONARY):
-            if walk.dictionary is None:
-                raise ValueError(f"column {leaf.path}: dictionary-encoded "
-                                 "page before its dictionary page")
-            if n_present:
-                if len(page_vals) == 0:
-                    raise ValueError(f"column {leaf.path}: empty "
-                                     "dictionary-encoded page")
-                walk.idx_plans.append(
-                    RLE.parse_runs(page_vals[1:], page_vals[0], n_present))
-            page_kind = "dict"
+            page_kind = _dict_codes(walk, leaf, page_vals, n_present)
         elif enc in (D.ENC_DELTA_BINARY_PACKED, D.ENC_DELTA_LENGTH_BYTE_ARRAY,
                      D.ENC_DELTA_BYTE_ARRAY):
             # decoded on the host, staged as PLAIN values
@@ -281,9 +343,17 @@ class _ColumnSpec:
     #                                   values or chars
     n_dict: int = 0
     dict_offsets: Optional[np.ndarray] = None     # int64 [D+1], strings
-    idx_runs: tuple = (0, 0)          # (int64 offset, runs): codes, or
-    #                                   BOOLEAN values
+    idx_runs: tuple = (0, 0)          # (int64 offset, runs): codes
+    bool_runs: tuple = (0, 0)         # BOOLEAN: PLAIN values, and the
+    bool_dict_runs: tuple = (0, 0)    # merged dictionary's entries
     def_runs: Optional[tuple] = None  # (int64 offset, runs), None: no nulls
+    # LIST leaves (``n`` then counts the elements): level slots, rows, the
+    # repetition levels' runs, and whether a list or an element is null
+    n_slots: int = 0
+    n_rows: int = 0
+    rep_runs: tuple = (0, 0)
+    null_lists: bool = False
+    null_elems: bool = False
 
 
 def _queue_runs(slab: Slab, tables: list[np.ndarray]) -> tuple[int, int]:
@@ -307,11 +377,18 @@ def _same_dictionary(a, b, is_str: bool) -> bool:
     return bytes(a) == bytes(b)
 
 
+def _is_flba_string(leaf: D.Leaf) -> bool:
+    """FIXED_LEN_BYTE_ARRAY that is not a DECIMAL: STRING values of
+    ``type_len`` bytes each."""
+    return (leaf.phys == D.PT_FIXED_LEN_BYTE_ARRAY
+            and leaf.logical_dtype().id == T.TypeId.STRING)
+
+
 def _column_kind(runs: list, leaf: D.Leaf) -> str:
     kinds = {k for k, _ in runs}
     if leaf.phys == D.PT_BOOLEAN:
         return "bool"
-    is_str = leaf.phys == D.PT_BYTE_ARRAY
+    is_str = leaf.phys == D.PT_BYTE_ARRAY or _is_flba_string(leaf)
     if len(kinds) > 1:
         kind = "mixed"
     else:
@@ -319,10 +396,55 @@ def _column_kind(runs: list, leaf: D.Leaf) -> str:
     return kind + "_str" if is_str else kind
 
 
+def _stage_levels(spec: _ColumnSpec, walks: list[_ChunkWalk],
+                  slab: Slab) -> None:
+    """A LIST leaf's counts and repetition levels: ``spec.n`` becomes its
+    element count (definition level at least ``d_list``)."""
+    leaf = spec.leaf
+    hist = sum((w.def_hist for w in walks if w.def_hist is not None),
+               np.zeros(leaf.max_def + 1, np.int64))
+    spec.n_slots = spec.n
+    spec.n = int(hist[leaf.d_list:].sum())
+    spec.n_rows = sum(w.n_rows for w in walks)
+    spec.null_lists = bool(hist[:max(leaf.d_list - 1, 0)].sum())
+    spec.null_elems = bool(hist[leaf.d_list:leaf.max_def].sum())
+    spec.rep_runs = _queue_runs(
+        slab, [RLE.run_table(p, slab.add(p.payload))
+               for w in walks for p in w.rep_plans])
+
+
+def _stage_bool(spec: _ColumnSpec, walks: list[_ChunkWalk],
+                slab: Slab) -> None:
+    """BOOLEAN runs: the PLAIN pages' bits, and the dictionary pages'
+    codes with the dictionaries' bits (one dictionary when every row
+    group wrote the same, else all of them with the codes rebased)."""
+    plain, codes, dicts = [], [], []
+    addend = 0
+    with_dict = [w for w in walks if w.dictionary is not None]
+    same = all(w.dictionary == with_dict[0].dictionary
+               and w.n_dict == with_dict[0].n_dict for w in with_dict[1:])
+    for w in walks:
+        for plan, kind in zip(w.idx_plans, w.plan_kinds, strict=True):
+            table = RLE.run_table(plan, slab.add(plan.payload),
+                                  addend if kind == "dict" else 0)
+            (codes if kind == "dict" else plain).append(table)
+        if w.dictionary is not None and (not same or not dicts):
+            dicts.append(RLE.run_table(
+                RLE.bit_packed_plan(w.dictionary, w.n_dict),
+                slab.add(w.dictionary)))
+            spec.n_dict += w.n_dict
+            if not same:
+                addend += w.n_dict
+    spec.bool_runs = _queue_runs(slab, plain)
+    spec.idx_runs = _queue_runs(slab, codes)
+    spec.bool_dict_runs = _queue_runs(slab, dicts)
+
+
 def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
                   slab: Slab) -> _ColumnSpec:
     dt = leaf.logical_dtype()
     is_str = leaf.phys == D.PT_BYTE_ARRAY
+    flba_str = _is_flba_string(leaf)
     runs = []
     for w in walks:
         for kind, k in w.runs:
@@ -332,6 +454,8 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
                        sum(k for _, k in runs), [tuple(r) for r in runs])
     spec.n_plain = sum(k for r, k in runs if r == "plain")
     spec.n_coded = spec.n_present - spec.n_plain
+    if leaf.max_rep > 0:
+        _stage_levels(spec, walks, slab)
 
     if any(p is not None for w in walks for p, _ in w.def_plans):
         tables = []
@@ -344,13 +468,19 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
         spec.def_runs = _queue_runs(slab, tables)
 
     if kind == "bool":
-        spec.idx_runs = _queue_runs(
-            slab, [RLE.run_table(plan, slab.add(plan.payload))
-                   for w in walks for plan in w.idx_plans])
+        _stage_bool(spec, walks, slab)
         return spec
 
     if kind in ("plain", "mixed"):
         spec.values = _queue_range(slab, [p for w in walks for p in w.values])
+    elif flba_str and kind in ("plain_str", "mixed_str"):
+        # the values back to back, type_len bytes each: they are the chars
+        spec.values = _queue_range(slab, [p for w in walks for p in w.values])
+        spec.n_chars = spec.values[1]
+        spec.plain_char_offsets = leaf.type_len * np.arange(
+            spec.n_plain + 1, dtype=np.int64)
+        spec.str_offsets = _queue_range(
+            slab, [spec.plain_char_offsets.astype(np.int32)])
     elif kind in ("plain_str", "mixed_str"):
         # the pages' records back to back, then the column's char offsets
         spec.values = _queue_range(slab, [p for w in walks for p in w.values])
@@ -379,7 +509,11 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
                for w in with_dict[1:])
     merged = with_dict[:1] if same else with_dict
     spec.n_dict = sum(w.n_dict for w in merged)
-    if is_str:
+    if flba_str:
+        spec.dict_values = _queue_range(slab, [w.dictionary for w in merged])
+        spec.dict_offsets = leaf.type_len * np.arange(spec.n_dict + 1,
+                                                      dtype=np.int64)
+    elif is_str:
         spec.dict_values = _queue_range(slab,
                                         [w.dictionary[0] for w in merged])
         offs = np.zeros(spec.n_dict + 1, np.int64)
@@ -528,8 +662,12 @@ def _plain_chars(spec: _ColumnSpec,
     [n_plain+1]) of the PLAIN runs' present values.  The records were
     queued back to back, so value i's chars start at the first record's
     offset + 4·(i+1) (its prefix and those before it) + its char offset;
-    one segmented copy (B4) strips every prefix."""
+    one segmented copy (B4) strips every prefix.  FIXED_LEN_BYTE_ARRAY
+    strings have no prefixes: their values are the chars."""
     offs = _typed(data, spec.str_offsets, T.int32)
+    if spec.leaf.phys == D.PT_FIXED_LEN_BYTE_ARRAY:
+        start = spec.values[0]
+        return data[start:start + spec.n_chars].clone(), offs
     o64 = offs.to(torch.int64)
     lens = o64[1:] - o64[:-1]
     first = torch.arange(1, spec.n_plain + 1, dtype=torch.int64,
@@ -652,18 +790,80 @@ def _mixed_strings(spec: _ColumnSpec, data: torch.Tensor, idx: torch.Tensor,
     return _string_column(spec, chars, offs, valid)
 
 
+def _decode_list(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
+                 dict_strings: bool, checks: list) -> Column:
+    """A single-level LIST leaf (the JAX package's ``_assemble_list``,
+    ``spark_rapids_jni_tpu/parquet/decode.py:776-811``), on the device
+    from the levels: a slot of repetition level 0 starts a row; a slot of
+    definition level at least ``d_list`` is an element, null unless at
+    ``max_def``; ``d_list - 1`` is an empty list, and below that the list
+    itself is null.  The element slots are one flat column of ``spec.n``
+    values, decoded as any other.  The host counted the rows, elements
+    and nulls from the run headers, so nothing here synchronises."""
+    leaf, dev = spec.leaf, data.device
+    reps = RLE.expand(data, _runs(meta, spec.rep_runs), spec.n_slots)
+    starts = sized_nonzero(reps == 0, spec.n_rows)
+    list_valid = elem_valid = None
+    if spec.def_runs is None:
+        before = starts            # every slot holds a present element
+    else:
+        defs = RLE.expand(data, _runs(meta, spec.def_runs), spec.n_slots)
+        is_elem = defs >= leaf.d_list
+        before = (torch.cumsum(is_elem, 0) - is_elem.to(torch.int64))[starts]
+        if spec.null_lists:
+            list_valid = defs[starts] >= leaf.d_list - 1
+        if spec.null_elems:
+            elem_valid = defs[sized_nonzero(is_elem, spec.n)] == leaf.max_def
+    offs = torch.cat([before, torch.full((1,), spec.n, dtype=torch.int64,
+                                         device=dev)])
+    child = _decode_values(spec, data, meta, dict_strings, checks,
+                           elem_valid)
+    _count("list_cols")
+    return Column(T.list_(child.dtype), torch.zeros(0, dtype=torch.uint8,
+                                                    device=dev),
+                  offs.to(torch.int32), list_valid, [child])
+
+
+def _bool_values(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
+                 checks: list) -> torch.Tensor:
+    """A BOOLEAN column's present values, uint8 0/1, in page order: the
+    PLAIN pages' bits, and the dictionary pages' codes through their
+    dictionary's bits."""
+    plain = coded = None
+    if spec.n_plain:
+        plain = RLE.expand(data, _runs(meta, spec.bool_runs), spec.n_plain)
+    if spec.n_coded:
+        idx = _codes(spec, data, meta, checks)
+        entries = RLE.expand(data, _runs(meta, spec.bool_dict_runs),
+                             spec.n_dict)
+        coded = entries[_in_range(idx, spec).to(torch.int64)]
+    present = _interleave(spec, plain, coded)
+    if present is None:
+        return torch.zeros(0, dtype=torch.uint8, device=data.device)
+    return present.to(torch.uint8)
+
+
 def _decode(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
             dict_strings: bool, checks: list) -> Column:
-    leaf, dt, n, kind = spec.leaf, spec.dtype, spec.n, spec.kind
+    if spec.leaf.max_rep > 0:
+        return _decode_list(spec, data, meta, dict_strings, checks)
     valid = None
     if spec.def_runs is not None:
-        levels = RLE.expand(data, _runs(meta, spec.def_runs), n)
-        valid = levels == leaf.max_def
+        levels = RLE.expand(data, _runs(meta, spec.def_runs), spec.n)
+        valid = levels == spec.leaf.max_def
+    return _decode_values(spec, data, meta, dict_strings, checks, valid)
+
+
+def _decode_values(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
+                   dict_strings: bool, checks: list,
+                   valid: Optional[torch.Tensor]) -> Column:
+    """The column of ``spec.n`` values whose present ones the pages hold,
+    spread over the slots ``valid`` marks (None: every slot)."""
+    leaf, dt, n, kind = spec.leaf, spec.dtype, spec.n, spec.kind
     if kind == "bool":
-        present = RLE.expand(data, _runs(meta, spec.idx_runs), spec.n_present)
-        return Column(dt, _spread(present.to(torch.uint8), valid, n),
-                      validity=valid)
-    text = leaf.phys == D.PT_BYTE_ARRAY and not dt.is_decimal
+        present = _bool_values(spec, data, meta, checks)
+        return Column(dt, _spread(present, valid, n), validity=valid)
+    text = dt.id == T.TypeId.STRING
     if kind == "plain_str" and text:
         chars, offs = _plain_chars(spec, data)
         return _string_column(spec, chars, offs, valid)
@@ -781,8 +981,8 @@ def _prune_row_groups(groups_list, leaves: list[D.Leaf], conds) -> list[int]:
         drop = False
         for cname, op, val in conds:
             ci = name_to_idx.get(cname)
-            if ci is None:
-                continue
+            if ci is None or leaves[ci].max_rep > 0:
+                continue           # a list's element bounds prune no row
             mm = _chunk_minmax(chunks[ci], leaves[ci])
             if mm is None or isinstance(val, bytes) != isinstance(mm[0],
                                                                    bytes):
@@ -826,8 +1026,10 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     column before anything is staged; the table's
     ``fused_filter_complete`` is True when it evaluated every conjunct.
     A column decoded on the host (a DELTA page) aborts the prune, as the
-    JAX package's host fallback does; so does a column of another shape
-    the filter does not rewrite.  With
+    JAX package's host fallback does; so does a LIST column, or a column
+    of another shape the filter does not rewrite.  A LIST leaf (named by
+    its outer field) comes back a LIST column whose elements decode like
+    any flat column; its statistics never prune a row group.  With
     ``dict_strings`` (the JAX package's default ``SRJT_DICT_STRINGS=1``)
     a dictionary-encoded string column comes back as a
     :class:`DictColumn`; without it, materialized.  The table lands on
@@ -865,12 +1067,6 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
         _count("rowgroups_kept", len(kept))
         metrics.profile_op("scan.prune", rowgroups_pruned=pruned,
                            rowgroups_kept=len(kept))
-    for i in want:
-        if leaves[i].max_rep > 0:
-            raise NotImplementedError(
-                f"column {leaves[i].path}: repeated (LIST) columns are not "
-                "supported by the port's scan")
-
     slab = Slab()
     complete = False
     # the spans are what tools/torch_profile_scan.py reads (the walk's
@@ -881,7 +1077,9 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
                                  .values[i], leaves[i]) for g in kept]
                  for i in want}
     host_decoded = sum(any(w.host_decoded for w in walks[i]) for i in want)
-    if row_predicate and knobs.get("SRJT_FUSED_FILTER") and not host_decoded:
+    lists = any(leaves[i].max_rep > 0 for i in want)
+    if (row_predicate and knobs.get("SRJT_FUSED_FILTER") and not host_decoded
+            and not lists):
         with func_range("parquet.scan.rowfilter"):
             pruned = rowfilter.apply(row_predicate, walks, leaves,
                                      [leaf.name for leaf in leaves], want)

@@ -4,10 +4,11 @@ run headers on the host, value expansion on the device.
 The port's counterpart of the JAX package's ``parquet/rle_device.py``.  The
 headers of a hybrid stream, a handful of varints per page, are walked on
 the host like page headers (:func:`parse_runs`, the same walk as the JAX
-package's).  The bit-packed payload, which holds the data volume, goes to
-the device in the scan's slab, and :func:`expand` turns the runs of a whole
-column into values there with plain torch ops: each value finds its run,
-gathers the five bytes that hold its bits, and shifts them out.  The JAX
+package's), and :func:`level_counts` counts a stream's values from them.
+The bit-packed payload, which holds the data volume, goes to the device in
+the scan's slab, and :func:`expand` turns the runs of a whole column into
+values there with plain torch ops: each value finds its run, gathers the
+five bytes that hold its bits, and shifts them out.  The JAX
 package does the same with jnp ops; there is no Pallas kernel on this
 path.
 
@@ -125,8 +126,19 @@ def present_count(plan: RunPlan, target: int) -> int:
     """How many decoded values equal ``target``, from the headers and one
     unpack of all the bit-packed payloads: the host needs this count to cut
     a page's PLAIN payload before anything reaches the device."""
+    return int(level_counts(plan, target + 1)[target])
+
+
+def level_counts(plan: RunPlan, size: int) -> np.ndarray:
+    """int64 [size]: how many decoded values equal each of 0..size-1 (the
+    levels of a page, which the scan of a LIST column counts on the host
+    to size its rows, elements and present values), from the headers and
+    one unpack of all the bit-packed payloads.  Values of ``size`` or more
+    are counted nowhere."""
     rle = ~plan.is_bp
-    total = int(plan.counts[rle][plan.rle_vals[rle] == target].sum())
+    out = np.bincount(np.minimum(plan.rle_vals[rle], size),
+                      weights=plan.counts[rle],
+                      minlength=size + 1)[:size].astype(np.int64)
     n_bp = int(plan.counts[plan.is_bp].sum())
     if n_bp:
         # each bit-packed run holds whole groups of 8, and only the last run
@@ -137,8 +149,8 @@ def present_count(plan: RunPlan, target: int) -> int:
         vals = np.zeros(n_bp, np.int64)
         for b in range(plan.bw):
             vals |= bits[b::plan.bw].astype(np.int64) << b
-        total += int((vals == target).sum())
-    return total
+        out += np.bincount(np.minimum(vals, size), minlength=size + 1)[:size]
+    return out
 
 
 def expand_np(plan: RunPlan) -> np.ndarray:

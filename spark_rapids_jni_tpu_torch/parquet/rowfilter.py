@@ -212,14 +212,17 @@ def _prune_walk(walk, leaf, keep: np.ndarray, kept: np.ndarray):
         def_plans = [(_packed_plan(levels, D.bit_width(leaf.max_def)),
                       n_new)]
     out = dict(n=n_new, runs=[[kind, n_present]], def_plans=def_plans)
-    if phys == D.PT_BOOLEAN:
+    if phys == D.PT_BOOLEAN and kind == "plain":
         bits = _codes_np(walk)[kept_present].astype(np.uint8)
         out["idx_plans"] = [RLE.bit_packed_plan(
             np.packbits(bits, bitorder="little").tobytes(), n_present)]
+        out["plan_kinds"] = ["plain"]
     elif kind == "dict":
         codes = _codes_np(walk)[kept_present]
         bw = max(1, int(codes.max()).bit_length()) if codes.size else 1
         out["idx_plans"] = [_packed_plan(codes, bw)] if codes.size else []
+        if phys == D.PT_BOOLEAN:
+            out["plan_kinds"] = ["dict"] * len(out["idx_plans"])
     elif phys == D.PT_BYTE_ARRAY:
         payload, starts, lens = _plain_strings(walk)
         starts, lens = starts[kept_present], lens[kept_present]

@@ -145,7 +145,7 @@ def _rowgroup_literal(v):
     unsigned byte order, so Python bytes comparison matches)."""
     if hasattr(v, "item"):
         # a planning-time numpy scalar (ir.Lit holds no torch tensor)
-        v = v.item()
+        v = v.item()  # srjt-lint: disable=trace-host-sync
     if isinstance(v, bool):
         return None
     if isinstance(v, int):

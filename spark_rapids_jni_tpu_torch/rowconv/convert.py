@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..column import Column, DictColumn, Table, force_column
+from ..column import Column, DictColumn, Table, as_dict_column, force_column
 from ..utils import bitmask, hostcache, metrics
 from ..utils.tracing import traced
 from . import ragged, xpack
@@ -76,7 +76,8 @@ class RowBatch:
 
     def host_bytes(self) -> np.ndarray:
         """The JCUDF byte stream as host uint8."""
-        return self.data.cpu().numpy()
+        # the output boundary: the caller asked for the bytes on the host
+        return self.data.cpu().numpy()  # srjt-lint: disable=trace-host-sync
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +178,10 @@ def _slice_column(col: Column, lo: int, hi: int) -> Column:
     if col.dtype.is_variable_width:
         # a host-born column's offsets have a host mirror: no copy back
         h = hostcache.peek(col.offsets)
+        # one read of the batch's char bounds: the string path's batch
+        # split, which no compiled query reaches (its rows go to the host)
         clo, chi = ((int(h[lo]), int(h[hi])) if h is not None
-                    else col.offsets[[lo, hi]].tolist())
+                    else col.offsets[[lo, hi]].tolist())  # srjt-lint: disable=trace-host-sync
         return Column(col.dtype, col.data[clo:chi],
                       col.offsets[lo:hi + 1] - clo, v)
     return Column(col.dtype, col.data[lo:hi], validity=v)
@@ -281,14 +284,18 @@ def _to_rows_strings(layout: RowLayout, table: Table,
     cum = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     torch.cumsum(sizes, 0, out=cum[1:])
     # the geometry sync: total bytes, widest row, total chars
-    total, widest, chars = torch.stack(
+    # (one stacked read at the JNI boundary; string rows are never
+    # converted inside a compiled query)
+    total, widest, chars = torch.stack(  # srjt-lint: disable=trace-host-sync
         [cum[-1], sizes.max() if n else cum[0], lens.sum()]).tolist()
     _check_row_size(widest)
     if total <= max_batch_bytes:
         parts = [(0, n, total, widest, chars)]
     else:
-        sizes_h = sizes.cpu().numpy()
-        chars_h = lens.sum(0).cpu().numpy()
+        # a table past one batch: its row sizes cross to the host once
+        # to cut the batches there, as the JNI boundary does
+        sizes_h = sizes.cpu().numpy()  # srjt-lint: disable=trace-host-sync
+        chars_h = lens.sum(0).cpu().numpy()  # srjt-lint: disable=trace-host-sync
         b = build_batches(sizes_h, max_batch_bytes).row_boundaries
         parts = [(lo, hi, int(sizes_h[lo:hi].sum()),
                   int(sizes_h[lo:hi].max(initial=0)),
@@ -419,7 +426,8 @@ def _from_rows_strings(layout: RowLayout, batch: RowBatch):
     torch.cumsum(lens.reshape(-1), 0, out=ends[1:])
     # the one sync on the way out: where each column's chars end, and the
     # corrupt-slot count
-    meta = torch.cat([ends[n::n] if n else ends.new_zeros(nvar),
+    # corrupt-slot count (the JNI boundary's documented read)
+    meta = torch.cat([ends[n::n] if n else ends.new_zeros(nvar),  # srjt-lint: disable=trace-host-sync
                       bad[None]]).tolist()
     if meta[-1]:
         raise ValueError("corrupt row data: string slot outside its row")
@@ -471,3 +479,43 @@ def convert_from_rows_fixed_width_optimized(batch: RowBatch,
     if not all(dt.is_fixed_width for dt in schema):
         raise ValueError("fixed-width-optimized path requires fixed-width schema")
     return convert_from_rows(batch, schema)
+
+
+# --- dictionary-codes passthrough -------------------------------------------
+#
+# A DictColumn reaching convert_to_rows materializes its chars, as JCUDF rows
+# must carry the strings.  Where both ends speak this engine (a shuffle, a
+# spill, a cache), the codes can travel through the fixed-width path
+# instead, and the small dictionaries beside the rows (the JAX package's
+# ``rowconv/convert.py:1053-1081``).
+
+def dict_encode_for_rows(table: Table) -> tuple[Table, dict[int, Column]]:
+    """Every dictionary string column swapped for its int32 codes.
+
+    → ``(codes_table, dicts)``, ``dicts`` mapping a column index to its
+    dictionary column.  With every string column dictionary-encoded the
+    table is fixed-width only, and :func:`convert_to_rows` takes the
+    constant-stride path; :func:`restore_dict_columns` puts the
+    dictionaries back after :func:`convert_from_rows`."""
+    dicts: dict[int, Column] = {}
+    cols: list[Column] = []
+    for i, c in enumerate(table.columns):
+        d = as_dict_column(c)
+        if d is not None:
+            dicts[i] = d.dictionary
+            cols.append(Column(T.int32, d.codes, validity=d.validity))
+        else:
+            cols.append(c)
+    if dicts:
+        metrics.count("rowconv.dict_cols", len(dicts))
+    return Table(cols), dicts
+
+
+def restore_dict_columns(table: Table, dicts: dict[int, Column]) -> Table:
+    """The inverse of :func:`dict_encode_for_rows` after a row round
+    trip: each codes column becomes a :class:`DictColumn` again."""
+    cols = list(table.columns)
+    for i, dcol in dicts.items():
+        c = force_column(cols[i])
+        cols[i] = DictColumn(c.data.to(torch.int32), dcol, c.validity)
+    return Table(cols)

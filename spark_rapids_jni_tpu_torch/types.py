@@ -8,7 +8,9 @@ on a GPU exposes the IEEE bits directly (``.view(torch.uint8)``), so the
 uint32 bit-pair workaround of XLA:TPU does not carry over.  The row bytes
 are the same either way, since both are little-endian views of one value.
 
-LIST and STRUCT are kept only so that the row layout can reject them.
+LIST and STRUCT are column types with child types (``DType.children``:
+LIST one element type, STRUCT one a field), as in the JAX package; the
+JCUDF row layout rejects them (``row_conversion.cu:1268-1271``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ host.  Two levels:
 * :class:`ArrowArray`, :func:`to_arrow_buffers`, :func:`from_arrow_buffers`:
   the buffers as host numpy arrays, with the type as an Arrow C data
   interface format string (``"i"``, ``"g"``, ``"u"``, ``"d:38,2"``,
-  ``"tdD"``, ...).  No pyarrow needed.
+  ``"tdD"``, ``"+l"`` for a LIST, ``"+s"`` for a STRUCT, ...), a nested
+  array's element or field arrays in ``children``.  No pyarrow needed.
 * :func:`to_arrow`, :func:`from_arrow`, :func:`table_to_arrow`,
   :func:`table_from_arrow`: pyarrow arrays over those buffers
   (``pa.Array.from_buffers``); pyarrow is imported only when these are
@@ -22,7 +23,11 @@ its precision (≤ 9, ≤ 18, more); the buffer level gives each width its
 own precision, so a table comes back with its types.  Dates are
 ``date32``; a null slot comes
 back with a zero payload (an empty string), as the JAX package's
-``fill_null(0)`` gives.  LIST and STRUCT columns are not ported.
+``fill_null(0)`` gives.  A LIST column leaves with its element type
+and comes back with it (the JAX package's pyarrow route infers both from
+the Python values: the values are the same); a null list slot that
+covers elements comes back empty, as a ``to_pylist`` round trip leaves
+it.  A STRUCT's fields leave as ``f0``, ``f1``, ...
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ class ArrowArray:
     validity: Optional[np.ndarray]
     offsets: Optional[np.ndarray]
     data: np.ndarray
+    children: Optional[list] = None
 
 
 _FIXED_FORMATS = {
@@ -82,14 +88,20 @@ def to_arrow_buffers(col: Column, decimal_precision=None) -> ArrowArray:
     :func:`to_arrow` passes 38, as the JAX package's does."""
     dt = col.dtype
     n = col.num_rows
-    if dt.is_nested:
-        raise NotImplementedError(f"to_arrow: {dt.id.name} is not ported")
     if col.validity is None:
         validity, nulls = None, 0
     else:
         validity = _host(bitmask.pack_bits(col.validity))
         nulls = n - int(col.validity.sum())
     offsets = None
+    if dt.is_nested:
+        kids = [to_arrow_buffers(c, decimal_precision) for c in col.children]
+        if dt.id == T.TypeId.LIST:
+            fmt, offsets = "+l", _host(col.offsets)
+        else:
+            fmt = "+s"
+        return ArrowArray(fmt, n, nulls, validity, offsets,
+                          np.zeros(0, np.uint8), kids)
     if dt.id == T.TypeId.STRING:
         fmt, offsets, data = "u", _host(col.offsets), _host(col.data)
     elif dt.is_decimal:
@@ -125,6 +137,12 @@ def from_arrow_buffers(a: ArrowArray, device=None) -> Column:
     valid = None
     if a.null_count and a.validity is not None:
         valid = bitmask.unpack_bits(_column.upload(a.validity, dev), n)
+    if a.format == "+s":
+        fields = [from_arrow_buffers(c, dev) for c in a.children]
+        st = Column.struct_from_columns(fields, device=dev)
+        return Column(st.dtype, st.data, None, valid, fields)
+    if a.format == "+l":
+        return _list_from_buffers(a, valid, dev)
     if a.format == "u":
         offs = np.asarray(a.offsets, dtype=np.int64)
         chars = np.asarray(a.data, dtype=np.uint8)
@@ -166,6 +184,32 @@ def from_arrow_buffers(a: ArrowArray, device=None) -> Column:
     return Column(dt, data, validity=valid)
 
 
+def _list_from_buffers(a: ArrowArray, valid, dev) -> Column:
+    """A LIST column of an array's offsets and element array.  Elements
+    outside ``offsets[0]:offsets[-1]``, or under a null slot, are
+    dropped by a gather of the element column (rows picked on the host,
+    where the offsets are)."""
+    from ..ops.filter import _gather_column
+    n = a.length
+    offs = np.asarray(a.offsets, dtype=np.int64)[:n + 1]
+    child = from_arrow_buffers(a.children[0], dev)
+    lens = np.diff(offs)
+    if valid is not None:
+        ok = np.unpackbits(a.validity, bitorder="little")[:n].astype(bool)
+        lens = np.where(ok, lens, 0)
+    new = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=new[1:])
+    if not (np.array_equal(new, offs - offs[0]) and offs[0] == 0
+            and new[-1] == child.num_rows):
+        rows = (np.repeat(offs[:-1] - new[:-1], lens)
+                + np.arange(int(new[-1]), dtype=np.int64))
+        child = _gather_column(child, _column.upload(rows, dev))
+    doffs = _column.upload(new.astype(np.int32), dev)
+    return Column(T.list_(child.dtype), torch.zeros(0, dtype=torch.uint8,
+                                                    device=dev),
+                  doffs, valid, [child])
+
+
 # --- pyarrow -----------------------------------------------------------------
 
 
@@ -174,8 +218,14 @@ def _pa():
     return pa
 
 
-def _pa_type(fmt: str):
+def _pa_type(fmt: str, children=None):
     pa = _pa()
+    if fmt == "+l":
+        c = children[0]
+        return pa.list_(_pa_type(c.format, c.children))
+    if fmt == "+s":
+        return pa.struct([pa.field(f"f{i}", _pa_type(c.format, c.children))
+                          for i, c in enumerate(children)])
     if fmt.startswith("d:"):
         precision, scale = (int(x) for x in fmt[2:].split(",")[:2])
         return pa.decimal128(precision, scale)
@@ -191,6 +241,10 @@ def _pa_type(fmt: str):
 
 def _format_of(t) -> str:
     pa = _pa()
+    if pa.types.is_list(t):
+        return "+l"
+    if pa.types.is_struct(t):
+        return "+s"
     if pa.types.is_decimal(t):
         if t.bit_width != 128:
             raise NotImplementedError(f"from_arrow: unsupported type {t}")
@@ -229,6 +283,16 @@ def arrow_buffers_of(arr) -> ArrowArray:
     if arr.null_count and bufs[0] is not None:
         validity = _bits(bufs[0], off, n)
     offsets = None
+    if fmt == "+l":
+        offsets = np.frombuffer(bufs[1], dtype=np.int32)[off:off + n + 1]
+        return ArrowArray(fmt, n, arr.null_count, validity, offsets,
+                          np.zeros(0, np.uint8),
+                          [arrow_buffers_of(arr.values)])
+    if fmt == "+s":
+        return ArrowArray(fmt, n, arr.null_count, validity, None,
+                          np.zeros(0, np.uint8),
+                          [arrow_buffers_of(arr.field(i))
+                           for i in range(arr.type.num_fields)])
     if fmt == "u":
         offsets = np.frombuffer(bufs[1], dtype=np.int32)[off:off + n + 1]
         data = (np.frombuffer(bufs[2], dtype=np.uint8) if bufs[2] is not None
@@ -252,9 +316,20 @@ def from_arrow(arr, device=None) -> Column:
 
 def to_arrow(col: Column):
     """Column → pyarrow Array (a host copy)."""
+    return _pa_array(to_arrow_buffers(col, decimal_precision=38))
+
+
+def _pa_array(a: ArrowArray):
+    """The pyarrow Array over an :class:`ArrowArray`'s buffers."""
     pa = _pa()
-    a = to_arrow_buffers(col, decimal_precision=38)
     bufs = [None if a.validity is None else pa.py_buffer(a.validity)]
+    if a.children is not None:
+        if a.offsets is not None:
+            bufs.append(pa.py_buffer(np.ascontiguousarray(a.offsets)))
+        return pa.Array.from_buffers(
+            _pa_type(a.format, a.children), a.length, bufs,
+            null_count=a.null_count,
+            children=[_pa_array(c) for c in a.children])
     if a.offsets is not None:
         bufs.append(pa.py_buffer(np.ascontiguousarray(a.offsets)))
     bufs.append(pa.py_buffer(np.ascontiguousarray(a.data)))

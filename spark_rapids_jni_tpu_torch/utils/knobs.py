@@ -17,7 +17,7 @@ import os
 from typing import Any, Callable, Optional
 
 __all__ = ["Knob", "REGISTRY", "register", "get", "is_registered",
-           "parse_bytes"]
+           "parse_bytes", "markdown_table"]
 
 
 # --- parsers ----------------------------------------------------------------
@@ -345,3 +345,43 @@ register("SRJT_ML_EPOCH_FUSE", "1", _on_unless_0_off,
 register("SRJT_STREAM_ALLOW_APPROX", "0", _opt_in,
          "allow approximate incremental states (`1`/`true`/`on` only)",
          "stream")
+
+
+# --- README table -----------------------------------------------------------
+
+_SECTION_TITLES = {
+    "exec": "Serving runtime (`exec/`)",
+    "aot": "AOT artifact store (`exec/artifacts.py`)",
+    "slo": "SLO watchdog (`exec/slo.py`)",
+    "memory": "Memory arena (`memory/`)",
+    "observability": "Observability (`utils/`)",
+    "ops": "Joins (`ops/`)",
+    "plan": "Plan optimizer (`plan/`)",
+    "sql": "SQL front-end (`sql/`)",
+    "parquet": "Parquet scan (`parquet/`)",
+    "ml": "ML handoff (`ml/`)",
+    "stream": "Streaming (`stream/`)",
+    "general": "General",
+}
+
+
+def markdown_table() -> str:
+    """The port's knob catalog as grouped markdown tables: the generator
+    behind the port's block of the README's knob tables
+    (``tools/torch_lint.py --knob-table`` refreshes it in place)."""
+    out = []
+    seen_sections = []
+    for k in REGISTRY.values():
+        if k.section not in seen_sections:
+            seen_sections.append(k.section)
+    for sec in seen_sections:
+        out.append(f"**{_SECTION_TITLES.get(sec, sec)}**\n")
+        out.append("| knob | default | meaning |")
+        out.append("|---|---|---|")
+        for k in REGISTRY.values():
+            if k.section != sec:
+                continue
+            default = "unset" if k.default is None else f"`{k.default}`"
+            out.append(f"| `{k.name}` | {default} | {k.doc} |")
+        out.append("")
+    return "\n".join(out)

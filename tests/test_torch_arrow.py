@@ -125,11 +125,15 @@ def test_decimal_widths_leave_as_decimal128():
 
 
 def test_unsupported_types_raise():
+    # LIST and STRUCT are exchanged now (tests/test_torch_nested.py); a
+    # MAP, a large list and a zoned timestamp are not
     with pytest.raises(NotImplementedError):
-        A.from_arrow(pa.array([{"a": 1}], pa.struct([("a", pa.int64())])),
+        A.from_arrow(pa.array([[("k", 1)]], pa.map_(pa.string(),
+                                                     pa.int64())),
                      device=CPU)
     with pytest.raises(NotImplementedError):
-        A.from_arrow(pa.array([[1, 2]], pa.list_(pa.int64())), device=CPU)
+        A.from_arrow(pa.array([[1, 2]], pa.large_list(pa.int64())),
+                     device=CPU)
     with pytest.raises(NotImplementedError):
         A.from_arrow(pa.array([1], pa.timestamp("s", tz="UTC")), device=CPU)
 

@@ -679,9 +679,12 @@ def test_refuses_plain_strings():
 def test_refuses_boolean_and_delta():
     """BOOLEAN scans now (``test_scan_boolean_*``), and so does
     DELTA_BINARY_PACKED (decoded on the host, equal to the JAX scan);
-    fixed-size binary that is no decimal is still refused."""
-    _refused(pa.table({"b": pa.array([b"ab", b"cd"], pa.binary(2))}),
-             "FIXED_LEN_BYTE_ARRAY")
+    so does fixed-size binary that is no decimal, as a STRING of its
+    width, equal to the JAX scan."""
+    raw = _write(pa.table({"b": pa.array([b"ab", b"cd"], pa.binary(2))}))
+    got = pscan.scan_table(raw, device=CPU)
+    assert_column_equal(got[0], jscan.scan_table(raw)[0])
+    assert bytes(got[0].data.numpy()) == b"abcd"
     t = pa.table({"i": np.arange(100, dtype=np.int64) * -7})
     raw = _write(t, use_dictionary=False,
                  column_encoding={"i": "DELTA_BINARY_PACKED"})
@@ -706,11 +709,15 @@ def test_refuses_gzip_and_decimal_bytes():
 
 
 def test_list_columns_refused_only_when_selected():
+    """LIST columns scan now (``tests/test_torch_scan_nested.py``): the
+    whole file equals the JAX scan, and a selection without the list
+    still reads only its columns."""
     raw = _write(pa.table({"id": np.arange(5, dtype=np.int64),
                            "l": pa.array([[i] for i in range(5)],
                                          pa.list_(pa.int32()))}))
-    with pytest.raises(NotImplementedError, match="repeated"):
-        pscan.scan_table(raw, device=CPU)
+    got = pscan.scan_table(raw, device=CPU)
+    assert got[1].to_pylist() == [[i] for i in range(5)]
+    assert got[1].to_pylist() == jscan.scan_table(raw)[1].to_pylist()
     got = pscan.scan_table(raw, columns=["id"], device=CPU)
     assert got[0].data.tolist() == list(range(5))
 

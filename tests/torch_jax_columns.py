@@ -86,3 +86,43 @@ def assert_same_table(p, j, rtol=None):
     assert p.num_rows == j.num_rows
     for i, (pc, jc) in enumerate(zip(p.columns, j.columns)):
         assert_same(pc, jc, rtol, what=f"column {i}")
+
+
+def dtype_tree(dt) -> tuple:
+    """A dtype of either package as (type id, scale, children's trees)."""
+    return (int(dt.id), dt.scale, tuple(dtype_tree(c) for c in dt.children))
+
+
+def assert_same_nested(p, j, what=""):
+    """Port column ``p`` equals JAX column ``j`` through any nesting: the
+    dtype tree, the rows, the validity, a LIST's offsets (rebased to its
+    first) and a STRING's chars and offsets, each child recursively, and
+    the host values (``to_pylist``)."""
+    assert dtype_tree(p.dtype) == dtype_tree(j.dtype), what
+    assert p.num_rows == j.num_rows, what
+    np.testing.assert_array_equal(p.validity_or_true().numpy(),
+                                  np.asarray(j.validity_or_true()),
+                                  err_msg=f"{what}: validity")
+    if p.dtype.id == pt.TypeId.LIST:
+        po, jo = p.offsets.numpy(), np.asarray(j.offsets)
+        np.testing.assert_array_equal(po - po[0], jo - jo[0],
+                                      err_msg=f"{what}: offsets")
+        pc, jc = p.children[0], j.children[0]
+        # compare the elements the offsets cover
+        if (po[0], po[-1]) != (0, pc.num_rows) or \
+                (jo[0], jo[-1]) != (0, jc.num_rows):
+            assert p.to_pylist() == j.to_pylist(), what
+            return
+        assert_same_nested(pc, jc, f"{what}.element")
+    elif p.dtype.id == pt.TypeId.STRUCT:
+        for i, (pc, jc) in enumerate(zip(p.children, j.children)):
+            assert_same_nested(pc, jc, f"{what}.f{i}")
+    elif p.dtype.is_variable_width:
+        np.testing.assert_array_equal(p.offsets.numpy(), np.asarray(j.offsets),
+                                      err_msg=f"{what}: offsets")
+        np.testing.assert_array_equal(p.data.numpy(), np.asarray(j.data),
+                                      err_msg=f"{what}: chars")
+        return                       # the bytes need not be UTF-8
+    else:
+        assert_same(p, j, what=what)
+    assert p.to_pylist() == j.to_pylist(), what

@@ -238,9 +238,18 @@ def bit_packed_runs(values: np.ndarray, bw: int) -> bytes:
     if n == 0:
         return b""
     groups = -(-n // 8)
-    v = np.zeros(groups * 8, np.uint64)
-    v[:n] = values
-    bits = ((v[:, None] >> np.arange(bw, dtype=np.uint64)) & 1).astype(np.uint8)
+    if bw <= 8:
+        # levels and small dictionaries' codes: byte arithmetic
+        v = np.zeros(groups * 8, np.uint8)
+        v[:n] = values
+        bits = np.empty((groups * 8, bw), np.uint8)
+        for b in range(bw):
+            np.bitwise_and(v >> b, 1, out=bits[:, b])
+    else:
+        v = np.zeros(groups * 8, np.uint64)
+        v[:n] = values
+        bits = ((v[:, None] >> np.arange(bw, dtype=np.uint64)) & 1
+                ).astype(np.uint8)
     packed = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
     out = bytearray()
     for g0 in range(0, groups, MAX_BP_GROUPS):
