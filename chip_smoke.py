@@ -259,6 +259,21 @@ wrong:
    ``spark_12_2str`` at 32,000,000 rows (rows past 2.5 GB) through
    ``convert_to_rows``' batch split and back, byte-equal, GB/s; every
    kernel B1-B7 launched in the phase; an ``[aqe] summary`` line.
+20. nested columns: the event table of ``tools/torch_nested_parquet.py``
+   (8,388,608 rows of LIST and STRUCT columns) scanned, masked, gathered,
+   concatenated, sliced and through Arrow, each exact; the scan's wall
+   and profile; B2, B4, B5, B6 and B7 on the largest inputs the phase
+   hands them; a ``[nested] summary`` line.
+21. staging (last, on phase 11's and phase 20's files): each file scanned
+   in the three staging modes (``SRJT_STAGE_PIPELINE`` on, off, and
+   ``SRJT_STAGE_SLABS=0``), alternated after one warm-up, three timed
+   calls each with ``SRJT_SCAN_DONATE=0`` and one with it on, every table
+   byte-equal to the warm-up's; per mode a ``[staging]`` line with the
+   median wall, the overlap of walk and staging, the transfers, the
+   largest wave and ``torch.cuda.max_memory_allocated`` above what was
+   live, donation off and on; ``convert_to_rows`` injected once on the
+   card through its fault site; the scans' launches of B2, B4, B5, B6 and
+   B7 counted in the kernels line; a ``[staging] summary`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel results as JSON (B1's, B3's, B4's, B5's
@@ -1593,10 +1608,12 @@ def scan_split(device_scan, raw) -> dict:
     """One profiled ``scan_table`` of ``raw``: its wall, host spans (the
     page walk, the decompression inside it, the slab's upload and the
     decode launches; ``parquet.scan.*``), the device's busy time and idle
-    share, all in milliseconds."""
+    share, all in milliseconds.  The walk stays on the calling thread
+    (``SRJT_STAGE_PIPELINE=0``), whose ranges the profiler records."""
     from torch_profile_rowconv import _busy_us, profile_call
     from torch_profile_scan import _span_ms
-    prof, wall = profile_call(lambda: device_scan.scan_table(raw))
+    with env(SRJT_STAGE_PIPELINE="0"):
+        prof, wall = profile_call(lambda: device_scan.scan_table(raw))
     busy = _busy_us(prof)
     out = {k: round(v, 3) for k, v in _span_ms(prof).items()}
     out.update(wall_ms=round(wall / 1e3, 3), device_busy_ms=round(busy / 1e3, 3),
@@ -2599,10 +2616,13 @@ def file_split(fn) -> dict:
     """One profiled call of ``fn``: its wall, the scans' host spans
     (``parquet.scan.*``: the page walk with the staging, the
     decompression inside the walk, the row filter, the upload and the
-    decode launches), the device's busy time and idle share, in ms."""
+    decode launches), the device's busy time and idle share, in ms.  The
+    walk stays on the calling thread (``SRJT_STAGE_PIPELINE=0``), whose
+    ranges the profiler records."""
     from torch_profile_rowconv import _busy_us, profile_call
     from torch_profile_scan import _span_ms
-    prof, wall = profile_call(fn)
+    with env(SRJT_STAGE_PIPELINE="0"):
+        prof, wall = profile_call(fn)
     busy = _busy_us(prof)
     out = {k: round(v, 3) for k, v in _span_ms(prof).items()}
     out.update(wall_ms=round(wall / 1e3, 3),
@@ -5140,14 +5160,16 @@ def dict_passthrough(T, convert, card, seed) -> dict:
                 ms=round(wall * 1e3, 3))
 
 
-def phase_nested(T, convert, kernels, card, seed, launches) -> dict:
+def phase_nested(T, convert, kernels, card, seed, launches,
+                 keep: dict) -> dict:
     """Phase 20: the event table of ``tools/torch_nested_parquet.py`` at
     NESTED_ROWS rows: the scan of every column exact against the
     generator; a mask over ``id``, a seeded permutation's gather, two row
     groups' scans concatenated and sliced, each exact; ``items`` and
     ``tags`` through their Arrow buffers and back; the dictionary-codes
     row passthrough; the scan's wall, GB/s and profile; B2, B4, B5, B6
-    and B7 on the largest inputs the phase hands them."""
+    and B7 on the largest inputs the phase hands them.  Keeps the file in
+    ``keep["raw"]`` for phase 21."""
     import torch_nested_parquet as NW
     from spark_rapids_jni_tpu_torch.column import (Table, as_dict_column,
                                                    force_column)
@@ -5159,6 +5181,7 @@ def phase_nested(T, convert, kernels, card, seed, launches) -> dict:
     t0 = time.perf_counter()
     raw, arrays = NW.nested_parquet(NESTED_ROWS, seed + NESTED_SEED,
                                     NW.ROW_GROUP_ROWS)
+    keep["raw"] = raw
     write_s = time.perf_counter() - t0
     groups = -(-NESTED_ROWS // NW.ROW_GROUP_ROWS)
     log(f"[nested] {NESTED_ROWS} rows in {groups} row groups, {len(raw)} "
@@ -5266,6 +5289,191 @@ def phase_nested(T, convert, kernels, card, seed, launches) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the scan's staging tier
+# ---------------------------------------------------------------------------
+
+# the staging modes phase 21 alternates, each with its knobs
+STAGE_MODES = (("pipeline", {"SRJT_STAGE_SLABS": "1",
+                             "SRJT_STAGE_PIPELINE": "1"}),
+               ("sequential", {"SRJT_STAGE_SLABS": "1",
+                               "SRJT_STAGE_PIPELINE": "0"}),
+               ("per_range", {"SRJT_STAGE_SLABS": "0"}))
+# the timed calls of each mode, in rounds, and SRJT_SCAN_DONATE in each
+# round: the peak of allocated bytes is read with donation off and on
+STAGE_DONATE = ("0", "1", "0")
+# the kernels the two scans launch: B7 for every PLAIN range, B4 for the
+# PLAIN strings' prefixes, B5 -> B6 -> B2 for the chars of the dictionary
+# runs of a string column that fell back to PLAIN (SF1's l_comment)
+STAGE_KERNELS = ("pack_rows", "segmented_copy", "extract_rows",
+                 "gather_rows", "u8_to_u32")
+
+
+def column_tensors(col) -> list:
+    """Every tensor a scanned column holds, in a fixed order (a
+    dictionary column's codes and entries, children's too)."""
+    from spark_rapids_jni_tpu_torch.column import as_dict_column, force_column
+    d = as_dict_column(col)
+    if d is not None:
+        return [d.codes, d.validity] + column_tensors(d.dictionary)
+    col = force_column(col)
+    out = [col.data, col.offsets, col.validity]
+    for c in col.children or ():
+        out += column_tensors(c)
+    return out
+
+
+def same_table(a, b) -> bool:
+    """Two scans of one file hold the same bytes, column for column."""
+    for ca, cb in zip(a.columns, b.columns):
+        ta, tb = column_tensors(ca), column_tensors(cb)
+        if len(ta) != len(tb):
+            return False
+        for x, y in zip(ta, tb):
+            if (x is None) != (y is None):
+                return False
+            if x is not None and not (x.dtype == y.dtype and
+                                      torch.equal(x, y)):
+                return False
+    return a.num_columns == b.num_columns
+
+
+@contextlib.contextmanager
+def stagers(device_scan):
+    """The stagers the scans make, kept for their counts."""
+    made = []
+    cls = device_scan.SlabStager
+
+    class Kept(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    device_scan.SlabStager = Kept
+    try:
+        yield made
+    finally:
+        device_scan.SlabStager = cls
+
+
+def staged_scan(device_scan, flight, raw, knobs: dict) -> tuple:
+    """One scan under ``knobs``: (table, its stager, wall s, the scan's
+    walk and staging event, ``parquet.stage.overlap`` or
+    ``parquet.stage.sequential``, and peak bytes allocated above what was
+    live before)."""
+    with env(**knobs), stagers(device_scan) as made:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        flight.reset()
+        t0 = time.perf_counter()
+        table = device_scan.scan_table(raw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    spans = [e for e in flight.events() if e["kind"] in (
+        "parquet.stage.overlap", "parquet.stage.sequential")]
+    return table, made[0], wall, (spans[-1] if spans else {}), peak
+
+
+def phase_staging(kernels, card, launches, files: dict) -> None:
+    """Phase 21: phase 11's SF1 SNAPPY file and phase 20's nested file,
+    each scanned in the three staging modes (the walk/stage pipeline, the
+    waves without it, one upload a range), alternated after one warm-up,
+    three timed calls each (``SRJT_SCAN_DONATE`` off, on, off); every
+    table byte-equal to the warm-up's; per mode the median wall, the
+    overlap of walk and staging (and the pipeline's walk and staging
+    ms), the transfers, the largest wave and the peak of allocated bytes
+    with donation off and on; ``convert_to_rows`` injected once on the
+    card through its fault site."""
+    import spark_rapids_jni_tpu_torch as pt
+    from spark_rapids_jni_tpu_torch import faultinj
+    from spark_rapids_jni_tpu_torch.faultinj.injector import (
+        InjectedDeviceError)
+    from spark_rapids_jni_tpu_torch.parquet import device_scan
+    from spark_rapids_jni_tpu_torch.utils import flight
+
+    t_phase = time.perf_counter()
+    report = {"card": card, "files": {}}
+    was = flight.enabled()
+    flight.set_enabled(True)
+    kernels.reset()
+    try:
+        for name, raw in files.items():
+            ref = device_scan.scan_table(raw)         # the warm-up
+            torch.cuda.synchronize()
+            rows = {m: {"wall_s": [], "overlap_ms": [], "peak_off": 0}
+                    for m, _ in STAGE_MODES}
+            for donate in STAGE_DONATE:
+                for mode, knobs in STAGE_MODES:
+                    t, st, wall, overlap, peak = staged_scan(
+                        device_scan, flight, raw,
+                        dict(knobs, SRJT_SCAN_DONATE=donate))
+                    require(same_table(t, ref),
+                            f"staging {name}: {mode} (donation {donate}) "
+                            "differs from the warm-up scan")
+                    del t
+                    r = rows[mode]
+                    r["wall_s"].append(round(wall, 4))
+                    r["overlap_ms"].append(overlap.get("overlap_ms", 0.0))
+                    r.update(transfers=st.transfers,
+                             largest_wave=max(st.wave_bytes),
+                             staged_bytes=st.staged_bytes,
+                             walk_ms=overlap.get("walk_ms"),
+                             stage_ms=overlap.get("stage_ms"))
+                    if donate == "1":
+                        require(st.dropped_bytes == sum(st.wave_bytes),
+                                f"staging {name}: {mode} kept a wave")
+                        r["peak_on"] = peak
+                    else:
+                        r["peak_off"] = max(r["peak_off"], peak)
+                    del st
+            for mode, r in rows.items():
+                r["wall_median_s"] = statistics.median(r["wall_s"])
+                r["overlap_ms"] = statistics.median(r["overlap_ms"])
+                log(f"[staging] {name} {mode}: wall {r['wall_median_s']:.4f}"
+                    f" s (calls {r['wall_s']}), overlap {r['overlap_ms']:.3f}"
+                    f" ms (last call's walk {r['walk_ms']}, staging "
+                    f"{r['stage_ms']} ms),"
+                    f" {r['transfers']} transfers, largest wave "
+                    f"{r['largest_wave']} bytes of {r['staged_bytes']}, "
+                    f"peak allocated {r['peak_off']} / {r['peak_on']} bytes "
+                    f"with donation off / on [{card}]")
+            report["files"][name] = {"file_bytes": len(raw), "modes": rows}
+            del ref
+            release()
+    finally:
+        flight.set_enabled(was)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(launches, counts)
+    for kname in STAGE_KERNELS:
+        require(counts[kname] > 0, f"staging: {kname} never launched")
+    report["launches"] = counts
+
+    # the entry point's fault site, on the card
+    table = pt.Table([pt.Column.from_numpy(np.arange(1024, dtype=np.int64),
+                                           device=CARD)])
+    faultinj.get_injector().load_dict({"sites": {"convert_to_rows": {
+        "percent": 100, "interceptionCount": 1,
+        "injectionType": "device_error"}}})
+    faultinj.enable()
+    try:
+        try:
+            pt.convert_to_rows(table)
+            raise SmokeFailure("staging: convert_to_rows was not injected")
+        except InjectedDeviceError:
+            pass
+        rows_back = pt.convert_from_rows(pt.convert_to_rows(table)[0],
+                                         table.schema)
+        require(torch.equal(rows_back[0].data, table[0].data),
+                "staging: convert_to_rows after the fault differs")
+    finally:
+        faultinj.disable()
+    report["fault_site"] = "convert_to_rows raised InjectedDeviceError once"
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("[staging] summary " + json.dumps(report))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5332,11 +5540,14 @@ def main(argv=None) -> int:
     results.update(phase_ml_stream(kernels, card, launches, tpcds_ctx,
                                    mortgage_files))
     phase_aqe(pt, T, convert, kernels, card, args.seed, launches, tpcds_ctx,
-              spark.pop("raw"))
+              spark["raw"])
     del tpcds_ctx, mortgage_files
     torch.cuda.empty_cache()
+    nested = {}
     results.update(phase_nested(T, convert, kernels, card, args.seed,
-                                launches))
+                                launches, nested))
+    phase_staging(kernels, card, launches, {"sf1_snappy": spark.pop("raw"),
+                                            "nested": nested.pop("raw")})
 
     out = []
     for name, (source, replaces, where) in KERNELS.items():

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import types as T
-from .utils import hostcache, syncs
+from .utils import bitmask, hostcache, syncs
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,11 +88,22 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
+    @property
+    def null_count(self) -> int:
+        """The null rows (one counted read of the device)."""
+        if self.validity is None:
+            return 0
+        return syncs.scalar((~self.validity).sum())
+
     def validity_or_true(self) -> torch.Tensor:
         if self.validity is None:
             return torch.ones(self.num_rows, dtype=torch.bool,
                               device=self.device)
         return self.validity
+
+    def validity_bitmask(self) -> torch.Tensor:
+        """Arrow/cudf little-endian packed validity bitmask (uint8)."""
+        return bitmask.pack_bits(self.validity_or_true())
 
     @staticmethod
     def from_numpy(arr: np.ndarray, dtype: T.DType | None = None,
@@ -492,3 +503,13 @@ class Table:
 
     def __iter__(self):
         return iter(self.columns)
+
+    @staticmethod
+    def from_pydict(data: dict, dtypes: dict | None = None,
+                    device=None) -> "Table":
+        """A table from ``{name: host list}`` (None ⇒ null), each column's
+        type from ``dtypes`` or inferred (the JAX package's
+        ``Table.from_pydict``; the names are not kept)."""
+        return Table([Column.from_pylist(values, (dtypes or {}).get(name),
+                                         device)
+                      for name, values in data.items()])

@@ -42,7 +42,9 @@ from __future__ import annotations
 
 from ..utils import knobs
 
+from . import artifacts
 from .admission import AdmissionController, AdmissionGrant, request_bytes
+from .artifacts import ArtifactStore, get_store
 from .errors import (ExecDeadlineExceeded, ExecError, ExecQueueFull,
                      ExecShutdown)
 from .placement import Replica, build_replicas, device_name, local_devices
@@ -52,10 +54,11 @@ from .scheduler import QueryScheduler, QueryTicket
 from .slo import SloWatchdog, thresholds_from_env
 
 __all__ = [
-    "AdmissionController", "AdmissionGrant", "ExecDeadlineExceeded",
+    "AdmissionController", "AdmissionGrant", "ArtifactStore", "artifacts",
+    "ExecDeadlineExceeded",
     "ExecError", "ExecQueueFull", "ExecShutdown", "PlanCache", "Prefetcher",
     "QueryScheduler", "QueryTicket", "Replica", "SloWatchdog",
-    "build_replicas", "device_name", "enabled", "local_devices",
+    "build_replicas", "device_name", "enabled", "get_store", "local_devices",
     "request_bytes", "thresholds_from_env",
 ]
 

@@ -25,7 +25,10 @@ of occupying double-buffer capacity — swept when a new ``stage`` finds
 the buffer full, and skipped by the staging loop before loading
 (``exec.prefetch.deadline_evicted``).
 
-Counters: ``exec.prefetch.{hit,miss,rejected,deadline_evicted,discarded}``.
+Counters: ``exec.prefetch.{hit,miss,rejected,deadline_evicted,discarded}``;
+each load's deltas of the staging counters (``parquet.stage.slab_bytes``,
+``transfers``, ``overlap_ms``) annotate its span and an
+``exec.prefetch.ingest`` flight event.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ from typing import Callable, Optional
 from ..analysis import sanitize
 from ..models import compiled as C
 from ..utils import flight, knobs, metrics
+
+# the staging tier's counters credited to each prefetch load (their
+# deltas across the loader call, ``_loop``)
+_INGEST_COUNTERS = ("parquet.stage.slab_bytes", "parquet.stage.transfers",
+                    "parquet.stage.overlap_ms")
 
 def _walk_tables(obj, fn) -> None:
     """``fn(table)`` for every Table in a loader result (a Table, or a
@@ -213,7 +221,22 @@ class Prefetcher:
             try:
                 with metrics.span("exec.prefetch.load", key=str(key)), \
                         C.device_work():
+                    rec = metrics.recording()
+                    # ingest attribution: the staging counters are
+                    # process-wide, so their deltas across the load
+                    # credit this prefetch (the JAX package's
+                    # ``exec.prefetch.ingest``)
+                    base = {k: metrics.counter_value(k)
+                            for k in _INGEST_COUNTERS} if rec else {}
                     slot["result"] = slot["loader"]()
+                    if rec:
+                        delta = {k.rsplit(".", 1)[-1]:
+                                 metrics.counter_value(k) - base[k]
+                                 for k in _INGEST_COUNTERS}
+                        if any(delta.values()):
+                            metrics.annotate(**delta)
+                            flight.record("exec.prefetch.ingest",
+                                          key=str(key), **delta)
                 _register_staged(slot["result"])
             except Exception as e:     # delivered to the taker
                 slot["exc"] = e

@@ -54,12 +54,13 @@ Two extensions over the reference schema serve the chaos harness
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import random
 import threading
 import time
-from typing import Optional
+from typing import Any, Callable, Optional
 
 from ..analysis import sanitize
 
@@ -249,3 +250,22 @@ def enable(config_path: Optional[str] = None) -> None:
 
 def disable() -> None:
     _global.disable()
+
+
+def fault_site(name: str) -> Callable:
+    """Decorator marking a framework entry point as an injectable site:
+    a rule for ``name`` (or ``"*"``) raises there, or returns its
+    substitute in place of the call."""
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def inner(*args: Any, **kwargs: Any):
+            hit = _global.check(name)
+            if hit is not None:
+                return hit[1]
+            return fn(*args, **kwargs)
+
+        inner.__fault_site__ = name
+        return inner
+
+    return wrap

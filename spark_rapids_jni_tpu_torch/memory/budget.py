@@ -12,7 +12,9 @@ One process-wide ledger (``in_use`` / ``peak``) plus an optional
 per-query :class:`QueryBudget` stack (thread-local).  The effective limit
 at any charge is the innermost query budget's limit, else the process
 limit: ``SRJT_HBM_BUDGET`` when set, else the card's memory
-(``torch.cuda.mem_get_info``).  A charge that would exceed the limit
+(``torch.cuda.mem_get_info``).  A query budget opened without a limit
+takes :func:`default_limit`: the knob, else the recorded pair-expansion
+histogram's rule, else the card's memory.  A charge that would exceed the limit
 first asks ``memory.spill`` to reclaim LRU residents; if still over:
 
 * ``strict=True``  — the charge rolls back and :class:`HbmBudgetExceeded`
@@ -44,6 +46,10 @@ _LOCK = sanitize.tracked_rlock("memory.budget")      # shared with memory.spill 
 #: int64 lanes of the repeat, the positions and the build rows, and the
 #: matched mask (the JAX package's figure)
 PAIR_EXPANSION_BYTES = 40
+#: :func:`default_limit`'s headroom over the largest recorded expansion,
+#: and its floor (the JAX package's figures)
+_HEADROOM = 4.0
+_FLOOR_BYTES = 64 << 20
 
 
 def _from_env() -> bool:
@@ -161,6 +167,23 @@ def limit_now() -> Optional[int]:
     return process_limit()
 
 
+def default_limit() -> Optional[int]:
+    """A query's limit when it names none: ``SRJT_HBM_BUDGET`` when set,
+    else the largest recorded ``join.expand.pair_elements`` ×
+    :data:`PAIR_EXPANSION_BYTES` × 4 headroom, floored at 64 MiB (the
+    JAX package's ``default_limit``), else the card's memory.  Without
+    the knob and the histogram the JAX package has no limit (None); here
+    the card's bytes stand for it, and None only without a card."""
+    env = parse_bytes(knobs.get("SRJT_HBM_BUDGET"))
+    if env is not None:
+        return env
+    h = metrics.snapshot()["histograms"].get("join.expand.pair_elements")
+    if h:
+        return max(int(h["max"] * PAIR_EXPANSION_BYTES * _HEADROOM),
+                   _FLOOR_BYTES)
+    return card_bytes()
+
+
 def in_use() -> int:
     return _process.in_use
 
@@ -242,8 +265,9 @@ def release(nbytes: int) -> None:
 def query_budget(name: str, limit_bytes=None, device=None, **attrs):
     """Per-query admission scope, composed with ``metrics.query_span``.
 
-    ``limit_bytes`` accepts ints or ``"512m"`` strings; None takes the
-    process limit (:func:`process_limit`).  ``device`` labels the scope
+    ``limit_bytes`` accepts ints or ``"512m"`` strings; None sizes from
+    ``SRJT_HBM_BUDGET`` / the pair-expansion histogram / the card
+    (:func:`default_limit`).  ``device`` labels the scope
     with the replica device serving the query (e.g. ``"cuda:1"``): the
     span is annotated and
     a per-device peak gauge recorded, so a multi-replica scheduler's arena
@@ -251,7 +275,7 @@ def query_budget(name: str, limit_bytes=None, device=None, **attrs):
     with the arena peak and the query's net spill activity, so Chrome
     traces carry the budget story next to the stage tree."""
     limit = parse_bytes(limit_bytes) if limit_bytes is not None \
-        else process_limit()
+        else default_limit()
     q = QueryBudget(name, limit)
     snap0 = metrics.snapshot()["counters"] if metrics.recording() else {}
     if device is not None:

@@ -1,1 +1,3 @@
 """Query models of the PyTorch port."""
+
+from . import q6  # noqa: F401

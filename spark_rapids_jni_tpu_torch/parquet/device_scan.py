@@ -13,8 +13,13 @@ between host and device is the same:
   (``rle_device.parse_runs``), and the DELTA_* pages, which are decoded
   here and staged as PLAIN values (``decode.delta_page``; the table's
   ``host_decoded_cols`` counts those columns).  Every byte range the
-  device needs goes into one slab per file (``staging.Slab``), copied to
-  the card once.
+  device needs, and every run table, goes through the stager
+  (``staging.SlabStager``): capped slab waves, each one non-blocking copy,
+  shipped as they fill (``SRJT_STAGE_SLABS``, ``SRJT_STAGE_SLAB_BYTES``).
+  With more than one column and no row filter, a producer thread walks
+  column k+1 while column k stages (``SRJT_STAGE_PIPELINE``); under
+  ``SRJT_SCAN_DONATE`` each wave goes once the last column reading it
+  has decoded.
 * device: PLAIN payloads and numeric dictionaries become owned words with
   kernel B7 (``bytepath.u8_to_u32``); PLAIN strings lose their length
   prefixes in one segmented copy (kernel B4, ``ragged.segmented_copy``);
@@ -60,24 +65,31 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import queue
 import struct as _struct
+import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import types as T
+from ..analysis import sanitize
 from ..column import Column, DictColumn, Table, resolve_device
+from ..faultinj.injector import fault_site
+from ..memory import arena
+from ..memory import spill as mspill
 from ..ops.filter import sized_nonzero
 from ..rowconv import bytepath, ragged
 from ..rowconv.convert import _reinterpret
-from ..utils import knobs, metrics
+from ..utils import flight, knobs, metrics
 from ..utils.tracing import func_range, traced
 from . import decode as D
 from . import rle_device as RLE
-from . import rowfilter
+from . import rowfilter, staging
 from .footer import extract_footer_bytes
-from .staging import Slab
+from .staging import Ref, SlabStager
 from .thrift import parse_struct
 
 # char offsets are int32, as in the JAX package
@@ -178,7 +190,18 @@ def _walk_levels(walk: _ChunkWalk, leaf: D.Leaf, reps, plan,
     return int(hist[leaf.max_def])
 
 
-def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
+_CODEC_NAMES = {D.CODEC_UNCOMPRESSED: "uncompressed", D.CODEC_SNAPPY: "snappy",
+                D.CODEC_GZIP: "gzip"}
+
+
+def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf,
+                rec: bool = False) -> _ChunkWalk:
+    """One column chunk's page walk.  With ``rec`` (the caller's
+    ``metrics.recording()``: the walk may run on the scan's producer
+    thread) it counts the JAX package's ``parquet.chunks``,
+    ``parquet.bytes.*``, ``parquet.codec.<name>.chunks`` and
+    ``parquet.pages.*`` (``spark_rapids_jni_tpu/parquet/decode.py:
+    436-453``)."""
     md = chunk.get(D.CC.META_DATA)
     phys = md.get(D.CMD.TYPE)
     codec = md.get(D.CMD.CODEC, 0)
@@ -190,6 +213,11 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
     total = md.get(D.CMD.TOTAL_COMPRESSED_SIZE)
     if start < 0 or start + total > len(mv):
         raise ValueError(f"column {leaf.path}: chunk lies outside the file")
+    if rec:
+        metrics.count("parquet.chunks")
+        metrics.count("parquet.bytes.compressed", total)
+        metrics.count(f"parquet.codec."
+                      f"{_CODEC_NAMES.get(codec, f'codec{codec}')}.chunks")
     stream = D.PageStream(mv[start:start + total])
     # strings and BYTE_ARRAY decimals walk alike: chars and offsets
     is_str = phys == D.PT_BYTE_ARRAY
@@ -203,6 +231,10 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
         header, raw = stream.next_page()
         ptype = header.get(D.PH.TYPE)
         usize = header.get(D.PH.UNCOMPRESSED_SIZE)
+        if rec and ptype in (D.PAGE_DATA, D.PAGE_DATA_V2, D.PAGE_DICTIONARY):
+            metrics.count("parquet.pages.dict" if ptype == D.PAGE_DICTIONARY
+                          else "parquet.pages.data")
+            metrics.count("parquet.bytes.uncompressed", usize or 0)
         if ptype == D.PAGE_DICTIONARY:
             m = header.get(D.PH.DICT_PAGE).get(D.DPH.NUM_VALUES)
             data = D.decompress(raw, codec, usize, leaf.path)
@@ -319,8 +351,21 @@ def _walk_chunk(mv: memoryview, chunk, leaf: D.Leaf) -> _ChunkWalk:
 
 
 @dataclasses.dataclass
+class _Runs:
+    """A staged run table and the bit-packed payloads it reads."""
+
+    payload: Ref                      # the plans' payloads, back to back
+    table: Ref                        # int64 [R, RUN_FIELDS]
+
+    def expand(self, n: int) -> torch.Tensor:
+        return RLE.expand(self.payload.get(),
+                          self.table.get().view(-1, RLE.RUN_FIELDS), n)
+
+
+@dataclasses.dataclass
 class _ColumnSpec:
-    """Where one column's bytes and run tables sit in the slab."""
+    """What one column staged: its counts, and the refs of its ranges and
+    run tables (``staging.Ref``, device views once their waves ship)."""
 
     leaf: D.Leaf
     dtype: T.DType
@@ -333,41 +378,43 @@ class _ColumnSpec:
     runs: list = dataclasses.field(default_factory=list)
     n_plain: int = 0                  # present values in PLAIN runs
     n_coded: int = 0                  # present values in dictionary runs
-    values: tuple = (0, 0)            # (byte offset, bytes): PLAIN values
-    #                                   or PLAIN string records
-    str_offsets: tuple = (0, 0)       # PLAIN strings: (byte offset, bytes)
-    #                                   of int32 char offsets [n_plain+1]
+    values: Optional[Ref] = None      # PLAIN values or PLAIN string records
+    str_offsets: Optional[Ref] = None  # PLAIN strings: int32 char offsets
+    #                                    [n_plain+1]
     plain_char_offsets: Optional[np.ndarray] = None   # the same, host int64
     n_chars: int = 0
-    dict_values: tuple = (0, 0)       # (byte offset, bytes): dictionary
-    #                                   values or chars
+    dict_values: Optional[Ref] = None  # dictionary values or chars
     n_dict: int = 0
     dict_offsets: Optional[np.ndarray] = None     # int64 [D+1], strings
-    idx_runs: tuple = (0, 0)          # (int64 offset, runs): codes
-    bool_runs: tuple = (0, 0)         # BOOLEAN: PLAIN values, and the
-    bool_dict_runs: tuple = (0, 0)    # merged dictionary's entries
-    def_runs: Optional[tuple] = None  # (int64 offset, runs), None: no nulls
+    idx_runs: Optional[_Runs] = None  # codes
+    bool_runs: Optional[_Runs] = None  # BOOLEAN: PLAIN values, and the
+    bool_dict_runs: Optional[_Runs] = None    # merged dictionary's entries
+    def_runs: Optional[_Runs] = None  # None: no nulls
     # LIST leaves (``n`` then counts the elements): level slots, rows, the
     # repetition levels' runs, and whether a list or an element is null
     n_slots: int = 0
     n_rows: int = 0
-    rep_runs: tuple = (0, 0)
+    rep_runs: Optional[_Runs] = None
     null_lists: bool = False
     null_elems: bool = False
 
 
-def _queue_runs(slab: Slab, tables: list[np.ndarray]) -> tuple[int, int]:
+def _queue_runs(st: SlabStager, items) -> _Runs:
+    """Stage run tables: each item a ``(RunPlan, addend)`` or a ready
+    table (a constant run).  The plans' payloads go back to back as one
+    range, each table's bit offsets relative to its start."""
+    pieces, tables, off = [], [], 0
+    for item in items:
+        if isinstance(item, np.ndarray):
+            tables.append(item)
+            continue
+        plan, addend = item
+        tables.append(RLE.run_table(plan, off, addend))
+        pieces.append(plan.payload)
+        off += memoryview(plan.payload).nbytes
     table = (np.concatenate(tables) if tables
              else np.zeros((0, RLE.RUN_FIELDS), np.int64))
-    return slab.add_meta(table), table.shape[0]
-
-
-def _queue_range(slab: Slab, pieces) -> tuple[int, int]:
-    """Queue byte ranges back to back: (offset of the first, total)."""
-    start = slab.nbytes
-    for p in pieces:
-        slab.add(p)
-    return start, slab.nbytes - start
+    return _Runs(st.add(pieces), st.add_meta(table))
 
 
 def _same_dictionary(a, b, is_str: bool) -> bool:
@@ -397,7 +444,7 @@ def _column_kind(runs: list, leaf: D.Leaf) -> str:
 
 
 def _stage_levels(spec: _ColumnSpec, walks: list[_ChunkWalk],
-                  slab: Slab) -> None:
+                  st: SlabStager) -> None:
     """A LIST leaf's counts and repetition levels: ``spec.n`` becomes its
     element count (definition level at least ``d_list``)."""
     leaf = spec.leaf
@@ -408,13 +455,12 @@ def _stage_levels(spec: _ColumnSpec, walks: list[_ChunkWalk],
     spec.n_rows = sum(w.n_rows for w in walks)
     spec.null_lists = bool(hist[:max(leaf.d_list - 1, 0)].sum())
     spec.null_elems = bool(hist[leaf.d_list:leaf.max_def].sum())
-    spec.rep_runs = _queue_runs(
-        slab, [RLE.run_table(p, slab.add(p.payload))
-               for w in walks for p in w.rep_plans])
+    spec.rep_runs = _queue_runs(st, [(p, 0) for w in walks
+                                     for p in w.rep_plans])
 
 
 def _stage_bool(spec: _ColumnSpec, walks: list[_ChunkWalk],
-                slab: Slab) -> None:
+                st: SlabStager) -> None:
     """BOOLEAN runs: the PLAIN pages' bits, and the dictionary pages'
     codes with the dictionaries' bits (one dictionary when every row
     group wrote the same, else all of them with the codes rebased)."""
@@ -425,23 +471,22 @@ def _stage_bool(spec: _ColumnSpec, walks: list[_ChunkWalk],
                and w.n_dict == with_dict[0].n_dict for w in with_dict[1:])
     for w in walks:
         for plan, kind in zip(w.idx_plans, w.plan_kinds, strict=True):
-            table = RLE.run_table(plan, slab.add(plan.payload),
-                                  addend if kind == "dict" else 0)
-            (codes if kind == "dict" else plain).append(table)
+            if kind == "dict":
+                codes.append((plan, addend))
+            else:
+                plain.append((plan, 0))
         if w.dictionary is not None and (not same or not dicts):
-            dicts.append(RLE.run_table(
-                RLE.bit_packed_plan(w.dictionary, w.n_dict),
-                slab.add(w.dictionary)))
+            dicts.append((RLE.bit_packed_plan(w.dictionary, w.n_dict), 0))
             spec.n_dict += w.n_dict
             if not same:
                 addend += w.n_dict
-    spec.bool_runs = _queue_runs(slab, plain)
-    spec.idx_runs = _queue_runs(slab, codes)
-    spec.bool_dict_runs = _queue_runs(slab, dicts)
+    spec.bool_runs = _queue_runs(st, plain)
+    spec.idx_runs = _queue_runs(st, codes)
+    spec.bool_dict_runs = _queue_runs(st, dicts)
 
 
 def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
-                  slab: Slab) -> _ColumnSpec:
+                  st: SlabStager) -> _ColumnSpec:
     dt = leaf.logical_dtype()
     is_str = leaf.phys == D.PT_BYTE_ARRAY
     flba_str = _is_flba_string(leaf)
@@ -455,35 +500,29 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
     spec.n_plain = sum(k for r, k in runs if r == "plain")
     spec.n_coded = spec.n_present - spec.n_plain
     if leaf.max_rep > 0:
-        _stage_levels(spec, walks, slab)
+        _stage_levels(spec, walks, st)
 
     if any(p is not None for w in walks for p, _ in w.def_plans):
-        tables = []
-        for w in walks:
-            for plan, k in w.def_plans:
-                if plan is None:
-                    tables.append(RLE.constant_run(k, leaf.max_def))
-                else:
-                    tables.append(RLE.run_table(plan, slab.add(plan.payload)))
-        spec.def_runs = _queue_runs(slab, tables)
+        spec.def_runs = _queue_runs(
+            st, [RLE.constant_run(k, leaf.max_def) if plan is None
+                 else (plan, 0) for w in walks for plan, k in w.def_plans])
 
     if kind == "bool":
-        _stage_bool(spec, walks, slab)
+        _stage_bool(spec, walks, st)
         return spec
 
     if kind in ("plain", "mixed"):
-        spec.values = _queue_range(slab, [p for w in walks for p in w.values])
+        spec.values = st.add([p for w in walks for p in w.values])
     elif flba_str and kind in ("plain_str", "mixed_str"):
         # the values back to back, type_len bytes each: they are the chars
-        spec.values = _queue_range(slab, [p for w in walks for p in w.values])
-        spec.n_chars = spec.values[1]
+        spec.values = st.add([p for w in walks for p in w.values])
+        spec.n_chars = spec.values.nbytes
         spec.plain_char_offsets = leaf.type_len * np.arange(
             spec.n_plain + 1, dtype=np.int64)
-        spec.str_offsets = _queue_range(
-            slab, [spec.plain_char_offsets.astype(np.int32)])
+        spec.str_offsets = st.add([spec.plain_char_offsets.astype(np.int32)])
     elif kind in ("plain_str", "mixed_str"):
         # the pages' records back to back, then the column's char offsets
-        spec.values = _queue_range(slab, [p for w in walks for p in w.values])
+        spec.values = st.add([p for w in walks for p in w.values])
         offs = np.zeros(spec.n_plain + 1, np.int64)
         pos = 0
         for o in (o for w in walks for o in w.str_offsets):
@@ -497,7 +536,7 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
             _check_decimal_widths(offs, leaf)
         spec.n_chars = int(offs[-1])
         spec.plain_char_offsets = offs
-        spec.str_offsets = _queue_range(slab, [offs.astype(np.int32)])
+        spec.str_offsets = st.add([offs.astype(np.int32)])
     if kind in ("plain", "plain_str"):
         return spec
 
@@ -510,12 +549,11 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
     merged = with_dict[:1] if same else with_dict
     spec.n_dict = sum(w.n_dict for w in merged)
     if flba_str:
-        spec.dict_values = _queue_range(slab, [w.dictionary for w in merged])
+        spec.dict_values = st.add([w.dictionary for w in merged])
         spec.dict_offsets = leaf.type_len * np.arange(spec.n_dict + 1,
                                                       dtype=np.int64)
     elif is_str:
-        spec.dict_values = _queue_range(slab,
-                                        [w.dictionary[0] for w in merged])
+        spec.dict_values = st.add([w.dictionary[0] for w in merged])
         offs = np.zeros(spec.n_dict + 1, np.int64)
         pos = 0
         for w in merged:
@@ -529,15 +567,14 @@ def _stage_column(walks: list[_ChunkWalk], leaf: D.Leaf,
             _check_decimal_widths(offs, leaf)
         spec.dict_offsets = offs
     else:
-        spec.dict_values = _queue_range(slab, [w.dictionary for w in merged])
-    tables = []
+        spec.dict_values = st.add([w.dictionary for w in merged])
+    items = []
     addend = 0
     for w in walks:
-        for plan in w.idx_plans:
-            tables.append(RLE.run_table(plan, slab.add(plan.payload), addend))
+        items.extend((plan, addend) for plan in w.idx_plans)
         if not same and w.dictionary is not None:
             addend += w.n_dict
-    spec.idx_runs = _queue_runs(slab, tables)
+    spec.idx_runs = _queue_runs(st, items)
     return spec
 
 
@@ -547,11 +584,6 @@ def _check_decimal_widths(offs: np.ndarray, leaf: D.Leaf) -> None:
     if offs.shape[0] > 1 and int(np.diff(offs).max()) > D.MAX_DECIMAL_BYTES:
         raise ValueError(f"column {leaf.path}: a BYTE_ARRAY decimal is wider "
                          f"than {D.MAX_DECIMAL_BYTES} bytes")
-
-
-def _runs(meta: torch.Tensor, where: tuple[int, int]) -> torch.Tensor:
-    off, r = where
-    return meta[off:off + RLE.RUN_FIELDS * r].view(r, RLE.RUN_FIELDS)
 
 
 def _spread(present: torch.Tensor, valid: Optional[torch.Tensor],
@@ -569,11 +601,9 @@ def _spread(present: torch.Tensor, valid: Optional[torch.Tensor],
                                                        device=valid.device))
 
 
-def _typed(data: torch.Tensor, where: tuple[int, int],
-           dt: T.DType) -> torch.Tensor:
+def _typed(ref: Ref, dt: T.DType) -> torch.Tensor:
     """A PLAIN range → owned words (kernel B7) → the column's storage."""
-    start, nbytes = where
-    return _reinterpret(bytepath.u8_to_u32(data, start, nbytes // 4),
+    return _reinterpret(bytepath.u8_to_u32(ref.get(), 0, ref.nbytes // 4),
                         dt.torch_storage)
 
 
@@ -585,15 +615,14 @@ def _narrow(lanes: torch.Tensor, dt: T.DType) -> torch.Tensor:
     return lanes[:, 0].to(dt.torch_storage).contiguous()
 
 
-def _flba_lanes(data: torch.Tensor, where: tuple[int, int],
-                width: int) -> torch.Tensor:
-    """FIXED_LEN_BYTE_ARRAY decimals in the slab (big-endian two's
+def _flba_lanes(ref: Ref, width: int) -> torch.Tensor:
+    """FIXED_LEN_BYTE_ARRAY decimals in a range (big-endian two's
     complement of ``width`` <= 16 bytes) → int64 [k, 2] (lo, hi): each
     value sign-extended to 16 bytes, reversed to little-endian and read
     as two int64 words (the JAX package's ``_device_flba_decimal``)."""
-    start, nbytes = where
-    k = nbytes // width
-    raw = data[start:start + k * width].view(k, width)
+    data = ref.get()
+    k = ref.nbytes // width
+    raw = data[:k * width].view(k, width)
     full = torch.empty((k, 16), dtype=torch.uint8, device=data.device)
     if width < 16:
         fill = torch.where(raw[:, :1] >= 128, 255, 0).to(torch.uint8)
@@ -629,50 +658,46 @@ _JULIAN_UNIX_EPOCH = 2440588
 _NS_PER_DAY_ODD, _NS_PER_DAY_SHIFT = 1_318_359_375, 16
 
 
-def _int96_nanos(data: torch.Tensor, where: tuple[int, int]) -> torch.Tensor:
-    """INT96 timestamps in the slab (8 little-endian bytes of nanoseconds
+def _int96_nanos(ref: Ref) -> torch.Tensor:
+    """INT96 timestamps in a range (8 little-endian bytes of nanoseconds
     in the day, then a 4-byte Julian day) → int64 nanoseconds since the
     epoch, ``(day − 2440588) · 86_400_000_000_000 + nanos`` with the JAX
     package's wrapping int64 arithmetic (``spark_rapids_jni_tpu/parquet/
     decode.py:317-326``): B7 makes the words, torch ops combine them."""
-    start, nbytes = where
-    k = nbytes // 12
-    w = bytepath.u8_to_u32(data, start, 3 * k).view(k, 3).to(torch.int64)
+    k = ref.nbytes // 12
+    w = bytepath.u8_to_u32(ref.get(), 0, 3 * k).view(k, 3).to(torch.int64)
     nanos = (w[:, 0] & 0xFFFFFFFF) | (w[:, 1] << 32)
     days = ((w[:, 2] - _JULIAN_UNIX_EPOCH) * _NS_PER_DAY_ODD
             ) << _NS_PER_DAY_SHIFT
     return days + nanos
 
 
-def _values(spec: _ColumnSpec, data: torch.Tensor,
-            where: tuple[int, int]) -> torch.Tensor:
-    """A fixed-width range of the slab (PLAIN values or a dictionary) →
-    the column's storage."""
+def _values(spec: _ColumnSpec, ref: Ref) -> torch.Tensor:
+    """A fixed-width range (PLAIN values or a dictionary) → the column's
+    storage."""
     if spec.leaf.phys == D.PT_FIXED_LEN_BYTE_ARRAY:
-        return _narrow(_flba_lanes(data, where, spec.leaf.type_len),
-                       spec.dtype)
+        return _narrow(_flba_lanes(ref, spec.leaf.type_len), spec.dtype)
     if spec.leaf.phys == D.PT_INT96:
-        return _int96_nanos(data, where)
-    return _typed(data, where, spec.dtype)
+        return _int96_nanos(ref)
+    return _typed(ref, spec.dtype)
 
 
-def _plain_chars(spec: _ColumnSpec,
-                 data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """PLAIN BYTE_ARRAY records in the slab → (chars, int32 offsets
-    [n_plain+1]) of the PLAIN runs' present values.  The records were
-    queued back to back, so value i's chars start at the first record's
-    offset + 4·(i+1) (its prefix and those before it) + its char offset;
-    one segmented copy (B4) strips every prefix.  FIXED_LEN_BYTE_ARRAY
-    strings have no prefixes: their values are the chars."""
-    offs = _typed(data, spec.str_offsets, T.int32)
+def _plain_chars(spec: _ColumnSpec) -> tuple[torch.Tensor, torch.Tensor]:
+    """PLAIN BYTE_ARRAY records → (chars, int32 offsets [n_plain+1]) of
+    the PLAIN runs' present values.  The records were queued back to back
+    as one range, so value i's chars start at 4·(i+1) (its prefix and
+    those before it) + its char offset; one segmented copy (B4) strips
+    every prefix.  FIXED_LEN_BYTE_ARRAY strings have no prefixes: their
+    values are the chars."""
+    offs = _typed(spec.str_offsets, T.int32)
+    data = spec.values.get()
     if spec.leaf.phys == D.PT_FIXED_LEN_BYTE_ARRAY:
-        start = spec.values[0]
-        return data[start:start + spec.n_chars].clone(), offs
+        return data[:spec.n_chars].clone(), offs
     o64 = offs.to(torch.int64)
     lens = o64[1:] - o64[:-1]
     first = torch.arange(1, spec.n_plain + 1, dtype=torch.int64,
                          device=data.device)
-    src = spec.values[0] + 4 * first + o64[:-1]
+    src = 4 * first + o64[:-1]
     chars = ragged.segmented_copy(data, src, o64[:-1], lens, spec.n_chars)
     return chars, offs
 
@@ -690,12 +715,11 @@ def _string_column(spec: _ColumnSpec, chars: torch.Tensor,
     return Column(spec.dtype, chars, offs.to(torch.int32), valid)
 
 
-def _codes(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
-           checks: list) -> torch.Tensor:
+def _codes(spec: _ColumnSpec, checks: list) -> torch.Tensor:
     """The dictionary runs' codes, int32 [n_coded], rebased onto the merged
     dictionary; their bounds are checked at the scan's one
     synchronisation."""
-    idx = RLE.expand(data, _runs(meta, spec.idx_runs), spec.n_coded)
+    idx = spec.idx_runs.expand(spec.n_coded)
     if spec.n_coded and spec.n_dict == 0:
         raise ValueError(f"column {spec.leaf.path}: codes but an empty "
                          "dictionary")
@@ -708,23 +732,22 @@ def _in_range(idx: torch.Tensor, spec: _ColumnSpec) -> torch.Tensor:
     return idx.clamp(0, max(spec.n_dict - 1, 0))
 
 
-def _dictionary(spec: _ColumnSpec, data: torch.Tensor) -> torch.Tensor:
+def _dictionary(spec: _ColumnSpec) -> torch.Tensor:
     """The merged dictionary of a numeric or decimal column → the column's
     storage (BYTE_ARRAY decimals from the dictionary's chars)."""
     if spec.leaf.phys != D.PT_BYTE_ARRAY:
-        return _values(spec, data, spec.dict_values)
-    start, nbytes = spec.dict_values
-    doffs = torch.from_numpy(spec.dict_offsets).to(data.device)
-    return _narrow(_varlen_lanes(data[start:start + nbytes], doffs),
-                   spec.dtype)
+        return _values(spec, spec.dict_values)
+    chars = spec.dict_values.get()
+    doffs = torch.from_numpy(spec.dict_offsets).to(chars.device)
+    return _narrow(_varlen_lanes(chars, doffs), spec.dtype)
 
 
-def _plain_values(spec: _ColumnSpec, data: torch.Tensor) -> torch.Tensor:
+def _plain_values(spec: _ColumnSpec) -> torch.Tensor:
     """The PLAIN runs' present values → the column's storage (BYTE_ARRAY
     decimals from their chars)."""
     if spec.leaf.phys != D.PT_BYTE_ARRAY:
-        return _values(spec, data, spec.values)
-    chars, offs = _plain_chars(spec, data)
+        return _values(spec, spec.values)
+    chars, offs = _plain_chars(spec)
     return _narrow(_varlen_lanes(chars, offs.to(torch.int64)), spec.dtype)
 
 
@@ -751,17 +774,16 @@ def _interleave(spec: _ColumnSpec, plain, coded):
     return torch.cat(pieces)
 
 
-def _mixed_strings(spec: _ColumnSpec, data: torch.Tensor, idx: torch.Tensor,
+def _mixed_strings(spec: _ColumnSpec, idx: torch.Tensor,
                    valid: Optional[torch.Tensor]) -> Column:
     """A string column of PLAIN and dictionary runs → one materialized
     column: B4 strips the PLAIN records' prefixes, B5 → B6 → B2
     materialize the dictionary runs' chars (``DictColumn.materialize``),
     and the runs' chars and lengths concatenate in page order.  One more
     synchronisation reads where the dictionary runs' chars end."""
-    dev = data.device
-    chars_p, offs_p = _plain_chars(spec, data)
-    start, nbytes = spec.dict_values
-    dictionary = Column(T.string, data[start:start + nbytes],
+    dev = idx.device
+    chars_p, offs_p = _plain_chars(spec)
+    dictionary = Column(T.string, spec.dict_values.get(),
                         torch.from_numpy(spec.dict_offsets.astype(np.int32))
                         .to(dev))
     mat = DictColumn(_in_range(idx, spec), dictionary).materialize()
@@ -790,8 +812,8 @@ def _mixed_strings(spec: _ColumnSpec, data: torch.Tensor, idx: torch.Tensor,
     return _string_column(spec, chars, offs, valid)
 
 
-def _decode_list(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
-                 dict_strings: bool, checks: list) -> Column:
+def _decode_list(spec: _ColumnSpec, dev: torch.device, dict_strings: bool,
+                 checks: list) -> Column:
     """A single-level LIST leaf (the JAX package's ``_assemble_list``,
     ``spark_rapids_jni_tpu/parquet/decode.py:776-811``), on the device
     from the levels: a slot of repetition level 0 starts a row; a slot of
@@ -800,14 +822,14 @@ def _decode_list(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
     itself is null.  The element slots are one flat column of ``spec.n``
     values, decoded as any other.  The host counted the rows, elements
     and nulls from the run headers, so nothing here synchronises."""
-    leaf, dev = spec.leaf, data.device
-    reps = RLE.expand(data, _runs(meta, spec.rep_runs), spec.n_slots)
+    leaf = spec.leaf
+    reps = spec.rep_runs.expand(spec.n_slots)
     starts = sized_nonzero(reps == 0, spec.n_rows)
     list_valid = elem_valid = None
     if spec.def_runs is None:
         before = starts            # every slot holds a present element
     else:
-        defs = RLE.expand(data, _runs(meta, spec.def_runs), spec.n_slots)
+        defs = spec.def_runs.expand(spec.n_slots)
         is_elem = defs >= leaf.d_list
         before = (torch.cumsum(is_elem, 0) - is_elem.to(torch.int64))[starts]
         if spec.null_lists:
@@ -816,76 +838,72 @@ def _decode_list(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
             elem_valid = defs[sized_nonzero(is_elem, spec.n)] == leaf.max_def
     offs = torch.cat([before, torch.full((1,), spec.n, dtype=torch.int64,
                                          device=dev)])
-    child = _decode_values(spec, data, meta, dict_strings, checks,
-                           elem_valid)
+    child = _decode_values(spec, dev, dict_strings, checks, elem_valid)
     _count("list_cols")
     return Column(T.list_(child.dtype), torch.zeros(0, dtype=torch.uint8,
                                                     device=dev),
                   offs.to(torch.int32), list_valid, [child])
 
 
-def _bool_values(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
+def _bool_values(spec: _ColumnSpec, dev: torch.device,
                  checks: list) -> torch.Tensor:
     """A BOOLEAN column's present values, uint8 0/1, in page order: the
     PLAIN pages' bits, and the dictionary pages' codes through their
     dictionary's bits."""
     plain = coded = None
     if spec.n_plain:
-        plain = RLE.expand(data, _runs(meta, spec.bool_runs), spec.n_plain)
+        plain = spec.bool_runs.expand(spec.n_plain)
     if spec.n_coded:
-        idx = _codes(spec, data, meta, checks)
-        entries = RLE.expand(data, _runs(meta, spec.bool_dict_runs),
-                             spec.n_dict)
+        idx = _codes(spec, checks)
+        entries = spec.bool_dict_runs.expand(spec.n_dict)
         coded = entries[_in_range(idx, spec).to(torch.int64)]
     present = _interleave(spec, plain, coded)
     if present is None:
-        return torch.zeros(0, dtype=torch.uint8, device=data.device)
+        return torch.zeros(0, dtype=torch.uint8, device=dev)
     return present.to(torch.uint8)
 
 
-def _decode(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
-            dict_strings: bool, checks: list) -> Column:
+def _decode(spec: _ColumnSpec, dev: torch.device, dict_strings: bool,
+            checks: list) -> Column:
     if spec.leaf.max_rep > 0:
-        return _decode_list(spec, data, meta, dict_strings, checks)
+        return _decode_list(spec, dev, dict_strings, checks)
     valid = None
     if spec.def_runs is not None:
-        levels = RLE.expand(data, _runs(meta, spec.def_runs), spec.n)
+        levels = spec.def_runs.expand(spec.n)
         valid = levels == spec.leaf.max_def
-    return _decode_values(spec, data, meta, dict_strings, checks, valid)
+    return _decode_values(spec, dev, dict_strings, checks, valid)
 
 
-def _decode_values(spec: _ColumnSpec, data: torch.Tensor, meta: torch.Tensor,
-                   dict_strings: bool, checks: list,
-                   valid: Optional[torch.Tensor]) -> Column:
+def _decode_values(spec: _ColumnSpec, dev: torch.device, dict_strings: bool,
+                   checks: list, valid: Optional[torch.Tensor]) -> Column:
     """The column of ``spec.n`` values whose present ones the pages hold,
     spread over the slots ``valid`` marks (None: every slot)."""
     leaf, dt, n, kind = spec.leaf, spec.dtype, spec.n, spec.kind
     if kind == "bool":
-        present = _bool_values(spec, data, meta, checks)
+        present = _bool_values(spec, dev, checks)
         return Column(dt, _spread(present, valid, n), validity=valid)
     text = dt.id == T.TypeId.STRING
     if kind == "plain_str" and text:
-        chars, offs = _plain_chars(spec, data)
+        chars, offs = _plain_chars(spec)
         return _string_column(spec, chars, offs, valid)
-    plain = (_plain_values(spec, data)
+    plain = (_plain_values(spec)
              if kind in ("plain", "mixed", "plain_str", "mixed_str")
              and not text else None)
     idx = coded = None
     if kind in ("dict", "mixed", "dict_str", "mixed_str"):
-        idx = _codes(spec, data, meta, checks)
+        idx = _codes(spec, checks)
     if not text:
         if idx is not None:
-            dvals = _dictionary(spec, data)
+            dvals = _dictionary(spec)
             coded = (dvals[_in_range(idx, spec).to(torch.int64)]
                      if spec.n_dict else dvals[:0])
         return Column(dt, _spread(_interleave(spec, plain, coded), valid, n),
                       validity=valid)
     if kind == "mixed_str":
-        return _mixed_strings(spec, data, idx, valid)
-    start, nbytes = spec.dict_values
+        return _mixed_strings(spec, idx, valid)
     dictionary = Column(
-        T.string, data[start:start + nbytes].clone(),
-        torch.from_numpy(spec.dict_offsets.astype(np.int32)).to(data.device))
+        T.string, spec.dict_values.get().clone(),
+        torch.from_numpy(spec.dict_offsets.astype(np.int32)).to(dev))
     col = DictColumn(_spread(idx, valid, n), dictionary, valid)
     return col if dict_strings else col.materialize()
 
@@ -1039,7 +1057,20 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
     DELTA page, whose values were decoded on the host (the JAX package's
     ``parquet.host_fallback_cols``).
 
-    Host synchronisations: the wait for the slab's copy, one check that
+    Staging (``parquet.staging``): the byte ranges and run tables ship
+    as capped slab waves while the columns stage, and with more than one
+    column and no row filter a producer thread walks column k+1 while
+    column k stages (``parquet.stage.overlap``).  The decode runs under
+    an arena reservation of the staged bytes (tag ``parquet.scan``); under
+    ``SRJT_SCAN_DONATE`` each wave is dropped once its last column has
+    decoded.  The table is registered as the evictable resident
+    ``parquet.scan_out`` (a no-op unless the budget is active).  Counters:
+    ``parquet.chunks``, ``parquet.pages.*``, ``parquet.bytes.*``,
+    ``parquet.codec.<name>.chunks``, ``parquet.stage.*``,
+    ``parquet.device_cols`` and ``parquet.host_fallback_cols``.
+
+    Host synchronisations: the waits for the waves' copies (before their
+    pinned buffers go), one check that
     every dictionary code names an entry (raises ``ValueError``), and, in
     a string column of PLAIN and dictionary runs, the materialization's
     and one read of where its dictionary runs' chars end."""
@@ -1067,47 +1098,221 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
         _count("rowgroups_kept", len(kept))
         metrics.profile_op("scan.prune", rowgroups_pruned=pruned,
                            rowgroups_kept=len(kept))
-    slab = Slab()
+    st = SlabStager(dev)
+    rec = metrics.recording()
     complete = False
-    # the spans are what tools/torch_profile_scan.py reads (the walk's
-    # decompression is parquet.scan.decompress, in decode.decompress; the
-    # walk's span also covers the staging, after the row filter's)
-    with func_range("parquet.scan.walk"):
-        walks = {i: [_walk_chunk(mv, groups_list[g].get(D.RG.COLUMNS)
-                                 .values[i], leaves[i]) for g in kept]
-                 for i in want}
-    host_decoded = sum(any(w.host_decoded for w in walks[i]) for i in want)
-    lists = any(leaves[i].max_rep > 0 for i in want)
-    if (row_predicate and knobs.get("SRJT_FUSED_FILTER") and not host_decoded
-            and not lists):
-        with func_range("parquet.scan.rowfilter"):
-            pruned = rowfilter.apply(row_predicate, walks, leaves,
-                                     [leaf.name for leaf in leaves], want)
-        if pruned is not None:
-            walks, complete, n_kept = pruned
-            _count("rowfilter.scans")
-            _count("rowfilter.rows_kept", n_kept)
-            _count("rowfilter.complete", complete)
-    with func_range("parquet.scan.walk"):
-        specs = [_stage_column(walks[i], leaves[i], slab) for i in want]
-    with func_range("parquet.scan.upload"):
-        data, run_tables = slab.upload(dev)
-    checks: list[torch.Tensor] = []
+    use_filter = bool(row_predicate) and knobs.get("SRJT_FUSED_FILTER")
+    pipelined = (st.slabs and not use_filter and len(want) > 1
+                 and knobs.get("SRJT_STAGE_PIPELINE"))
+    chunks = {i: [groups_list[g].get(D.RG.COLUMNS).values[i] for g in kept]
+              for i in want}
     try:
-        with func_range("parquet.scan.decode"):
-            cols = [_decode(s, data, run_tables, dict_strings, checks)
-                    for s in specs]
-            if checks and bool(torch.stack(checks).any()):
-                raise ValueError("a dictionary code names no entry of its "
-                                 "dictionary")
+        if pipelined:
+            walks, specs = _walk_and_stage(mv, chunks, leaves, want, st, rec)
+        else:
+            # the spans are what tools/torch_profile_scan.py reads (the
+            # walk's decompression is parquet.scan.decompress, in
+            # decode.decompress; the walk's span also covers the staging,
+            # after the row filter's)
+            t0 = time.perf_counter()
+            with func_range("parquet.scan.walk"):
+                walks = {i: [_walk_chunk(mv, c, leaves[i], rec)
+                             for c in chunks[i]] for i in want}
+            t1 = time.perf_counter()
+            if (use_filter and not _host_decoded(walks, want)
+                    and not any(leaves[i].max_rep > 0 for i in want)):
+                with func_range("parquet.scan.rowfilter"):
+                    pruned = rowfilter.apply(row_predicate, walks, leaves,
+                                             [leaf.name for leaf in leaves],
+                                             want)
+                if pruned is not None:
+                    walks, complete, n_kept = pruned
+                    _count("rowfilter.scans")
+                    _count("rowfilter.rows_kept", n_kept)
+                    _count("rowfilter.complete", complete)
+            specs = []
+            t2 = time.perf_counter()
+            with func_range("parquet.scan.walk"):
+                for k, i in enumerate(want):
+                    specs.append(_stage(k, walks[i], leaves[i], st))
+            # the pipeline's overlap event carries the same two times
+            flight.record("parquet.stage.sequential", columns=len(want),
+                          walk_ms=round((t1 - t0) * 1e3, 3),
+                          stage_ms=round((time.perf_counter() - t2) * 1e3,
+                                         3))
+        host_decoded = _host_decoded(walks, want)
+        with func_range("parquet.scan.upload"):
+            st.flush()
+        cols = _decode_all(specs, st, dev, dict_strings)
     finally:
-        slab.release()
+        st.release()
+    if rec:
+        # the device/host split of each scan (the JAX package's coverage
+        # counters; a DELTA column decodes on the host, then on the card)
+        metrics.count("parquet.device_cols", len(want) - host_decoded)
+        metrics.count("parquet.host_fallback_cols", host_decoded)
+        metrics.annotate(device_cols=len(want) - host_decoded,
+                         fallback_cols=host_decoded)
     out = Table(cols, host_decoded_cols=host_decoded,
                 fused_filter_complete=complete)
     metrics.profile_op("scan", rows_out=out.num_rows, cols=len(want),
                        rowgroups=len(kept), fallback_cols=host_decoded)
+    # the output is an evictable resident under the budget (a no-op
+    # unless the budget is active)
+    mspill.register_table(out, "parquet.scan_out")
     return out
 
 
-# as in the JAX package: callers may name the scan read_table
-read_table = scan_table
+def _stage(k: int, walks: list[_ChunkWalk], leaf: D.Leaf,
+           st: SlabStager) -> _ColumnSpec:
+    """Stage the ``k``-th wanted column (donation's bookkeeping first)."""
+    st.begin_column(k)
+    return _stage_column(walks, leaf, st)
+
+
+def _host_decoded(walks: dict, want: list[int]) -> int:
+    """The wanted columns with a page decoded on the host (DELTA)."""
+    return sum(any(w.host_decoded for w in walks[i]) for i in want)
+
+
+def _span_overlap_ms(a_spans, b_spans) -> float:
+    """Σ pairwise intersection of two interval lists, in milliseconds:
+    how long the page walk ran while the staging did."""
+    total = 0.0
+    for a0, a1 in a_spans:
+        for b0, b1 in b_spans:
+            total += max(0.0, min(a1, b1) - max(a0, b0))
+    return total * 1000.0
+
+
+def _walk_and_stage(mv: memoryview, chunks: dict, leaves: list[D.Leaf],
+                    want: list[int], st: SlabStager, rec: bool):
+    """The walk/stage pipeline (the JAX package's ``pipelined`` branch,
+    ``spark_rapids_jni_tpu/parquet/device_scan.py:1205-1278``): a daemon
+    producer thread walks column k+1's chunks while this thread stages
+    column k and ships the waves that fill; a bounded queue of
+    ``SRJT_STAGE_PIPELINE_DEPTH`` columns joins them.  An exception in
+    the producer is raised here, and the producer is never left blocked
+    on a full queue.  The walk's and the staging's spans go into
+    ``parquet.stage.overlap`` (flight) and ``parquet.stage.overlap_ms``.
+
+    Only this thread's ranges reach ``torch.profiler``, so its
+    ``parquet.scan.walk`` range covers the wait for the walks and the
+    staging; the flight event carries the walk's and the staging's own
+    milliseconds (``walk_ms``, ``stage_ms``)."""
+    depth = max(1, knobs.get("SRJT_STAGE_PIPELINE_DEPTH") or 2)
+    ch: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    walk_spans: list[tuple[float, float]] = []
+    stage_spans: list[tuple[float, float]] = []
+
+    def produce():
+        try:
+            for i in want:
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                walk = [_walk_chunk(mv, c, leaves[i], rec) for c in chunks[i]]
+                walk_spans.append((t0, time.perf_counter()))
+                ch.put((i, walk))
+        except BaseException as exc:   # raised again by the consumer
+            ch.put((None, exc))
+
+    th = threading.Thread(target=produce, name="srjt-scan-walk", daemon=True)
+    walks, specs = {}, []
+    th.start()
+    try:
+        with func_range("parquet.scan.walk"):
+            for k in range(len(want)):
+                i, walk = ch.get()
+                if i is None:
+                    raise walk
+                walks[i] = walk
+                t0 = time.perf_counter()
+                specs.append(_stage(k, walk, leaves[i], st))
+                stage_spans.append((t0, time.perf_counter()))
+    finally:
+        stop.set()
+        # never leave the producer blocked on a bounded put
+        while th.is_alive():
+            try:
+                ch.get_nowait()
+            except queue.Empty:
+                th.join(0.05)
+        th.join()
+    overlap_ms = _span_overlap_ms(walk_spans, stage_spans)
+    flight.record("parquet.stage.overlap", overlap_ms=round(overlap_ms, 3),
+                  columns=len(want),
+                  walk_ms=round(sum(b - a for a, b in walk_spans) * 1e3, 3),
+                  stage_ms=round(sum(b - a for a, b in stage_spans) * 1e3, 3))
+    if rec:
+        metrics.count("parquet.stage.overlap_ms", int(round(overlap_ms)))
+    return walks, specs
+
+
+def _decode_all(specs: list[_ColumnSpec], st: SlabStager, dev: torch.device,
+                dict_strings: bool) -> list[Column]:
+    """Every column's decode, under an arena reservation of the staged
+    bytes; under ``SRJT_SCAN_DONATE`` each wave goes as soon as the last
+    column reading it has decoded (``parquet.scan.donated_bytes``,
+    ``parquet.scan.donate``).  One synchronisation checks every
+    dictionary code."""
+    donate = staging.donate_enabled(dev)
+    checks: list[torch.Tensor] = []
+    cols: list[Column] = []
+    dropped = 0
+    with arena.reserve(st.staged_bytes, tag="parquet.scan"), \
+            func_range("parquet.scan.decode"):
+        for k, s in enumerate(specs):
+            cols.append(_decode(s, dev, dict_strings, checks))
+            if donate:
+                waves = st.drop_read_by(k)
+                _check_no_alias(cols, waves)
+                dropped += len(waves)
+        if checks and bool(torch.stack(checks).any()):
+            raise ValueError("a dictionary code names no entry of its "
+                             "dictionary")
+    if donate:
+        flight.record("parquet.scan.donate", buffers=dropped,
+                      bytes=st.dropped_bytes)
+        metrics.count("parquet.scan.donated_bytes", st.dropped_bytes)
+    return cols
+
+
+def _tensors(col: Column):
+    """Every tensor a decoded column holds (its children's too)."""
+    if isinstance(col, DictColumn):
+        yield from (col.codes, col.validity)
+        yield from _tensors(col.dictionary)
+        return
+    yield from (col.data, col.offsets, col.validity)
+    for child in col.children or ():
+        yield from _tensors(child)
+
+
+def _check_no_alias(cols: list[Column], waves: list[tuple[int, int]]) -> None:
+    """Under ``SRJT_SANITIZE``: no decoded column may hold storage of a
+    wave being dropped (``strict`` raises, ``1`` files an incident)."""
+    if not waves or not sanitize.enabled():
+        return
+    addrs = {addr for addr, _ in waves}
+    bad = [i for i, c in enumerate(cols) for t in _tensors(c)
+           if t is not None and t.untyped_storage().data_ptr() in addrs]
+    if not bad:
+        return
+    msg = (f"parquet scan: decoded columns {sorted(set(bad))} alias a "
+           "donated slab wave")
+    if sanitize.strict():
+        raise RuntimeError(msg)
+    flight.incident("scan_alias", detail=msg)
+
+
+@fault_site("parquet_read_table")
+def read_table(file_bytes, columns: Optional[list[str]] = None,
+               row_groups: Optional[list[int]] = None, **kw) -> Table:
+    """:func:`scan_table` under the name callers of the JAX package's
+    ``parquet.decode.read_table`` use, and its fault site
+    (``parquet_read_table``); plain ``scan_table`` callers are not
+    intercepted."""
+    return scan_table(file_bytes, columns, row_groups, **kw)
+

@@ -28,6 +28,7 @@ import dataclasses
 import struct as _struct
 from typing import Optional, Sequence
 
+from ..faultinj.injector import fault_site
 from .thrift import (CompactReader, CompactWriter, Field, ListValue, Struct,
                      ThriftError, TType, parse_struct, serialize_struct)
 
@@ -405,6 +406,7 @@ class ParquetFooter:
         return MAGIC + body + _struct.pack("<I", len(body)) + MAGIC
 
 
+@fault_site("parquet_read_and_filter")
 def read_and_filter(buf: bytes, part_offset: int, part_length: int,
                     schema: SchemaNode, ignore_case: bool = False) -> ParquetFooter:
     """Parse a raw footer thrift blob, prune columns, filter row groups.

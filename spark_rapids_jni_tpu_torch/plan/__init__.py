@@ -19,6 +19,7 @@ from .ir import (GROUPING_ID, Aggregate, And, Between, Cmp, Col, Distinct,
                  Window, expr_columns, fingerprint, render, schema_of)
 from .lower import (FileCatalog, TableCatalog, compile_plan, execute,
                     rowgroup_conditions)
+from .profile import NodeProfile, QueryProfile, explain_analyze
 from .rules import DEFAULT_RULES, OptimizeResult, explain, optimize
 from .stats import GLOBAL as GLOBAL_STATS
 from .stats import CardinalityStats
@@ -35,4 +36,5 @@ __all__ = [
     "optimize", "explain", "DEFAULT_RULES", "OptimizeResult",
     "compile_plan", "execute", "TableCatalog", "FileCatalog",
     "rowgroup_conditions", "CardinalityStats", "GLOBAL_STATS",
+    "NodeProfile", "QueryProfile", "explain_analyze",
 ]

@@ -42,6 +42,7 @@ import torch
 
 from .. import types as T
 from ..column import Column, DictColumn, Table, as_dict_column, force_column
+from ..faultinj.injector import fault_site
 from ..utils import bitmask, hostcache, metrics
 from ..utils.tracing import traced
 from . import ragged, xpack
@@ -336,6 +337,7 @@ def _eager(col):
 
 
 @traced("convert_to_rows")
+@fault_site("convert_to_rows")
 def convert_to_rows(table: Table,
                     max_batch_bytes: Optional[int] = None) -> list[RowBatch]:
     """Table → JCUDF row batches (``convert_to_rows``,
@@ -442,6 +444,7 @@ def _from_rows_strings(layout: RowLayout, batch: RowBatch):
 
 
 @traced("convert_from_rows")
+@fault_site("convert_from_rows")
 def convert_from_rows(batch: RowBatch, schema: Sequence[T.DType]) -> Table:
     """JCUDF rows → Table (``convert_from_rows``,
     ``row_conversion.cu:2032-2250``).  Takes exactly one batch."""

@@ -34,10 +34,10 @@ from typing import Any, Dict, Optional, Sequence
 from ..plan import ir, lower, rules
 from ..utils import flight, knobs, metrics
 from .binder import bind
-from .parser import parse, to_sql
+from .parser import Query, parse, to_sql
 from .tokenizer import SqlError
 
-__all__ = ["SqlError", "parse", "to_sql", "bind", "sql_to_plan",
+__all__ = ["SqlError", "Query", "parse", "to_sql", "bind", "sql_to_plan",
            "compile_sql", "cache_stats", "clear_cache"]
 
 

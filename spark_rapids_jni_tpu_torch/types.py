@@ -141,6 +141,14 @@ class DType:
         return self.id in (TypeId.LIST, TypeId.STRUCT)
 
     @property
+    def is_timestamp(self) -> bool:
+        return TypeId.TIMESTAMP_DAYS <= self.id <= TypeId.TIMESTAMP_NANOSECONDS
+
+    @property
+    def is_numeric(self) -> bool:
+        return TypeId.INT8 <= self.id <= TypeId.FLOAT64
+
+    @property
     def storage(self) -> np.dtype:
         """numpy storage dtype of the fixed-width payload."""
         if not self.is_fixed_width:

@@ -13,6 +13,7 @@ vector per column, so ``pack_bool_matrix(stack(vectors, 0).t())`` and
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -49,3 +50,16 @@ def pack_bits(valid: torch.Tensor) -> torch.Tensor:
 def unpack_bits(mask: torch.Tensor, n: int) -> torch.Tensor:
     """uint8 bitmask → bool [n]."""
     return unpack_bool_matrix(mask.reshape(1, -1), n).reshape(-1)
+
+
+# numpy twins (the host's oracle and the tests' reference)
+
+def pack_bits_np(valid: np.ndarray) -> np.ndarray:
+    """bool [n] → uint8 [⌈n/8⌉] little-endian bitmask, on the host."""
+    return np.packbits(np.asarray(valid, dtype=np.uint8), bitorder="little")
+
+
+def unpack_bits_np(mask: np.ndarray, n: int) -> np.ndarray:
+    """uint8 bitmask → bool [n], on the host."""
+    return np.unpackbits(np.asarray(mask, dtype=np.uint8),
+                         count=n, bitorder="little").astype(bool)

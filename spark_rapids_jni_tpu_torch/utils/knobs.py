@@ -184,6 +184,28 @@ register("SRJT_FUSED_FILTER", "1", _on_unless_0_off,
          "walked host pages (dictionary entries evaluated once, codes "
          "masked) before anything is staged; `0`/`off` decodes all rows "
          "and filters after", "parquet")
+register("SRJT_STAGE_SLABS", "1", _on_unless_0_off,
+         "coalesced h2d staging: the scan's byte ranges and run tables "
+         "upload as a few large pinned slab waves instead of one copy a "
+         "range; `0`/`off` reverts to per-range uploads (the "
+         "differential baseline)", "parquet")
+register("SRJT_STAGE_SLAB_BYTES", "64m", parse_bytes,
+         "slab wave size cap for the coalescing stager (`64m` forms, at "
+         "least 1 MiB); a wave ships when the next range would pass it",
+         "parquet")
+register("SRJT_STAGE_PIPELINE", "1", _on_unless_0_off,
+         "walk/stage pipeline: a producer thread walks and decompresses "
+         "column k+1 while column k stages and its full waves copy; "
+         "`0`/`off` walks then stages, one column after another",
+         "parquet")
+register("SRJT_STAGE_PIPELINE_DEPTH", "2", _int,
+         "columns walked ahead of the staging (the pipeline's queue "
+         "bound)", "parquet")
+register("SRJT_SCAN_DONATE", "auto", _str,
+         "drop each slab wave's device buffer once the last column "
+         "reading it has decoded, so the raw bytes don't double the "
+         "scan's footprint: `auto` = on for a CUDA device, `1`/`on` "
+         "forces, `0`/`off` disables", "parquet")
 
 # serving runtime (exec/)
 register("SRJT_EXEC", "0", _on_unless_off,

@@ -1964,3 +1964,42 @@ def test_table_spill_reuses_strings_mirror_on_card(cuda, monkeypatch):
     finally:
         metrics.set_enabled(None)
         budget.set_enabled(None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("null_fraction", [0.0, 0.1])
+def test_staged_pipelined_scan_equals_per_range_scan(cuda, monkeypatch,
+                                                     null_fraction):
+    """The scan's staging tier on the card: the capped slab waves with
+    the walk/stage pipeline and donation give the bytes of the per-range
+    uploads (SRJT_STAGE_SLABS=0), in more than one wave."""
+    from spark_rapids_jni_tpu_torch.parquet import device_scan, staging
+    W = _lineitem_writer()
+    raw, _, _ = W.lineitem_parquet(50000, 9, row_group_rows=12000,
+                                   null_fraction=null_fraction,
+                                   pages_per_chunk=3, codec="SNAPPY")
+    made = []
+
+    class Spy(staging.SlabStager):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    monkeypatch.setattr(device_scan, "SlabStager", Spy)
+    monkeypatch.setattr(staging, "MIN_SLAB_BYTES", 1)
+    monkeypatch.setenv("SRJT_STAGE_SLABS", "0")
+    per_range = device_scan.scan_table(raw, device=cuda)
+    monkeypatch.setenv("SRJT_STAGE_SLABS", "1")
+    monkeypatch.setenv("SRJT_STAGE_PIPELINE", "1")
+    monkeypatch.setenv("SRJT_STAGE_SLAB_BYTES", "256k")
+    monkeypatch.setenv("SRJT_SCAN_DONATE", "1")
+    staged = device_scan.scan_table(raw, device=cuda)
+    torch.cuda.synchronize()
+    assert made[0].transfers > 16 and made[1].transfers > 1
+    assert made[1].dropped and made[1].dropped_bytes == sum(
+        made[1].wave_bytes)
+    for g, c in zip(staged.columns, per_range.columns):
+        assert type(g) is type(c)
+        assert torch.equal(g.validity_or_true(), c.validity_or_true())
+        assert torch.equal(g.data, c.data)                # materializes
+        if g.dtype.is_variable_width:
+            assert torch.equal(g.offsets, c.offsets)

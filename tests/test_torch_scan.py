@@ -731,4 +731,9 @@ def test_bad_arguments():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pscan.scan_table(raw)
-    assert pscan.read_table is pscan.scan_table
+    # read_table is the scan under its fault site (parquet_read_table)
+    assert pscan.read_table.__fault_site__ == "parquet_read_table"
+    with pytest.raises(KeyError, match="nope"):
+        pscan.read_table(raw, columns=["nope"], device=CPU)
+    assert (pscan.read_table(raw, device=CPU)[0].to_pylist()
+            == pscan.scan_table(raw, device=CPU)[0].to_pylist())

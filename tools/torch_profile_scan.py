@@ -16,11 +16,15 @@ Q1's layout of ``chip_smoke.py`` phase 10 (FLBA decimals); and the scan
 of the 16 columns written as Spark's defaults write them
 (``chip_smoke.py`` phase 11: SNAPPY, dictionary fallback to PLAIN).  For
 each it prints the host wall time, the scan's host spans (page walk, the
-decompression inside it, slab upload, decode launches;
+decompression inside it, the slab waves' uploads, inside the walk for
+the waves that fill while the columns stage, decode launches;
 ``parquet.scan.*`` in ``device_scan.scan_table`` and
 ``decode.decompress``), the device-busy time (the union of the
 kernels' intervals), the device's idle share, and the device ops that took
-the most time.  The full per-op tables go to
+the most time.  The scans run with ``SRJT_STAGE_PIPELINE=0``: under the
+walk/stage pipeline the walk and its decompression run on a producer
+thread, whose ranges ``torch.profiler`` does not record (``chip_smoke.py``
+phase 21 times the pipeline).  The full per-op tables go to
 ``DIR/torch_profile_scan.txt`` (default ``build/profiles``).  Needs a CUDA
 device; imports the port, never JAX.
 """
@@ -72,6 +76,8 @@ def main(argv=None) -> int:
 
     _native.build()
     card = chip_smoke.phase_device()
+    # the spans above are the calling thread's: walk on it (see the doc)
+    os.environ["SRJT_STAGE_PIPELINE"] = "0"
     os.makedirs(args.out, exist_ok=True)
     report = os.path.join(args.out, "torch_profile_scan.txt")
     raw, _, _ = W.lineitem_parquet(W.SF1_ROWS, args.seed)
