@@ -1607,15 +1607,14 @@ def run_kinds(device_scan, raw) -> dict:
 def scan_split(device_scan, raw) -> dict:
     """One profiled ``scan_table`` of ``raw``: its wall, host spans (the
     page walk, the decompression inside it, the slab's upload and the
-    decode launches; ``parquet.scan.*``), the device's busy time and idle
-    share, all in milliseconds.  The walk stays on the calling thread
-    (``SRJT_STAGE_PIPELINE=0``), whose ranges the profiler records."""
-    from torch_profile_rowconv import _busy_us, profile_call
-    from torch_profile_scan import _span_ms
-    with env(SRJT_STAGE_PIPELINE="0"):
-        prof, wall = profile_call(lambda: device_scan.scan_table(raw))
+    decode launches; ``parquet.scan.*``, with the pipelined walk's from
+    its overlap event), the device's busy time and idle share, all in
+    milliseconds.  The scan runs in the default staging mode."""
+    from torch_profile_rowconv import _busy_us
+    from torch_profile_scan import profile_scans
+    prof, wall, split = profile_scans(lambda: device_scan.scan_table(raw))
     busy = _busy_us(prof)
-    out = {k: round(v, 3) for k, v in _span_ms(prof).items()}
+    out = {k: round(v, 3) for k, v in split.items()}
     out.update(wall_ms=round(wall / 1e3, 3), device_busy_ms=round(busy / 1e3, 3),
                idle_share=round(1 - busy / wall, 3))
     return out
@@ -2616,15 +2615,14 @@ def file_split(fn) -> dict:
     """One profiled call of ``fn``: its wall, the scans' host spans
     (``parquet.scan.*``: the page walk with the staging, the
     decompression inside the walk, the row filter, the upload and the
-    decode launches), the device's busy time and idle share, in ms.  The
-    walk stays on the calling thread (``SRJT_STAGE_PIPELINE=0``), whose
-    ranges the profiler records."""
-    from torch_profile_rowconv import _busy_us, profile_call
-    from torch_profile_scan import _span_ms
-    with env(SRJT_STAGE_PIPELINE="0"):
-        prof, wall = profile_call(fn)
+    decode launches, with the pipelined walk's from its overlap event),
+    the device's busy time and idle share, in ms.  The scans run in the
+    default staging mode."""
+    from torch_profile_rowconv import _busy_us
+    from torch_profile_scan import profile_scans
+    prof, wall, split = profile_scans(fn)
     busy = _busy_us(prof)
-    out = {k: round(v, 3) for k, v in _span_ms(prof).items()}
+    out = {k: round(v, 3) for k, v in split.items()}
     out.update(wall_ms=round(wall / 1e3, 3),
                device_busy_ms=round(busy / 1e3, 3),
                idle_share=round(1 - busy / wall, 3))
@@ -5356,10 +5354,10 @@ def stagers(device_scan):
 
 
 def staged_scan(device_scan, flight, raw, knobs: dict) -> tuple:
-    """One scan under ``knobs``: (table, its stager, wall s, the scan's
-    walk and staging event, ``parquet.stage.overlap`` or
-    ``parquet.stage.sequential``, and peak bytes allocated above what was
-    live before)."""
+    """One scan under ``knobs``: (table, its stager, wall s, the
+    pipeline's walk and staging event, ``parquet.stage.overlap``, or {}
+    where the scan did not run the pipeline, and peak bytes allocated
+    above what was live before)."""
     with env(**knobs), stagers(device_scan) as made:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -5370,8 +5368,8 @@ def staged_scan(device_scan, flight, raw, knobs: dict) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base
-    spans = [e for e in flight.events() if e["kind"] in (
-        "parquet.stage.overlap", "parquet.stage.sequential")]
+    spans = [e for e in flight.events()
+             if e["kind"] == "parquet.stage.overlap"]
     return table, made[0], wall, (spans[-1] if spans else {}), peak
 
 
@@ -5430,10 +5428,12 @@ def phase_staging(kernels, card, launches, files: dict) -> None:
             for mode, r in rows.items():
                 r["wall_median_s"] = statistics.median(r["wall_s"])
                 r["overlap_ms"] = statistics.median(r["overlap_ms"])
+                threads = ("" if r["walk_ms"] is None else
+                           f" (last call's walk {r['walk_ms']}, staging "
+                           f"{r['stage_ms']} ms)")
                 log(f"[staging] {name} {mode}: wall {r['wall_median_s']:.4f}"
                     f" s (calls {r['wall_s']}), overlap {r['overlap_ms']:.3f}"
-                    f" ms (last call's walk {r['walk_ms']}, staging "
-                    f"{r['stage_ms']} ms),"
+                    f" ms{threads},"
                     f" {r['transfers']} transfers, largest wave "
                     f"{r['largest_wave']} bytes of {r['staged_bytes']}, "
                     f"peak allocated {r['peak_off']} / {r['peak_on']} bytes "

@@ -177,9 +177,9 @@ def default_limit() -> Optional[int]:
     env = parse_bytes(knobs.get("SRJT_HBM_BUDGET"))
     if env is not None:
         return env
-    h = metrics.snapshot()["histograms"].get("join.expand.pair_elements")
-    if h:
-        return max(int(h["max"] * PAIR_EXPANSION_BYTES * _HEADROOM),
+    most = metrics.histogram_max("join.expand.pair_elements")
+    if most is not None:
+        return max(int(most * PAIR_EXPANSION_BYTES * _HEADROOM),
                    _FLOOR_BYTES)
     return card_bytes()
 

@@ -16,8 +16,9 @@ between host and device is the same:
   device needs, and every run table, goes through the stager
   (``staging.SlabStager``): capped slab waves, each one non-blocking copy,
   shipped as they fill (``SRJT_STAGE_SLABS``, ``SRJT_STAGE_SLAB_BYTES``).
-  With more than one column and no row filter, a producer thread walks
-  column k+1 while column k stages (``SRJT_STAGE_PIPELINE``); under
+  Under ``SRJT_STAGE_PIPELINE`` (off by default), with more than one
+  column and no row filter, a producer thread walks column k+1 while
+  column k stages; under
   ``SRJT_SCAN_DONATE`` each wave goes once the last column reading it
   has decoded.
 * device: PLAIN payloads and numeric dictionaries become owned words with
@@ -94,6 +95,10 @@ from .thrift import parse_struct
 
 # char offsets are int32, as in the JAX package
 _MAX_CHARS = 2**31 - 1
+#: columns the walk/stage pipeline's producer walks ahead of the staging
+#: (its queue's bound; the JAX package's ``SRJT_STAGE_PIPELINE_DEPTH``
+#: default, a constant here)
+PIPELINE_DEPTH = 2
 
 #: since :func:`reset_counts`: ``rowgroups_pruned`` / ``rowgroups_kept``
 #: by footer statistics, and of the fused row filter, ``rowfilter.scans``
@@ -1114,11 +1119,9 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
             # walk's decompression is parquet.scan.decompress, in
             # decode.decompress; the walk's span also covers the staging,
             # after the row filter's)
-            t0 = time.perf_counter()
             with func_range("parquet.scan.walk"):
                 walks = {i: [_walk_chunk(mv, c, leaves[i], rec)
                              for c in chunks[i]] for i in want}
-            t1 = time.perf_counter()
             if (use_filter and not _host_decoded(walks, want)
                     and not any(leaves[i].max_rep > 0 for i in want)):
                 with func_range("parquet.scan.rowfilter"):
@@ -1131,15 +1134,9 @@ def scan_table(file_bytes, columns: Optional[list[str]] = None,
                     _count("rowfilter.rows_kept", n_kept)
                     _count("rowfilter.complete", complete)
             specs = []
-            t2 = time.perf_counter()
             with func_range("parquet.scan.walk"):
                 for k, i in enumerate(want):
                     specs.append(_stage(k, walks[i], leaves[i], st))
-            # the pipeline's overlap event carries the same two times
-            flight.record("parquet.stage.sequential", columns=len(want),
-                          walk_ms=round((t1 - t0) * 1e3, 3),
-                          stage_ms=round((time.perf_counter() - t2) * 1e3,
-                                         3))
         host_decoded = _host_decoded(walks, want)
         with func_range("parquet.scan.upload"):
             st.flush()
@@ -1191,7 +1188,7 @@ def _walk_and_stage(mv: memoryview, chunks: dict, leaves: list[D.Leaf],
     ``spark_rapids_jni_tpu/parquet/device_scan.py:1205-1278``): a daemon
     producer thread walks column k+1's chunks while this thread stages
     column k and ships the waves that fill; a bounded queue of
-    ``SRJT_STAGE_PIPELINE_DEPTH`` columns joins them.  An exception in
+    :data:`PIPELINE_DEPTH` columns joins them.  An exception in
     the producer is raised here, and the producer is never left blocked
     on a full queue.  The walk's and the staging's spans go into
     ``parquet.stage.overlap`` (flight) and ``parquet.stage.overlap_ms``.
@@ -1200,8 +1197,7 @@ def _walk_and_stage(mv: memoryview, chunks: dict, leaves: list[D.Leaf],
     ``parquet.scan.walk`` range covers the wait for the walks and the
     staging; the flight event carries the walk's and the staging's own
     milliseconds (``walk_ms``, ``stage_ms``)."""
-    depth = max(1, knobs.get("SRJT_STAGE_PIPELINE_DEPTH") or 2)
-    ch: queue.Queue = queue.Queue(maxsize=depth)
+    ch: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
     stop = threading.Event()
     walk_spans: list[tuple[float, float]] = []
     stage_spans: list[tuple[float, float]] = []

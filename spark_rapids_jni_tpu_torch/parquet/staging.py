@@ -174,13 +174,15 @@ class Ref:
         self._dev: Optional[torch.Tensor] = None
 
     def get(self) -> torch.Tensor:
-        """The device view (ships the wave if it is still filling)."""
+        """The device view; raises before its wave has shipped (the scan
+        flushes before any decode reads) or once it was dropped."""
         if self._dev is None:
             if self.wave in self._stager.dropped:
                 raise RuntimeError(f"staging: wave {self.wave} was dropped "
                                    "(donated, or the scan ended) before "
                                    "this range was read")
-            self._stager.flush()
+            raise RuntimeError(f"staging: wave {self.wave} was read before "
+                               "it shipped (flush first)")
         return self._dev
 
 

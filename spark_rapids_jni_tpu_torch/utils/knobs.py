@@ -193,14 +193,12 @@ register("SRJT_STAGE_SLAB_BYTES", "64m", parse_bytes,
          "slab wave size cap for the coalescing stager (`64m` forms, at "
          "least 1 MiB); a wave ships when the next range would pass it",
          "parquet")
-register("SRJT_STAGE_PIPELINE", "1", _on_unless_0_off,
+register("SRJT_STAGE_PIPELINE", "0", _on_unless_0_off,
          "walk/stage pipeline: a producer thread walks and decompresses "
-         "column k+1 while column k stages and its full waves copy; "
-         "`0`/`off` walks then stages, one column after another",
-         "parquet")
-register("SRJT_STAGE_PIPELINE_DEPTH", "2", _int,
-         "columns walked ahead of the staging (the pipeline's queue "
-         "bound)", "parquet")
+         "column k+1 while column k stages and its full waves copy; off "
+         "by default (the JAX package's default is on): on the H100 it "
+         "slows the SF1 SNAPPY scan, so `0` walks then stages, one column "
+         "after another", "parquet")
 register("SRJT_SCAN_DONATE", "auto", _str,
          "drop each slab wave's device buffer once the last column "
          "reading it has decoded, so the raw bytes don't double the "

@@ -190,6 +190,14 @@ def counter_value(name: str, default: float = 0) -> float:
         return _counters.get(name, default)
 
 
+def histogram_max(name: str) -> Optional[float]:
+    """The largest observation of histogram ``name`` (None when it has
+    none), without :func:`snapshot`'s copy of everything."""
+    with _lock:
+        h = _hists.get(name)
+        return None if h is None else h["max"]
+
+
 def gauge(name: str, value: float) -> None:
     """Set gauge ``name`` to ``value``."""
     if not recording():

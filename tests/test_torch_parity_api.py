@@ -50,6 +50,14 @@ def _limit() -> object:
         return q.limit
 
 
+def test_histogram_max_reads_one_histogram(both_metrics):
+    assert metrics.histogram_max("join.expand.pair_elements") is None
+    for n in (7, 90, 3):
+        metrics.observe("join.expand.pair_elements", n)
+    assert metrics.histogram_max("join.expand.pair_elements") == 90
+    assert metrics.histogram_max("join.expand.other") is None
+
+
 @pytest.mark.parametrize("pairs", [[10], [1000, 3_000_000, 20],
                                    [50_000_000], [419_430, 419_431]])
 def test_default_limit_from_the_histogram_equals_jax(both_metrics, pairs):

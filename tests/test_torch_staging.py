@@ -242,8 +242,8 @@ def test_stager_per_range_mode_uploads_through_the_funnel(env, monkeypatch):
 
 
 def test_producer_error_reaches_caller(raw, env, monkeypatch):
-    env(SRJT_STAGE_SLABS="1", SRJT_STAGE_PIPELINE="1",
-        SRJT_STAGE_PIPELINE_DEPTH="1")
+    env(SRJT_STAGE_SLABS="1", SRJT_STAGE_PIPELINE="1")
+    monkeypatch.setattr(pscan, "PIPELINE_DEPTH", 1)
     walk = pscan._walk_chunk
     seen = []
 
@@ -261,8 +261,8 @@ def test_producer_error_reaches_caller(raw, env, monkeypatch):
 
 
 def test_staging_error_stops_the_producer(raw, env, monkeypatch):
-    env(SRJT_STAGE_SLABS="1", SRJT_STAGE_PIPELINE="1",
-        SRJT_STAGE_PIPELINE_DEPTH="1")
+    env(SRJT_STAGE_SLABS="1", SRJT_STAGE_PIPELINE="1")
+    monkeypatch.setattr(pscan, "PIPELINE_DEPTH", 1)
     stage = pscan._stage_column
 
     def failing(walks, leaf, st):
@@ -402,11 +402,40 @@ def test_one_column_is_not_pipelined(raw, env, recording):
     pscan.scan_table(raw, columns=["s"], device=CPU)
     assert not [e for e in flight.events()
                 if e["kind"] == "parquet.stage.overlap"]
-    (seq,) = [e for e in flight.events()
-              if e["kind"] == "parquet.stage.sequential"]
-    assert seq["columns"] == 1 and seq["walk_ms"] > 0
     assert [e["kind"] for e in flight.events()].count(
         "parquet.stage.flush") == 1
+
+
+def test_pipeline_is_off_by_default(raw, env, recording, monkeypatch):
+    """Without the knob a scan of many columns walks then stages on the
+    calling thread: no producer, no overlap event."""
+    monkeypatch.delenv("SRJT_STAGE_PIPELINE", raising=False)
+    env(SRJT_STAGE_SLABS="1")
+    started = []
+    thread = threading.Thread
+
+    class Spy(thread):
+        def start(self):
+            started.append(self.name)
+            super().start()
+    monkeypatch.setattr(threading, "Thread", Spy)
+    pscan.scan_table(raw, device=CPU)
+    assert "srjt-scan-walk" not in started
+    assert not [e for e in flight.events()
+                if e["kind"] == "parquet.stage.overlap"]
+
+
+def test_ref_read_before_its_wave_ships_raises(env):
+    """A range is read only after a flush: reading it while its wave
+    still fills raises and ships nothing."""
+    st = staging.SlabStager(torch.device(CPU))
+    ref = st.add([b"early"])
+    with pytest.raises(RuntimeError, match="before it shipped"):
+        ref.get()
+    assert st.transfers == 0
+    st.flush()
+    assert bytes(ref.get().tolist()) == b"early"
+    st.release()
 
 
 def test_no_wave_outlives_the_scan(raw, env, monkeypatch):
@@ -427,14 +456,15 @@ def test_no_wave_outlives_the_scan(raw, env, monkeypatch):
         ref.get()
 
 
-def test_concurrent_pipelined_scans_stress(raw, jax_scan, env):
+def test_concurrent_pipelined_scans_stress(raw, jax_scan, env, monkeypatch):
     """More pipelined scans at once than cores, the interpreter switching
     threads every microsecond: each scan's producer and queue are its
     own, so every table still holds the JAX package's bytes."""
     import os
     import sys
     env(SRJT_STAGE_SLABS="1", SRJT_STAGE_PIPELINE="1",
-        SRJT_STAGE_PIPELINE_DEPTH="1", SRJT_STAGE_SLAB_BYTES=str(SMALL_CAP))
+        SRJT_STAGE_SLAB_BYTES=str(SMALL_CAP))
+    monkeypatch.setattr(pscan, "PIPELINE_DEPTH", 1)
     want = [jax_scan[0].columns[i] for i in (0, 4)]
     results, errors = [], []
 

@@ -21,10 +21,12 @@ the waves that fill while the columns stage, decode launches;
 ``parquet.scan.*`` in ``device_scan.scan_table`` and
 ``decode.decompress``), the device-busy time (the union of the
 kernels' intervals), the device's idle share, and the device ops that took
-the most time.  The scans run with ``SRJT_STAGE_PIPELINE=0``: under the
-walk/stage pipeline the walk and its decompression run on a producer
-thread, whose ranges ``torch.profiler`` does not record (``chip_smoke.py``
-phase 21 times the pipeline).  The full per-op tables go to
+the most time.  The scans run as the environment sets them: under
+``SRJT_STAGE_PIPELINE=1`` the walk and its decompression run on a
+producer thread, whose ranges ``torch.profiler`` does not record, so the
+walk's and the staging's milliseconds then come from the scans'
+``parquet.stage.overlap`` events (``walk_thread``, ``stage_thread``,
+``overlap``).  The full per-op tables go to
 ``DIR/torch_profile_scan.txt`` (default ``build/profiles``).  Needs a CUDA
 device; imports the port, never JAX.
 """
@@ -34,6 +36,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import torch
 
@@ -55,6 +58,32 @@ def _span_ms(prof) -> dict:
     return out
 
 
+def profile_scans(fn) -> tuple:
+    """``profile_call(fn)`` and the scans' milliseconds inside it: the
+    profiler's spans, and where a scan ran the walk/stage pipeline, the
+    producer thread's walk, the staging and their overlap summed from its
+    ``parquet.stage.overlap`` events."""
+    from torch_profile_rowconv import profile_call
+
+    from spark_rapids_jni_tpu_torch.utils import flight
+    was = flight.enabled()
+    flight.set_enabled(True)
+    t0 = round(time.time(), 6)
+    try:
+        prof, wall = profile_call(fn)
+    finally:
+        flight.set_enabled(was)
+    split = _span_ms(prof)
+    runs = [e for e in flight.events()
+            if e["kind"] == "parquet.stage.overlap" and e["ts"] >= t0]
+    if runs:
+        for key, field in (("walk_thread", "walk_ms"),
+                           ("stage_thread", "stage_ms"),
+                           ("overlap", "overlap_ms")):
+            split[key] = sum(e[field] for e in runs)
+    return prof, wall, split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -68,7 +97,7 @@ def main(argv=None) -> int:
     import chip_smoke
     import torch_lineitem_parquet as W
     from torch_profile_rowconv import (NAME_CHARS, TOP, _busy_us,
-                                       _device_total, profile_call)
+                                       _device_total)
     import spark_rapids_jni_tpu_torch as pt
     from spark_rapids_jni_tpu_torch import _native
     from spark_rapids_jni_tpu_torch.models import q6, tpch_q1
@@ -76,8 +105,6 @@ def main(argv=None) -> int:
 
     _native.build()
     card = chip_smoke.phase_device()
-    # the spans above are the calling thread's: walk on it (see the doc)
-    os.environ["SRJT_STAGE_PIPELINE"] = "0"
     os.makedirs(args.out, exist_ok=True)
     report = os.path.join(args.out, "torch_profile_scan.txt")
     raw, _, _ = W.lineitem_parquet(W.SF1_ROWS, args.seed)
@@ -120,10 +147,9 @@ def main(argv=None) -> int:
                 _, fn = materialize_all()
             else:
                 fn()                                    # warm-up
-            prof, wall = profile_call(fn)
+            prof, wall, split = profile_scans(fn)
             busy = _busy_us(prof)
-            spans = ", ".join(f"{k} {v:.3f} ms"
-                              for k, v in _span_ms(prof).items())
+            spans = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
             avgs = sorted(prof.key_averages(), key=_device_total, reverse=True)
             top = ", ".join(
                 f"{a.key[:NAME_CHARS]} {_device_total(a) / 1e3:.3f} ms "
