@@ -52,7 +52,9 @@ Knobs: ``SRJT_EXEC_PLAN_CACHE_CAP`` (entries, default 32),
 ``SRJT_EXEC_PLAN_SIZE_FP`` (size-fingerprint sharing, default on),
 ``SRJT_AOT_DIR`` (persistent artifact store; unset disables).
 Counters: ``exec.plan_cache.{hit,miss,size_hit,aot_hit,revalidate,
-evictions,stale,expired}``.
+evictions,stale,expired}``.  With metrics on, the fingerprints and the
+lookup are a ``plan_cache.lookup`` span (``utils.metrics``, a profiler
+range too); a miss's compile runs after it.
 """
 
 from __future__ import annotations
@@ -175,27 +177,28 @@ class PlanCache:
         aqe = getattr(qfn, "aqe_variant", "")
         if aqe:
             variant = f"{variant}+{aqe}" if variant else aqe
-        fp, arrays = C.plan_key(tables)
-        key = (name, variant, fp)
-        skey = None
-        if self.share_by_size:
-            sfp, _ = C.plan_key(tables, by_size=True)
-            skey = (name, variant, sfp)
-        while True:
-            with self._mu:
-                entry = self._lookup(key)
-                if entry is not None:
-                    if metrics.recording():
-                        metrics.count("exec.plan_cache.hit")
-                        metrics.ledger_add(
-                            getattr(qfn, "plan_fingerprint", None) or name,
-                            cache_hits=1)
-                    return entry
-                ev = self._building.get(key)
-                if ev is None:
-                    ev = self._building[key] = threading.Event()
-                    break
-            ev.wait()
+        with metrics.span("plan_cache.lookup", query=name):
+            fp, arrays = C.plan_key(tables)
+            key = (name, variant, fp)
+            skey = None
+            if self.share_by_size:
+                sfp, _ = C.plan_key(tables, by_size=True)
+                skey = (name, variant, sfp)
+            while True:
+                with self._mu:
+                    entry = self._lookup(key)
+                    if entry is not None:
+                        if metrics.recording():
+                            metrics.count("exec.plan_cache.hit")
+                            metrics.ledger_add(
+                                getattr(qfn, "plan_fingerprint", None)
+                                or name, cache_hits=1)
+                        return entry
+                    ev = self._building.get(key)
+                    if ev is None:
+                        ev = self._building[key] = threading.Event()
+                        break
+                ev.wait()
         try:
             shared = None
             if skey is not None:
@@ -354,9 +357,10 @@ class PlanCache:
         K = len(tables_list)
         results: list = [None] * K
         groups: "OrderedDict[tuple, list[int]]" = OrderedDict()
-        for i, t in enumerate(tables_list):
-            fp, _ = C.plan_key(t)
-            groups.setdefault(fp, []).append(i)
+        with metrics.span("plan_cache.lookup", query=name):
+            for i, t in enumerate(tables_list):
+                fp, _ = C.plan_key(t)
+                groups.setdefault(fp, []).append(i)
 
         def _fan(idxs, res):
             for i in idxs:

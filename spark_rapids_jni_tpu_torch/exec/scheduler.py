@@ -101,6 +101,14 @@ dispatched), ``exec.stage.ready_ms`` (dispatch → buffers materialized) —
 summing to ``exec.e2e_ms`` up to scheduling gaps.  A coalesced launch
 records one ``exec.batch.launch`` event linking every member rid, so the
 shared program's cost is attributable to the requests that rode it.
+With metrics on, the worker's time is in ``utils.metrics`` spans, which
+are ``torch.profiler`` ranges too: ``exec.wait`` (blocked on the queue
+with no work), ``exec.coalesce`` (the hold), ``exec.admission``,
+``exec.dispatch`` (the plan cache's ``plan_cache.lookup`` and the
+plan's ``compiled.lock`` and ``compiled.replay`` inside it),
+``exec.ready`` (the stream synchronisation) and ``exec.resolve``; each
+carries its rid (or the batch's rids) as an attribute, never in its
+name.
 Deadline breaches, quarantines, and request failures dump incident
 snapshots; resolved outcomes feed the SLO watchdog (``exec/slo.py``).
 
@@ -118,10 +126,8 @@ top-cost artifacts from the AOT store at startup — ``exec/artifacts.py``),
 plus the admission/prefetch/plan-cache knobs of the composed parts.
 ``submit_refresh`` serves a ``stream/`` view refresh and
 ``submit_predict`` an ``ml/`` servable through the same pipeline.
-Histograms: ``exec.queue_wait_ms``, ``exec.admission_wait_ms``,
-``exec.exec_ms``, ``exec.e2e_ms``, ``exec.batch.size``,
-``exec.batch.coalesce_wait_ms``, and the ``exec.stage.*`` attribution
-family above.
+Histograms: ``exec.e2e_ms``, ``exec.batch.size``, and the
+``exec.stage.*`` attribution family above.
 """
 
 from __future__ import annotations
@@ -560,8 +566,10 @@ class QueryScheduler:
             req = None
             batch = None
             with self._cv:
-                while not self._heap and not self._closed:
-                    self._cv.wait()
+                if not self._heap and not self._closed:
+                    with metrics.span("exec.wait"):
+                        while not self._heap and not self._closed:
+                            self._cv.wait()
                 if not self._heap:
                     return              # closed and drained
                 if not rep.serving():
@@ -570,7 +578,8 @@ class QueryScheduler:
                     # replicas' workers instead.  Timed wait so recovery
                     # (and close) edges are observed even without a
                     # notify.
-                    self._cv.wait(timeout=0.05)
+                    with metrics.span("exec.wait"):
+                        self._cv.wait(timeout=0.05)
                 else:
                     _, _, req = heapq.heappop(self._heap)
                     req.t_gather = time.monotonic()
@@ -767,22 +776,21 @@ class QueryScheduler:
                 if r.deadline is not None:
                     t_end = min(t_end, r.deadline)
         _bound(batch)
-        while len(batch) < self.max_batch and not self._closed:
-            now = time.monotonic()
-            if now >= t_end:
-                break
-            with self._cv:
-                self._cv.wait(timeout=t_end - now)
-                n0 = len(batch)
-                self._gather_locked(ckey, batch)
-            _bound(batch[n0:])
+        with metrics.span("exec.coalesce", rid=batch[0].rid):
+            while len(batch) < self.max_batch and not self._closed:
+                now = time.monotonic()
+                if now >= t_end:
+                    break
+                with self._cv:
+                    self._cv.wait(timeout=t_end - now)
+                    n0 = len(batch)
+                    self._gather_locked(ckey, batch)
+                _bound(batch[n0:])
+            metrics.annotate(size=len(batch))
         if len(batch) > 1:
             flight.record("exec.coalesce", rid=batch[0].rid,
                           batch=[r.rid for r in batch],
                           wait_ms=round((time.monotonic() - t0) * 1e3, 3))
-        if metrics.recording():
-            metrics.observe("exec.batch.coalesce_wait_ms",
-                            (time.monotonic() - t0) * 1e3)
 
     # -- resolution (tracing + SLO fan-in) -----------------------------------
 
@@ -796,16 +804,17 @@ class QueryScheduler:
     def _resolve_ok(self, req: "_Request", result, *,
                     degraded: bool = False, deferred: bool = False,
                     relocated: bool = False) -> None:
-        e2e = req.ticket.timings.get(
-            "e2e_s", time.monotonic() - req.t_submit)
-        flight.record("exec.resolve", rid=req.rid, outcome="ok",
-                      e2e_ms=round(e2e * 1e3, 3), degraded=degraded,
-                      device=req.ticket.device,
-                      relocations=req.relocations)
-        self.slo.observe(req.name, e2e * 1e3, outcome="ok",
-                         degraded=degraded, deferred=deferred,
-                         relocated=relocated, request_id=req.rid)
-        req.ticket._resolve(result=result)
+        with metrics.span("exec.resolve", rid=req.rid):
+            e2e = req.ticket.timings.get(
+                "e2e_s", time.monotonic() - req.t_submit)
+            flight.record("exec.resolve", rid=req.rid, outcome="ok",
+                          e2e_ms=round(e2e * 1e3, 3), degraded=degraded,
+                          device=req.ticket.device,
+                          relocations=req.relocations)
+            self.slo.observe(req.name, e2e * 1e3, outcome="ok",
+                             degraded=degraded, deferred=deferred,
+                             relocated=relocated, request_id=req.rid)
+            req.ticket._resolve(result=result)
 
     def _resolve_fail(self, req: "_Request", exc: BaseException,
                       stage: str, *, outcome: str = "error",
@@ -814,18 +823,19 @@ class QueryScheduler:
         """Resolve a request with a typed error, recording the outcome in
         the flight ring and (for incident-class failures) dumping the
         black-box snapshot that carries this rid's whole lifecycle."""
-        e2e = time.monotonic() - req.t_submit
-        req.ticket.timings.setdefault("e2e_s", e2e)
-        flight.record("exec.resolve", rid=req.rid, outcome=outcome,
-                      stage=stage, error=type(exc).__name__,
-                      e2e_ms=round(e2e * 1e3, 3))
-        if incident_kind is not None:
-            flight.incident(incident_kind, request_id=req.rid,
-                            batch=batch, stage=stage, error=repr(exc),
-                            query=req.name, e2e_ms=round(e2e * 1e3, 3))
-        self.slo.observe(req.name, e2e * 1e3, outcome=outcome,
-                         request_id=req.rid)
-        req.ticket._resolve(exc=exc)
+        with metrics.span("exec.resolve", rid=req.rid):
+            e2e = time.monotonic() - req.t_submit
+            req.ticket.timings.setdefault("e2e_s", e2e)
+            flight.record("exec.resolve", rid=req.rid, outcome=outcome,
+                          stage=stage, error=type(exc).__name__,
+                          e2e_ms=round(e2e * 1e3, 3))
+            if incident_kind is not None:
+                flight.incident(incident_kind, request_id=req.rid,
+                                batch=batch, stage=stage, error=repr(exc),
+                                query=req.name, e2e_ms=round(e2e * 1e3, 3))
+            self.slo.observe(req.name, e2e * 1e3, outcome=outcome,
+                             request_id=req.rid)
+            req.ticket._resolve(exc=exc)
 
     def _split_by_cap(self, reqs: list) -> list:
         """Greedily pack ``reqs`` into sub-batches whose combined unique
@@ -866,8 +876,6 @@ class QueryScheduler:
             t_gather = r.t_gather if r.t_gather is not None else now
             self._stage_obs(r.ticket, "queue", t_gather - r.t_submit)
             self._stage_obs(r.ticket, "coalesce", now - t_gather)
-            if metrics.recording():
-                metrics.observe("exec.queue_wait_ms", qw * 1e3)
             if r.deadline is not None and now > r.deadline:
                 if metrics.recording():
                     metrics.count("exec.deadline.queue")
@@ -891,17 +899,17 @@ class QueryScheduler:
         for r in batch:
             r.ticket.batch_rids = rids
         deadlines = [r.deadline for r in batch if r.deadline is not None]
+        members = ",".join(rids)
         try:
             t_adm = time.monotonic()
-            grant = rep.admission.admit(
-                est, name=f"{name}[x{len(batch)}]",
-                deadline=min(deadlines) if deadlines else None)
+            with metrics.span("exec.admission", rids=members):
+                grant = rep.admission.admit(
+                    est, name=f"{name}[x{len(batch)}]",
+                    deadline=min(deadlines) if deadlines else None)
             adm_wait = time.monotonic() - t_adm
             for r in batch:
                 r.ticket.timings["admission_wait_s"] = adm_wait
                 self._stage_obs(r.ticket, "admission", adm_wait)
-            if metrics.recording():
-                metrics.observe("exec.admission_wait_ms", adm_wait * 1e3)
         except ExecDeadlineExceeded:
             # only the earliest deadline is binding: resolve the expired
             # members, serve the survivors individually (each re-admits
@@ -945,14 +953,14 @@ class QueryScheduler:
         variant = self._variant(rep, False)
         rep.note_active(len(batch))
         try:
-            with grant, structured_log.bound(batch_rids=",".join(rids)):
+            with grant, structured_log.bound(batch_rids=members):
                 scope = mbudget.query_budget(
                     name, batched=len(batch),
                     device=rep.name if self.n_devices > 1 else None) \
                     if mbudget.enabled() \
                     else metrics.span(f"query:{name}", batched=len(batch))
                 with scope, metrics.span("batch", size=len(batch),
-                                         members=",".join(rids)), \
+                                         members=members), \
                         rep.scope(pin_device=self.n_devices > 1):
                     if self.n_devices > 1:
                         with C.device_work():
@@ -963,13 +971,15 @@ class QueryScheduler:
                     marks = {}
 
                     def _run():
-                        finj.get_injector().check("exec.dispatch")
-                        outs = self.plans.run_batched(
-                            name, batch[0].qfn, member_tables,
-                            variant=variant)
+                        with metrics.span("exec.dispatch", rids=members):
+                            finj.get_injector().check("exec.dispatch")
+                            outs = self.plans.run_batched(
+                                name, batch[0].qfn, member_tables,
+                                variant=variant)
                         marks["dispatched"] = time.monotonic()
                         # a device fault raises here, into the executor
-                        rep.synchronize()
+                        with metrics.span("exec.ready", rids=members):
+                            rep.synchronize()
                         return outs
                     outs = rep.resilient.submit(_run)
                     t_disp = marks["dispatched"]
@@ -990,7 +1000,6 @@ class QueryScheduler:
                 self._stage_obs(r.ticket, "dispatch", t_disp - t0)
                 self._stage_obs(r.ticket, "ready", t_done - t_disp)
                 if metrics.recording():
-                    metrics.observe("exec.exec_ms", dt * 1e3)
                     metrics.observe("exec.e2e_ms",
                                     (t_done - r.t_submit) * 1e3)
                     metrics.count("exec.completed")
@@ -1022,10 +1031,8 @@ class QueryScheduler:
         tk = req.ticket
         t_dq = time.monotonic()
         queue_wait = t_dq - req.t_submit
-        if "queue_wait_s" not in tk.timings:    # batch sweeps record it
-            tk.timings["queue_wait_s"] = queue_wait
-            if metrics.recording():
-                metrics.observe("exec.queue_wait_ms", queue_wait * 1e3)
+        # a batch's sweep records these first
+        tk.timings.setdefault("queue_wait_s", queue_wait)
         if "queue_s" not in tk.timings:
             t_gather = req.t_gather if req.t_gather is not None else t_dq
             self._stage_obs(tk, "queue", t_gather - req.t_submit)
@@ -1054,13 +1061,12 @@ class QueryScheduler:
             est = req.nbytes if req.nbytes is not None \
                 else request_bytes(tables)
             t_adm = time.monotonic()
-            grant = rep.admission.admit(est, name=req.rid or req.name,
-                                        deadline=req.deadline)
+            with metrics.span("exec.admission", rid=req.rid):
+                grant = rep.admission.admit(est, name=req.rid or req.name,
+                                            deadline=req.deadline)
             adm_wait = time.monotonic() - t_adm
             tk.timings["admission_wait_s"] = adm_wait
             self._stage_obs(tk, "admission", adm_wait)
-            if metrics.recording():
-                metrics.observe("exec.admission_wait_ms", adm_wait * 1e3)
         except ExecDeadlineExceeded as e:
             self._resolve_fail(req, e, "admission", outcome="deadline",
                                incident_kind="deadline",
@@ -1114,26 +1120,30 @@ class QueryScheduler:
                     marks = {}
 
                     def _run():
-                        finj.get_injector().check("exec.dispatch")
-                        if req.compiled:
-                            # degraded/per-device plans cache under their
-                            # own variant: a dense-captured tape
-                            # misaligns under the forced sorted engine,
-                            # and replicas never share captured buffers
-                            out = self.plans.run(
-                                req.name, req.qfn, run_tables,
-                                variant=variant)
-                        else:
-                            # lazy columns are forced here, inside the
-                            # budget scope
-                            with C.device_work():
-                                out = C._materialized(req.qfn(run_tables))
+                        with metrics.span("exec.dispatch", rid=req.rid):
+                            finj.get_injector().check("exec.dispatch")
+                            if req.compiled:
+                                # degraded/per-device plans cache under
+                                # their own variant: a dense-captured tape
+                                # misaligns under the forced sorted
+                                # engine, and replicas never share
+                                # captured buffers
+                                out = self.plans.run(
+                                    req.name, req.qfn, run_tables,
+                                    variant=variant)
+                            else:
+                                # lazy columns are forced here, inside
+                                # the budget scope
+                                with C.device_work():
+                                    out = C._materialized(
+                                        req.qfn(run_tables))
                         marks["dispatched"] = time.monotonic()
                         # a response is delivered, not launched: the
                         # stream is synchronized inside the executor, so
                         # that an asynchronous device fault raises into
                         # it instead of resolving the ticket
-                        rep.synchronize()
+                        with metrics.span("exec.ready", rid=req.rid):
+                            rep.synchronize()
                         return out
                     result = rep.resilient.submit(_run)
                     t_disp = marks["dispatched"]
@@ -1144,8 +1154,6 @@ class QueryScheduler:
             self._stage_obs(tk, "dispatch", t_disp - t0)
             self._stage_obs(tk, "ready", t_done - t_disp)
             if metrics.recording():
-                metrics.observe("exec.exec_ms",
-                                tk.timings["exec_s"] * 1e3)
                 metrics.observe("exec.e2e_ms", tk.timings["e2e_s"] * 1e3)
                 metrics.count("exec.completed")
                 metrics.count("exec.device." + rep.name.replace(":", "")

@@ -56,7 +56,11 @@ each set.  A batch graph's private inputs and pool count in
 ``memory.spill`` resident that budget pressure drops.  :meth:`CompiledQuery.lower_text`
 lists what a compiled query runs: its tape, its kernels and graph nodes.
 Counts go to :data:`COUNTS` and, under ``compiled.*`` names, to
-``utils.metrics``; a stale tape files a ``stale_tape`` flight incident,
+``utils.metrics``, whose spans are profiler ranges too: a replay's input
+copies, graph launch and output clones are one ``compiled.replay`` (on
+the CPU, the run under the tape), and the waits for the plan's lock and
+for shared device work are ``compiled.lock``; a stale tape files a
+``stale_tape`` flight incident,
 and each capture of a plan's graph after its first trips
 ``analysis.sanitize``'s recapture wire.
 """
@@ -225,6 +229,22 @@ def device_work():
     with other such work, never during a graph capture."""
     with DEVICE.shared():
         _bury()
+        yield
+
+
+def _waited(cm):
+    """``cm`` (a plan's lock, shared device work), with the wait to enter
+    it in a ``compiled.lock`` span while metrics record."""
+    if not metrics.recording():
+        return cm
+    return _waited_span(cm)
+
+
+@contextlib.contextmanager
+def _waited_span(cm):
+    with contextlib.ExitStack() as held:
+        with metrics.span("compiled.lock"):
+            held.enter_context(cm)
         yield
 
 
@@ -496,18 +516,19 @@ class CompiledQuery:
         fits them."""
         if self._graph is None or spec != self._spec:
             self._capture_graph(spec, tensors)
-        with device_work():
+        with _waited(device_work()):
             return self._replay_locked(tensors)
 
     def _replay_locked(self, tensors: list):
-        for i, (t, s) in enumerate(zip(tensors, self._static)):
-            ref, version = self._copied[i]
-            if ref() is t and t._version == version:
-                continue
-            s.copy_(t)
-            self._copied[i] = (weakref.ref(t), t._version)
-        graph_replay(self._graph)
-        out = _unflatten(self._out_spec, (t.clone() for t in self._out))
+        with metrics.span("compiled.replay"):
+            for i, (t, s) in enumerate(zip(tensors, self._static)):
+                ref, version = self._copied[i]
+                if ref() is t and t._version == version:
+                    continue
+                s.copy_(t)
+                self._copied[i] = (weakref.ref(t), t._version)
+            graph_replay(self._graph)
+            out = _unflatten(self._out_spec, (t.clone() for t in self._out))
         return out, self._sizes
 
     # -- the entry points -----------------------------------------------------
@@ -521,10 +542,10 @@ class CompiledQuery:
         with metrics.span(f"compiled.run:{self.name}",
                           tape_len=len(self.tape)):
             if on_card:
-                with self._lock:
+                with _waited(self._lock):
                     if self._graph is None or spec != self._spec:
                         self._capture_graph(spec, tensors)
-                    with device_work():
+                    with _waited(device_work()):
                         out, sizes = self._replay_locked(tensors)
                         syncs.note_sync()       # the size vector's one copy
                         # the checked run's one read, after the replay and
@@ -533,7 +554,8 @@ class CompiledQuery:
             else:
                 seen: list = []
                 try:
-                    with syncs.replay(self.tape, collect=seen):
+                    with metrics.span("compiled.replay"), \
+                            syncs.replay(self.tape, collect=seen):
                         out = _materialized(self._qfn(tables))
                 except syncs.TapeDivergence as e:
                     self._stale(error=str(e)[:200])
@@ -562,9 +584,9 @@ class CompiledQuery:
         spec, tensors, on_card = self._inputs(tables)
         with metrics.span(f"compiled.run_unchecked:{self.name}"):
             if on_card:
-                with self._lock:
+                with _waited(self._lock):
                     return self._replay(spec, tensors)[0]
-            with syncs.replay(self.tape):
+            with metrics.span("compiled.replay"), syncs.replay(self.tape):
                 return _materialized(self._qfn(tables))
 
     @property
@@ -619,7 +641,7 @@ class CompiledQuery:
         with metrics.span(f"compiled.batch:{self.name}",
                           size=len(tables_list)):
             if on_card:
-                with self._lock:
+                with _waited(self._lock):
                     self._drop_marked()
                     missing = [(lo, hi, w) for lo, hi, w in chunks
                                if w > 1 and not self._has_batch(spec0, w)]
@@ -638,7 +660,8 @@ class CompiledQuery:
             else:
                 outs = []
                 for t in tables_list:
-                    with syncs.replay(self.tape):
+                    with metrics.span("compiled.replay"), \
+                            syncs.replay(self.tape):
                         outs.append(_materialized(self._qfn(t)))
         _count("batch_replay", sum(1 for _, _, w in chunks if w > 1)
                if on_card else 1)
@@ -707,7 +730,7 @@ class CompiledQuery:
             self._install_batch(spec, members, w)
         b = self._batches[w]
         padded = members + [members[-1]] * (w - len(members))
-        with device_work():
+        with _waited(device_work()), metrics.span("compiled.replay", size=w):
             for k, tensors in enumerate(padded):
                 for i, (t, s) in enumerate(zip(tensors, b["static"][k])):
                     ref, version = b["copied"][k][i]

@@ -28,6 +28,13 @@ Discipline
   exception is ``count(..., in_trace=True)``, which records a replay's
   own occurrence on purpose.
 * No device syncs: values passed in must already be host ints/floats.
+* **One tracer.**  A recorded span is also a ``torch.profiler`` range
+  (and an NVTX range on a card) of the same name, opened through
+  ``utils.tracing`` on the thread that runs it, and its start is taken
+  on the profiler's clock (Unix-epoch nanoseconds, from
+  ``perf_counter_ns`` anchored once at import): the exported Chrome
+  trace lays over a ``torch.profiler`` export of the same run.  The
+  tree keeps the newest :data:`ROOTS_MAX` completed roots.
 
 The device-memory census (:func:`sample_hbm`) reads the caching
 allocator's counters, ``torch.cuda.memory_allocated`` and
@@ -47,7 +54,7 @@ import threading
 import time
 
 from ..analysis import sanitize
-from . import knobs
+from . import knobs, syncs, tracing
 from typing import Optional
 
 _enabled: bool = os.environ.get(
@@ -63,10 +70,15 @@ _hists: dict[str, dict] = {}        # name -> {count,total,min,max,buckets}
 _WINDOW_N = max(knobs.get("SRJT_METRICS_WINDOW_N"), 16)
 _samples: dict[str, "collections.deque[tuple[float, float]]"] = {}
 
-_EPOCH = time.perf_counter()        # trace time base (ts exported rel. us)
+# the profiler's clock: Unix-epoch ns, read as perf_counter_ns plus this
+_ANCHOR_NS = time.time_ns() - time.perf_counter_ns()
+
+#: completed root spans kept (the newest; a serving process that records
+#: for its whole life holds no more)
+ROOTS_MAX = 8192
 
 _tls = threading.local()            # per-thread open-span stack
-_roots: list["Span"] = []           # completed root spans (all threads)
+_roots: "collections.deque[Span]" = collections.deque(maxlen=ROOTS_MAX)
 
 # compile-cost ledger: plan fingerprint → summed cost fields (capture_ms,
 # trace_ms, traces, first_dispatch_ms, runs, cache_hits, ...) — the
@@ -99,10 +111,7 @@ def recording() -> bool:
     """True when events should be recorded NOW: metrics on, and not inside
     a ``syncs.replay`` (which re-runs the already-recorded plan's Python
     for a CUDA-graph capture or, on the CPU, as the compiled run)."""
-    if not _enabled:
-        return False
-    from . import syncs
-    return syncs.mode() != "replay"
+    return _enabled and syncs.mode() != "replay"
 
 
 def reset() -> None:
@@ -285,18 +294,25 @@ def percentile(name: str, q: float,
 # --- span recorder ----------------------------------------------------------
 
 
-class Span:
-    """One timed range; completed children hang off ``children``."""
+def _clock_ns() -> int:
+    """Now on the profiler's clock, in Unix-epoch nanoseconds."""
+    return time.perf_counter_ns() + _ANCHOR_NS
 
-    __slots__ = ("name", "attrs", "t0", "dur", "tid", "children")
+
+class Span:
+    """One timed range, and the profiler range of its name while open;
+    completed children hang off ``children``."""
+
+    __slots__ = ("name", "attrs", "t0", "dur", "tid", "children", "_range")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
         self.attrs = attrs
-        self.t0 = 0.0           # seconds since _EPOCH, set on __enter__
+        self.t0 = 0             # _clock_ns() on __enter__
         self.dur = 0.0          # seconds
         self.tid = 0
         self.children: list[Span] = []
+        self._range = None
 
     def annotate(self, **attrs) -> None:
         self.attrs.update(attrs)
@@ -307,11 +323,14 @@ class Span:
             stack = _tls.stack = []
         stack.append(self)
         self.tid = threading.get_ident()
-        self.t0 = time.perf_counter() - _EPOCH
+        self._range = tracing.range_push(self.name)
+        self.t0 = _clock_ns()
         return self
 
     def __exit__(self, *exc) -> None:
-        self.dur = (time.perf_counter() - _EPOCH) - self.t0
+        self.dur = (_clock_ns() - self.t0) / 1e9
+        tracing.range_pop(self._range)
+        self._range = None
         stack = _tls.stack
         stack.pop()
         if stack:
@@ -321,7 +340,7 @@ class Span:
                 _roots.append(self)
 
     def as_dict(self) -> dict:
-        d = {"name": self.name, "start_ms": round(self.t0 * 1e3, 3),
+        d = {"name": self.name, "start_ms": self.t0 / 1e6,
              "dur_ms": round(self.dur * 1e3, 3)}
         if self.attrs:
             d["attrs"] = dict(self.attrs)
@@ -335,8 +354,9 @@ _NOOP = contextlib.nullcontext()
 
 def span(name: str, **attrs):
     """Context manager recording a span under the current thread's open
-    span (or as a new root).  Returns a shared no-op context when disabled
-    or under a replay trace — zero allocation on the hot path."""
+    span (or as a new root), and opening the profiler range of its name.
+    Returns a shared no-op context when disabled or under a replay trace
+    — zero allocation on the hot path, and no range."""
     if not recording():
         return _NOOP
     return Span(name, attrs)
@@ -412,7 +432,8 @@ def snapshot() -> dict:
 
 
 def span_roots() -> list[dict]:
-    """Completed root span trees (dict form), in completion order."""
+    """Completed root span trees (dict form), in completion order: the
+    newest :data:`ROOTS_MAX`."""
     with _lock:
         return [s.as_dict() for s in _roots]
 
@@ -451,7 +472,8 @@ def summary() -> dict:
 def chrome_trace() -> dict:
     """The recorded spans + counters in Chrome-trace (JSON object) format.
 
-    Spans become complete ("ph": "X") events with microsecond ts/dur;
+    Spans become complete ("ph": "X") events with microsecond ts/dur,
+    ``ts`` on the profiler's clock (Unix-epoch microseconds);
     counters/gauges ride along both as trailing counter events and under
     the ``srjtCounters``/``srjtGauges``/``srjtHistograms`` keys (the
     object format ignores unknown top-level keys, so Perfetto and
@@ -464,12 +486,12 @@ def chrome_trace() -> dict:
     def emit(s: Span):
         nonlocal end_us
         ev = {"name": s.name, "cat": "srjt", "ph": "X", "pid": pid,
-              "tid": s.tid, "ts": round(s.t0 * 1e6, 3),
+              "tid": s.tid, "ts": s.t0 / 1e3,
               "dur": round(s.dur * 1e6, 3)}
         if s.attrs:
             ev["args"] = {k: v for k, v in s.attrs.items()}
         events.append(ev)
-        end_us = max(end_us, (s.t0 + s.dur) * 1e6)
+        end_us = max(end_us, s.t0 / 1e3 + s.dur * 1e6)
 
     with _lock:
         _walk(list(_roots), emit)
@@ -480,7 +502,7 @@ def chrome_trace() -> dict:
         ledger = {k: dict(v) for k, v in _ledger.items()}
     for k, v in sorted(counters.items()):
         events.append({"name": k, "cat": "srjt", "ph": "C", "pid": pid,
-                       "ts": round(end_us, 3), "args": {"value": v}})
+                       "ts": end_us, "args": {"value": v}})
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "srjtCounters": counters, "srjtGauges": gauges,
             "srjtHistograms": hists, "srjtLedger": ledger}
@@ -503,7 +525,7 @@ _PROM_BAD = re.compile(r"[^a-zA-Z0-9_:]")
 
 
 def _prom_name(name: str) -> str:
-    """``exec.queue_wait_ms`` → ``srjt_exec_queue_wait_ms`` (the
+    """``exec.stage.queue_ms`` → ``srjt_exec_stage_queue_ms`` (the
     text-format metric-name grammar admits ``[a-zA-Z_:][a-zA-Z0-9_:]*``)."""
     n = "srjt_" + _PROM_BAD.sub("_", name)
     if not re.match(r"[a-zA-Z_:]", n[0]):

@@ -2,22 +2,25 @@
 
 The port's counterpart of the JAX package's ``utils/tracing.py``.  The
 reference instruments every public entry with NVTX ranges
-(``CUDF_FUNC_RANGE()``); here a range is a ``torch.profiler``
-``record_function`` (a row of ``torch.profiler``'s trace and of
-``key_averages()``) and, when a card is present, an NVTX range of the
-same name (``torch.cuda.nvtx.range_push``/``range_pop``) for external
+(``CUDF_FUNC_RANGE()``); here a range is a ``torch.profiler`` range (a
+row of ``torch.profiler``'s trace and of ``key_averages()``), opened
+while a profiler records, and, when a card is present, an NVTX range of
+the same name (``torch.cuda.nvtx.range_push``/``range_pop``) for external
 timeline tools.  The JAX package's ``jax.named_scope`` and
 ``TraceAnnotation`` have no other counterpart.
 
 The knob (``SPARK_RAPIDS_TPU_TRACE``, default on) is read at import and
 re-checkable at runtime: :func:`set_enabled` flips it.
 
-``@traced`` entries additionally feed two sinks when their knobs are on,
-as the JAX package's do:
+A recorded ``utils.metrics`` span opens its range here too
+(:func:`range_push` / :func:`range_pop`), so the span tree and the
+profiler's trace are one record on one clock.  ``@traced`` entries feed
+two sinks besides when their knobs are on, as the JAX package's do:
 
 * ``utils.structured_log`` — one event record with wall-time duration per
   call;
-* ``utils.metrics`` — one span in the per-query span tree.
+* ``utils.metrics`` — one span in the per-query span tree, which opens
+  the entry's range.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import time
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
+import torch.autograd.profiler as _autograd_profiler
+# the profiler's range at a fraction of ``record_function``'s cost
+from torch._C._profiler import _RecordFunctionFast
 
 
 def _read_env() -> bool:
@@ -49,31 +54,53 @@ def set_enabled(on: Optional[bool] = None) -> None:
     _ENABLED = _read_env() if on is None else bool(on)
 
 
-@contextlib.contextmanager
-def func_range(name: str):
-    """The NVTX-range analog: a ``record_function`` range, and an NVTX
-    range on a card.  Nothing when tracing is off."""
+def range_push(name: str):
+    """Open range ``name``: a ``torch.profiler`` range while a profiler
+    records (none otherwise: a range costs microseconds, and one opened
+    before a profiler starts is not in its trace), and an NVTX range on a
+    card.  Returns the handle :func:`range_pop` closes (None when tracing
+    is off); both calls are made on one thread."""
     if not _ENABLED:
-        yield
-        return
+        return None
+    rf = None
+    if _autograd_profiler._is_profiler_enabled:
+        rf = _RecordFunctionFast(name)
+        rf.__enter__()
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
+    return rf, nvtx
+
+
+def range_pop(handle) -> None:
+    """Close a range :func:`range_push` opened."""
+    if handle is None:
+        return
+    rf, nvtx = handle
+    if nvtx:
+        torch.cuda.nvtx.range_pop()
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def func_range(name: str):
+    """The NVTX-range analog: :func:`range_push`'s ranges around the
+    block.  Nothing when tracing is off."""
+    handle = range_push(name)
     try:
-        with record_function(name):
-            yield
+        yield
     finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+        range_pop(handle)
 
 
 def traced(name: str | None = None):
     """Decorator form of :func:`func_range` (the CUDF_FUNC_RANGE analog).
 
-    With the structured log on (``SPARK_RAPIDS_TPU_LOG``), each call emits
-    one event record with its wall-time duration; with metrics on
-    (``SPARK_RAPIDS_TPU_METRICS``), each call records one span in the
-    current span tree."""
+    With metrics on (``SPARK_RAPIDS_TPU_METRICS``), each call records one
+    span in the current span tree, which opens the range; with the
+    structured log on (``SPARK_RAPIDS_TPU_LOG``), each call emits one
+    event record with its wall-time duration."""
 
     def wrap(fn):
         scope = name or fn.__qualname__
@@ -88,8 +115,7 @@ def traced(name: str | None = None):
                 with func_range(scope):
                     return fn(*args, **kwargs)
             t0 = time.perf_counter()
-            ctx = metrics.span(scope) if rec else contextlib.nullcontext()
-            with ctx, func_range(scope):
+            with metrics.span(scope) if rec else func_range(scope):
                 out = fn(*args, **kwargs)
             if log:
                 slog.event(scope, duration_s=time.perf_counter() - t0)

@@ -598,7 +598,7 @@ def test_coalesced_burst_bit_identical(qfns, port_tables, serial):
     assert snap["counters"].get("exec.completed", 0) == 9
     hist = snap["histograms"].get("exec.batch.size")
     assert hist is not None and hist["max"] >= 2
-    assert "exec.batch.coalesce_wait_ms" in snap["histograms"]
+    assert "exec.stage.coalesce_ms" in snap["histograms"]
     # every compiled request is exactly one of hit/miss/size_hit
     c = snap["counters"]
     assert (c.get("exec.plan_cache.hit", 0)
