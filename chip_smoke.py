@@ -61,12 +61,15 @@ wrong:
    the generator's chars row for row, then the table through
    ``convert_to_rows`` → ``convert_from_rows`` in one batch (about 1 GB of
    rows), exact, its first 10,000 rows held against the numpy oracle.
-   This path launches every kernel, B1–B7;
-9. SF1 copies: B1, B3 and B4 on the largest input each caller hands them
-   on the 16 columns (the ``l_comment`` prefix strip; to_rows, B4's chars
-   into the row matrix and B1's pack of it; from_rows), exact against
-   their plain versions (run on pieces of the input where the whole would
-   not fit) and timed as in phase 3;
+   This path launches every kernel, B1–B9;
+9. SF1 copies: B1, B3, B4, B8 and B9 on the largest input each caller
+   hands them on the 16 columns (the ``l_comment`` prefix strip; to_rows,
+   B4's chars into the row matrix, B8's fixed region into it and B1's pack
+   of it; from_rows, B3's fixed region and B9's columns out of it), exact
+   against their plain versions (run on pieces of the input where the
+   whole would not fit) and timed as in phase 3; 9b: B8 and B9 on the
+   fixed-width step of TPC-DS SF10 ``store_sales`` (28,800,991 rows of its
+   7 columns, 48-byte rows), exact and timed likewise;
 10. Q1: TPC-H SF1 lineitem in Q1's layout (6,001,215 rows, the flags as
    dictionary strings, ``l_extendedprice`` FLBA DECIMAL(12,2) PLAIN,
    ``l_discount`` and ``l_tax`` FLBA DECIMAL(4,2) dictionary-encoded;
@@ -258,7 +261,7 @@ wrong:
    (phase 11's file) through its Arrow buffers and back, byte-equal;
    ``spark_12_2str`` at 32,000,000 rows (rows past 2.5 GB) through
    ``convert_to_rows``' batch split and back, byte-equal, GB/s; every
-   kernel B1-B7 launched in the phase; an ``[aqe] summary`` line.
+   kernel B1-B9 launched in the phase; an ``[aqe] summary`` line.
 20. nested columns: the event table of ``tools/torch_nested_parquet.py``
    (8,388,608 rows of LIST and STRUCT columns) scanned, masked, gathered,
    concatenated, sliced and through Arrow, each exact; the scan's wall
@@ -319,9 +322,10 @@ CASES = {
 # the fixed-width cycle of benchmarks/datagen.py:22-36
 FIXED_CYCLE = ("INT64", "INT32", "INT16", "INT8", "FLOAT32", "BOOL8")
 
-# every kernel, in the order of the kernel table (B1-B7): its source, the
+# every kernel, in the order of the kernel table (B1-B9): its source, the
 # TPU kernel it replaces, and the run its inputs are captured from
-# ("to_rows" / "from_rows": phase 3's 12-column table; "scan": phase 7)
+# ("to_rows" / "from_rows": phase 3's 12-column table; "scan": phase 7;
+# "store_sales": phase 9b)
 KERNELS = {
     "pack_windows": ("spark_rapids_jni_tpu_torch/csrc/xpack.cu",
                      "spark_rapids_jni_tpu/rowconv/xpallas.py:186", "to_rows"),
@@ -337,6 +341,14 @@ KERNELS = {
                     "spark_rapids_jni_tpu/rowconv/xpallas.py:405", "scan"),
     "u8_to_u32": ("spark_rapids_jni_tpu_torch/csrc/bytepath.cu",
                   "spark_rapids_jni_tpu/rowconv/xpallas.py:486", "scan"),
+    # B8 and B9 replace no TPU kernel: the JAX package writes and reads the
+    # slots in plain XLA (_to_rows_fixed_full, _from_rows_fixed_full)
+    "pack_slots": ("spark_rapids_jni_tpu_torch/csrc/slots.cu",
+                   "none (XLA, spark_rapids_jni_tpu/rowconv/convert.py:522)",
+                   "store_sales"),
+    "unpack_slots": ("spark_rapids_jni_tpu_torch/csrc/slots.cu",
+                     "none (XLA, spark_rapids_jni_tpu/rowconv/convert.py:537)",
+                     "store_sales"),
 }
 # the device work of each wrapper, as torch.profiler names it: the
 # __global__ functions it launches (B5's wrapper launches B3's kernel)
@@ -348,6 +360,8 @@ KERNEL_SYMBOLS = {
     "extract_rows": ("unpack_rows_kernel",),
     "gather_rows": ("gather_rows_kernel",),
     "u8_to_u32": ("u8_to_u32_kernel",),
+    "pack_slots": ("pack_slots_kernel",),
+    "unpack_slots": ("unpack_slots_kernel",),
 }
 # device work a wrapper may add around its kernel, counted in its device
 # time where it shows: B4's wrapper zero-filled dst before its kernel came
@@ -363,13 +377,19 @@ LIBRARY = {
 # what the kernels line keeps of each input a kernel was measured on
 INPUT_KEYS = ("measured_in", "shape", "ms", "device_ms", "bound_ms",
               "floor_ms", "plain_ms")
-# B1, B3 and B4, whose inputs phase 9 records, and the (run, kernel) pairs
-# it must see
-SF1_KERNELS = ("pack_windows", "unpack_rows", "segmented_copy")
+# B1, B3, B4, B8 and B9, whose inputs phase 9 records, and the (run,
+# kernel) pairs it must see
+SF1_KERNELS = ("pack_windows", "unpack_rows", "segmented_copy", "pack_slots",
+               "unpack_slots")
 SF1_COPIES = (("SF1 scan", "segmented_copy"), ("SF1 to_rows", "segmented_copy"),
-              ("SF1 to_rows", "pack_windows"),
+              ("SF1 to_rows", "pack_windows"), ("SF1 to_rows", "pack_slots"),
               ("SF1 from_rows", "unpack_rows"),
-              ("SF1 from_rows", "segmented_copy"))
+              ("SF1 from_rows", "segmented_copy"),
+              ("SF1 from_rows", "unpack_slots"))
+# phase 9b: TPC-DS SF10 store_sales as the rows_store_sales_sf10 cell holds
+# it (its row count, its 7 columns' types in order, no nulls)
+STORE_SALES_ROWS = 28_800_991
+STORE_SALES_TYPES = ("int32",) * 4 + ("int64",) * 2 + ("float64",)
 # the kernels whose wrappers phase 7 records
 SCAN_KERNELS = ("pack_rows", "extract_rows", "gather_rows", "u8_to_u32")
 # B5's large dictionary in phase 7: entries, and their lengths drawn from
@@ -597,6 +617,17 @@ def device_ms(fn, reps: int, symbols=None, extras=()) -> tuple:
 
 def bytes_moved(name: str, args) -> int:
     """Bytes a kernel must read once and write once on these inputs."""
+    if name == "pack_slots":
+        layout, datas, valids, out, offsets = args
+        n, width = out.shape
+        return (sum(d.numel() * d.element_size() for d in datas)
+                + sum(n for v in valids if v is not None) + n * width
+                + (0 if offsets is None else 4 * offsets.numel()))
+    if name == "unpack_slots":
+        layout, rows = args
+        n, width = rows.shape
+        return n * width + n * (sum(layout.column_sizes)
+                                + layout.num_columns)
     if name == "extract_rows":
         flat, offs, M = args
         payload = int((offs[1:] - offs[:-1]).clamp(0, M).sum())
@@ -626,7 +657,20 @@ def bytes_moved(name: str, args) -> int:
 
 
 def describe(args) -> list:
-    return [list(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
+    """Each argument as the kernels line shows it: a tensor by its shape,
+    a list item by item, a row layout by its columns and row size."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(list(a.shape))
+        elif isinstance(a, (list, tuple)):
+            out.append(describe(a))
+        elif hasattr(a, "column_sizes"):
+            out.append(f"{a.num_columns} columns, rows of "
+                       f"{a.fixed_plus_validity} fixed bytes")
+        else:
+            out.append(a)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -792,6 +836,29 @@ def plain_pieces(name: str, args) -> list:
     return [(slice(None), args)]
 
 
+def fresh_out(name: str, args) -> tuple:
+    """``args`` with new outputs where the kernel writes into ones it is
+    given (B8: its row matrix, of the same strides, and the offsets), so
+    that the plain version does not write over the kernel's bytes."""
+    if name != "pack_slots":
+        return args
+    layout, datas, valids, out, offsets = args
+    return (layout, datas, valids,
+            torch.empty_strided(out.shape, out.stride(), dtype=out.dtype,
+                                device=out.device),
+            None if offsets is None else torch.empty_like(offsets))
+
+
+def flat_bytes(x):
+    """A kernel's output as compared: a tensor as it is; several (B9's
+    columns and validity) as their bytes back to back."""
+    if isinstance(x, torch.Tensor):
+        return x
+    payloads, valid = x
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(-1)
+                      for t in (*payloads, valid)])
+
+
 def against_plain(kernels, name, args, got) -> tuple:
     """(equal, max_abs_err, plain ms) of ``got`` against the plain version
     on the same inputs, piece by piece (:func:`plain_pieces`).  The plain
@@ -801,14 +868,15 @@ def against_plain(kernels, name, args, got) -> tuple:
     pieces = plain_pieces(name, args)
     equal, err, ms = True, 0, 0.0
     for part, piece_args in pieces:
+        piece_args = fresh_out(name, piece_args)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = plain(*piece_args)
+        want = flat_bytes(plain(*piece_args))
         end.record()
         end.synchronize()
         ms += start.elapsed_time(end)
-        have = got[part]
+        have = flat_bytes(got[part])
         if have.shape != want.shape:
             equal = False
             continue
@@ -850,7 +918,7 @@ def phase_kernels(pt, kernels, table, card) -> dict:
         results[(direction_, name)] = measure(kernels, name, args, card,
                                               direction_)
     for name, (_, _, where) in KERNELS.items():
-        if where != "scan":
+        if where in ("to_rows", "from_rows"):
             require((where, name) in results,
                     f"the row path never called {name} in {where}")
 
@@ -1259,12 +1327,13 @@ def phase_full_table(pt, W, device_scan, convert, reference, kernels, card,
 
 
 def phase_full_kernels(pt, device_scan, kernels, raw, card) -> dict:
-    """Phase 9: B1, B3 and B4 on the largest input each of their callers
-    hands them on SF1's 16 columns: the scan's PLAIN ``l_comment`` prefix
-    strip, the 16-column to_rows (the chars into the row matrix, B1's pack
-    of it) and its from_rows (the fixed region and the chars), each held
-    byte for byte against its plain version and timed beside its bound and
-    sector floor."""
+    """Phase 9: B1, B3, B4, B8 and B9 on the largest input each of their
+    callers hands them on SF1's 16 columns: the scan's PLAIN ``l_comment``
+    prefix strip, the 16-column to_rows (the chars into the row matrix,
+    B8's fixed region into it, B1's pack of it) and its from_rows (the
+    fixed region, B9's columns out of it, the chars), each held byte for
+    byte against its plain version and timed beside its bound and sector
+    floor."""
     direction = ["scan"]
 
     def keep(captured, name, args):
@@ -1287,6 +1356,51 @@ def phase_full_kernels(pt, device_scan, kernels, raw, card) -> dict:
     for key, (_, args) in sorted(captured.items()):
         results[key] = measure(kernels, key[1], args, card, key[0])
     del captured
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_slots(pt, kernels, card, seed, launches) -> dict:
+    """Phase 9b: B8 and B9 on TPC-DS SF10 store_sales' fixed-width step
+    (STORE_SALES_ROWS rows of STORE_SALES_TYPES, one batch of 48-byte
+    rows): the round trip exact, then each kernel on the inputs the step
+    hands it, held byte for byte against its plain version and timed as in
+    phase 3."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = STORE_SALES_ROWS
+    cols = []
+    for kind in STORE_SALES_TYPES:
+        if kind == "float64":
+            data = torch.rand(n, dtype=torch.float64, device="cuda",
+                              generator=gen)
+        else:
+            data = torch.randint(0, 1 << 30, (n,), dtype=getattr(torch, kind),
+                                 device="cuda", generator=gen)
+        cols.append(pt.Column(getattr(pt, kind), data))
+    table = pt.Table(cols)
+    kernels.reset()
+    batches = pt.convert_to_rows(table)
+    require(len(batches) == 1, "store_sales: expected one batch")
+    back = pt.convert_from_rows(batches[0], table.schema)
+    torch.cuda.synchronize()
+    check_round_trip(table, back)
+    counts = kernels.counts()
+    require(counts["pack_slots"] == 1 and counts["unpack_slots"] == 1,
+            f"store_sales: one B8 and one B9 launch expected, {counts}")
+    add_counts(launches, counts)
+    del batches, back
+
+    def run():
+        batch = pt.convert_to_rows(table)[0]
+        pt.convert_from_rows(batch, table.schema)
+
+    captured = record_inputs(kernels, ("pack_slots", "unpack_slots"),
+                             lambda c, name, args: c.setdefault(name, args),
+                             run)
+    results = {("store_sales", name): measure(kernels, name, args, card,
+                                              "store_sales")
+               for name, args in sorted(captured.items())}
+    del captured, table
     torch.cuda.empty_cache()
     return results
 
@@ -1361,8 +1475,8 @@ def floor_bytes(name: str, args):
     """B1-B5's honest floor in bytes: every 32-byte sector of the source
     that holds payload read whole (rows and strings of a few bytes at byte
     offsets share few sectors; B1's rows are read up to their size), plus
-    the offsets and the output, as in :func:`bytes_moved`; None for the
-    other kernels."""
+    the offsets and the output, as in :func:`bytes_moved`; B8's, its rows'
+    sectors written whole; None for the other kernels."""
     if name == "pack_windows":
         dense, dst, total_w = args
         n, Mw = dense.shape
@@ -1390,6 +1504,16 @@ def floor_bytes(name: str, args):
         src, so, do, sizes, dst_size = args
         return (32 * sectors_read(src.data_ptr() + so, sizes)
                 + 3 * sizes.numel() * 8 + dst_size)
+    if name == "pack_slots":
+        # the rows' sectors written whole: rows of the string path's row
+        # matrix are M apart, each written width bytes
+        out = args[3]
+        n, width = out.shape
+        rows = torch.arange(n, device=out.device)
+        stride = out.stride(0) if n > 1 else width
+        return (bytes_moved(name, args) - n * width
+                + 32 * sectors_read(out.data_ptr() + rows * stride,
+                                    torch.full_like(rows, width)))
     return None
 
 
@@ -1770,7 +1894,8 @@ def phase_spark_v2(pt, W, device_scan, kernels, card, seed, launches) -> None:
 # ---------------------------------------------------------------------------
 
 # the kernels the bridge's row conversion launches on SF1's 16 columns
-JNI_KERNELS = ("pack_windows", "unpack_rows", "segmented_copy")
+JNI_KERNELS = ("pack_windows", "unpack_rows", "segmented_copy", "pack_slots",
+               "unpack_slots")
 # bytes held against each other at a time when 1 GB of rows is compared
 COMPARE_CHUNK = 1 << 26
 
@@ -4231,7 +4356,8 @@ BIG_MIN_BYTES = 2_500_000_000
 # the AQE phase's kernels: B3 and B4 (string ops), B5-B7 (scan and
 # dictionary materialization), B1-B4 (rows above 2 GB)
 AQE_KERNELS = ("pack_windows", "pack_rows", "unpack_rows", "segmented_copy",
-               "extract_rows", "gather_rows", "u8_to_u32")
+               "extract_rows", "gather_rows", "u8_to_u32", "pack_slots",
+               "unpack_slots")
 # the card phase 19 runs on
 CARD = torch.device("cuda", 0)
 
@@ -5488,16 +5614,17 @@ def main(argv=None) -> int:
     from spark_rapids_jni_tpu_torch.models import q6, tpch_q1
     from spark_rapids_jni_tpu_torch.parquet import device_scan
     from spark_rapids_jni_tpu_torch.rowconv import (bytepath, convert, ragged,
-                                                    reference, xpack)
+                                                    reference, slots, xpack)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tools"))
     import torch_lineitem_parquet as W
 
     phase_build(_native)
-    kernels = Kernels(xpack, ragged, bytepath)
+    kernels = Kernels(xpack, ragged, bytepath, slots)
     require(list(kernels.module_of) ==
             ["pack_windows", "pack_rows", "unpack_rows", "segmented_copy",
-             "extract_rows", "gather_rows", "u8_to_u32"] == list(KERNELS),
+             "extract_rows", "gather_rows", "u8_to_u32", "pack_slots",
+             "unpack_slots"] == list(KERNELS),
             "the kernel table and the kernel modules disagree")
 
     n_cols, every, max_len = CASES["spark_12_2str"]
@@ -5521,6 +5648,7 @@ def main(argv=None) -> int:
                                  kernels, card, raw, data, launches)
     del data
     results.update(phase_full_kernels(pt, device_scan, kernels, raw, card))
+    results.update(phase_slots(pt, kernels, card, args.seed, launches))
     phase_jni(pt, T, W, interop, bridge, _native, device_scan, kernels, card,
               raw, args.seed, launches)
     del raw

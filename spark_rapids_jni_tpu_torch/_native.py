@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("ragged.cu", "bytepath.cu", "xpack.cu")
+SOURCES = ("ragged.cu", "bytepath.cu", "xpack.cu", "slots.cu")
 HOST_SOURCES = ("plain_strings.cpp", "snappy_native.cpp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,6 +62,11 @@ SIGNATURES = {
     },
     "xpack": {
         "srjt_pack_windows": (_P, _I64, _I64, _P, _P, _I64, _P),
+    },
+    "slots": {
+        "srjt_pack_slots": (_P, _I32, _I64, _I32, _I64, _I32, _I32, _I32,
+                            _I32, _I32, _I32, _P, _P, _P),
+        "srjt_unpack_slots": (_P, _I32, _I64, _I32, _I32, _P, _P),
     },
 }
 # host entry points: (argument types, result type)

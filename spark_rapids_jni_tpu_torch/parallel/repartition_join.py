@@ -120,7 +120,7 @@ def _to_rows(layout, schema, datas, validm) -> torch.Tensor:
     n = validm.shape[0]
     cols = [Column(dt, d, validity=validm[:, i])
             for i, (dt, d) in enumerate(zip(schema, datas))]
-    out = torch.zeros((n, layout.fixed_row_size), dtype=torch.uint8,
+    out = torch.empty((n, layout.fixed_row_size), dtype=torch.uint8,
                       device=validm.device)
     _fixed_region(layout, Table(cols), out)
     return out

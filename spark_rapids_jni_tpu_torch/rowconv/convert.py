@@ -4,16 +4,18 @@ The counterpart of the JAX package's ``rowconv/convert.py``
 (``convert_to_rows`` :895-988, ``convert_from_rows`` :1084-1230), and of
 the reference's ``row_conversion.cu``.  Output bytes are identical to both.
 
-* Fixed-width tables: each column's little-endian bytes are written into its
-  slot of a uint8 [n, row_size] matrix, the validity bytes at
-  ``validity_offset``; reading back slices the same slots.  Plain tensor ops;
-  the JAX package's word-compose engines were TPU tuning and are not ported.
+* Fixed-width tables: each column's little-endian bytes go into its slot
+  of a uint8 [n, row_size] matrix, the validity bytes at
+  ``validity_offset``, by one launch of kernel B8
+  (:func:`.slots.pack_slots`), which writes every byte of the rows;
+  reading back is one launch of B9 (:func:`.slots.unpack_slots`).  The JAX
+  package's word-compose engines were TPU tuning and are not ported.
 * Tables with strings, to rows: the contract of the JAX package's primary
   engine, xpack (``xpack.to_rows_var_x`` :562, ``_to_rows_x_jit``
   :465-523).  Each row is composed zero-padded in place in one dense
   [n, M] matrix a batch, as the JAX package builds its ``dense`` buffer:
-  B4 of :mod:`.ragged` writes the chars and zeros everywhere else, the
-  fixed slots and validity then go into its first columns, and kernel B1
+  B4 of :mod:`.ragged` writes the chars and zeros everywhere else, B8
+  writes the fixed slots and validity into its first columns, and kernel B1
   (:func:`.xpack.pack_windows`) packs the matrix's words at the
   8-byte-aligned row offsets, which stay on the device as words.  B1 packs
   every JCUDF row batch; B2 keeps the byte-granular packs
@@ -21,8 +23,8 @@ the reference's ``row_conversion.cu``.  Output bytes are identical to both.
   follows from the data, so there is no knob between the two, and their
   launch counts show which one a run took.
 * Tables with strings, from rows: modelled on the DMA branch of
-  ``convert_from_rows`` (``:1120-1209``), B3 for the fixed region and one
-  B4 for every column's chars.
+  ``convert_from_rows`` (``:1120-1209``), B3 for the fixed region, B9 for
+  its columns and one B4 for every column's chars.
 
 Row, slot and char offsets stay on the device.  The host syncs are the
 batch geometry on the way in (total bytes, widest row, char total) and, on
@@ -43,12 +45,13 @@ import torch
 from .. import types as T
 from ..column import Column, DictColumn, Table, as_dict_column, force_column
 from ..faultinj.injector import fault_site
-from ..utils import bitmask, hostcache, metrics
+from ..utils import hostcache, metrics
 from ..utils.tracing import traced
-from . import ragged, xpack
+from . import ragged, slots, xpack
 from .layout import (BATCH_ROW_MULTIPLE, JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES,
                      MAX_ROW_SIZE, RowLayout, build_batches,
                      compute_row_layout)
+from .slots import _reinterpret
 
 # width of the dense row matrix is the widest row rounded up to this
 # (convert.py:648), which keeps row starts of the matrix 64-byte aligned
@@ -85,83 +88,52 @@ class RowBatch:
 # column bytes
 # ---------------------------------------------------------------------------
 
-def _reinterpret(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t.view(dtype)`` of a contiguous copy.  An empty tensor (whose
-    strides torch may leave at 0) gets a fresh empty one of the new shape,
-    and a one-row tensor a fresh copy: torch counts a slice of one row as
-    contiguous though it keeps its parent's row stride, which ``view``
-    refuses."""
-    if t.numel() == 0:
-        return torch.empty((*t.shape[:-1],
-                            t.shape[-1] * t.element_size() // dtype.itemsize),
-                           dtype=dtype, device=t.device)
-    if t.dim() > 1 and t.shape[0] == 1:
-        t = t.clone(memory_format=torch.contiguous_format)
-    return t.contiguous().view(dtype)
-
-
-def _byte_view(col: Column) -> torch.Tensor:
-    """A fixed-width payload as uint8 [n, itemsize], little-endian."""
-    return _reinterpret(col.data, torch.uint8).reshape(
-        col.num_rows, col.dtype.itemsize)
-
-
 def _from_bytes(b: torch.Tensor, dt: T.DType) -> torch.Tensor:
     """uint8 [n, itemsize] → the payload tensor of ``dt``."""
     v = _reinterpret(b, dt.torch_storage)
     return v if dt.id == T.TypeId.DECIMAL128 else v.reshape(-1)
 
 
-def _valid_matrix(table: Table) -> torch.Tensor:
-    """bool [n, ncols], a transposed view of the stacked column vectors."""
-    return torch.stack([c.validity_or_true() for c in table.columns]).t()
-
-
 def _fixed_region(layout: RowLayout, table: Table, out: torch.Tensor,
-                  lens: Optional[torch.Tensor] = None) -> None:
-    """Writes every column's slot and the validity bytes into ``out``, uint8
-    [n, >= fixed_plus_validity] (a view of the row matrix); the bytes no
-    slot covers keep what ``out`` holds, zeros as its callers make it.
+                  lens: Optional[torch.Tensor] = None,
+                  offsets: Optional[torch.Tensor] = None) -> None:
+    """Writes every byte of ``out``, uint8 [n, >= fixed_plus_validity] (a
+    view of the row matrix): every column's slot, the validity bytes, and
+    zeros in the gaps and past them (B8).
 
     ``lens``: int64 [nvar, n] string lengths; a string slot holds
     (fixed_plus_validity + chars of the earlier string columns, length) as
-    two uint32 (``convert.py:578-607``)."""
+    two uint32 (``convert.py:578-607``).  ``offsets``: int32 [n + 1] that
+    B8 also fills with the rows' byte offsets (rows back to back)."""
     if lens is not None:
-        slot_offs = layout.fixed_plus_validity + _prefix_over_columns(lens)
-    vi = 0
-    for ci, col in enumerate(table.columns):
-        start = layout.column_starts[ci]
+        offs = layout.fixed_plus_validity + _prefix_over_columns(lens)
+        pairs = torch.stack([offs, lens], dim=2).to(torch.int32)
+    datas, vi = [], 0
+    for col in table.columns:
         if col.dtype.is_variable_width:
-            slot = torch.stack([slot_offs[vi], lens[vi]], dim=1)
-            b = _reinterpret(slot.to(torch.int32), torch.uint8)
+            datas.append(pairs[vi])
             vi += 1
         else:
-            b = _byte_view(col)
-        out[:, start:start + b.shape[1]] = b
-    vo = layout.validity_offset
-    out[:, vo:vo + layout.validity_bytes] = bitmask.pack_bool_matrix(
-        _valid_matrix(table))
+            datas.append(col.data)
+    slots.pack_slots(layout, datas, [c.validity for c in table.columns], out,
+                     offsets)
 
 
 def _fixed_extract(layout: RowLayout, rows: torch.Tensor):
-    """Inverse of :func:`_fixed_region` on uint8 [n, ≥ fixed_plus_validity]:
-    (payloads with None at strings, validity [ncols, n], per string column
-    the (offset, length) slots as int64 [n, 2])."""
-    datas, slots = [], []
-    for ci, dt in enumerate(layout.schema):
-        start = layout.column_starts[ci]
-        b = rows[:, start:start + layout.column_sizes[ci]]
+    """Inverse of :func:`_fixed_region` on uint8 [n, ≥ fixed_plus_validity]
+    (B9): (payloads with None at strings, validity [ncols, n], per string
+    column the (offset, length) slots as int64 [n, 2])."""
+    payloads, valid = slots.unpack_slots(layout, rows)
+    datas, pairs = [], []
+    for dt, b in zip(layout.schema, payloads):
         if dt.is_variable_width:
             # the two uint32 of the slot, zero-extended
-            slots.append(_reinterpret(b, torch.int32).to(torch.int64)
+            pairs.append(_reinterpret(b, torch.int32).to(torch.int64)
                          & 0xFFFFFFFF)
             datas.append(None)
         else:
             datas.append(_from_bytes(b, dt))
-    vo = layout.validity_offset
-    valid = bitmask.unpack_bool_matrix(
-        rows[:, vo:vo + layout.validity_bytes], layout.num_columns)
-    return datas, valid.t(), slots
+    return datas, valid, pairs
 
 
 def _check_row_size(worst: int) -> None:
@@ -223,10 +195,10 @@ def _to_rows_fixed(layout: RowLayout, table: Table,
     out = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         sub = slice_table(table, lo, hi)
-        rows = torch.zeros((hi - lo, stride), dtype=torch.uint8, device=dev)
-        _fixed_region(layout, sub, rows)
-        offsets = (torch.arange(hi - lo + 1, dtype=torch.int64, device=dev)
-                   * stride).to(torch.int32)
+        # B8 writes every byte of the rows and their offsets: no fill
+        rows = torch.empty((hi - lo, stride), dtype=torch.uint8, device=dev)
+        offsets = torch.empty(hi - lo + 1, dtype=torch.int32, device=dev)
+        _fixed_region(layout, sub, rows, offsets=offsets)
         out.append(RowBatch(rows.reshape(-1), offsets))
     return out
 
@@ -258,8 +230,8 @@ def _char_rows(layout: RowLayout, sub: Table, lens: torch.Tensor,
     place: string columns in order from ``fixed_plus_validity``, every
     other byte zero.  One segmented copy (B4) of all the string columns'
     chars, a segment a string, at destination ``r * M + fixed_plus_validity
-    + prefix``; B4 writes every byte of its output, gaps included, so the
-    fixed region comes out zero for :func:`_fixed_region` to fill."""
+    + prefix``; B4 writes every byte of its output, gaps included, and
+    :func:`_fixed_region` then writes every byte of the fixed region."""
     var_idx = layout.variable_column_indices
     n = sub.num_rows
     datas = [sub[ci].data for ci in var_idx]
@@ -416,9 +388,9 @@ def _from_rows_strings(layout: RowLayout, batch: RowBatch):
     fpv = layout.fixed_plus_validity
     offs = batch.offsets.to(torch.int64)
     fixed = ragged.unpack_rows(batch.data, offs, fpv)
-    datas, valid, slots = _fixed_extract(layout, fixed)
-    soff = torch.stack([s[:, 0] for s in slots])           # [nvar, n]
-    lens = torch.stack([s[:, 1] for s in slots])
+    datas, valid, pairs = _fixed_extract(layout, fixed)
+    soff = torch.stack([s[:, 0] for s in pairs])           # [nvar, n]
+    lens = torch.stack([s[:, 1] for s in pairs])
     nvar = lens.shape[0]
     row_sizes = offs[1:] - offs[:-1]
     bad = ((soff < fpv) | (soff + lens > row_sizes)).sum()

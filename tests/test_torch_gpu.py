@@ -16,7 +16,7 @@ import torch
 
 import spark_rapids_jni_tpu_torch as pt
 from spark_rapids_jni_tpu_torch import _native, interop
-from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged, xpack
+from spark_rapids_jni_tpu_torch.rowconv import bytepath, ragged, slots, xpack
 from spark_rapids_jni_tpu_torch.rowconv import reference
 from torch_jni_env import (Jni, MockEnv, assert_same_batches,
                            assert_same_tables, jni_table, row_batches,
@@ -24,6 +24,7 @@ from torch_jni_env import (Jni, MockEnv, assert_same_batches,
 from torch_ragged_cases import (SEGCOPY_EDGE_CASES, SF1_SEGCOPY_CASES,
                                 SF1_UNPACK_CASES, UNPACK_EDGE_CASES,
                                 dictionary_to_rows, unpack_case)
+from torch_slots_cases import SCHEMAS, VALIDITY, make_case, np_pack
 
 
 @pytest.fixture
@@ -621,6 +622,134 @@ def test_multi_batch_and_corrupt_slot(cuda):
     raw[4:8] = torch.tensor([0, 0, 1, 0], dtype=torch.uint8)   # length 65536
     with pytest.raises(ValueError, match="corrupt row"):
         pt.convert_from_rows(pt.RowBatch(raw, gpu[0].offsets), schema)
+
+
+# the benchmark tables' shapes at a reduced row count (seed 0), and every
+# other schema of the slot cases at a few thousand rows
+SLOT_ROWS = {"lineitem": 600_011, "store_sales": 1_000_003}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("validity", VALIDITY)
+@pytest.mark.parametrize("name", list(SCHEMAS))
+def test_slot_kernels_match_plain(cuda, name, validity):
+    """B8 writes the bytes its plain version writes, into rows back to
+    back and into the first columns of a wider row matrix (whose other
+    bytes it leaves); B9 reads back what its plain version reads; one
+    launch a group of columns each."""
+    n = SLOT_ROWS.get(name, 5003)
+    seed = 0 if name in SLOT_ROWS else len(name)
+    layout, datas, valids = make_case(name, n, validity, seed, cuda)
+    groups = len(slots.launch_groups(layout, layout.fixed_row_size))
+    width, fpv = layout.fixed_row_size, layout.fixed_plus_validity
+    before = slots.launch_counts()
+    offsets = torch.full((n + 1,), -1, dtype=torch.int32, device=cuda)
+    got = slots.pack_slots(layout, datas, valids, torch.full(
+        (n, width), 0xAB, dtype=torch.uint8, device=cuda), offsets)
+    want_offsets = torch.empty_like(offsets)
+    want = slots.pack_slots_plain(layout, datas, valids, torch.empty_like(got),
+                                  want_offsets)
+    assert torch.equal(got, want)
+    assert torch.equal(offsets, want_offsets)
+    M = -(-(fpv + 5) // 64) * 64
+    big = torch.full((n, M), 0xCD, dtype=torch.uint8, device=cuda)
+    slots.pack_slots(layout, datas, valids, big[:, :fpv])
+    assert torch.equal(big[:, :fpv], want[:, :fpv])
+    assert bool((big[:, fpv:] == 0xCD).all())
+    payloads, valid = slots.unpack_slots(layout, got)
+    want_p, want_v = slots.unpack_slots_plain(layout, got)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(payloads, want_p))
+    assert torch.equal(valid, want_v)
+    delta = _launches_delta(before, slots.launch_counts())
+    assert delta == {"pack_slots": 2 * groups, "unpack_slots": groups}
+    if n <= 5003:
+        np.testing.assert_array_equal(got.cpu().numpy(), np_pack(
+            layout, datas, valids, width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["store_sales", "lineitem", "past_a_launch"])
+def test_slot_kernels_under_graph_capture(cuda, name):
+    """A CUDA graph captures both kernels' launches (descriptors by value,
+    nothing copied from the host) and its replays give the same bytes on
+    new column values."""
+    layout, datas, valids = make_case(name, 70_001, "some", 7, cuda)
+    rows = torch.empty((70_001, layout.fixed_row_size), dtype=torch.uint8,
+                       device=cuda)
+    slots.pack_slots(layout, datas, valids, rows)        # builds, warms up
+    slots.unpack_slots(layout, rows)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        slots.pack_slots(layout, datas, valids, rows)
+        payloads, valid = slots.unpack_slots(layout, rows)
+    for step in range(2):
+        for d in datas:
+            d.copy_(torch.randint_like(d, 0, 100))
+        for v in valids:
+            if v is not None:
+                v.copy_(torch.rand(v.shape, device=cuda) < 0.5)
+        graph.replay()
+        want = slots.pack_slots_plain(layout, datas, valids,
+                                      torch.empty_like(rows))
+        want_p, want_v = slots.unpack_slots_plain(layout, want)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, want), step
+        assert all(torch.equal(a, b) for a, b in zip(payloads, want_p))
+        assert torch.equal(valid, want_v)
+
+
+@pytest.mark.gpu
+def test_rows_on_card_never_take_the_plain_slots(cuda, monkeypatch):
+    """On the card every batch's fixed region goes through B8 and B9, one
+    launch a batch and direction for each group of columns: the fixed
+    path (a table of more columns than one launch takes, split into
+    batches), the string path and the repartition join's rows."""
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached a plain slot version")
+    for name, n, cap in (("past_a_launch", 4000, 100_000),
+                         ("cols9", 3000, 20_000), ("store_sales", 5000, None)):
+        layout, datas, valids = make_case(name, n, "some", 11, cuda)
+        cols = []
+        for dt, d, v in zip(layout.schema, datas, valids):
+            if dt.is_variable_width:
+                lens = torch.randint(0, 9, (n,), device=cuda)
+                offs = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+                offs[1:] = torch.cumsum(lens, 0)
+                chars = torch.randint(32, 127, (int(offs[-1]),),
+                                      dtype=torch.uint8, device=cuda)
+                cols.append(pt.Column(dt, chars, offs, v))
+            else:
+                cols.append(pt.Column(dt, d, validity=v))
+        table = pt.Table(cols)
+        groups = len(slots.launch_groups(layout, layout.fixed_row_size))
+        before = slots.launch_counts()
+        with monkeypatch.context() as m:
+            m.setattr(slots, "pack_slots_plain", refuse)
+            m.setattr(slots, "unpack_slots_plain", refuse)
+            batches = pt.convert_to_rows(table, max_batch_bytes=cap)
+            backs = [pt.convert_from_rows(b, table.schema) for b in batches]
+            torch.cuda.synchronize()
+        delta = _launches_delta(before, slots.launch_counts())
+        assert delta == {"pack_slots": len(batches) * groups,
+                         "unpack_slots": len(batches) * groups}, name
+        assert len(batches) > (1 if cap else 0)
+        cpu = pt.convert_to_rows(interop.table_from_numpy(
+            interop.table_to_numpy(table), "cpu"), max_batch_bytes=cap)
+        for g, c in zip(batches, cpu):
+            assert torch.equal(g.data.cpu(), c.data)
+        lo = 0
+        for back in backs:
+            k = back.num_rows
+            for a, b in zip(table.columns, back.columns):
+                assert torch.equal(a.validity_or_true()[lo:lo + k],
+                                   b.validity_or_true())
+                if not a.dtype.is_variable_width:
+                    assert torch.equal(
+                        a.data[lo:lo + k].contiguous().view(torch.uint8),
+                        b.data.contiguous().view(torch.uint8))
+            lo += k
 
 
 def _lineitem_writer():
